@@ -1,0 +1,248 @@
+#!/usr/bin/env python3
+"""Smoke run of tiger_tpu_torch on one NVIDIA GPU: build, check, time.
+
+    python3 chip_smoke.py        # from the repository root, one CUDA card
+
+Phases, one line each (any failed check raises, so the exit code is not 0):
+  1. device: nvidia-smi's name and power limit; refuses to run without CUDA;
+  2. build: both CUDA kernels from tiger_tpu_torch/kernels/csrc with nvcc;
+  3. B1 (rk45.cu) against rk45_plain on the card: 4,096 systems, 2 days;
+  4. B2 (radau.cu) against radau_plain on the systems phase 3 flagged;
+  5. solve() on those 4,096 systems against phases 3-4's plain results, then
+     the main path: solve() at 131,072 systems, 2 days, 49 hourly queries,
+     rtol 1e-5 / atol 1e-8, 0.1% stiff systems -- one warm-up and 3 timed
+     runs, with the launch counters set to 0 just before;
+  6. each kernel against its plain version at the main-path shapes: B1 over
+     the 131,072 systems, B2 over the systems B1 flagged, the full span; the
+     times side by side, and phases 3-4's checks on the results.
+The line before the last is the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+
+import torch
+
+MAIN_SYSTEMS = 131_072
+DAYS = 2.0
+STIFF_FRAC = 0.001
+CHECK_SYSTEMS = 4096
+# Kernel against plain version: both are float32 and the kernels are built
+# without FMA contraction, so they round alike; the margin covers a step the
+# two take differently where libm or a reduction rounds otherwise.
+RTOL, ATOL = 1e-3, 1e-6
+
+_T0 = time.perf_counter()
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def phase(msg: str) -> None:
+    say(f"{msg} [{time.perf_counter() - _T0:.1f} s]")
+
+
+def check(ok: bool, msg: str) -> None:
+    """Fail the run (a raise, so it holds under ``python -O`` too)."""
+    if not ok:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def n_outside(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int(((a - b).abs() > ATOL + RTOL * b.abs()).sum())
+
+
+def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def timed(fn, reps: int = 1):
+    """(last result, median ms) of fn() on the current stream, by CUDA events."""
+    times, out = [], None
+    for _ in range(reps):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return out, sorted(times)[len(times) // 2]
+
+
+def check_rk45(label, ker, ref, hu_rows) -> float:
+    """Phase 3's checks of B1 against rk45_plain; returns max_abs_err."""
+    n_sys = ker.stiff.numel()
+    both = ~ker.stiff & ~ref.stiff
+    n_diff = int((ker.stiff != ref.stiff).sum())
+    att_k, att_p = int(ker.stats.n_attempts.sum()), int(ref.stats.n_attempts.sum())
+    same_seq = int((ker.stats.n_attempts == ref.stats.n_attempts).sum())
+    n_far = n_outside(ker.y_final[both], ref.y_final[both]) + n_outside(ker.dense[both], ref.dense[both])
+    err = max(max_abs(ker.y_final[both], ref.y_final[both]), max_abs(ker.dense[both], ref.dense[both]))
+    phase(f"{label}: max_abs_err={err:.3e}, entries outside rtol {RTOL:g}/atol {ATOL:g}: {n_far}, "
+          f"stiff flags differ on {n_diff}, failed flags differ on "
+          f"{int((ker.failed != ref.failed).sum())}, systems with equal attempt counts "
+          f"{same_seq}/{n_sys}, attempts {att_k} vs {att_p} ({100 * abs(att_k - att_p) / att_p:.3f}%)")
+    check(n_far == 0, f"{label}: B1 disagrees with rk45_plain")
+    check(n_diff <= 0.005 * n_sys, f"{label}: stiff flags differ on {n_diff} systems")
+    check(bool(ker.stiff[hu_rows].all() and ref.stiff[hu_rows].all()),
+          f"{label}: a Hu=1e-6 row was not flagged")
+    check(abs(att_k - att_p) <= 0.02 * att_p, f"{label}: total attempts differ by more than 2%")
+    return err
+
+
+def check_radau(label, ker, ref) -> float:
+    """Phase 4's checks of B2 against radau_plain; returns max_abs_err."""
+    n_far = n_outside(ker.y_final, ref.y_final) + n_outside(ker.dense, ref.dense)
+    err = max(max_abs(ker.y_final, ref.y_final), max_abs(ker.dense, ref.dense))
+    att_k, att_p = int(ker.stats.n_attempts.sum()), int(ref.stats.n_attempts.sum())
+    same_seq = int((ker.stats.n_attempts == ref.stats.n_attempts).sum())
+    phase(f"{label}: max_abs_err={err:.3e}, entries outside rtol {RTOL:g}/atol {ATOL:g}: {n_far}, "
+          f"failed {int(ker.failed.sum())}/{int(ref.failed.sum())}, systems with equal attempt "
+          f"counts {same_seq}/{ker.failed.numel()}, attempts {att_k} vs {att_p}, worst system "
+          f"{int(ker.stats.n_attempts.max())} vs {int(ref.stats.n_attempts.max())}")
+    check(not bool(ker.failed.any() or ref.failed.any()), f"{label}: a Radau solve failed")
+    check(n_far == 0, f"{label}: B2 disagrees with radau_plain")
+    check(abs(att_k - att_p) <= 0.02 * att_p, f"{label}: total attempts differ by more than 2%")
+    return err
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
+
+    from tiger_tpu_torch import Model204, SolverConfig, solve
+    from tiger_tpu_torch.kernels import _build
+    from tiger_tpu_torch.kernels import radau as k_radau
+    from tiger_tpu_torch.kernels import rk45 as k_rk45
+    from tiger_tpu_torch.scenario import STIFF_HU, scenario
+    from tiger_tpu_torch.solver.controller import initial_step
+
+    dev = torch.device("cuda", 0)
+    model = Model204()
+    cfg = SolverConfig(rtol=1e-5, atol=1e-8, max_steps=100_000)
+    tf = DAYS * 1440.0
+
+    # 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    say(smi)
+    phase(f"phase 1 device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
+          f"cuda {torch.version.cuda} | devices {torch.cuda.device_count()}")
+
+    # 2. build
+    lib_path, build_s, log = _build.build()
+    _build.load()
+    phase(f"phase 2 build: {build_s:.1f} s nvcc ({'fresh' if build_s else 'cached'}), {lib_path.name}")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            say(f"  ptxas: {line.strip()}")
+
+    def inputs(s_count):
+        y0, params, forc = scenario(s_count, DAYS, STIFF_FRAC, device=dev)
+        qt = torch.arange(0.0, tf + 1e-9, 60.0, dtype=torch.float32, device=dev)
+        h0 = initial_step(model, y0, 0.0, params, forc, cfg)
+        return y0, params, forc, qt, h0
+
+    def subset(rows, y0, params, forc, h0):
+        return (y0[rows].contiguous(), {k: v[rows].contiguous() for k, v in params.items()},
+                forc.take_systems(rows), h0[rows].contiguous())
+
+    # 3. B1 against rk45_plain
+    y0, params, forc, qt, h0 = inputs(CHECK_SYSTEMS)
+    hu_rows = params["Hu"] < STIFF_HU * 10
+    ker = k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, cfg)
+    ref = k_rk45.rk45_plain(model, y0, h0, 0.0, tf, qt, params, forc, cfg)
+    torch.cuda.synchronize()
+    check_rk45(f"phase 3 B1 vs rk45_plain ({CHECK_SYSTEMS} systems, {DAYS:g} days)",
+               ker, ref, hu_rows)
+
+    # 4. B2 against radau_plain on the systems B1 flagged
+    rows = torch.nonzero(ker.stiff).squeeze(1)
+    check(rows.numel() > 0, "phase 3 flagged no system")
+    sy0, sp, sf, sh0 = subset(rows, y0, params, forc, h0)
+    rker = k_radau.radau(model, sy0, sh0, 0.0, tf, qt, sp, sf, cfg)
+    rref = k_radau.radau_plain(model, sy0, sh0, 0.0, tf, qt, sp, sf, cfg)
+    torch.cuda.synchronize()
+    check_radau(f"phase 4 B2 vs radau_plain ({rows.numel()} flagged systems, {DAYS:g} days)",
+                rker, rref)
+
+    # 5. solve() on the same systems against the plain versions' results,
+    # merged as the two-phase solve merges them ...
+    res = solve(model, y0, 0.0, tf, qt, params, forc, cfg)
+    want_y, want_d = ref.y_final.clone(), ref.dense.clone()
+    want_y[rows], want_d[rows] = rref.y_final, rref.dense
+    same = ker.stiff == ref.stiff
+    n_far = n_outside(res.y_final[same], want_y[same]) + n_outside(res.dense[same], want_d[same])
+    phase(f"phase 5 solve() vs plain versions ({CHECK_SYSTEMS} systems): n_stiff {res.n_stiff}, "
+          f"n_failed {int(res.failed.sum())}, entries outside rtol {RTOL:g}/atol {ATOL:g}: {n_far}")
+    check(res.n_stiff == rows.numel() and not bool(res.failed.any()),
+          f"solve() flagged {res.n_stiff} systems, failed {int(res.failed.sum())}")
+    check(n_far == 0, "solve() disagrees with the plain versions")
+
+    # ... then the main path.
+    y0, params, forc, qt, h0 = inputs(MAIN_SYSTEMS)
+    hu_rows = params["Hu"] < STIFF_HU * 10
+    torch.cuda.synchronize()
+    k_rk45.rk45_launches = 0
+    k_radau.radau_launches = 0
+    res = solve(model, y0, 0.0, tf, qt, params, forc, cfg)  # warm-up
+    torch.cuda.synchronize()
+    walls = []
+    for i in range(1, 4):
+        start = time.perf_counter()
+        res = solve(model, y0 + i * 1e-7, 0.0, tf, qt, params, forc, cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - start)
+    launches = {"rk45": k_rk45.rk45_launches, "radau": k_radau.radau_launches}
+    rk_att = int(res.rk_stats.n_attempts.sum())
+    rd_att = 0 if res.radau_stats is None else int(res.radau_stats.n_attempts.sum())
+    wall = sorted(walls)[1]
+    n_failed = int(res.failed.sum())
+    phase(f"phase 5 main path ({MAIN_SYSTEMS} systems, {DAYS:g} days, {qt.numel()} queries): "
+          f"{(rk_att + rd_att) / wall:.6e} system-steps/s, wall median {wall:.6f} s "
+          f"(min {min(walls):.6f}, max {max(walls):.6f}), n_stiff {res.n_stiff}, "
+          f"rk attempts {rk_att}, radau attempts {rd_att}, n_failed {n_failed}, "
+          f"launches {launches} | {smi}")
+    check(launches["rk45"] > 0 and launches["radau"] > 0, f"a kernel was not launched: {launches}")
+    check(n_failed == 0, f"{n_failed} systems failed")
+    check(bool(res.stiff[hu_rows].all()), "a Hu=1e-6 row was not flagged stiff")
+    check(bool(torch.isfinite(res.y_final).all()), "non-finite y_final")
+    check(tuple(res.dense.shape) == (MAIN_SYSTEMS, qt.numel(), 5), f"dense shape {tuple(res.dense.shape)}")
+
+    # 6. kernel against plain at the main-path shapes: times and checks
+    ker, ms_b1 = timed(lambda: k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, cfg), reps=3)
+    ref, plain_b1 = timed(lambda: k_rk45.rk45_plain(model, y0, h0, 0.0, tf, qt, params, forc, cfg))
+    err_b1 = check_rk45(f"phase 6 B1 vs rk45_plain ({MAIN_SYSTEMS} systems, {DAYS:g} days)",
+                        ker, ref, hu_rows)
+    rows = torch.nonzero(ker.stiff).squeeze(1)  # the warm-up solve's stiff subset
+    sy0, sp, sf, sh0 = subset(rows, y0, params, forc, h0)
+    rker, ms_b2 = timed(lambda: k_radau.radau(model, sy0, sh0, 0.0, tf, qt, sp, sf, cfg), reps=3)
+    rref, plain_b2 = timed(lambda: k_radau.radau_plain(model, sy0, sh0, 0.0, tf, qt, sp, sf, cfg))
+    err_b2 = check_radau(f"phase 6 B2 vs radau_plain ({rows.numel()} systems, {DAYS:g} days)",
+                         rker, rref)
+    phase(f"phase 6 times: B1 {ms_b1:.3f} ms vs rk45_plain {plain_b1:.3f} ms "
+          f"({MAIN_SYSTEMS} systems, {DAYS:g} days); B2 {ms_b2:.3f} ms vs radau_plain "
+          f"{plain_b2:.3f} ms ({rows.numel()} systems, {DAYS:g} days) | {smi}")
+
+    say(json.dumps({"kernels": [
+        {"name": "rk45", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/rk45.cu",
+         "replaces": "tiger_tpu/kernels/rk45_pallas.py:1051", "launches": launches["rk45"],
+         "max_abs_err": err_b1, "ms": ms_b1, "plain_ms": plain_b1},
+        {"name": "radau", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/radau.cu",
+         "replaces": "tiger_tpu/kernels/radau_pallas.py:987", "launches": launches["radau"],
+         "max_abs_err": err_b2, "ms": ms_b2, "plain_ms": plain_b2},
+    ]}))
+    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                           "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,121 @@
+"""Build and load the hand-written CUDA kernels.
+
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
+with a plain C interface, which is loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds).  The library lands in
+``build/tiger_tpu_torch/`` at the repository root, named by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one is
+reused.  Nothing but the repository's own sources is compiled.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tiger_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # No FMA contraction: every multiply and add rounds on its own, as the
+    # plain versions' torch ops do.  With contraction a system's step
+    # sequence drifts from the plain version's by the solver's tolerance,
+    # which the ET drain then amplifies beyond any useful check.
+    "-fmad=false",
+    "-Xptxas", "-v",  # registers, spills and stack per kernel, into the log
+)
+#: The same build with nvcc's default FMA contraction, to measure what
+#: ``-fmad=false`` costs (``python -m tiger_tpu_torch.profile_solve``).
+FMAD_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
+
+_libs: dict[tuple[str, ...], ctypes.CDLL] = {}
+_flags_in_use = NVCC_FLAGS
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash(flags: tuple[str, ...] = NVCC_FLAGS) -> str:
+    """Hash of the kernel sources and the compiler flags."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in _sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in (
+        os.path.join(home, "bin", "nvcc") if home else None,
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def build(flags: tuple[str, ...] = NVCC_FLAGS) -> tuple[Path, float, str]:
+    """Compile the library unless a build of the same sources and flags exists.
+
+    Returns (library path, seconds spent compiling, compiler log); the log
+    holds ptxas's per-kernel register/spill report of a fresh build.
+    """
+    lib_path = BUILD_DIR / f"libtiger_kernels_{source_hash(flags)}.so"
+    log_path = lib_path.with_suffix(".log")
+    if lib_path.exists():
+        return lib_path, 0.0, log_path.read_text() if log_path.exists() else ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *flags, "-o", tmp, *map(str, sorted(CSRC.glob("*.cu")))]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - start
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, lib_path)
+    return lib_path, seconds, log
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library of the flags in use (``NVCC_FLAGS`` outside
+    ``flags_in_use``), built at first use and cached for the process."""
+    lib = _libs.get(_flags_in_use)
+    if lib is None:
+        path, _, _ = build(_flags_in_use)
+        lib = ctypes.CDLL(str(path))
+        for name in ("tt_rk45_launch", "tt_radau_launch"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        for name in ("tt_rk45_args_size", "tt_radau_args_size"):
+            fn = getattr(lib, name)
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+        _libs[_flags_in_use] = lib
+    return lib
+
+
+@contextlib.contextmanager
+def flags_in_use(flags: tuple[str, ...]):
+    """Launch the kernels from the build of ``flags`` inside the block."""
+    global _flags_in_use
+    saved, _flags_in_use = _flags_in_use, tuple(flags)
+    try:
+        yield
+    finally:
+        _flags_in_use = saved

@@ -1,0 +1,369 @@
+"""B2, fused Radau IIA: the CUDA kernel's wrapper and its plain version.
+
+``radau`` re-integrates the stiff subset from t0 with the 3-stage Radau IIA
+method -- the work of the TPU kernel ``tiger_tpu/kernels/radau_pallas.py``
+(``_make_kernel``'s ``kernel``, reached through ``pl.pallas_call`` at
+l.987).  A CUDA tensor goes to the hand-written kernel ``csrc/radau.cu`` (or
+the call raises); a CPU tensor goes to ``radau_plain``.  ``radau_launches``
+counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from tiger_tpu_torch.forcing import ZOH_SNAP, ForcingSet, gather_forcings_column, zoh_step_cap
+from tiger_tpu_torch.kernels._common import (
+    N_EQ,
+    ForcingMetaC,
+    c_float,
+    c_floats,
+    c_i32,
+    c_i64,
+    c_ptr,
+    data_ptr,
+    dense_init,
+    fill_dense,
+    finish,
+    forcing_meta_c,
+    kernel_inputs,
+    launch,
+    plain_params,
+)
+from tiger_tpu_torch.solver import tableau
+from tiger_tpu_torch.solver.config import SolverConfig
+from tiger_tpu_torch.solver.radau import RadauResult, RadauStats
+
+#: Kernel launches since import (or since a caller reset it to 0).
+radau_launches = 0
+
+#: float32 machine epsilon: the Newton tolerances use it in every dtype, as
+#: the TPU kernel does (radau_pallas.py _F32_EPS).
+_F32_EPS = float(np.finfo(np.float32).eps)
+_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+class RadauArgsC(ctypes.Structure):
+    """Mirror of ``tt::RadauArgs`` (csrc/radau.cu)."""
+
+    _fields_ = [
+        ("y0", c_ptr), ("h0", c_ptr), ("params", c_ptr), ("forc", c_ptr), ("qt", c_ptr),
+        ("y_final", c_ptr), ("dense", c_ptr), ("failed", c_ptr), ("stats", c_ptr),
+        ("n_sys", c_i64), ("n_q", c_i32), ("safe_pow", c_i32),
+        ("t0", c_float), ("tf", c_float),
+        ("rtol", c_float), ("atol", c_float), ("safety", c_float),
+        ("min_scale", c_float), ("max_scale", c_float), ("expo", c_float),
+        ("nan_shrink", c_float), ("h_freeze_hi", c_float),
+        ("newton_tol", c_float), ("kappa", c_float), ("tol_eps", c_float),
+        ("fd_eps", c_float),
+        ("max_steps", c_i32), ("max_rejects", c_i32), ("newton_max_iter", c_i32),
+        ("reject_unconverged", c_i32), ("fill_t0_queries", c_i32),
+        ("forcing", ForcingMetaC),
+        ("ra", (c_float * 3) * 3), ("rc", c_float * 3), ("rb", c_float * 3),
+        ("re", c_float * 3), ("rw", (c_float * 3) * 3),
+        ("gam", c_float), ("alp", c_float), ("bet", c_float),
+        ("v1", c_float * 3), ("v2r", c_float * 3), ("v2i", c_float * 3),
+        ("p1", c_float * 3), ("p2r", c_float * 3), ("p2i", c_float * 3),
+    ]
+
+
+def _kappa(cfg: SolverConfig) -> float:
+    """RADAU5's scaled Newton exit threshold (radau_pallas.py l.532-535)."""
+    return max(10.0 * _F32_EPS / cfg.rtol, min(0.03, float(np.sqrt(cfg.rtol))))
+
+
+def _eig_constants():
+    """(gamma, alpha, beta, v1, v2r, v2i, p1, p2r, p2i) from tableau._radau_eig."""
+    v, p = tableau.RADAU_EIG_V, tableau.RADAU_EIG_P
+    return (
+        float(tableau.RADAU_EIG_GAMMA),
+        float(tableau.RADAU_EIG_ALPHA),
+        float(tableau.RADAU_EIG_BETA),
+        v[:, 0].real.tolist(),
+        v[:, 1].real.tolist(),
+        v[:, 1].imag.tolist(),
+        p[0].real.tolist(),
+        p[1].real.tolist(),
+        p[1].imag.tolist(),
+    )
+
+
+def radau(
+    model,
+    y0: torch.Tensor,
+    h0: torch.Tensor,
+    t0: float,
+    tf: float,
+    query_times: torch.Tensor | None = None,
+    params: dict | None = None,
+    forcings: ForcingSet | None = None,
+    config: SolverConfig = SolverConfig(),
+) -> RadauResult:
+    """B2 over ``y0[n, N]`` from t0 to tf; ``query_times`` sorted and unique.
+
+    CPU tensors run ``radau_plain``; CUDA tensors launch the kernel on the
+    current stream without synchronising (float32 Model 204 only; any other
+    input raises).
+    """
+    if y0.device.type == "cpu":
+        return radau_plain(model, y0, h0, t0, tf, query_times, params, forcings, config)
+    if y0.device.type != "cuda":
+        raise ValueError(f"radau: no implementation for device {y0.device}")
+    return _radau_cuda(model, y0, h0, t0, tf, query_times, params, forcings, config)
+
+
+def _radau_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg) -> RadauResult:
+    global radau_launches
+    y0_soa, p_block = kernel_inputs("radau", model, y0, h0, params, forcings, qt)
+    s_count, dev = y0.shape[0], y0.device
+    q_total = 0 if qt is None else qt.shape[0]
+    y_final = torch.empty((N_EQ, s_count), dtype=torch.float32, device=dev)
+    dense = torch.empty((q_total, N_EQ, s_count), dtype=torch.float32, device=dev)
+    failed = torch.empty((s_count,), dtype=torch.int32, device=dev)
+    stats = torch.empty((5, s_count), dtype=torch.int32, device=dev)
+    gam, alp, bet, v1, v2r, v2i, p1, p2r, p2i = _eig_constants()
+    a = RadauArgsC(
+        y0=y0_soa.data_ptr(), h0=h0.data_ptr(), params=p_block.data_ptr(),
+        forc=data_ptr(None if forcings is None else forcings.data), qt=data_ptr(qt),
+        y_final=y_final.data_ptr(), dense=dense.data_ptr(), failed=failed.data_ptr(),
+        stats=stats.data_ptr(),
+        n_sys=s_count, n_q=q_total, safe_pow=int(model.safe_pow),
+        t0=t0, tf=tf, rtol=cfg.rtol, atol=cfg.atol, safety=cfg.safety,
+        min_scale=cfg.min_scale, max_scale=cfg.max_scale, expo=1.0 / 3.0,
+        nan_shrink=cfg.nan_shrink, h_freeze_hi=cfg.radau_h_freeze_hi,
+        newton_tol=cfg.newton_tol, kappa=_kappa(cfg), tol_eps=8.0 * _F32_EPS,
+        fd_eps=float(np.sqrt(np.finfo(np.float32).eps)),
+        max_steps=cfg.max_steps, max_rejects=cfg.radau_max_rejects,
+        newton_max_iter=cfg.newton_max_iter,
+        reject_unconverged=int(cfg.newton_reject_unconverged),
+        fill_t0_queries=int(cfg.fill_t0_queries),
+        forcing=forcing_meta_c(forcings, cfg),
+        ra=c_floats(tableau.RADAU_A), rc=c_floats(tableau.RADAU_C),
+        rb=c_floats(tableau.RADAU_B), re=c_floats(tableau.RADAU_E3),
+        rw=c_floats(tableau.RADAU_DENSE),
+        gam=gam, alp=alp, bet=bet, v1=c_floats(v1), v2r=c_floats(v2r),
+        v2i=c_floats(v2i), p1=c_floats(p1), p2r=c_floats(p2r), p2i=c_floats(p2i),
+    )
+    launch("tt_radau_launch", "tt_radau_args_size", a, dev)
+    radau_launches += 1
+    return RadauResult(
+        y_final=y_final.t().contiguous(),
+        dense=dense.permute(2, 0, 1).contiguous(),
+        failed=failed != 0,
+        stats=RadauStats(*stats),
+    )
+
+
+def radau_plain(
+    model,
+    y0: torch.Tensor,
+    h0: torch.Tensor,
+    t0: float,
+    tf: float,
+    query_times: torch.Tensor | None = None,
+    params: dict | None = None,
+    forcings: ForcingSet | None = None,
+    config: SolverConfig = SolverConfig(),
+) -> RadauResult:
+    """B2's plain PyTorch version, in y0's dtype (float32 or float64).
+
+    A batched while-loop with the TPU kernel's per-system masks (``act``,
+    ``accept``, ``rejected``, Newton ``conv``) and ``torch.where`` commits.
+    A system's stage slopes stop changing once its Newton iteration has
+    converged, and the sweep loop ends when every active system has
+    converged or ``newton_max_iter`` sweeps ran.
+    """
+    cfg = config
+    dtype, dev = y0.dtype, y0.device
+    s_count, n = y0.shape
+    p = plain_params(model, params, dtype)
+    qt = None if query_times is None else query_times.to(dtype).contiguous()
+    snap = ZOH_SNAP if (cfg.forcing_step_align and forcings is not None) else 0.0
+    ra, rb, re, rw = (x.tolist() for x in (tableau.RADAU_A, tableau.RADAU_B,
+                                           tableau.RADAU_E3, tableau.RADAU_DENSE))
+    gam, alp, bet, v1, v2r, v2i, p1, p2r, p2i = _eig_constants()
+    col = lambda v: torch.tensor(v, dtype=dtype, device=dev)[:, None, None]  # noqa: E731
+    rc_t, ra_t = col(tableau.RADAU_C.tolist())[:, :, 0], torch.tensor(ra, dtype=dtype, device=dev)
+    v1_t, v2r_t, v2i_t = col(v1), col(v2r), col(v2i)
+    kappa = _kappa(cfg)
+    fd_eps = float(np.sqrt(np.finfo(_NP_DTYPE[dtype]).eps))
+    eye = torch.eye(n, dtype=torch.bool, device=dev)[:, :, None]
+
+    def rhs(t, y, f_vals):
+        # y: [N, ...] with the system index last; extra middle dimensions
+        # (stages, Jacobian columns) broadcast against the [S] params.
+        return torch.stack(model.rhs_tuple(t, y, p, f_vals))
+
+    # State [N, S], stage slopes [3, N, S], factors [N, N, S]: every update
+    # below is elementwise in the TPU kernel's order (sums over stages and
+    # back-substitutions stay sequential), so it rounds as per-system
+    # scalar code does.
+    y = y0.t().contiguous()
+    t = torch.full((s_count,), float(t0), dtype=dtype, device=dev)
+    t_c = torch.zeros_like(t)
+    h = h0.to(dtype).clone()
+    zero = torch.zeros_like(t)
+    zi = torch.zeros(s_count, dtype=torch.int32, device=dev)
+    reject, n_acc, n_rej, n_att, n_swp, n_fct = zi, zi, zi, zi, zi, zi
+    failed = torch.zeros(s_count, dtype=torch.bool, device=dev)
+    dense = dense_init(qt, y, t0, cfg)
+
+    while True:
+        act = (t < tf) & ~failed & (n_att < cfg.max_steps)
+        if not bool(act.any()):
+            break
+        h_eff = torch.where(t + h > tf, tf - t, h)
+        if snap:
+            h_eff = zoh_step_cap(forcings.meta, t, h_eff)
+        f_vals = None
+        if forcings is not None:
+            f_vals = gather_forcings_column(forcings.data, forcings.meta, t, snap)
+        f0 = rhs(t, y, f_vals)
+
+        # Forward-difference Jacobian at (t, y): column j perturbs y[j].
+        h_eps = fd_eps * torch.clamp_min(torch.abs(y), 1.0)  # [N, S]
+        y_pert = torch.where(eye, (y + h_eps)[:, None], y[:, None])  # [i, j, S]
+        jac = (rhs(t, y_pert, f_vals) - f0[:, None]) / h_eps[None]
+
+        # Real factor gamma I - h J, complex factor (alpha + beta i) I - h J,
+        # each an unpivoted Doolittle LU in place.
+        off = (-h_eff) * jac
+        mr = torch.where(eye, gam - h_eff * jac, off)
+        cre = torch.where(eye, alp - h_eff * jac, off)
+        cim = torch.where(eye, zero + bet, zero)
+        mr_inv = torch.empty_like(y)
+        ci_re, ci_im = torch.empty_like(y), torch.empty_like(y)
+        for k in range(n):
+            mr_inv[k] = 1.0 / mr[k, k]
+            m = mr[k + 1:, k] * mr_inv[k]
+            mr[k + 1:, k] = m
+            mr[k + 1:, k + 1:] = mr[k + 1:, k + 1:] - m[:, None] * mr[k, k + 1:]
+        for k in range(n):
+            inv_den = 1.0 / (cre[k, k] * cre[k, k] + cim[k, k] * cim[k, k])
+            ci_re[k] = cre[k, k] * inv_den
+            ci_im[k] = -cim[k, k] * inv_den
+            m_re = cre[k + 1:, k] * ci_re[k] - cim[k + 1:, k] * ci_im[k]
+            m_im = cre[k + 1:, k] * ci_im[k] + cim[k + 1:, k] * ci_re[k]
+            cre[k + 1:, k], cim[k + 1:, k] = m_re, m_im
+            re_k, im_k = cre[k, k + 1:], cim[k, k + 1:]
+            cre[k + 1:, k + 1:] = cre[k + 1:, k + 1:] - (m_re[:, None] * re_k - m_im[:, None] * im_k)
+            cim[k + 1:, k + 1:] = cim[k + 1:, k + 1:] - (m_re[:, None] * im_k + m_im[:, None] * re_k)
+
+        def real_solve(x):
+            x = x.clone()
+            for k in range(n):
+                x[k + 1:] = x[k + 1:] - mr[k + 1:, k] * x[k]
+            for k in reversed(range(n)):
+                acc = x[k]
+                for j in range(k + 1, n):
+                    acc = acc - mr[k, j] * x[j]
+                x[k] = acc * mr_inv[k]
+            return x
+
+        def cplx_solve(xr, xi):
+            xr, xi = xr.clone(), xi.clone()
+            for k in range(n):
+                xr_k, xi_k = xr[k].clone(), xi[k].clone()
+                xr[k + 1:] = xr[k + 1:] - (cre[k + 1:, k] * xr_k - cim[k + 1:, k] * xi_k)
+                xi[k + 1:] = xi[k + 1:] - (cre[k + 1:, k] * xi_k + cim[k + 1:, k] * xr_k)
+            for k in reversed(range(n)):
+                ar, ai = xr[k], xi[k]
+                for j in range(k + 1, n):
+                    ar = ar - (cre[k, j] * xr[j] - cim[k, j] * xi[j])
+                    ai = ai - (cre[k, j] * xi[j] + cim[k, j] * xr[j])
+                xr[k], xi[k] = ar * ci_re[k] - ai * ci_im[k], ar * ci_im[k] + ai * ci_re[k]
+            return xr, xi
+
+        # Simplified Newton on the stage slopes z [3, N, S], from f(t, y).
+        z = f0.expand(3, n, s_count).clone()
+        conv = ~act
+        sweeps = zi
+        tol_y = cfg.atol + cfg.rtol * torch.abs(y)
+        t_st = t + rc_t * h_eff  # [3, S] stage times
+        for _ in range(cfg.newton_max_iter):
+            if bool(conv.all()):
+                break
+            ys = y.expand(3, n, s_count)
+            for j in range(3):
+                ys = ys + (h_eff * ra_t[:, j : j + 1])[:, None] * z[j]
+            bvec = rhs(t_st, ys.transpose(0, 1), f_vals).transpose(0, 1) - z
+            w1 = real_solve(p1[0] * bvec[0] + p1[1] * bvec[1] + p1[2] * bvec[2])
+            wr, wi = cplx_solve(
+                p2r[0] * bvec[0] + p2r[1] * bvec[1] + p2r[2] * bvec[2],
+                p2i[0] * bvec[0] + p2i[1] * bvec[1] + p2i[2] * bvec[2],
+            )
+            delta = v1_t * w1 + 2.0 * (v2r_t * wr - v2i_t * wi)
+            upd = ~conv
+            sweeps = sweeps + upd.to(torch.int32)
+            z = torch.where(upd, z + delta, z)
+            ad = torch.abs(delta)
+            maxd = torch.amax(ad, dim=(0, 1))
+            scaled = torch.amax(ad / tol_y, dim=(0, 1))
+            zmag = torch.amax(torch.abs(z), dim=(0, 1))
+            tol_eff = cfg.newton_tol + (8.0 * _F32_EPS) * zmag
+            conv = conv | (maxd < tol_eff) | (h_eff * scaled < kappa) | torch.isnan(maxd)
+
+        # Step update and the embedded3 error.
+        y_out = y
+        err_c = torch.zeros_like(y)
+        for s in range(3):
+            y_out = y_out + (h_eff * rb[s]) * z[s]
+        for s in range(3):
+            err_c = err_c + (h_eff * re[s]) * z[s]
+        tol = cfg.atol + cfg.rtol * torch.maximum(torch.abs(y), torch.abs(y_out))
+        err = torch.amax(torch.abs(err_c / tol), dim=0)
+        newt_fail = ~conv if cfg.newton_reject_unconverged else torch.zeros_like(conv)
+        accept = act & (err <= 1.0) & ~newt_fail
+        rejected = act & ~accept
+
+        kh = h_eff - t_c
+        t1 = t + kh
+
+        def qm_coeffs():
+            qm = []
+            for m in range(3):
+                q = torch.zeros_like(y)
+                for s in range(3):
+                    q = q + rw[s][m] * z[s]
+                qm.append(q)
+            return qm
+
+        fill_dense(dense, qt, t, t1, accept, h_eff, y, qm_coeffs)
+
+        raw_fac = cfg.safety * (1.0 / (err + 1e-16)) ** (1.0 / 3.0)
+        fac_acc = torch.clamp(raw_fac, cfg.min_scale, cfg.max_scale)
+        fac_rej = torch.where(
+            torch.isnan(raw_fac), zero + cfg.nan_shrink, torch.clamp_max(raw_fac, 1.0)
+        )
+        fac_rej = torch.clamp(fac_rej, cfg.min_scale, cfg.max_scale)
+        # Newton failure says nothing about the error: halve.
+        fac_rej = torch.where(newt_fail, zero + 0.5, fac_rej)
+        h_new = h_eff * torch.where(accept, fac_acc, fac_rej)
+        if cfg.radau_h_freeze_hi > 1.0:
+            freeze = accept & (fac_acc >= 1.0) & (fac_acc <= cfg.radau_h_freeze_hi)
+            h_new = torch.where(freeze, h_eff, h_new)
+
+        reject_new = torch.where(accept, zi, reject + 1)
+        failed = failed | (rejected & (reject_new > cfg.radau_max_rejects))
+        t_c = torch.where(accept, (t1 - t) - kh, t_c)
+        t = torch.where(accept, t1, t)
+        y = torch.where(accept, y_out, y)
+        h = torch.where(act, h_new, h)
+        reject = torch.where(act, reject_new, reject)
+        act_i = act.to(torch.int32)
+        n_acc = n_acc + accept.to(torch.int32)
+        n_rej = n_rej + rejected.to(torch.int32)
+        n_att = n_att + act_i
+        n_swp = n_swp + sweeps
+        n_fct = n_fct + act_i
+
+    y_final, completed, dense = finish(y, t, tf, dense)
+    return RadauResult(
+        y_final=y_final,
+        dense=dense,
+        failed=failed | ~completed,
+        stats=RadauStats(n_acc, n_rej, n_att, n_swp, n_fct),
+    )

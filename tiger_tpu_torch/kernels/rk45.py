@@ -1,0 +1,293 @@
+"""B1, fused adaptive RK45: the CUDA kernel's wrapper and its plain version.
+
+``rk45`` integrates every system from t0 to tf with Dormand-Prince 5(4),
+ZOH forcing, the stiffness criteria and dense output -- the work of the TPU
+kernel ``tiger_tpu/kernels/rk45_pallas.py`` (``_make_kernel``'s ``kernel``,
+reached through ``pl.pallas_call`` at l.1051).  A CUDA tensor goes to the
+hand-written kernel ``csrc/rk45.cu`` (or the call raises); a CPU tensor goes
+to ``rk45_plain``, the same per-system semantics as a batched, masked
+while-loop in torch.  ``rk45_launches`` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tiger_tpu_torch.forcing import (
+    ZOH_SNAP,
+    ForcingSet,
+    gather_forcings_column,
+    zoh_step_cap,
+)
+from tiger_tpu_torch.kernels._common import (
+    N_EQ,
+    ForcingMetaC,
+    c_float,
+    c_floats,
+    c_i32,
+    c_i64,
+    c_ptr,
+    data_ptr,
+    dense_init,
+    fill_dense,
+    finish,
+    forcing_meta_c,
+    kernel_inputs,
+    launch,
+    plain_params,
+)
+from tiger_tpu_torch.solver import tableau
+from tiger_tpu_torch.solver.config import SolverConfig
+from tiger_tpu_torch.solver.rk45 import RK45Result, RKStats
+
+#: Kernel launches since import (or since a caller reset it to 0).
+rk45_launches = 0
+
+
+class Rk45ArgsC(ctypes.Structure):
+    """Mirror of ``tt::Rk45Args`` (csrc/rk45.cu)."""
+
+    _fields_ = [
+        ("y0", c_ptr), ("h0", c_ptr), ("params", c_ptr), ("forc", c_ptr), ("qt", c_ptr),
+        ("y_final", c_ptr), ("dense", c_ptr), ("stiff", c_ptr), ("failed", c_ptr),
+        ("stats", c_ptr),
+        ("n_sys", c_i64), ("n_q", c_i32), ("safe_pow", c_i32),
+        ("t0", c_float), ("tf", c_float), ("h_floor", c_float),
+        ("rtol", c_float), ("atol", c_float), ("safety", c_float),
+        ("min_scale", c_float), ("max_scale", c_float), ("expo", c_float),
+        ("slope_jump_thresh", c_float), ("min_step_fraction", c_float),
+        ("nan_shrink", c_float), ("stiff_hlamb", c_float),
+        ("max_rejects", c_i32), ("max_steps", c_i32), ("stiff_detect", c_i32),
+        ("stiff_streak", c_i32), ("stiff_forgive", c_i32),
+        ("stiff_test_every", c_i32), ("stiff_floor_streak", c_i32),
+        ("fill_t0_queries", c_i32),
+        ("forcing", ForcingMetaC),
+        ("a", (c_float * 7) * 7), ("c", c_float * 7), ("b", c_float * 7),
+        ("e", c_float * 7), ("p", (c_float * 4) * 7),
+    ]
+
+
+def rk45(
+    model,
+    y0: torch.Tensor,
+    h0: torch.Tensor,
+    t0: float,
+    tf: float,
+    query_times: torch.Tensor | None = None,
+    params: dict | None = None,
+    forcings: ForcingSet | None = None,
+    config: SolverConfig = SolverConfig(),
+) -> RK45Result:
+    """B1 over ``y0[S, N]`` from t0 to tf; ``query_times`` sorted and unique.
+
+    CPU tensors run ``rk45_plain``; CUDA tensors launch the kernel on the
+    current stream without synchronising (float32 Model 204 only; any other
+    input raises).
+    """
+    if y0.device.type == "cpu":
+        return rk45_plain(model, y0, h0, t0, tf, query_times, params, forcings, config)
+    if y0.device.type != "cuda":
+        raise ValueError(f"rk45: no implementation for device {y0.device}")
+    return _rk45_cuda(model, y0, h0, t0, tf, query_times, params, forcings, config)
+
+
+def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg) -> RK45Result:
+    global rk45_launches
+    y0_soa, p_block = kernel_inputs("rk45", model, y0, h0, params, forcings, qt)
+    s_count, dev = y0.shape[0], y0.device
+    q_total = 0 if qt is None else qt.shape[0]
+    y_final = torch.empty((N_EQ, s_count), dtype=torch.float32, device=dev)
+    dense = torch.empty((q_total, N_EQ, s_count), dtype=torch.float32, device=dev)
+    flags = torch.empty((2, s_count), dtype=torch.int32, device=dev)  # stiff, failed
+    stats = torch.empty((3, s_count), dtype=torch.int32, device=dev)
+    a = Rk45ArgsC(
+        y0=y0_soa.data_ptr(), h0=h0.data_ptr(), params=p_block.data_ptr(),
+        forc=data_ptr(None if forcings is None else forcings.data), qt=data_ptr(qt),
+        y_final=y_final.data_ptr(), dense=dense.data_ptr(),
+        stiff=flags[0].data_ptr(), failed=flags[1].data_ptr(), stats=stats.data_ptr(),
+        n_sys=s_count, n_q=q_total, safe_pow=int(model.safe_pow),
+        t0=t0, tf=tf, h_floor=(tf - t0) * cfg.min_step_fraction,
+        rtol=cfg.rtol, atol=cfg.atol, safety=cfg.safety,
+        min_scale=cfg.min_scale, max_scale=cfg.max_scale, expo=0.2,
+        slope_jump_thresh=cfg.slope_jump_thresh,
+        min_step_fraction=cfg.min_step_fraction, nan_shrink=cfg.nan_shrink,
+        stiff_hlamb=cfg.stiff_hlamb, max_rejects=cfg.max_rejects,
+        max_steps=cfg.max_steps, stiff_detect=int(cfg.stiff_detect),
+        stiff_streak=cfg.stiff_streak, stiff_forgive=cfg.stiff_forgive,
+        stiff_test_every=cfg.stiff_test_every,
+        stiff_floor_streak=cfg.stiff_floor_streak,
+        fill_t0_queries=int(cfg.fill_t0_queries),
+        forcing=forcing_meta_c(forcings, cfg),
+        a=c_floats(tableau.DP_A), c=c_floats(tableau.DP_C), b=c_floats(tableau.DP_B),
+        e=c_floats(tableau.DP_E), p=c_floats(tableau.DP_P),
+    )
+    launch("tt_rk45_launch", "tt_rk45_args_size", a, dev)
+    rk45_launches += 1
+    return RK45Result(
+        y_final=y_final.t().contiguous(),
+        dense=dense.permute(2, 0, 1).contiguous(),
+        stiff=flags[0] != 0,
+        failed=flags[1] != 0,
+        h0=h0,
+        stats=RKStats(n_accepted=stats[0], n_rejected=stats[1], n_attempts=stats[2]),
+    )
+
+
+def rk45_plain(
+    model,
+    y0: torch.Tensor,
+    h0: torch.Tensor,
+    t0: float,
+    tf: float,
+    query_times: torch.Tensor | None = None,
+    params: dict | None = None,
+    forcings: ForcingSet | None = None,
+    config: SolverConfig = SolverConfig(),
+) -> RK45Result:
+    """B1's plain PyTorch version, in y0's dtype (float32 or float64).
+
+    A batched while-loop over all systems with the TPU kernel's per-system
+    masks: ``act`` (still integrating), ``advance`` (accepted, committed),
+    ``slope`` (accepted but cut by the slope-jump guard) and ``rejected``;
+    every update commits through ``torch.where`` and the loop ends when no
+    system is active.  Works on any device; the CPU path of ``rk45``.
+    """
+    cfg = config
+    dtype, dev = y0.dtype, y0.device
+    s_count, n_eq = y0.shape
+    p = plain_params(model, params, dtype)
+    qt = None if query_times is None else query_times.to(dtype).contiguous()
+    snap = ZOH_SNAP if (cfg.forcing_step_align and forcings is not None) else 0.0
+    a, c = tableau.DP_A.tolist(), tableau.DP_C.tolist()
+    b, e, pm = tableau.DP_B.tolist(), tableau.DP_E.tolist(), tableau.DP_P.tolist()
+
+    def rhs(t, y, f_vals):
+        return torch.stack(model.rhs_tuple(t, y, p, f_vals))
+
+    # State and stage slopes as [N, S] tensors: every update below is
+    # elementwise, in the TPU kernel's order, so it rounds as per-system
+    # scalar code does.
+    y = y0.t().contiguous()
+    h0 = h0.to(dtype)
+    t = torch.full((s_count,), float(t0), dtype=dtype, device=dev)
+    t_c = torch.zeros_like(t)
+    h = h0.clone()
+    zi = torch.zeros(s_count, dtype=torch.int32, device=dev)
+    reject, iasti, nonsti, fstreak = zi, zi, zi, zi
+    n_acc, n_rej, n_att = zi, zi, zi
+    stiff = torch.zeros(s_count, dtype=torch.bool, device=dev)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    dense = dense_init(qt, y, t0, cfg)
+    h_floor = (tf - t0) * cfg.min_step_fraction
+
+    while True:
+        act = (t < tf) & ~stiff & (n_att < cfg.max_steps)
+        if not bool(act.any()):
+            break
+        clamp = t + h > tf
+        h_eff = torch.where(clamp, tf - t, h)
+        if snap:
+            h_eff = zoh_step_cap(forcings.meta, t, h_eff)
+        f_vals = None
+        if forcings is not None:
+            f_vals = gather_forcings_column(forcings.data, forcings.meta, t, snap)
+
+        ks = [rhs(t, y, f_vals)]
+        g6 = y
+        for s in range(1, 7):
+            acc = y
+            for j in range(s):
+                if a[s][j] != 0.0:
+                    acc = acc + (h_eff * a[s][j]) * ks[j]
+            if s == 5:
+                g6 = acc
+            ks.append(rhs(t + c[s] * h_eff, acc, f_vals))
+        y_out = y
+        err_c = torch.zeros_like(y)
+        for s in range(7):
+            if b[s] != 0.0:
+                y_out = y_out + (h_eff * b[s]) * ks[s]
+            if e[s] != 0.0:
+                err_c = err_c + (h_eff * e[s]) * ks[s]
+        tol = cfg.atol + cfg.rtol * torch.maximum(torch.abs(y), torch.abs(y_out))
+        err = torch.amax(torch.abs(err_c / tol), dim=0)
+        accept = err <= 1.0  # NaN rejects
+        jump = torch.amax(torch.abs(ks[0] - ks[1]), dim=0) > cfg.slope_jump_thresh
+        advance = act & accept & ~jump
+        slope = act & accept & jump
+        rejected = act & ~accept
+
+        # Kahan-compensated commit time; the dense window's upper bound.
+        kh = h_eff - t_c
+        t1 = t + kh
+
+        def qm_coeffs():
+            qm = []
+            for m in range(4):
+                q = torch.zeros_like(y)
+                for j in range(7):
+                    if pm[j][m] != 0.0:
+                        q = q + pm[j][m] * ks[j]
+                qm.append(q)
+            return qm
+
+        fill_dense(dense, qt, t, t1, advance, h_eff, y, qm_coeffs)
+
+        base_fac = cfg.safety * (1.0 / (err + 1e-16)) ** 0.2
+        fac_acc = torch.clamp(base_fac, cfg.min_scale, cfg.max_scale)
+        fac_rej = torch.where(
+            torch.isnan(base_fac), zero + cfg.nan_shrink, torch.clamp_max(base_fac, 1.0)
+        )
+        fac_rej = torch.clamp(fac_rej, cfg.min_scale, cfg.max_scale)
+        h_slope = torch.maximum(h_eff * 0.5, h0 * cfg.min_step_fraction)
+        # A clamped landing step never shrinks the carried h.
+        h_adv = torch.where(clamp, torch.maximum(h_eff * fac_acc, h), h_eff * fac_acc)
+        h_new = torch.where(advance, h_adv, torch.where(slope, h_slope, h_eff * fac_rej))
+        reject_new = torch.where(accept, zi, reject + 1)
+
+        if cfg.stiff_detect:
+            fs1 = torch.where(
+                act & (h_new < h_floor), fstreak + 1, torch.where(act, zi, fstreak)
+            )
+            stiff_new = (rejected & (reject_new > cfg.max_rejects)) | (
+                act & (fs1 >= cfg.stiff_floor_streak)
+            )
+            fstreak = fs1
+            # Hairer's |h*lambda| from the two t+h stages, tested every
+            # stiff_test_every-th accepted step; slope cuts always trip.
+            stnum = torch.amax(torch.abs(ks[6] - ks[5]), dim=0)
+            stden = torch.amax(torch.abs(y_out - g6), dim=0)
+            hlamb = torch.where(stden > 0, h_eff * stnum / stden, zero)
+            n_acc_next = n_acc + advance.to(torch.int32)
+            tested = advance & ((n_acc_next & (cfg.stiff_test_every - 1)) == 0)
+            over = hlamb > cfg.stiff_hlamb
+            trip = slope | (tested & over)
+            calm = tested & ~over
+            iasti1 = torch.where(trip, iasti + 1, iasti)
+            nonsti = torch.where(trip, zi, torch.where(calm, nonsti + 1, nonsti))
+            iasti = torch.where(calm & (nonsti >= cfg.stiff_forgive), zi, iasti1)
+            stiff_new = stiff_new | (iasti >= cfg.stiff_streak)
+        else:
+            stiff_new = rejected & ((reject_new > cfg.max_rejects) | (h_new < h_floor))
+
+        t_c = torch.where(advance, (t1 - t) - kh, t_c)
+        t = torch.where(advance, t1, t)
+        y = torch.where(advance, y_out, y)
+        stiff = stiff | stiff_new
+        h = torch.where(act, h_new, h)
+        reject = torch.where(act, reject_new, reject)
+        n_acc = n_acc + advance.to(torch.int32)
+        n_rej = n_rej + rejected.to(torch.int32)
+        n_att = n_att + act.to(torch.int32)
+
+    y_final, completed, dense = finish(y, t, tf, dense)
+    return RK45Result(
+        y_final=y_final,
+        dense=dense,
+        stiff=stiff | ~completed,
+        failed=~completed & ~stiff,
+        h0=h0,
+        stats=RKStats(n_accepted=n_acc, n_rejected=n_rej, n_attempts=n_att),
+    )
