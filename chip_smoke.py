@@ -14,9 +14,14 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
      runs, with the launch counters set to 0 just before;
   6. each kernel against its plain version at the main-path shapes: B1 over
      the 131,072 systems, B2 over the systems B1 flagged, the full span; the
-     times side by side, and phases 3-4's checks on the results.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+     times side by side, and phases 3-4's checks on the results.  Then B1
+     alone on the 32 systems that took it the most attempts (its tail), and
+     each kernel's bound: the least time the card could take for this run's
+     operations and bytes.
+B1 is held to rk45_plain at rtol 1e-3 / atol 1e-6 with equal attempt totals
+(within 2%); B2 must equal radau_plain exactly (max_abs_err 0, every counter
+of every system equal).  The line before the last is the kernels' JSON
+record; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -31,10 +36,32 @@ MAIN_SYSTEMS = 131_072
 DAYS = 2.0
 STIFF_FRAC = 0.001
 CHECK_SYSTEMS = 4096
-# Kernel against plain version: both are float32 and the kernels are built
-# without FMA contraction, so they round alike; the margin covers a step the
-# two take differently where libm or a reduction rounds otherwise.
+# B1 against rk45_plain: both are float32 and the kernels are built without
+# FMA contraction, so they round alike; the margin covers a step the two take
+# differently where libm or a reduction rounds otherwise.
 RTOL, ATOL = 1e-3, 1e-6
+TAIL_SYSTEMS = 32  # one warp of B1's slowest systems
+
+# The bound of each kernel: its operations over the H100 SXM's float32 peak
+# outside the tensor cores, or its bytes (each input read once, each output
+# written once) over the HBM3 rate, whichever takes longer.
+F32_PEAK, HBM_RATE = 67e12, 3.35e12
+# Floating-point operations, counted from the kernels' code: each +, -, *, /,
+# min, max, abs, compare-and-select and libm call is one (a division or a libm
+# call costs the card many instructions, so the bound is generous).
+RHS_OPS = 31  # common.cuh Model204::rhs
+STEP_OPS = 25  # h_eff, the ZOH step cap and the gather, 2 forcings
+# B2 (radau.cu): per attempt, the six right-hand sides of f and the Jacobian,
+# the perturbations (20), the entries of both matrices (110), the real LU (75),
+# the complex LU (330), tol_y (15), the step update and embedded3 error (130),
+# the controller and Kahan t (19); per Newton sweep, the stage states (99),
+# three right-hand sides, the residuals (15), w (75), the real solve (45), the
+# complex solve (190), the slope updates and their norms (195), the exit test
+# (5); per dense query, the coefficients (90, at most once a query) and the
+# polynomial (43).
+B2_ATTEMPT_OPS = 6 * RHS_OPS + 20 + 110 + 75 + 330 + 15 + 130 + 19 + STEP_OPS
+B2_SWEEP_OPS = 3 * RHS_OPS + 99 + 15 + 75 + 45 + 190 + 195 + 5
+B2_QUERY_OPS = 90 + 43
 
 _T0 = time.perf_counter()
 
@@ -59,6 +86,36 @@ def n_outside(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(bound_ms, bound_by) of work that does ``ops`` operations and moves
+    ``nbytes`` bytes."""
+    ops_ms, bytes_ms = ops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def io_bytes(s_count: int, n_rows: int, n_q: int, out_words: int) -> int:
+    """Bytes of one launch over ``s_count`` systems: y0, h0, params, the
+    ``n_rows`` forcing rows and the queries in; y_final, dense and
+    ``out_words`` flag and counter words a system out (all 4 bytes a word)."""
+    return 4 * (s_count * (5 + 1 + 15 + n_rows) + n_q + s_count * (5 + 5 * n_q + out_words))
+
+
+def b1_ops(attempts: int, queries: int) -> int:
+    """B1's operations (rk45.cu): per attempt, seven right-hand sides, the
+    stage, update and error sums (11 per nonzero tableau entry), the error norm
+    (40), the slope-jump test (15), the controller, stiffness tests and Kahan t
+    (57); per dense query, the quartic coefficients (10 per nonzero entry of
+    DP_P, at most once a query) and the polynomial (58)."""
+    from tiger_tpu_torch.solver import tableau
+
+    def nnz(x) -> int:
+        return int((x != 0).sum())
+
+    per_attempt = (7 * RHS_OPS + 11 * (nnz(tableau.DP_A) + nnz(tableau.DP_B) + nnz(tableau.DP_E))
+                   + 40 + 15 + 57 + STEP_OPS)
+    return attempts * per_attempt + queries * (10 * nnz(tableau.DP_P) + 58)
 
 
 def timed(fn, reps: int = 1):
@@ -96,18 +153,18 @@ def check_rk45(label, ker, ref, hu_rows) -> float:
 
 
 def check_radau(label, ker, ref) -> float:
-    """Phase 4's checks of B2 against radau_plain; returns max_abs_err."""
-    n_far = n_outside(ker.y_final, ref.y_final) + n_outside(ker.dense, ref.dense)
+    """Phases 4 and 6: B2 equals radau_plain bit for bit; returns max_abs_err."""
     err = max(max_abs(ker.y_final, ref.y_final), max_abs(ker.dense, ref.dense))
+    n_sys = ker.failed.numel()
+    same = [int((a == b).sum()) for a, b in zip(ker.stats, ref.stats)]
     att_k, att_p = int(ker.stats.n_attempts.sum()), int(ref.stats.n_attempts.sum())
-    same_seq = int((ker.stats.n_attempts == ref.stats.n_attempts).sum())
-    phase(f"{label}: max_abs_err={err:.3e}, entries outside rtol {RTOL:g}/atol {ATOL:g}: {n_far}, "
-          f"failed {int(ker.failed.sum())}/{int(ref.failed.sum())}, systems with equal attempt "
-          f"counts {same_seq}/{ker.failed.numel()}, attempts {att_k} vs {att_p}, worst system "
-          f"{int(ker.stats.n_attempts.max())} vs {int(ref.stats.n_attempts.max())}")
+    phase(f"{label}: max_abs_err={err:.3e}, failed {int(ker.failed.sum())}/{int(ref.failed.sum())}, "
+          f"systems with equal (accepted, rejected, attempts, sweeps, factorizations) {same} of "
+          f"{n_sys}, attempts {att_k} vs {att_p}, sweeps {int(ker.stats.n_newton.sum())}, worst "
+          f"system {int(ker.stats.n_attempts.max())} vs {int(ref.stats.n_attempts.max())}")
     check(not bool(ker.failed.any() or ref.failed.any()), f"{label}: a Radau solve failed")
-    check(n_far == 0, f"{label}: B2 disagrees with radau_plain")
-    check(abs(att_k - att_p) <= 0.02 * att_p, f"{label}: total attempts differ by more than 2%")
+    check(err == 0.0, f"{label}: B2 differs from radau_plain by {err:.3e}")
+    check(all(n == n_sys for n in same), f"{label}: B2's counters differ from radau_plain's")
     return err
 
 
@@ -228,17 +285,40 @@ def main() -> None:
     rref, plain_b2 = timed(lambda: k_radau.radau_plain(model, sy0, sh0, 0.0, tf, qt, sp, sf, cfg))
     err_b2 = check_radau(f"phase 6 B2 vs radau_plain ({rows.numel()} systems, {DAYS:g} days)",
                          rker, rref)
-    phase(f"phase 6 times: B1 {ms_b1:.3f} ms vs rk45_plain {plain_b1:.3f} ms "
-          f"({MAIN_SYSTEMS} systems, {DAYS:g} days); B2 {ms_b2:.3f} ms vs radau_plain "
-          f"{plain_b2:.3f} ms ({rows.numel()} systems, {DAYS:g} days) | {smi}")
+    # B1's tail: the systems that took it the most attempts, alone.
+    top = torch.topk(ker.stats.n_attempts, TAIL_SYSTEMS).indices
+    ty0, tp, tforc, th0 = subset(top, y0, params, forc, h0)
+    _, tail_b1 = timed(lambda: k_rk45.rk45(model, ty0, th0, 0.0, tf, qt, tp, tforc, cfg), reps=3)
+
+    # Bounds, from this run's counters.
+    n_rows, n_q, n_q_after = forc.data.shape[0], qt.numel(), int((qt > 0.0).sum())
+    att_b1, worst_b1 = int(ker.stats.n_attempts.sum()), int(ker.stats.n_attempts.max())
+    att_b2, worst_b2 = int(rker.stats.n_attempts.sum()), int(rker.stats.n_attempts.max())
+    swp_b2 = int(rker.stats.n_newton.sum())
+    bound_b1 = bound(b1_ops(att_b1, int((~ker.stiff).sum()) * n_q_after),
+                     io_bytes(MAIN_SYSTEMS, n_rows, n_q, 5))
+    bound_b2 = bound(att_b2 * B2_ATTEMPT_OPS + swp_b2 * B2_SWEEP_OPS
+                     + rows.numel() * n_q_after * B2_QUERY_OPS,
+                     io_bytes(rows.numel(), n_rows, n_q, 6))
+    phase(f"phase 6 times: B1 {ms_b1:.3f} ms vs rk45_plain {plain_b1:.3f} ms, bound "
+          f"{bound_b1[0]:.4f} ms ({bound_b1[1]}), worst system {worst_b1} attempts "
+          f"({MAIN_SYSTEMS} systems, {DAYS:g} days); B1 on its {TAIL_SYSTEMS} slowest systems "
+          f"{tail_b1:.3f} ms; B2 {ms_b2:.3f} ms vs radau_plain {plain_b2:.3f} ms, bound "
+          f"{bound_b2[0]:.4f} ms ({bound_b2[1]}), worst system {worst_b2} attempts, "
+          f"{1e3 * ms_b2 / worst_b2:.3f} us per attempt of the worst system, "
+          f"{swp_b2 / att_b2:.4f} sweeps per attempt ({rows.numel()} systems, {DAYS:g} days) | {smi}")
 
     say(json.dumps({"kernels": [
         {"name": "rk45", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/rk45.cu",
          "replaces": "tiger_tpu/kernels/rk45_pallas.py:1051", "launches": launches["rk45"],
-         "max_abs_err": err_b1, "ms": ms_b1, "plain_ms": plain_b1},
+         "max_abs_err": err_b1, "ms": ms_b1, "plain_ms": plain_b1, "bound_ms": bound_b1[0],
+         "bound_by": bound_b1[1], "library_ms": None, "worst_system_attempts": worst_b1,
+         "tail_systems": TAIL_SYSTEMS, "tail_ms": tail_b1},
         {"name": "radau", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/radau.cu",
          "replaces": "tiger_tpu/kernels/radau_pallas.py:987", "launches": launches["radau"],
-         "max_abs_err": err_b2, "ms": ms_b2, "plain_ms": plain_b2},
+         "max_abs_err": err_b2, "ms": ms_b2, "plain_ms": plain_b2, "bound_ms": bound_b2[0],
+         "bound_by": bound_b2[1], "library_ms": None, "worst_system_attempts": worst_b2,
+         "sweeps_per_attempt": swp_b2 / att_b2},
     ]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -28,7 +28,7 @@ from tiger_tpu.solver import tableau as jtab
 from tiger_tpu.solver.config import SolverConfig as JSolverConfig
 from tiger_tpu.solver.controller import initial_step as j_initial_step
 from tiger_tpu_torch import convert
-from tiger_tpu_torch.forcing import ZOH_SNAP, gather_forcings_column, zoh_step_cap
+from tiger_tpu_torch.forcing import ZOH_SNAP, ForcingSet, gather_forcings_column, zoh_step_cap
 from tiger_tpu_torch.kernels import _common as k_common
 from tiger_tpu_torch.kernels import radau as k_radau
 from tiger_tpu_torch.kernels import rk45 as k_rk45
@@ -111,6 +111,7 @@ def test_import_without_jax():
         sys.modules["jax"] = None
         import tiger_tpu_torch, tiger_tpu_torch.kernels.rk45, tiger_tpu_torch.kernels.radau
         import tiger_tpu_torch.convert, tiger_tpu_torch.scenario, tiger_tpu_torch.profile_solve
+        import tiger_tpu_torch.radau_phases
         assert not any(m == "jax" or m.startswith(("jax.", "tiger_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
@@ -223,6 +224,19 @@ def test_gather_forcings_exact(snap):
             )
             got = np.array([float(v[lane]) for v in ours], np.float32)
             np.testing.assert_array_equal(got, ref)
+
+
+def test_forcing_set_defaults_to_the_card():
+    """Without a device argument a ForcingSet lands on the card; where there
+    is none that raises instead of handing back CPU tensors."""
+    series, dts = [np.arange(6, dtype=np.float32).reshape(3, 2)], [60.0]
+    on_cpu = ForcingSet.from_series(series, dts, device="cpu")
+    assert on_cpu.data.device.type == "cpu"
+    if torch.cuda.is_available():
+        assert ForcingSet.from_series(series, dts).data.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            ForcingSet.from_series(series, dts)
 
 
 def test_zoh_step_cap_exact():

@@ -102,6 +102,80 @@ def test_radau_kernel_matches_plain(case, name):
     assert _close(ker.y_final[ok], ref.y_final[ok]) and _close(ker.dense[ok], ref.dense[ok])
 
 
+# B2 runs one warp per system: held to radau_plain bit for bit on stiff
+# systems (every row Hu = 1e-6) over the first half hour, where most of a
+# stiff system's attempts fall.
+SPAN = 30.0
+
+
+@pytest.fixture(scope="module")
+def stiff_case():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    y0, p, f = scenario(131, SPAN / 1440.0, 1.0, device=dev)
+    qt = torch.arange(0.0, SPAN + 1e-9, 5.0, device=dev)
+    return y0, p, f, qt
+
+
+def _first(stiff_case, n_sys):
+    """(y0, params, forcings, qt) of the first ``n_sys`` stiff systems."""
+    y0, p, f, qt = stiff_case
+    rows = torch.arange(n_sys, device=y0.device)
+    return y0[rows], {k: v[rows] for k, v in p.items()}, f.take_systems(rows), qt
+
+
+def _radau_pair(model, y0, h0, qt, p, f, cfg):
+    before = k_radau.radau_launches
+    ker = k_radau.radau(model, y0, h0, 0.0, SPAN, qt, p, f, cfg)
+    ref = k_radau.radau_plain(model, y0, h0, 0.0, SPAN, qt, p, f, cfg)
+    torch.cuda.synchronize()
+    assert k_radau.radau_launches == before + 1
+    assert torch.equal(ker.failed, ref.failed)
+    for a, b in zip(ker.stats, ref.stats):
+        assert torch.equal(a, b)
+    for a, b in ((ker.y_final, ref.y_final), (ker.dense, ref.dense)):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+    return ker
+
+
+@pytest.mark.parametrize("name", sorted(OPTIONS))
+@pytest.mark.parametrize("n_sys", [1, 3, 33, 131])
+def test_radau_warp_per_system_equals_plain(stiff_case, n_sys, name):
+    y0, p, f, qt = _first(stiff_case, n_sys)
+    options, safe_pow = OPTIONS[name]
+    cfg = dataclasses.replace(CFG, **options)
+    model = Model204(safe_pow=safe_pow)
+    ker = _radau_pair(model, y0, initial_step(model, y0, 0.0, p, f, cfg), qt, p, f, cfg)
+    if name == "step_capped":
+        assert bool(ker.failed.all())
+
+
+def test_radau_max_rejects_fails_the_system(stiff_case):
+    """A first step of the whole span is rejected twice in a row, past
+    radau_max_rejects=1: those systems stop and report failed."""
+    y0, p, f, qt = _first(stiff_case, 4)
+    cfg = dataclasses.replace(CFG, radau_max_rejects=1)
+    h0 = initial_step(Model204(), y0, 0.0, p, f, cfg)
+    h0[::2] = SPAN
+    ker = _radau_pair(Model204(), y0, h0, qt, p, f, cfg)
+    assert bool(ker.failed[::2].all())
+    assert bool(torch.isnan(ker.y_final[::2]).all())
+
+
+def test_radau_keeps_a_nan_in_the_warp_maxima(stiff_case):
+    """A NaN aquifer state makes the Newton norms and the error NaN: the
+    warp's maxima must keep it (fmaxf would drop it and accept the step), so
+    the system is rejected until it fails, as in radau_plain."""
+    y0, p, f, qt = _first(stiff_case, 3)
+    h0 = initial_step(Model204(), y0, 0.0, p, f, CFG)
+    y0[0, 4] = float("nan")
+    ker = _radau_pair(Model204(), y0, h0, qt, p, f, CFG)
+    assert ker.failed.tolist() == [True, False, False]
+    assert int(ker.stats.n_accepted[0]) == 0
+
+
 def test_solve_on_card(case):
     y0, _, qt, p, f = case
     res = solve(Model204(), y0, 0.0, TF, qt, p, f, CFG)
@@ -141,3 +215,5 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(case):
         k_rk45.rk45(Model204(), y0, h0, 0.0, TF, qt[::2], p, f, CFG)
     with pytest.raises(ValueError, match="on cpu"):
         k_radau.radau(Model204(), y0, h0.cpu(), 0.0, TF, qt, p, f, CFG)
+    with pytest.raises(ValueError, match="atol >= 0"):
+        k_radau.radau(Model204(), y0, h0, 0.0, TF, qt, p, f, dataclasses.replace(CFG, atol=-1e-8))

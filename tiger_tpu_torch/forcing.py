@@ -42,9 +42,10 @@ class ForcingSet:
     def from_series(
         series: Sequence[np.ndarray],
         dt_minutes: Sequence[float],
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> "ForcingSet":
-        """Build from per-forcing arrays shaped [T_j, S], on ``device``."""
+        """Build from per-forcing arrays shaped [T_j, S], on ``device``: the
+        card unless the caller asks for another (``device="cpu"``)."""
         if len(series) != len(dt_minutes):
             raise ValueError("series and dt_minutes must have equal length")
         offsets, n_steps = [], []

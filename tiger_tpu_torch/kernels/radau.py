@@ -117,6 +117,9 @@ def radau(
 
 def _radau_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg) -> RadauResult:
     global radau_launches
+    # The kernel's warp maxima read non-negative floats as unsigned integers.
+    if not (cfg.rtol >= 0.0 and cfg.atol >= 0.0):
+        raise ValueError(f"radau: the CUDA kernel needs rtol, atol >= 0, got {cfg.rtol}, {cfg.atol}")
     y0_soa, p_block = kernel_inputs("radau", model, y0, h0, params, forcings, qt)
     s_count, dev = y0.shape[0], y0.device
     q_total = 0 if qt is None else qt.shape[0]
