@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from tiger_tpu_torch import Model204, SolverConfig, solve
+from tiger_tpu_torch.kernels import _build
 from tiger_tpu_torch.kernels import radau as k_radau
 from tiger_tpu_torch.kernels import rk45 as k_rk45
 from tiger_tpu_torch.scenario import scenario
@@ -76,10 +77,79 @@ def test_rk45_kernel_matches_plain(case, name):
     ref = k_rk45.rk45_plain(model, y0, h0, 0.0, TF, qt, p, f, cfg)
     torch.cuda.synchronize()
     assert k_rk45.rk45_launches == before + 1
+    _assert_rk45_equal(ker, ref)
+
+
+def _assert_rk45_equal(ker, ref):
+    """Bit for bit: flags, all three counters, NaN in the same places."""
     assert torch.equal(ker.stiff, ref.stiff) and torch.equal(ker.failed, ref.failed)
-    assert torch.equal(ker.stats.n_attempts, ref.stats.n_attempts)
-    ok = ~ker.stiff
-    assert _close(ker.y_final[ok], ref.y_final[ok]) and _close(ker.dense[ok], ref.dense[ok])
+    for a, b in zip(ker.stats, ref.stats):
+        assert torch.equal(a, b)
+    for a, b in ((ker.y_final, ref.y_final), (ker.dense, ref.dense)):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+# B1 pools its systems in shared memory and runs them in time slices.  The
+# package's pool holds a block's whole share at these sizes; the build with
+# 64 slots makes a share of 16,384 systems pass through its pool twice over,
+# so admission into freed slots runs on the card too.
+POOL_BUILDS = {"package": (), "pool_of_64": ("-DTT_RK45_POOL=64",)}
+_plain_results = {}
+
+
+def _b1_inputs(n_sys, name):
+    dev = torch.device("cuda", 0)
+    options, safe_pow = OPTIONS[name]
+    cfg = dataclasses.replace(CFG, **options)
+    model = Model204(safe_pow=safe_pow)
+    y0, p, f = scenario(n_sys, TF / 1440.0, 0.01, device=dev)
+    qt = torch.arange(0.0, TF + 1e-9, 60.0, device=dev)
+    return model, y0, initial_step(model, y0, 0.0, p, f, cfg), qt, p, f, cfg
+
+
+POOL_CASES = [(n, "package") for n in (1, 31, 512, 4097)] + [
+    (n, "pool_of_64") for n in (1, 31, 512, 4097, 16384)
+]
+
+
+@pytest.mark.parametrize("name", sorted(OPTIONS))
+@pytest.mark.parametrize("n_sys,build", POOL_CASES)
+def test_rk45_pooled_schedule_equals_plain(case, n_sys, build, name):
+    model, y0, h0, qt, p, f, cfg = _b1_inputs(n_sys, name)
+    if (n_sys, name) not in _plain_results:
+        _plain_results[n_sys, name] = k_rk45.rk45_plain(model, y0, h0, 0.0, TF, qt, p, f, cfg)
+    with _build.flags_in_use(_build.NVCC_FLAGS + POOL_BUILDS[build]):
+        ker = k_rk45.rk45(model, y0, h0, 0.0, TF, qt, p, f, cfg)
+        torch.cuda.synchronize()
+    _assert_rk45_equal(ker, _plain_results[n_sys, name])
+    if name == "step_capped":
+        assert bool(ker.stiff.any()) and bool(torch.isnan(ker.y_final).any())
+
+
+def test_rk45_two_launches_give_the_same_bytes(case):
+    """No atomics and no traffic between blocks: the schedule, and so every
+    byte of the result, repeats from launch to launch."""
+    model, y0, h0, qt, p, f, cfg = _b1_inputs(4097, "defaults")
+    one = k_rk45.rk45(model, y0, h0, 0.0, TF, qt, p, f, cfg)
+    two = k_rk45.rk45(model, y0, h0, 0.0, TF, qt, p, f, cfg)
+    torch.cuda.synchronize()
+    for a, b in zip((one.y_final, one.dense, one.stiff, one.failed, *one.stats),
+                    (two.y_final, two.dense, two.stiff, two.failed, *two.stats)):
+        assert torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def test_rk45_nan_state_ends_as_in_plain(case):
+    """A NaN state makes every error norm NaN: the system is rejected until
+    a stiffness criterion or max_steps ends it, exactly as in rk45_plain."""
+    model, y0, h0, qt, p, f, cfg = _b1_inputs(31, "defaults")
+    y0[3, 4] = float("nan")
+    ker = k_rk45.rk45(model, y0, h0, 0.0, TF, qt, p, f, cfg)
+    ref = k_rk45.rk45_plain(model, y0, h0, 0.0, TF, qt, p, f, cfg)
+    torch.cuda.synchronize()
+    _assert_rk45_equal(ker, ref)
+    assert bool(ker.stiff[3]) and int(ker.stats.n_accepted[3]) == 0
+    assert bool(torch.isnan(ker.y_final[3]).all())
 
 
 @pytest.mark.parametrize("name", sorted(OPTIONS))

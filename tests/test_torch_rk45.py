@@ -188,3 +188,60 @@ def test_f64_options_match_vmap_rk45(case):
     rtol = 1e-9 if cfg.get("forcing_step_align", True) else 1e-5
     np.testing.assert_allclose(ours.y_final.numpy(), np.asarray(ref.y_final), rtol=rtol, atol=1e-10)
     np.testing.assert_allclose(ours.dense.numpy(), np.asarray(ref.dense), rtol=rtol, atol=1e-10)
+
+
+def _to_f64(y0, p, f):
+    """float64 copies of a JAX scenario for both packages: (JAX inputs,
+    the port's inputs on the CPU) from the same numpy arrays."""
+    y0_np = np.asarray(y0, np.float64)
+    p_np = {k: np.asarray(v, np.float64) for k, v in p.items()}
+    ours = convert.solver_inputs(y0_np, p_np, np.asarray(f.data), f.meta, None,
+                                 device="cpu", dtype=torch.float64)
+    return (jnp.asarray(y0_np), {k: jnp.asarray(v) for k, v in p_np.items()}, f), ours[:3]
+
+
+def test_slope_cut_grinders_flag_as_in_vmap_rk45():
+    """The grinder batch of tests/test_stiff_detect.py (numpy seed 0: Hu = 1e-6,
+    warm forcing, h0 = 1e-6) drives B1's detector branch: slope cuts trip
+    it without waiting for the cadence.  In float64 the plain version takes
+    the reference's control flow exactly: equal stiff flags and equal
+    accepted, rejected and attempted counts on every system, every system
+    flagged, none after 500 attempts or more (the reference's own bound)."""
+    from tests.test_stiff_detect import _grinder_batch
+
+    (y0, p, f), (ty0, tp, tforc) = _to_f64(*_grinder_batch())
+    cfg = dict(rtol=1e-5, atol=1e-8, max_steps=30_000, stiff_detect=True)
+    ref = j_rk45_solve(JModel204(), y0, 0.0, 480.0, None, p, f,
+                       h0=jnp.full((y0.shape[0],), 1e-6), config=JSolverConfig(**cfg))
+    ours = rk45_solve(Model204(), ty0, 0.0, 480.0, None, tp, tforc,
+                      h0=torch.full((ty0.shape[0],), 1e-6, dtype=torch.float64),
+                      config=SolverConfig(**cfg))
+    np.testing.assert_array_equal(ours.stiff.numpy(), np.asarray(ref.stiff))
+    for name in ("n_attempts", "n_accepted", "n_rejected"):
+        np.testing.assert_array_equal(
+            getattr(ours.stats, name).numpy(), np.asarray(getattr(ref.stats, name)), name
+        )
+    assert bool(ours.stiff.all())
+    assert int(ours.stats.n_attempts.max()) < 500
+
+
+def test_aligned_steps_land_on_forcing_boundaries():
+    """tests/test_step_align.py's RK45 case through the port: with every
+    step capped at the next forcing sample, the frozen forcing is exact over
+    the step, so in float64 the run at rtol 1e-5 / atol 1e-8 lies within 1
+    tolerance unit (atol + rtol |y|) of the run at rtol 1e-9 / atol 1e-12,
+    the reference's own bound; and it equals the reference's final state to
+    the rtol 1e-9 / atol 1e-10 of test_f64_trajectories_match_vmap_rk45."""
+    (y0, p, f), (ty0, tp, tforc) = _to_f64(*_scenario(2, np.float32, days=0.25, stiff_frac=0.0))
+    cfg = dict(rtol=1e-5, atol=1e-8, max_steps=50_000)
+    loose = rk45_solve(Model204(), ty0, 0.0, 360.0, None, tp, tforc, config=SolverConfig(**cfg))
+    tight = rk45_solve(Model204(), ty0, 0.0, 360.0, None, tp, tforc,
+                       config=SolverConfig(**dict(cfg, rtol=1e-9, atol=1e-12)))
+    assert not bool(loose.stiff.any()) and not bool(tight.stiff.any())
+    units = (loose.y_final - tight.y_final).abs() / (1e-8 + 1e-5 * tight.y_final.abs())
+    assert float(units.max()) < 1.0, f"aligned RK45 float64 error {float(units.max())} tol units"
+    ref = j_rk45_solve(JModel204(), y0, 0.0, 360.0, None, p, f, config=JSolverConfig(**cfg))
+    np.testing.assert_array_equal(ours_att := loose.stats.n_attempts.numpy(),
+                                  np.asarray(ref.stats.n_attempts))
+    assert int(ours_att.min()) > 0
+    np.testing.assert_allclose(loose.y_final.numpy(), np.asarray(ref.y_final), rtol=1e-9, atol=1e-10)

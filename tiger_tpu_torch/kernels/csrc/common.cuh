@@ -1,7 +1,7 @@
 // Device code shared by the hand-written Hopper kernels rk45.cu and radau.cu.
 //
-// One CUDA thread integrates one system, so everything here is scalar
-// per-thread code: the zero-order-hold forcing gather and the step cap at
+// One CUDA thread computes one attempt of one system, so everything here is
+// scalar per-thread code: the zero-order-hold forcing gather and the step cap at
 // the next forcing-sample boundary (tiger_tpu/kernels/rk45_pallas.py,
 // _gather_forcings l.185-211 and _zoh_step_cap l.214-225), NaN-propagating
 // min/max with jnp.maximum/minimum semantics, and the Model-204 right-hand
@@ -45,12 +45,28 @@ struct ForcingMeta {
 __device__ __forceinline__ bool is_nan(float x) { return x != x; }
 
 // jnp.maximum / jnp.minimum: NaN in either operand gives NaN (fmaxf and
-// fminf would drop it, and a NaN error norm must reject, not accept).
+// fminf would drop it, and a NaN error norm must reject, not accept).  With
+// -DTT_NAN_MINMAX each is the card's one instruction of that rule
+// (max.NaN.f32 / min.NaN.f32, sm_80 and later); it returns the canonical
+// NaN where the selects return the operand's, and like fmaxf/fminf it puts
+// -0 below +0.
 __device__ __forceinline__ float jmax(float a, float b) {
+#if defined(TT_NAN_MINMAX) && defined(__CUDA_ARCH__)
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
   return is_nan(a) ? a : (is_nan(b) ? b : fmaxf(a, b));
+#endif
 }
 __device__ __forceinline__ float jmin(float a, float b) {
+#if defined(TT_NAN_MINMAX) && defined(__CUDA_ARCH__)
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
   return is_nan(a) ? a : (is_nan(b) ? b : fminf(a, b));
+#endif
 }
 __device__ __forceinline__ float jclip(float x, float lo, float hi) {
   return jmin(jmax(x, lo), hi);

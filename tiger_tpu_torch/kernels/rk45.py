@@ -6,7 +6,9 @@ kernel ``tiger_tpu/kernels/rk45_pallas.py`` (``_make_kernel``'s ``kernel``,
 reached through ``pl.pallas_call`` at l.1051).  A CUDA tensor goes to the
 hand-written kernel ``csrc/rk45.cu`` (or the call raises); a CPU tensor goes
 to ``rk45_plain``, the same per-system semantics as a batched, masked
-while-loop in torch.  ``rk45_launches`` counts the kernel's launches.
+while-loop in torch.  ``rk45_launches`` counts the kernel's launches;
+``rk45_geometry`` says how a launch is laid out on the card, and
+``rk45_mismatch`` counts where two results differ bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from tiger_tpu_torch.forcing import (
     gather_forcings_column,
     zoh_step_cap,
 )
+from tiger_tpu_torch.kernels import _build
 from tiger_tpu_torch.kernels._common import (
     N_EQ,
     ForcingMetaC,
@@ -46,6 +49,15 @@ from tiger_tpu_torch.solver.rk45 import RK45Result, RKStats
 rk45_launches = 0
 
 
+class DpTableauC(ctypes.Structure):
+    """Mirror of ``tt::DpTableau`` (csrc/rk45.cu)."""
+
+    _fields_ = [
+        ("a", (c_float * 7) * 7), ("c", c_float * 7), ("b", c_float * 7),
+        ("e", c_float * 7), ("p", (c_float * 4) * 7),
+    ]
+
+
 class Rk45ArgsC(ctypes.Structure):
     """Mirror of ``tt::Rk45Args`` (csrc/rk45.cu)."""
 
@@ -64,9 +76,20 @@ class Rk45ArgsC(ctypes.Structure):
         ("stiff_test_every", c_i32), ("stiff_floor_streak", c_i32),
         ("fill_t0_queries", c_i32),
         ("forcing", ForcingMetaC),
-        ("a", (c_float * 7) * 7), ("c", c_float * 7), ("b", c_float * 7),
-        ("e", c_float * 7), ("p", (c_float * 4) * 7),
+        ("tab", DpTableauC),
     ]
+
+
+def rk45_geometry(n_sys: int) -> dict:
+    """How the kernel lays ``n_sys`` systems out on the current CUDA device:
+    blocks, threads a block, pool slots and dynamic shared memory a block,
+    attempts a time slice (csrc/rk45.cu)."""
+    out = (c_i32 * 5)()
+    rc = _build.load().tt_rk45_geometry(n_sys, out)
+    if rc != 0:
+        raise RuntimeError(f"tt_rk45_geometry: CUDA error {rc}")
+    keys = ("blocks", "threads", "pool_slots", "slice_attempts", "shared_bytes")
+    return dict(zip(keys, out))
 
 
 def rk45(
@@ -93,7 +116,10 @@ def rk45(
     return _rk45_cuda(model, y0, h0, t0, tf, query_times, params, forcings, config)
 
 
-def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg) -> RK45Result:
+def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg,
+               entry: str = "tt_rk45_launch") -> RK45Result:
+    """Launch ``entry`` (the kernel; measurement builds export other
+    schedules of the same attempt under other names)."""
     global rk45_launches
     y0_soa, p_block = kernel_inputs("rk45", model, y0, h0, params, forcings, qt)
     s_count, dev = y0.shape[0], y0.device
@@ -120,10 +146,12 @@ def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg) -> RK45Result:
         stiff_floor_streak=cfg.stiff_floor_streak,
         fill_t0_queries=int(cfg.fill_t0_queries),
         forcing=forcing_meta_c(forcings, cfg),
-        a=c_floats(tableau.DP_A), c=c_floats(tableau.DP_C), b=c_floats(tableau.DP_B),
-        e=c_floats(tableau.DP_E), p=c_floats(tableau.DP_P),
+        tab=DpTableauC(
+            a=c_floats(tableau.DP_A), c=c_floats(tableau.DP_C), b=c_floats(tableau.DP_B),
+            e=c_floats(tableau.DP_E), p=c_floats(tableau.DP_P),
+        ),
     )
-    launch("tt_rk45_launch", "tt_rk45_args_size", a, dev)
+    launch(entry, "tt_rk45_args_size", a, dev)
     rk45_launches += 1
     return RK45Result(
         y_final=y_final.t().contiguous(),
@@ -133,6 +161,21 @@ def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg) -> RK45Result:
         h0=h0,
         stats=RKStats(n_accepted=stats[0], n_rejected=stats[1], n_attempts=stats[2]),
     )
+
+
+def rk45_mismatch(a: RK45Result, b: RK45Result) -> dict:
+    """How many entries of each field differ between two results, bit for
+    bit: a NaN equals a NaN in the same place, nothing else is forgiven."""
+
+    def n_diff(x, y) -> int:
+        same = torch.isnan(x) == torch.isnan(y)
+        return int((~same | (torch.nan_to_num(x) != torch.nan_to_num(y))).sum())
+
+    out = {"y_final": n_diff(a.y_final, b.y_final), "dense": n_diff(a.dense, b.dense),
+           "stiff": int((a.stiff != b.stiff).sum()), "failed": int((a.failed != b.failed).sum())}
+    for name, x, y in zip(RKStats._fields, a.stats, b.stats):
+        out[name] = int((x != y).sum())
+    return out
 
 
 def rk45_plain(
