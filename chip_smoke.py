@@ -169,7 +169,7 @@ def main() -> None:
 
     from concurrent.futures import ThreadPoolExecutor
 
-    from tiger_tpu_torch import Model204, SolverConfig, rk45_phases, solve
+    from tiger_tpu_torch import Model204, SolverConfig, solve
     from tiger_tpu_torch.kernels import _build
     from tiger_tpu_torch.kernels import radau as k_radau
     from tiger_tpu_torch.kernels import rk45 as k_rk45
@@ -193,7 +193,7 @@ def main() -> None:
 
     # 2. build
     with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc each, side by side
-        probed_build = pool.submit(_build.build, rk45_phases.PROBE_FLAGS)
+        probed_build = pool.submit(_build.build, k_rk45.PROBE_FLAGS)
         lib_path, build_s, log = _build.build()
         probed_s = probed_build.result()[1]
     _build.load()
@@ -293,11 +293,11 @@ def main() -> None:
     # B1's lane efficiency, counted by the probed build on the same inputs
     # (a launch made to measure: taken after the main path's counts were read).
     geo = k_rk45.rk45_geometry(MAIN_SYSTEMS)
-    with _build.flags_in_use(rk45_phases.PROBE_FLAGS):
+    with _build.flags_in_use(k_rk45.PROBE_FLAGS):
         probed = k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, cfg)
-        records = rk45_phases.read_probes(geo["blocks"] * geo["threads"] // 32)
+        records = k_rk45.read_probes(geo["blocks"] * geo["threads"] // 32)
     check(not any(k_rk45.rk45_mismatch(probed, ker).values()), "the probed build of B1 differs")
-    lane_eff = rk45_phases.lane_efficiency(records)
+    lane_eff = k_rk45.lane_efficiency(records)
 
     # Bounds, from this run's counters.
     n_rows, n_q, n_q_after = forc.data.shape[0], qt.numel(), int((qt > 0.0).sum())

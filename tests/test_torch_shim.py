@@ -47,9 +47,8 @@ def shim_lib(tmp_path_factory):
     (work / "rk45_body.h").write_text(source.split("// ---- launch ----")[0])
     (work / "rk45_tableau.cuh").write_text(_build.tableau_header())
     lib_path = work / "librk45_shim.so"
-    defines = [f for f in _build.NVCC_FLAGS if f.startswith("-DTT_")]
     cmd = ["g++", "-std=c++20", "-O1", "-pthread", "-ffp-contract=off", "-shared", "-fPIC",
-           "-x", "c++", *defines, *SHAPE, "-I", str(SHIM), "-I", str(work), "-I", str(_build.CSRC),
+           "-x", "c++", *SHAPE, "-I", str(SHIM), "-I", str(work), "-I", str(_build.CSRC),
            "-o", str(lib_path), str(SHIM / "rk45_shim.cpp")]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -62,12 +61,16 @@ def shim_lib(tmp_path_factory):
 
 
 def _run(lib, monkeypatch, entry, model, y0, h0, qt, p, f, cfg):
+    """The wrapper's CUDA path on CPU tensors, its launch sent to ``entry``
+    of the shim library."""
+
     def launch(fn_name, size_name, args, device):
+        assert fn_name == "tt_rk45_launch"
         assert getattr(lib, size_name)() == ctypes.sizeof(args)
-        assert getattr(lib, fn_name)(ctypes.addressof(args), None) == 0
+        assert getattr(lib, entry)(ctypes.addressof(args), None) == 0
 
     monkeypatch.setattr(k_rk45, "launch", launch)
-    return k_rk45._rk45_cuda(model, y0, h0, 0.0, TF, qt, p, f, cfg, entry=entry)
+    return k_rk45._rk45_cuda(model, y0, h0, 0.0, TF, qt, p, f, cfg)
 
 
 @pytest.mark.parametrize("name", sorted(OPTIONS))

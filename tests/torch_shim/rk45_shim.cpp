@@ -45,7 +45,8 @@ extern "C" int tt_rk45_serial(const tt::Rk45Args* args, void*) {
     tt::Rk45State st;
     tt::Model204 model;
     float h0;
-    tt::rk45_admit(a, s, st, model, h0);
+    tt::rk45_admit(a, s, st, h0);
+    model.load(a.params, a.n_sys, s, a.safe_pow);
     while (tt::rk45_live(a, st)) tt::rk45_attempt(a, model, h0, s, st);
     tt::rk45_finish(a, s, st);
   }

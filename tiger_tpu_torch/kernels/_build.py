@@ -40,9 +40,6 @@ NVCC_FLAGS = (
     "-fmad=false",
     "-Xptxas", "-v",  # registers, spills and stack per kernel, into the log
 )
-#: The two instruction cuts (csrc/rk45.cu, csrc/common.cuh) that
-#: ``python -m tiger_tpu_torch.rk45_phases --variants`` measured faster.
-NVCC_FLAGS += ("-DTT_RK45_CONST_TABLEAU", "-DTT_NAN_MINMAX")
 #: The same build with nvcc's default FMA contraction, to measure what
 #: ``-fmad=false`` costs (``python -m tiger_tpu_torch.profile_solve``).
 FMAD_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
@@ -128,12 +125,10 @@ def load() -> ctypes.CDLL:
     if lib is None:
         path, _, _ = build(_flags_in_use)
         lib = ctypes.CDLL(str(path))
-        # tt_rk45_static_launch exists in -DTT_RK45_PHASES builds only.
-        for name in ("tt_rk45_launch", "tt_radau_launch", "tt_rk45_static_launch"):
-            fn = getattr(lib, name, None)
-            if fn is not None:
-                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-                fn.restype = ctypes.c_int
+        for name in ("tt_rk45_launch", "tt_radau_launch"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.tt_rk45_geometry.argtypes = [ctypes.c_int64, ctypes.c_void_p]
         lib.tt_rk45_geometry.restype = ctypes.c_int
         for name in ("tt_rk45_args_size", "tt_radau_args_size"):

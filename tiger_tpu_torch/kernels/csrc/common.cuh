@@ -45,13 +45,13 @@ struct ForcingMeta {
 __device__ __forceinline__ bool is_nan(float x) { return x != x; }
 
 // jnp.maximum / jnp.minimum: NaN in either operand gives NaN (fmaxf and
-// fminf would drop it, and a NaN error norm must reject, not accept).  With
-// -DTT_NAN_MINMAX each is the card's one instruction of that rule
-// (max.NaN.f32 / min.NaN.f32, sm_80 and later); it returns the canonical
-// NaN where the selects return the operand's, and like fmaxf/fminf it puts
-// -0 below +0.
+// fminf would drop it, and a NaN error norm must reject, not accept).  On
+// the card each is the one instruction of that rule (max.NaN.f32 /
+// min.NaN.f32, sm_80 and later); it returns the canonical NaN where the
+// selects of a host build return the operand's, and like fmaxf/fminf it
+// puts -0 below +0.
 __device__ __forceinline__ float jmax(float a, float b) {
-#if defined(TT_NAN_MINMAX) && defined(__CUDA_ARCH__)
+#ifdef __CUDA_ARCH__
   float r;
   asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
   return r;
@@ -60,7 +60,7 @@ __device__ __forceinline__ float jmax(float a, float b) {
 #endif
 }
 __device__ __forceinline__ float jmin(float a, float b) {
-#if defined(TT_NAN_MINMAX) && defined(__CUDA_ARCH__)
+#ifdef __CUDA_ARCH__
   float r;
   asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
   return r;

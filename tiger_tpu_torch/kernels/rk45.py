@@ -7,8 +7,9 @@ reached through ``pl.pallas_call`` at l.1051).  A CUDA tensor goes to the
 hand-written kernel ``csrc/rk45.cu`` (or the call raises); a CPU tensor goes
 to ``rk45_plain``, the same per-system semantics as a batched, masked
 while-loop in torch.  ``rk45_launches`` counts the kernel's launches;
-``rk45_geometry`` says how a launch is laid out on the card, and
-``rk45_mismatch`` counts where two results differ bit for bit.
+``rk45_geometry`` says how a launch is laid out on the card,
+``rk45_mismatch`` counts where two results differ bit for bit, and
+``read_probes`` reads the per-warp counters of the ``PROBE_FLAGS`` build.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ from tiger_tpu_torch.kernels._common import (
     N_EQ,
     ForcingMetaC,
     c_float,
-    c_floats,
     c_i32,
     c_i64,
     c_ptr,
@@ -49,15 +49,6 @@ from tiger_tpu_torch.solver.rk45 import RK45Result, RKStats
 rk45_launches = 0
 
 
-class DpTableauC(ctypes.Structure):
-    """Mirror of ``tt::DpTableau`` (csrc/rk45.cu)."""
-
-    _fields_ = [
-        ("a", (c_float * 7) * 7), ("c", c_float * 7), ("b", c_float * 7),
-        ("e", c_float * 7), ("p", (c_float * 4) * 7),
-    ]
-
-
 class Rk45ArgsC(ctypes.Structure):
     """Mirror of ``tt::Rk45Args`` (csrc/rk45.cu)."""
 
@@ -76,7 +67,6 @@ class Rk45ArgsC(ctypes.Structure):
         ("stiff_test_every", c_i32), ("stiff_floor_streak", c_i32),
         ("fill_t0_queries", c_i32),
         ("forcing", ForcingMetaC),
-        ("tab", DpTableauC),
     ]
 
 
@@ -116,10 +106,7 @@ def rk45(
     return _rk45_cuda(model, y0, h0, t0, tf, query_times, params, forcings, config)
 
 
-def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg,
-               entry: str = "tt_rk45_launch") -> RK45Result:
-    """Launch ``entry`` (the kernel; measurement builds export other
-    schedules of the same attempt under other names)."""
+def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg) -> RK45Result:
     global rk45_launches
     y0_soa, p_block = kernel_inputs("rk45", model, y0, h0, params, forcings, qt)
     s_count, dev = y0.shape[0], y0.device
@@ -146,12 +133,8 @@ def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg,
         stiff_floor_streak=cfg.stiff_floor_streak,
         fill_t0_queries=int(cfg.fill_t0_queries),
         forcing=forcing_meta_c(forcings, cfg),
-        tab=DpTableauC(
-            a=c_floats(tableau.DP_A), c=c_floats(tableau.DP_C), b=c_floats(tableau.DP_B),
-            e=c_floats(tableau.DP_E), p=c_floats(tableau.DP_P),
-        ),
     )
-    launch(entry, "tt_rk45_args_size", a, dev)
+    launch("tt_rk45_launch", "tt_rk45_args_size", a, dev)
     rk45_launches += 1
     return RK45Result(
         y_final=y_final.t().contiguous(),
@@ -161,6 +144,33 @@ def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg,
         h0=h0,
         stats=RKStats(n_accepted=stats[0], n_rejected=stats[1], n_attempts=stats[2]),
     )
+
+
+#: The package's build with per-warp probes in B1 (csrc/rk45.cu).
+PROBE_FLAGS = _build.NVCC_FLAGS + ("-DTT_RK45_PHASES",)
+PROBE_WORDS = 9  # csrc/rk45.cu kProbeWords
+
+
+def read_probes(n_warps: int) -> list:
+    """[n_warps][PROBE_WORDS] probe records of the last B1 launch (start ns,
+    end ns, SM, trips, trips with a dense fill, attempts, most attempts of a
+    lane, cycles in the run section, cycles in all).  Call it inside
+    ``_build.flags_in_use(PROBE_FLAGS)``; it waits for the device."""
+    lib = _build.load()
+    lib.tt_rk45_probe_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.tt_rk45_probe_read.restype = ctypes.c_int
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * (n_warps * PROBE_WORDS))()
+    rc = lib.tt_rk45_probe_read(buf, n_warps)
+    if rc:
+        raise RuntimeError(f"tt_rk45_probe_read: CUDA error {rc}")
+    flat = list(buf)
+    return [flat[i:i + PROBE_WORDS] for i in range(0, len(flat), PROBE_WORDS)]
+
+
+def lane_efficiency(records) -> float:
+    """Attempts over 32 x warp trips: the share of the lanes a warp ran that worked."""
+    return sum(w[5] for w in records) / (32 * sum(w[3] for w in records))
 
 
 def rk45_mismatch(a: RK45Result, b: RK45Result) -> dict:

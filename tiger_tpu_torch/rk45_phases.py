@@ -3,31 +3,24 @@
     python -m tiger_tpu_torch.rk45_phases [--systems 131072] [--days 2] [--reps 3]
         [--skip-plain] [--variants]
 
-Builds the kernels a second time with ``-DTT_RK45_PHASES``.  That build adds
+Builds the kernels a second time with ``-DTT_RK45_PHASES``, which adds
 per-warp probes to ``csrc/rk45.cu`` (``%globaltimer`` at start and end,
 ``%smid``, trips through the attempt loop, trips in which a lane filled dense
-rows, attempts) and a second kernel, the schedule that the pooled design
-replaced: one thread per system from start to end, 128-thread blocks.  At
-the main path's shapes (Model 204, 0.1% stiff, hourly queries, rtol 1e-5 /
-atol 1e-8) it prints
+rows, attempts, cycles in the run section and in all).  At the main path's
+shapes (Model 204, 0.1% stiff, hourly queries, rtol 1e-5 / atol 1e-8) it
+prints
 
 - B1's time in the package build, and its results against ``rk45_plain``
   bit for bit (``--skip-plain`` leaves that out);
-- the static schedule: its time, how many blocks were resident from the
-  start and when the others began and ended, the time of a warp against the
-  most attempts of its lanes (microseconds a trip, at full occupancy), its
-  lane efficiency (attempts over 32 x trips) and the share of trips that
-  pay for a dense fill;
-- the pooled schedule under the same probes: time, lane efficiency, the
-  share of a block's cycles its warps spend inside the run section, and how
-  evenly the blocks end;
-- both schedules on the 32 systems with the most attempts, alone: the lone
-  warp's microseconds a trip;
-- the SASS instructions of each kernel and of its largest loops
+- B1 on the 32 systems with the most attempts, alone: the lone warp's
+  microseconds a trip;
+- B1 under the probes: time, lane efficiency (attempts over 32 x trips), the
+  share of trips that pay for a dense fill, the share of a block's cycles its
+  warps spend inside the run section, and how evenly the blocks end;
+- the SASS instructions of the kernel and of its largest loops
   (``cuobjdump -sass``, where the toolkit has it);
 - with ``--variants``, B1's time and ptxas line under other block sizes,
-  slice lengths, pool layouts and instruction cuts, each held bit for bit
-  against the package build.
+  slice lengths and pool sizes.
 
 Every result of a probed or variant build is held against the package
 build's bit for bit.  The last line is a JSON summary.
@@ -37,7 +30,6 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
-import ctypes
 import json
 import re
 import shutil
@@ -49,18 +41,12 @@ import torch
 from tiger_tpu_torch import Model204, SolverConfig
 from tiger_tpu_torch.kernels import _build
 from tiger_tpu_torch.kernels import rk45 as k_rk45
+from tiger_tpu_torch.kernels.rk45 import PROBE_FLAGS, lane_efficiency, read_probes
 from tiger_tpu_torch.profile_solve import timed
 from tiger_tpu_torch.scenario import scenario
 from tiger_tpu_torch.solver.controller import initial_step
 
-PROBE_FLAGS = _build.NVCC_FLAGS + ("-DTT_RK45_PHASES",)
-PROBE_WORDS = 9  # csrc/rk45.cu kProbeWords
-STATIC_BLOCK = 128  # csrc/rk45.cu kStaticBlock
 TAIL_SYSTEMS = 32
-
-
-def _without(flags, *prefixes):
-    return tuple(f for f in flags if not f.startswith(prefixes))
 
 
 def variants() -> dict:
@@ -72,35 +58,8 @@ def variants() -> dict:
         "slice of 16": base + ("-DTT_RK45_SLICE=16",),
         "slice of 32": base + ("-DTT_RK45_SLICE=32",),
         "slice of 128": base + ("-DTT_RK45_SLICE=128",),
-        "parameters derived again every slice": base + ("-DTT_RK45_PARAMS_POOLED=0",),
-        "pool of 2048 slots, parameters derived again":
-            base + ("-DTT_RK45_PARAMS_POOLED=0", "-DTT_RK45_POOL=2048"),
-        "tableau as kernel parameters": _without(base, "-DTT_RK45_CONST_TABLEAU"),
-        "jmax/jmin as selects": _without(base, "-DTT_NAN_MINMAX"),
-        "neither instruction cut": _without(base, "-DTT_RK45_CONST_TABLEAU", "-DTT_NAN_MINMAX"),
+        "pool of 2048 slots": base + ("-DTT_RK45_POOL=2048",),
     }
-
-
-def read_probes(n_warps: int) -> list:
-    """[n_warps][PROBE_WORDS] probe records of the last B1 launch (start ns,
-    end ns, SM, trips, trips with a dense fill, attempts, most attempts of a
-    lane, cycles in the run section, cycles in all).  Call it inside
-    ``_build.flags_in_use(PROBE_FLAGS)``; it waits for the device."""
-    lib = _build.load()
-    lib.tt_rk45_probe_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    lib.tt_rk45_probe_read.restype = ctypes.c_int
-    torch.cuda.synchronize()
-    buf = (ctypes.c_ulonglong * (n_warps * PROBE_WORDS))()
-    rc = lib.tt_rk45_probe_read(buf, n_warps)
-    if rc:
-        raise RuntimeError(f"tt_rk45_probe_read: CUDA error {rc}")
-    flat = list(buf)
-    return [flat[i:i + PROBE_WORDS] for i in range(0, len(flat), PROBE_WORDS)]
-
-
-def lane_efficiency(records) -> float:
-    """Attempts over 32 x warp trips: the share of the lanes a warp ran that worked."""
-    return sum(w[5] for w in records) / (32 * sum(w[3] for w in records))
 
 
 def ptxas_line(log: str, kernel: str) -> str:
@@ -184,9 +143,9 @@ def main(argv=None) -> None:
     h0 = initial_step(model, y0, 0.0, params, forc, cfg)
     full = (y0, h0, params, forc)
 
-    def b1(inputs, entry="tt_rk45_launch"):
+    def b1(inputs):
         sy0, sh0, sp, sf = inputs
-        return k_rk45._rk45_cuda(model, sy0, sh0, 0.0, tf, qt, sp, sf, cfg, entry=entry)
+        return k_rk45.rk45(model, sy0, sh0, 0.0, tf, qt, sp, sf, cfg)
 
     def held(label, res, ref):
         diff = k_rk45.rk45_mismatch(res, ref)
@@ -213,75 +172,16 @@ def main(argv=None) -> None:
     tail = (y0[top].contiguous(), h0[top].contiguous(),
             {k: v[top].contiguous() for k, v in params.items()}, forc.take_systems(top))
     tail_worst = int(ref.stats.n_attempts[top].max())
-    tail_ref, tail_ms = timed(lambda: b1(tail), args.reps)
+    _, tail_ms = timed(lambda: b1(tail), args.reps)
     print(f"B1 package build on its {top.numel()} slowest systems: {tail_ms:.3f} ms, "
           f"{1e3 * tail_ms / tail_worst:.3f} us a trip of the lone warp | {smi}", flush=True)
     summary.update(tail_ms=tail_ms)
 
     with _build.flags_in_use(PROBE_FLAGS):
-        # ---- the static schedule ----
-        static = "tt_rk45_static_launch"
-        b1(full, static)
-        res, static_ms = timed(lambda: b1(full, static), args.reps)
-        held("static schedule against the package build", res, ref)
-        n_blocks = -(-args.systems // STATIC_BLOCK)
-        per_block = STATIC_BLOCK // 32
-        rec = read_probes(min(n_blocks * per_block, 8192))
-        blocks = [rec[i:i + per_block] for i in range(0, len(rec), per_block)]
-        t_zero = min(w[0] for w in rec)
-        span = max(w[1] for w in rec) - t_zero
-        starts = [min(w[0] for w in b) - t_zero for b in blocks]
-        ends = [max(w[1] for w in b) - t_zero for b in blocks]
-        first = [i for i, s in enumerate(starts) if s < 0.05 * span]
-        later = [i for i, s in enumerate(starts) if s >= 0.05 * span]
-        sms = {w[2] for w in rec}
-        trips, fills = sum(w[3] for w in rec), sum(w[4] for w in rec)
-        att = sum(w[5] for w in rec)
-        print(f"static schedule (probed): {static_ms:.3f} ms by events, {span / 1e6:.3f} ms first "
-              f"start to last end; {len(blocks)} blocks of {STATIC_BLOCK} threads on {len(sms)} SMs; "
-              f"{len(first)} blocks started within 5% of the span, {len(later)} later | {smi}",
-              flush=True)
-        print(f"  blocks resident from the start end at (ms): "
-              f"{quantiles([ends[i] / 1e6 for i in first])}", flush=True)
-        if later:
-            print(f"  later blocks start at (ms): {quantiles([starts[i] / 1e6 for i in later])}; "
-                  f"end at: {quantiles([ends[i] / 1e6 for i in later])}", flush=True)
-
-        def us_a_trip(ws):
-            """Least-squares microseconds a trip through the origin, and the
-            quantiles of each warp's own ratio."""
-            ws = [w for w in ws if w[6] > 0]
-            slope = sum((w[1] - w[0]) * w[6] for w in ws) / sum(w[6] * w[6] for w in ws) / 1e3
-            return slope, quantiles([(w[1] - w[0]) / w[6] / 1e3 for w in ws])
-
-        groups = {"resident from the start": [w for i in first for w in blocks[i]],
-                  "later": [w for i in later for w in blocks[i]]}
-        static_fit = {}
-        for label, ws in groups.items():
-            if ws:
-                slope, q = us_a_trip(ws)
-                static_fit[label] = slope
-                slowest = max(ws, key=lambda w: w[1] - w[0])
-                print(f"  warps of blocks {label}: {slope:.3f} us a trip (time over the most "
-                      f"attempts of a lane, fitted); each warp's own: {q}; the slowest warp took "
-                      f"{(slowest[1] - slowest[0]) / 1e6:.3f} ms for {slowest[6]} trips", flush=True)
-        print(f"  {trips} warp trips for {att} attempts: lane efficiency {lane_efficiency(rec):.4f}; "
-              f"{fills} trips ({100 * fills / trips:.2f}%) pay for a dense fill", flush=True)
-        summary["static"] = {"ms": static_ms, "span_ms": span / 1e6, "blocks_first": len(first),
-                             "blocks_later": len(later), "us_a_trip": static_fit,
-                             "trips": trips, "fill_trips": fills,
-                             "lane_efficiency": lane_efficiency(rec)}
-        res, static_tail_ms = timed(lambda: b1(tail, static), args.reps)
-        held("static schedule on the slowest systems", res, tail_ref)
-        print(f"static schedule on the {top.numel()} slowest systems: {static_tail_ms:.3f} ms, "
-              f"{1e3 * static_tail_ms / tail_worst:.3f} us a trip of the lone warp | {smi}",
-              flush=True)
-        summary["static"]["tail_ms"] = static_tail_ms
-
-        # ---- the pooled schedule under the same probes ----
+        # ---- B1 under the probes ----
         b1(full)
         res, probed_ms = timed(lambda: b1(full), 1)
-        held("pooled schedule (probed) against the package build", res, ref)
+        held("the probed build against the package build", res, ref)
         per_block = geo["threads"] // 32
         rec = read_probes(geo["blocks"] * per_block)
         blocks = [rec[i:i + per_block] for i in range(0, len(rec), per_block)]
@@ -291,7 +191,8 @@ def main(argv=None) -> None:
         att = sum(w[5] for w in rec)
         busy = sum(w[7] for w in rec) / sum(w[8] for w in rec)
         first_warps = sum(b[0][7] for b in blocks) / sum(b[0][8] for b in blocks)
-        print(f"pooled schedule (probed): {probed_ms:.3f} ms by events ({pkg_ms:.3f} without "
+        sms = {w[2] for w in rec}
+        print(f"B1 (probed): {probed_ms:.3f} ms by events ({pkg_ms:.3f} without "
               f"probes); blocks end at (ms): {quantiles([e / 1e6 for e in ends])}; {trips} warp "
               f"trips for {att} attempts: lane efficiency {lane_efficiency(rec):.4f}; {fills} trips "
               f"({100 * fills / trips:.2f}%) pay for a dense fill; the warps spend "
@@ -299,19 +200,18 @@ def main(argv=None) -> None:
               f"{100 * first_warps:.1f}%), the rest in the sort, admission and barriers; "
               f"{pkg_ms * 1e3 * len(sms) * per_block / trips:.3f} us of a resident warp's time "
               f"a trip | {smi}", flush=True)
-        summary["pooled"] = {"probed_ms": probed_ms, "trips": trips, "fill_trips": fills,
+        summary["probed"] = {"probed_ms": probed_ms, "trips": trips, "fill_trips": fills,
                              "lane_efficiency": lane_efficiency(rec), "run_share": busy,
                              "run_share_warp0": first_warps,
                              "block_end_ms": [min(ends) / 1e6, max(ends) / 1e6]}
 
     # ---- SASS ----
     sass = {}
-    for name in ("package", "probed"):
-        for kernel, (n_instr, loops) in sass_loops(built[name][0]).items():
-            if "rk45" in kernel and (name == "package") != ("static" in kernel):
-                sass[kernel] = {"instructions": n_instr, "largest_loops": loops}
-                print(f"sass ({name} build) {kernel}: {n_instr} instructions; largest loops "
-                      f"(instructions from a backward branch to its target): {loops}", flush=True)
+    for kernel, (n_instr, loops) in sass_loops(built["package"][0]).items():
+        if "rk45" in kernel:
+            sass[kernel] = {"instructions": n_instr, "largest_loops": loops}
+            print(f"sass {kernel}: {n_instr} instructions; largest loops "
+                  f"(instructions from a backward branch to its target): {loops}", flush=True)
     summary["sass"] = sass
 
     # ---- the other builds ----
