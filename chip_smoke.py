@@ -20,6 +20,14 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
      lane efficiency counted by the probed build (attempts over 32 x warp
      trips through the attempt loop), and each kernel's bound: the least time
      the card could take for this run's operations and bytes.
+  7. the CLI at full width: a basin of 131,072 links written as the files
+     users give it (parameter CSV, lookup CSV, hourly and daily forcing grids
+     of 256 x 512 cells, a binary-tree river network), run through
+     tiger_tpu_torch.run.run with routed discharge, once to warm up and once
+     timed, with the launch counters set to 0 just before; its per-phase
+     times, the dense output read back from disk against a direct solve() on
+     the loaders' tensors (bit for bit), the routed discharge against the
+     direct one, and one more run with output.format csv.
 Each kernel must equal its plain version exactly: max_abs_err 0, NaN in the
 same places, every flag and every counter of every system equal.  The line
 before the last is the kernels' JSON record; the last line is
@@ -161,6 +169,120 @@ def check_radau(label, ker, ref) -> float:
     check(err == 0.0, f"{label}: B2 differs from radau_plain by {err:.3e}")
     check(all(n == n_sys for n in same), f"{label}: B2's counters differ from radau_plain's")
     return err
+
+
+def cli_phase(smi: str) -> dict:
+    """Phase 7: the CLI run at full width; returns each kernel's launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from tiger_tpu_torch import native, routing
+    from tiger_tpu_torch.checkpoint import save_state
+    from tiger_tpu_torch.config import config_from_dict
+    from tiger_tpu_torch.io import write_dense_netcdf, write_final_netcdf
+    from tiger_tpu_torch.io.netcdf import output_format, read_netcdf
+    from tiger_tpu_torch.params import load_spatial_params
+    from tiger_tpu_torch.kernels import radau as k_radau
+    from tiger_tpu_torch.kernels import rk45 as k_rk45
+    from tiger_tpu_torch.profiling import Metrics
+    from tiger_tpu_torch.run import run
+    from tiger_tpu_torch.scenario import STIFF_HU, solve_written_basin, write_basin
+
+    with tempfile.TemporaryDirectory(prefix="tiger_cli_") as tmp:
+        start = time.perf_counter()
+        doc = write_basin(os.path.join(tmp, "basin"), MAIN_SYSTEMS, DAYS, STIFF_FRAC)
+        write_s = time.perf_counter() - start
+        cfg = config_from_dict(doc)
+        fmt = output_format()
+        why = ("h5py is installed" if fmt == "NETCDF4"
+               else "h5py is not installed here, so scipy writes classic NetCDF")
+        torch.cuda.synchronize()
+        k_rk45.rk45_launches = 0
+        k_radau.radau_launches = 0
+        run(cfg, metrics=Metrics())  # warm-up
+        metrics = Metrics()
+        start = time.perf_counter()
+        out = run(cfg, metrics=metrics)
+        wall = time.perf_counter() - start
+        launches = {"rk45": k_rk45.rk45_launches, "radau": k_radau.radau_launches}
+        phases = {k: round(v, 6) for k, v in metrics.phases.items()}
+        phase(f"phase 7 CLI ({MAIN_SYSTEMS} links, {DAYS:g} days, {fmt} outputs: {why}): "
+              f"wall {wall:.6f} s, phases_s {phases}, solve share of the wall "
+              f"{metrics.phases['solve'] / wall:.4f}, n_stiff {out['n_stiff']}, n_failed "
+              f"{out['n_failed']}, launches {launches}, system-steps/s "
+              f"{out['system_steps_per_s']:.6e}; basin written in {write_s:.3f} s | {smi}")
+        check(launches["rk45"] > 0 and launches["radau"] > 0, f"phase 7: a kernel was not launched: {launches}")
+        check(out["n_failed"] == 0, f"phase 7: {out['n_failed']} links failed")
+
+        # The direct path: the loaders' tensors into solve(), no run() glue.
+        res, params, sp = solve_written_basin(cfg, "cuda")
+        stiff_rows = torch.as_tensor(sp["Hu"] == STIFF_HU, device=res.stiff.device)
+        check(bool(res.stiff[stiff_rows].all()), "phase 7: a Hu=1e-6 link was not flagged stiff")
+        check(res.n_stiff == out["n_stiff"], f"phase 7: {res.n_stiff} stiff directly, {out['n_stiff']} in the run")
+        files = {name: read_netcdf(os.path.join(cfg.output.path, f"{name}_basin_rank_0.nc"),
+                                   (var, "system"))[0]
+                 for name, var in (("final", "outputs"), ("dense", "outputs"),
+                                   ("discharge", "discharge"), ("state", "outputs"))}
+        dense, y_final = res.dense.cpu().numpy(), res.y_final.cpu().numpy()
+        n_q = int(round(DAYS * 24)) + 1
+        check(files["dense"]["outputs"].shape == (MAIN_SYSTEMS, n_q, 5),
+              f"phase 7: dense shape {files['dense']['outputs'].shape}")
+        check(np.array_equal(files["dense"]["outputs"], dense), "phase 7: dense file differs from solve()")
+        check(np.array_equal(files["final"]["outputs"], y_final), "phase 7: final file differs from solve()")
+        check(np.array_equal(files["state"]["outputs"], y_final.astype(np.float64)),
+              "phase 7: state file differs from solve()")
+        check(np.array_equal(files["final"]["system"], sp["stream"]), "phase 7: link ids differ")
+        topo = routing.build_topology(sp["stream"], sp["next_stream"])
+        direct = routing.routed_discharge(res.dense, params, topo).cpu().numpy().astype(np.float64)
+        q = files["discharge"]["discharge"]
+        # index_add_ adds with float32 atomics in no fixed order; the terms are
+        # non-negative, so any two orders lie within 2 S u of each other.
+        q_rtol = 2 * MAIN_SYSTEMS * 2.0**-24
+        q_err = float(np.max(np.abs(q - direct) / np.maximum(direct, 1e-30)))
+        check(bool(np.isfinite(q).all() and (q >= 0).all()), "phase 7: discharge not finite or negative")
+        check(q_err <= q_rtol, f"phase 7: discharge {q_err:.3e} relative from the direct one")
+
+        # Where load_params and write_output go: each part again, alone.
+        parts = {}
+
+        def part(name, fn):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            parts[name] = round(time.perf_counter() - start, 6)
+            return out
+
+        part("params_csv", lambda: load_spatial_params(cfg.params_file))
+        scratch = os.path.join(tmp, "parts")
+        os.makedirs(scratch)
+        ids = sp["stream"]
+        part("final_file", lambda: write_final_netcdf(os.path.join(scratch, "f.nc"), y_final, ids))
+        part("dense_file", lambda: write_dense_netcdf(os.path.join(scratch, "d.nc"), res.dense,
+                                                      np.arange(n_q) * 60.0, ids))
+        part("discharge_compute", lambda: routing.routed_discharge(
+            res.dense, params, routing.build_topology(sp["stream"], sp["next_stream"])))
+        part("state_file", lambda: save_state(os.path.join(scratch, "s.nc"), res.y_final, ids, 0.0))
+        phase(f"phase 7 parts: {parts}, native CSV parser {'loaded' if native._LIB else 'not loaded'}")
+
+        # One more run with the legacy CSV outputs.
+        doc["output"].update(format="csv", path=os.path.join(tmp, "csv"))
+        csv_metrics = Metrics()
+        csv_out = run(config_from_dict(doc), metrics=csv_metrics)
+        final_csv = np.loadtxt(csv_out["final_path"], delimiter=",", skiprows=1, ndmin=2)
+        with open(csv_out["dense_path"]) as f:
+            widths = [line.count(",") + 1 for line in f]
+        check(widths == [1 + 5 * MAIN_SYSTEMS] * (1 + n_q),
+              f"phase 7: dense CSV is not a header and {n_q} rows of 1 + 5 S columns")
+        # 6 significant digits: within half a unit of the sixth, 5e-6 relative.
+        check(bool(np.allclose(final_csv, y_final, rtol=1e-5, atol=0.0)), "phase 7: final CSV differs")
+        phase(f"phase 7 checks: dense, final and state files equal solve() bit for bit; discharge "
+              f"max relative difference {q_err:.3e} (bound {q_rtol:.3e}); csv run phases_s "
+              f"{ {k: round(v, 6) for k, v in csv_metrics.phases.items()} }, dense CSV "
+              f"{os.path.getsize(csv_out['dense_path'])} bytes | {smi}")
+    return launches
 
 
 def main() -> None:
@@ -317,18 +439,21 @@ def main() -> None:
           f"{1e3 * ms_b2 / worst_b2:.3f} us per attempt of the worst system, "
           f"{swp_b2 / att_b2:.4f} sweeps per attempt ({rows.numel()} systems, {DAYS:g} days) | {smi}")
 
+    # 7. the CLI at full width (its own launch counts)
+    cli_launches = cli_phase(smi)
+
     say(json.dumps({"kernels": [
         {"name": "rk45", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/rk45.cu",
          "replaces": "tiger_tpu/kernels/rk45_pallas.py:1051", "launches": launches["rk45"],
          "max_abs_err": err_b1, "ms": ms_b1, "plain_ms": plain_b1, "bound_ms": bound_b1[0],
          "bound_by": bound_b1[1], "library_ms": None, "worst_system_attempts": worst_b1,
          "tail_systems": TAIL_SYSTEMS, "tail_ms": tail_b1, "lane_efficiency": lane_eff,
-         "geometry": geo},
+         "geometry": geo, "cli_launches": cli_launches["rk45"]},
         {"name": "radau", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/radau.cu",
          "replaces": "tiger_tpu/kernels/radau_pallas.py:987", "launches": launches["radau"],
          "max_abs_err": err_b2, "ms": ms_b2, "plain_ms": plain_b2, "bound_ms": bound_b2[0],
          "bound_by": bound_b2[1], "library_ms": None, "worst_system_attempts": worst_b2,
-         "sweeps_per_attempt": swp_b2 / att_b2},
+         "sweeps_per_attempt": swp_b2 / att_b2, "cli_launches": cli_launches["radau"]},
     ]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -111,9 +111,16 @@ def test_import_without_jax():
         sys.modules["jax"] = None
         import tiger_tpu_torch, tiger_tpu_torch.kernels.rk45, tiger_tpu_torch.kernels.radau
         import tiger_tpu_torch.convert, tiger_tpu_torch.scenario, tiger_tpu_torch.profile_solve
-        import tiger_tpu_torch.radau_phases
-        assert not any(m == "jax" or m.startswith(("jax.", "tiger_tpu."))
-                       for m in sys.modules if sys.modules[m] is not None)
+        import tiger_tpu_torch.radau_phases, tiger_tpu_torch.rk45_phases
+        import tiger_tpu_torch.config, tiger_tpu_torch.params, tiger_tpu_torch.native
+        import tiger_tpu_torch.io, tiger_tpu_torch.io.lookup, tiger_tpu_torch.io.netcdf
+        import tiger_tpu_torch.io.output, tiger_tpu_torch.forcing, tiger_tpu_torch.models
+        import tiger_tpu_torch.routing, tiger_tpu_torch.checkpoint, tiger_tpu_torch.profiling
+        import tiger_tpu_torch.run
+        loaded = [m for m in sys.modules if sys.modules[m] is not None]
+        assert not any(m == "jax" or m.startswith(("jax.", "tiger_tpu.")) for m in loaded)
+        # Reading a config document and the files needs neither PyYAML nor h5py.
+        assert not any(m.split(".")[0] in ("yaml", "h5py") for m in loaded)
         print("ok")
         """
     )
@@ -401,3 +408,17 @@ def test_solve_duplicate_queries_get_the_same_row():
     two = tt.solve(Model204(), y0, 0.0, 72.0, torch.repeat_interleave(qt, 2), p, f, cfg)
     assert one.n_stiff == two.n_stiff > 0
     assert torch.equal(two.dense[:, ::2], one.dense) and torch.equal(two.dense[:, 1::2], one.dense)
+
+
+def test_model_registry_matches_jax():
+    from tiger_tpu.models import get_model as j_get_model
+    from tiger_tpu_torch.models import get_model
+
+    for uid in (1, 204):
+        ours, ref = get_model(uid, doy0=182.0), j_get_model(uid, doy0=182.0)
+        assert (ours.UID, ours.N_EQ) == (ref.UID, ref.N_EQ)
+    assert get_model(204, safe_pow=False) == Model204(safe_pow=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #10"):
+        get_model(200)
+    with pytest.raises(KeyError, match="known"):
+        get_model(999)

@@ -7,6 +7,7 @@ at first use.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -287,3 +288,36 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(case):
         k_radau.radau(Model204(), y0, h0.cpu(), 0.0, TF, qt, p, f, CFG)
     with pytest.raises(ValueError, match="atol >= 0"):
         k_radau.radau(Model204(), y0, h0, 0.0, TF, qt, p, f, dataclasses.replace(CFG, atol=-1e-8))
+
+
+def test_cli_run_equals_a_direct_solve(tmp_path):
+    """The CLI on the card (no jax, no PyYAML: the config document comes from
+    scenario.write_basin) writes the dense and final states of a direct
+    solve() on the loaders' tensors bit for bit; its routed discharge equals
+    the direct one up to the order of index_add's float32 atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tiger_tpu_torch import routing
+    from tiger_tpu_torch.config import config_from_dict
+    from tiger_tpu_torch.io.netcdf import read_netcdf
+    from tiger_tpu_torch.run import run
+    from tiger_tpu_torch.scenario import solve_written_basin, write_basin
+
+    s_count = 384
+    cfg = config_from_dict(write_basin(str(tmp_path), s_count, days=0.5, stiff_frac=0.01))
+    k_rk45.rk45_launches = k_radau.radau_launches = 0
+    out = run(cfg)
+    assert k_rk45.rk45_launches > 0 and k_radau.radau_launches > 0
+    assert out["n_failed"] == 0 and out["n_stiff"] > 0
+    res, params, sp = solve_written_basin(cfg, "cuda")
+    files = {name: read_netcdf(os.path.join(cfg.output.path, f"{name}_basin_rank_0.nc"),
+                               (var,))[0][var]
+             for name, var in (("final", "outputs"), ("dense", "outputs"),
+                               ("discharge", "discharge"), ("state", "outputs"))}
+    assert np.array_equal(files["dense"], res.dense.cpu().numpy())
+    assert np.array_equal(files["final"], res.y_final.cpu().numpy())
+    assert np.array_equal(files["state"], res.y_final.cpu().numpy().astype(np.float64))
+    topo = routing.build_topology(sp["stream"], sp["next_stream"])
+    direct = routing.routed_discharge(res.dense, params, topo).cpu().numpy()
+    # Non-negative float32 terms summed in another order: within 2 S u.
+    np.testing.assert_allclose(files["discharge"], direct, rtol=2 * s_count * 2.0**-24)

@@ -120,5 +120,38 @@ class Model204:
         return (dy0, dy1, dy2, dy3, dy4)
 
 
+def link_outflow(y: torch.Tensor, params: dict) -> torch.Tensor:
+    """Instantaneous local outflow per link [m * km^2 / min] from the stores.
+
+    Port of ``tiger_tpu/models/model204.py::link_outflow``: the surface,
+    interflow and baseflow terms of ``rhs_tuple``, so that routed discharge
+    uses the formulas the solver integrates.  ``y`` is [..., N] with the
+    states last; each parameter broadcasts against ``y[..., 0]``.  Stores
+    are clamped at 0: the dense interpolant can overshoot slightly below an
+    empty store, and a negative Manning base would poison every downstream
+    discharge with NaN.
+    """
+    P = params
+    zero = torch.zeros((), dtype=y.dtype, device=y.device)
+    h_surf = torch.maximum(y[..., 2], zero)
+    h_grav = torch.maximum(y[..., 3], zero)
+    h_aq = torch.maximum(y[..., 4], zero)
+    pow23 = _pow23(h_surf)
+    one = zero + 1.0
+    if "_manning_c" in P:
+        w = torch.minimum(one, pow23 * P["_manning_c"])
+    else:
+        alfa2 = (1.0 / P["n_mann"]) * pow23 * torch.sqrt(P["slope"])
+        w = torch.minimum(one, alfa2 * P["L"] / P["A_h"] * 60.0)
+    qs = h_surf * w
+    if "_inv_a3" in P:
+        qi = h_grav * P["_inv_a3"]
+        qb = h_aq * P["_inv_a4"]
+    else:
+        qi = torch.where(P["alpha3"] >= 1.0, h_grav / P["alpha3"], zero)
+        qb = torch.where(P["alpha4"] >= 1.0, h_aq / P["alpha4"], zero)
+    return (qs + qi + qb) * P["A_h"]
+
+
 #: Common cold-start initial state of the reference's main program.
 Y0_COMMON = (0.01, 3.0, 0.0, 5.0, 0.2)
