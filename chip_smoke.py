@@ -27,7 +27,22 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
      timed, with the launch counters set to 0 just before; its per-phase
      times, the dense output read back from disk against a direct solve() on
      the loaders' tensors (bit for bit), the routed discharge against the
-     direct one, and one more run with output.format csv.
+     direct one (bit for bit: routing sums in a fixed order), and one more run
+     with output.format csv;
+  8. the windowed CLI at full width: the same basin over 4 days in 1-day
+     windows with checkpoints every day.  (a) one warm-up and one timed run,
+     with the launch counters set to 0 just before the timed one: its wall,
+     phases, each window's wall, the overlap of the forcing loads and of the
+     output writes with the windows' device work, and the host's peak
+     memory; then the run again under profiling.trace for the device's busy
+     share.  (b) the same 4 windows by hand (netcdf_window_loader, solve(),
+     the carried state, routed_discharge): the run's dense, final, state and
+     discharge files equal them bit for bit.  (c) the run again, its third
+     window's solve raising, then resumed from the t = 2880 checkpoint into
+     the same files: equal to (a)'s bit for bit.  (d) an i16 run with
+     declared ranges: within 0.75 of a code step of (a)'s values.  For
+     information: (a) against an unchunked run, and the routing against the
+     index_add version it replaced, timed at 131,072 links x 97 queries.
 Each kernel must equal its plain version exactly: max_abs_err 0, NaN in the
 same places, every flag and every counter of every system equal.  The line
 before the last is the kernels' JSON record; the last line is
@@ -237,12 +252,8 @@ def cli_phase(smi: str) -> dict:
         topo = routing.build_topology(sp["stream"], sp["next_stream"])
         direct = routing.routed_discharge(res.dense, params, topo).cpu().numpy().astype(np.float64)
         q = files["discharge"]["discharge"]
-        # index_add_ adds with float32 atomics in no fixed order; the terms are
-        # non-negative, so any two orders lie within 2 S u of each other.
-        q_rtol = 2 * MAIN_SYSTEMS * 2.0**-24
-        q_err = float(np.max(np.abs(q - direct) / np.maximum(direct, 1e-30)))
         check(bool(np.isfinite(q).all() and (q >= 0).all()), "phase 7: discharge not finite or negative")
-        check(q_err <= q_rtol, f"phase 7: discharge {q_err:.3e} relative from the direct one")
+        check(np.array_equal(q, direct), "phase 7: discharge file differs from routed_discharge()")
 
         # Where load_params and write_output go: each part again, alone.
         parts = {}
@@ -278,10 +289,269 @@ def cli_phase(smi: str) -> dict:
               f"phase 7: dense CSV is not a header and {n_q} rows of 1 + 5 S columns")
         # 6 significant digits: within half a unit of the sixth, 5e-6 relative.
         check(bool(np.allclose(final_csv, y_final, rtol=1e-5, atol=0.0)), "phase 7: final CSV differs")
-        phase(f"phase 7 checks: dense, final and state files equal solve() bit for bit; discharge "
-              f"max relative difference {q_err:.3e} (bound {q_rtol:.3e}); csv run phases_s "
+        phase(f"phase 7 checks: dense, final, state and discharge files equal solve() and "
+              f"routed_discharge() bit for bit; csv run phases_s "
               f"{ {k: round(v, 6) for k, v in csv_metrics.phases.items()} }, dense CSV "
               f"{os.path.getsize(csv_out['dense_path'])} bytes | {smi}")
+    return launches
+
+
+WINDOWED_DAYS = 4.0
+I16_RANGES = {0: [0.0, 0.1], 1: [0.0, 4.0], 2: [0.0, 0.1], 3: [0.0, 6.0], 4: [0.0, 1.0]}
+
+
+def _index_add_log(q: torch.Tensor, ptr_tables: torch.Tensor) -> torch.Tensor:
+    """The routing accumulation that routing.accumulate_downstream_log
+    replaced: one index_add (float atomics on the card) per doubling round.
+    Kept here to time against it."""
+    x = q
+    for row in ptr_tables:
+        valid = row >= 0
+        tgt = torch.where(valid, row, torch.zeros_like(row))
+        x = x.index_add(0, tgt, torch.where(valid[:, None], x, torch.zeros_like(x)))
+    return x
+
+
+def _rss_sampler():
+    """stop() -> (before, peak): this process's resident memory in kB
+    (VmRSS, and RssAnon where the kernel reports it), sampled every 2 ms
+    on a thread."""
+    import threading
+
+    done = threading.Event()
+
+    def read():
+        with open("/proc/self/status") as f:
+            fields = dict(line.split(":", 1) for line in f if ":" in line)
+        return {k: int(fields[k].split()[0]) for k in ("VmRSS", "RssAnon") if k in fields}
+
+    peak = read()
+
+    def loop():
+        while not done.is_set():
+            for k, v in read().items():
+                peak[k] = max(peak[k], v)
+            done.wait(0.002)
+
+    thread = threading.Thread(target=loop, daemon=True)
+    before = read()
+    thread.start()
+
+    def stop():
+        done.set()
+        thread.join()
+        return before, peak
+
+    return stop
+
+
+def windowed_phase(smi: str) -> dict:
+    """Phase 8: the windowed CLI run at full width; returns each kernel's
+    launches in the timed run."""
+    import copy
+    import os
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import record_function
+
+    from tiger_tpu_torch import chunked, routing
+    from tiger_tpu_torch.checkpoint import cold_state
+    from tiger_tpu_torch.config import config_from_dict
+    from tiger_tpu_torch.forcing import ForcingSpec
+    from tiger_tpu_torch.io.netcdf import output_format, read_netcdf
+    from tiger_tpu_torch.kernels import radau as k_radau
+    from tiger_tpu_torch.kernels import rk45 as k_rk45
+    from tiger_tpu_torch.models import Model204
+    from tiger_tpu_torch.models.model204 import Y0_COMMON
+    from tiger_tpu_torch.params import load_spatial_params, model_params
+    from tiger_tpu_torch.profiling import Metrics, overlap_share, trace, trace_busy, union_length
+    from tiger_tpu_torch.run import run
+    from tiger_tpu_torch.scenario import STIFF_HU, write_basin
+    from tiger_tpu_torch.solver import solve
+
+    n_win, n_q = int(WINDOWED_DAYS), int(WINDOWED_DAYS * 24) + 1
+    outputs = (("final", "outputs"), ("dense", "outputs"), ("discharge", "discharge"),
+               ("state", "outputs"))
+    with tempfile.TemporaryDirectory(prefix="tiger_win_") as tmp:
+        start = time.perf_counter()
+        doc = write_basin(os.path.join(tmp, "basin"), MAIN_SYSTEMS, WINDOWED_DAYS, STIFF_FRAC)
+        write_s = time.perf_counter() - start
+        doc["output"].update(checkpoint_interval="1d", precision="f32")
+
+        def cfg_at(name, initial=None, chunk_days=1.0, **output):
+            d = copy.deepcopy(doc)
+            d["time"]["chunk_days"] = chunk_days
+            d["output"].update(path=os.path.join(tmp, name), **output)
+            if initial:
+                d["initial"] = initial
+            return config_from_dict(d)
+
+        def files(name):
+            return {key: read_netcdf(os.path.join(tmp, name, f"{key}_basin_rank_0.nc"),
+                                     (var,))[0][var] for key, var in outputs}
+
+        # (a) the windowed run, warmed up, then timed.
+        run(cfg_at("warm"), metrics=Metrics())
+        torch.cuda.synchronize()
+        metrics = Metrics()
+        k_rk45.rk45_launches = 0
+        k_radau.radau_launches = 0
+        stop = _rss_sampler()
+        start = time.perf_counter()
+        out = run(cfg_at("a"), metrics=metrics)
+        wall = time.perf_counter() - start
+        rss_before, rss_peak = stop()
+        launches = {"rk45": k_rk45.rk45_launches, "radau": k_radau.radau_launches}
+        windows = [round(b - a, 6) for k, _, a, b in sorted(metrics.spans, key=lambda x: x[1])
+                   if k == "window"]
+        device = metrics.span_list("device")
+        device_s = [round(b - a, 6) for k, _, a, b in sorted(metrics.spans, key=lambda x: x[1])
+                    if k == "device"]
+        busy_s = {k: round(union_length(metrics.span_list(k)), 6)
+                   for k in ("load", "solve", "sink", "write", "flush")}
+        load_ov = overlap_share(metrics.span_list("load"), device)
+        write_ov = overlap_share(metrics.span_list("sink", "write"), device)
+        phases = {k: round(v, 6) for k, v in metrics.phases.items()}
+        block = MAIN_SYSTEMS * 24 * (5 * 4 + 8)  # a window's dense f32 + discharge f64 rows
+        whole = MAIN_SYSTEMS * n_q * (5 * 4 + 8)
+        phase(f"phase 8a windowed CLI ({MAIN_SYSTEMS} links, {WINDOWED_DAYS:g} days in 1-day "
+              f"windows, checkpoints every day, {output_format()} outputs): wall {wall:.6f} s, "
+              f"phases_s {phases}, window walls {windows}, window device spans {device_s}, "
+              f"seconds spent by kind (union of spans) {busy_s}, "
+              f"forcing loads inside device spans {load_ov:.4f}, output writes inside device "
+              f"spans {write_ov:.4f}, n_windows {out['n_windows']}, n_stiff {out['n_stiff']}, "
+              f"n_failed {out['n_failed']}, launches {launches}; host memory (MiB) before "
+              f"{ {k: round(v / 1024, 1) for k, v in rss_before.items()} }, peak "
+              f"{ {k: round(v / 1024, 1) for k, v in rss_peak.items()} }, against a window's dense and discharge blocks "
+              f"{block / 2**20:.1f} MiB and the whole variables {whole / 2**20:.1f} MiB; basin "
+              f"written in {write_s:.3f} s | {smi}")
+        check(out["n_failed"] == 0, f"phase 8a: {out['n_failed']} links failed")
+        check(out["n_windows"] == n_win, f"phase 8a: {out['n_windows']} windows")
+        check(launches["rk45"] == n_win and launches["radau"] > 0,
+              f"phase 8a: launches {launches}, want B1 in each of {n_win} windows and B2")
+
+        tdir = os.path.join(tmp, "trace")
+        with trace(tdir):
+            with record_function("windowed_run"):
+                run(cfg_at("traced"), metrics=Metrics())
+            torch.cuda.synchronize()
+        busy, span = trace_busy(os.path.join(tdir, "trace.json"), "windowed_run")
+        phase(f"phase 8a traced run: device busy {busy:.6f} s of {span:.6f} s "
+              f"({busy / span:.4f}) | {smi}")
+
+        # (b) the same windows by hand.
+        cfg = cfg_at("a")
+        sp = load_spatial_params(cfg.params_file)
+        params = {k: torch.as_tensor(v, device="cuda").to(torch.float32)
+                  for k, v in model_params(sp).items()}
+        hu_rows = torch.as_tensor(sp["Hu"] == STIFF_HU, device="cuda")
+        specs = [ForcingSpec(os.path.join(cfg.forcings.path, f["file"]), f["var"],
+                             float(f["dt_hours"])) for f in cfg.forcings.files]
+        loader = chunked.netcdf_window_loader(specs, sp["stream"], cfg.forcings.lookup, "cuda")
+        topo = routing.build_topology(sp["stream"], sp["next_stream"])
+        y = torch.as_tensor(cold_state(Y0_COMMON, MAIN_SYSTEMS), device="cuda").to(torch.float32)
+        dense, discharge, per_window = [], [], []
+        for w in range(n_win):
+            w0 = 1440.0 * w
+            qt = torch.as_tensor(np.arange(0 if w == 0 else 1, 25) * 60.0, device="cuda")
+            b1, b2 = k_rk45.rk45_launches, k_radau.radau_launches
+            res = solve(Model204(), y, 0.0, 1440.0, qt.to(torch.float32), params, loader(w0, w0 + 1440.0),
+                        cfg.solver_config(), t_shift=w0)
+            y = torch.where(torch.isnan(res.y_final), y, res.y_final)
+            dense.append(res.dense.cpu().numpy())
+            discharge.append(routing.routed_discharge(res.dense, params, topo).cpu().numpy())
+            per_window.append(dict(n_stiff=res.n_stiff, hu_flagged=int(res.stiff[hu_rows].sum()),
+                                   failed=int(res.failed.sum()), b1=k_rk45.rk45_launches - b1,
+                                   b2=k_radau.radau_launches - b2))
+        got = files("a")
+        want = {"dense": np.concatenate(dense, axis=1), "final": y.cpu().numpy(),
+                "state": y.cpu().numpy().astype(np.float64),
+                "discharge": np.concatenate(discharge, axis=1).astype(np.float64)}
+        same = {k: bool(got[k].shape == want[k].shape and np.array_equal(got[k], want[k]))
+                for k in want}
+        phase(f"phase 8b the windows by hand: per window {per_window}; files equal bit for bit "
+              f"{same} | {smi}")
+        check(all(same.values()), f"phase 8b: the run's files differ from the windows by hand: {same}")
+        check(all(p["failed"] == 0 and p["b1"] == 1 for p in per_window),
+              f"phase 8b: a window failed a link or did not launch B1: {per_window}")
+        # The Hu = 1e-6 links are stiff while their static store drains from
+        # the cold state's 3 m: in the first window.
+        check(per_window[0]["hu_flagged"] == int(hu_rows.sum()) and per_window[0]["b2"] == 1,
+              f"phase 8b: window 0 flagged {per_window[0]['hu_flagged']} of "
+              f"{int(hu_rows.sum())} Hu=1e-6 links")
+        check(all((p["b2"] == 1) == (p["n_stiff"] > 0) for p in per_window),
+              f"phase 8b: B2 launches do not follow the stiff counts: {per_window}")
+        check(sum(p["n_stiff"] for p in per_window) == out["n_stiff"],
+              f"phase 8b: stiff counts {per_window} against the run's {out['n_stiff']}")
+
+        # (c) crash in the third window, resume from the t = 2880 checkpoint.
+        real_solve, calls = chunked.solve, {"n": 0}
+
+        def dying_solve(*a, **kw):
+            calls["n"] += 1
+            if calls["n"] == 3:
+                raise RuntimeError("simulated crash")
+            return real_solve(*a, **kw)
+
+        chunked.solve = dying_solve
+        try:
+            run(cfg_at("c"), metrics=Metrics())
+            check(False, "phase 8c: the run did not crash")
+        except RuntimeError as err:
+            check("simulated crash" in str(err), f"phase 8c: {err}")
+        finally:
+            chunked.solve = real_solve
+        state = os.path.join(tmp, "c", "state_basin_rank_0.nc")
+        t_ckpt = read_netcdf(state, ())[1]["sim_time_minutes"]
+        resumed = run(cfg_at("c", {"mode": "hot", "file": state, "resume": True}),
+                      metrics=Metrics())
+        again = files("c")
+        same_c = {k: bool(np.array_equal(again[k], got[k])) for k in got}
+        phase(f"phase 8c crash in window 3, resumed from t = {t_ckpt:g} ({resumed['n_windows']} "
+              f"windows): files equal (a)'s bit for bit {same_c} | {smi}")
+        check(float(t_ckpt) == 2880.0, f"phase 8c: checkpoint at t = {t_ckpt}")
+        check(all(same_c.values()), f"phase 8c: the resumed files differ from (a)'s: {same_c}")
+
+        # (d) int16 with declared ranges.
+        run(cfg_at("d", precision="i16", i16_ranges=I16_RANGES), metrics=Metrics())
+        path_d = os.path.join(tmp, "d", "dense_basin_rank_0.nc")
+        names = [f"outputs_{v}" for v in I16_RANGES]
+        codes, _ = read_netcdf(path_d, names)
+        worst = 0.0
+        for v, (lo, hi) in I16_RANGES.items():
+            scale, offset = (hi - lo) / 65532.0, (hi + lo) / 2.0
+            dec = codes[f"outputs_{v}"] * scale + offset
+            worst = max(worst, float(np.abs(dec - np.clip(got["dense"][:, :, v], lo, hi)).max()
+                                / scale))
+        bytes_a = os.path.getsize(os.path.join(tmp, "a", "dense_basin_rank_0.nc"))
+        phase(f"phase 8d i16: largest error {worst:.4f} code steps (bound 0.75); dense file "
+              f"{os.path.getsize(path_d)} bytes against (a)'s {bytes_a} | {smi}")
+        check(worst <= 0.75, f"phase 8d: decoded i16 {worst:.4f} steps from (a)'s values")
+
+        # For information: (a) against one unchunked solve of the 4 days.
+        run(cfg_at("whole", chunk_days=0.0, checkpoint_interval=None), metrics=Metrics())
+        whole_dense = files("whole")["dense"]
+        scale = np.abs(whole_dense).max(axis=(0, 1))  # each state's largest magnitude
+        diff = np.abs(got["dense"] - whole_dense) / scale
+        edge = np.zeros(n_q, bool)
+        edge[24:n_q - 1:24] = True  # the rows at the inner window ends
+        rel_inner, rel_edge = float(diff[:, ~edge].max()), float(diff[:, edge].max())
+
+        # The routing against the index_add version, at 131,072 x 97.
+        q = routing.link_runoff_204(torch.as_tensor(got["dense"], device="cuda"),
+                                    {k: v[:, None] for k, v in params.items()})
+        tables = torch.as_tensor(topo.ptr_tables, dtype=torch.int64, device="cuda")
+        new, new_ms = timed(lambda: routing.accumulate_downstream_log(q, topo), reps=5)
+        new2 = routing.accumulate_downstream_log(q, topo)
+        old, old_ms = timed(lambda: _index_add_log(q, tables), reps=5)
+        old_rel = float(((old - new).abs() / new.abs().clamp_min(1e-30)).max())
+        phase(f"phase 8 for information: windowed against unchunked dense, largest difference "
+              f"over the state's largest magnitude {rel_inner:.4e} away from the inner window "
+              f"ends, {rel_edge:.4e} at them; routing at {MAIN_SYSTEMS} x {n_q}: fixed "
+              f"order {new_ms:.4f} ms, index_add {old_ms:.4f} ms (median of 5), two runs equal "
+              f"{bool(torch.equal(new, new2))}, index_add {old_rel:.3e} relative from it | {smi}")
+        check(bool(torch.equal(new, new2)), "phase 8: routing differs between two runs")
     return launches
 
 
@@ -442,18 +712,23 @@ def main() -> None:
     # 7. the CLI at full width (its own launch counts)
     cli_launches = cli_phase(smi)
 
+    # 8. the windowed CLI at full width (its own launch counts)
+    windowed_launches = windowed_phase(smi)
+
     say(json.dumps({"kernels": [
         {"name": "rk45", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/rk45.cu",
          "replaces": "tiger_tpu/kernels/rk45_pallas.py:1051", "launches": launches["rk45"],
          "max_abs_err": err_b1, "ms": ms_b1, "plain_ms": plain_b1, "bound_ms": bound_b1[0],
          "bound_by": bound_b1[1], "library_ms": None, "worst_system_attempts": worst_b1,
          "tail_systems": TAIL_SYSTEMS, "tail_ms": tail_b1, "lane_efficiency": lane_eff,
-         "geometry": geo, "cli_launches": cli_launches["rk45"]},
+         "geometry": geo, "cli_launches": cli_launches["rk45"],
+         "windowed_launches": windowed_launches["rk45"]},
         {"name": "radau", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/radau.cu",
          "replaces": "tiger_tpu/kernels/radau_pallas.py:987", "launches": launches["radau"],
          "max_abs_err": err_b2, "ms": ms_b2, "plain_ms": plain_b2, "bound_ms": bound_b2[0],
          "bound_by": bound_b2[1], "library_ms": None, "worst_system_attempts": worst_b2,
-         "sweeps_per_attempt": swp_b2 / att_b2, "cli_launches": cli_launches["radau"]},
+         "sweeps_per_attempt": swp_b2 / att_b2, "cli_launches": cli_launches["radau"],
+         "windowed_launches": windowed_launches["radau"]},
     ]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -206,8 +206,6 @@ def _refused(scenario, tmp_path, device="cpu", **changes):
 
 
 REFUSED = {
-    "chunked": (dict(time__chunk_days=1.0), "#12"),
-    "resume": (dict(initial__mode="hot", initial__file="x.nc", initial__resume=True), "#12"),
     "f64_on_the_card": (dict(solver__precision="f64", device="cuda"), "#9"),
     "f32c": (dict(solver__precision="f32c"), "#17"),
     "pi_controller": (dict(solver__controller="pi"), "#17"),
@@ -266,7 +264,7 @@ def test_written_basin_runs_like_jax(tmp_path):
     stiff = sp["Hu"] == STIFF_HU
     topo = routing.build_topology(sp["stream"], sp["next_stream"])
     below_stiff = routing.accumulate_downstream_log(
-        torch.as_tensor(stiff, dtype=torch.float64), torch.as_tensor(topo.ptr_tables)
+        torch.as_tensor(stiff, dtype=torch.float64), topo
     ).numpy() > 0
     for name, var in OUTPUTS:
         a, _, _ = _read(os.path.join(cfg.output.path, f"{name}_basin_rank_0.nc"), var)

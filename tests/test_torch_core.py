@@ -116,7 +116,8 @@ def test_import_without_jax():
         import tiger_tpu_torch.io, tiger_tpu_torch.io.lookup, tiger_tpu_torch.io.netcdf
         import tiger_tpu_torch.io.output, tiger_tpu_torch.forcing, tiger_tpu_torch.models
         import tiger_tpu_torch.routing, tiger_tpu_torch.checkpoint, tiger_tpu_torch.profiling
-        import tiger_tpu_torch.run
+        import tiger_tpu_torch.run, tiger_tpu_torch.chunked, tiger_tpu_torch.streams
+        import tiger_tpu_torch.diagnostics
         loaded = [m for m in sys.modules if sys.modules[m] is not None]
         assert not any(m == "jax" or m.startswith(("jax.", "tiger_tpu.")) for m in loaded)
         # Reading a config document and the files needs neither PyYAML nor h5py.

@@ -293,8 +293,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(case):
 def test_cli_run_equals_a_direct_solve(tmp_path):
     """The CLI on the card (no jax, no PyYAML: the config document comes from
     scenario.write_basin) writes the dense and final states of a direct
-    solve() on the loaders' tensors bit for bit; its routed discharge equals
-    the direct one up to the order of index_add's float32 atomics."""
+    solve() on the loaders' tensors bit for bit, and the direct routed
+    discharge bit for bit (routing sums in a fixed order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from tiger_tpu_torch import routing
@@ -319,5 +319,73 @@ def test_cli_run_equals_a_direct_solve(tmp_path):
     assert np.array_equal(files["state"], res.y_final.cpu().numpy().astype(np.float64))
     topo = routing.build_topology(sp["stream"], sp["next_stream"])
     direct = routing.routed_discharge(res.dense, params, topo).cpu().numpy()
-    # Non-negative float32 terms summed in another order: within 2 S u.
-    np.testing.assert_allclose(files["discharge"], direct, rtol=2 * s_count * 2.0**-24)
+    assert np.array_equal(files["discharge"], direct.astype(np.float64))
+
+
+def test_routing_gives_the_same_bits_in_every_run_and_on_the_cpu():
+    """accumulate_downstream_log on the card: two runs equal bit for bit,
+    and equal to the CPU's (gathers and elementwise adds in a fixed order);
+    routed_discharge twice on the card, equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tiger_tpu_torch import routing
+    from tiger_tpu_torch.scenario import scenario_arrays
+
+    s_count, n_q = 65_535, 25
+    rows = np.arange(s_count)
+    topo = routing.build_topology(rows + 1, np.where(rows > 0, (rows - 1) // 2 + 1, -1))
+    q = torch.from_numpy(np.random.default_rng(1).uniform(0, 1, (s_count, n_q)).astype(np.float32))
+    runs = [routing.accumulate_downstream_log(q.cuda(), topo).cpu() for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0], routing.accumulate_downstream_log(q, topo))
+    p, _, _ = scenario_arrays(s_count)
+    params = {k: torch.as_tensor(v, dtype=torch.float32, device="cuda") for k, v in p.items()}
+    dense = torch.from_numpy(np.random.default_rng(2).uniform(0, 1, (s_count, n_q, 5))
+                             .astype(np.float32)).cuda()
+    a, b = (routing.routed_discharge(dense, params, topo).cpu() for _ in range(2))
+    assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+
+
+def test_chunked_run_crash_and_resume_equal_bit_for_bit(tmp_path, monkeypatch):
+    """A windowed run on the card with stiff links, killed in its second
+    window and resumed from the day-1 checkpoint into the same files,
+    writes the files of the uninterrupted run bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tiger_tpu_torch import chunked
+    from tiger_tpu_torch.config import config_from_dict
+    from tiger_tpu_torch.io.netcdf import read_netcdf
+    from tiger_tpu_torch.run import run
+    from tiger_tpu_torch.scenario import write_basin
+
+    doc = write_basin(str(tmp_path / "basin"), 384, days=2.0, stiff_frac=0.01)
+    doc["time"]["chunk_days"] = 1.0
+
+    def cfg(outdir, **initial):
+        doc["output"].update(checkpoint_interval="1d", path=str(tmp_path / outdir))
+        doc["initial"] = dict(mode="hot", resume=True, **initial) if initial else {"mode": "cold"}
+        return config_from_dict(doc)
+
+    k_rk45.rk45_launches = k_radau.radau_launches = 0
+    out = run(cfg("ref"))
+    assert k_rk45.rk45_launches == 2 and k_radau.radau_launches >= 1
+    assert out["n_failed"] == 0 and out["n_stiff"] > 0 and out["n_windows"] == 2
+    real_solve, calls = chunked.solve, {"n": 0}
+
+    def dying_solve(*a, **kw):
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise RuntimeError("simulated crash")
+        return real_solve(*a, **kw)
+
+    monkeypatch.setattr(chunked, "solve", dying_solve)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        run(cfg("crashed"))
+    monkeypatch.setattr(chunked, "solve", real_solve)
+    state = str(tmp_path / "crashed" / "state_basin_rank_0.nc")
+    run(cfg("crashed", file=state))
+    for name, var in (("final", "outputs"), ("dense", "outputs"), ("discharge", "discharge"),
+                      ("state", "outputs")):
+        a, b = (read_netcdf(str(tmp_path / d / f"{name}_basin_rank_0.nc"), (var,))[0][var]
+                for d in ("ref", "crashed"))
+        assert a.dtype == b.dtype and np.array_equal(a, b), name

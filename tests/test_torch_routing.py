@@ -1,10 +1,11 @@
 """tiger_tpu_torch.routing against tiger_tpu.routing, on the CPU in float64.
 
 Topologies are numpy on both sides and must be equal.  The accumulations
-add the same float64 values through scatter-adds whose order is each
-library's own, so they are held to 1e-12 relative (a sum of at most 1,000
-non-negative terms reordered moves by at most ~1,000 ulp of the sum; the
-runs here move by far less).
+add the same float64 values in each package's own order (the JAX package's
+scatter-adds, the port's fixed block order), so they are held to 1e-12
+relative (a sum of at most 1,000 non-negative terms reordered moves by at
+most ~1,000 ulp of the sum; the runs here move by far less).  The port's
+order itself is held bit for bit to a plain recursive statement of it.
 """
 
 import jax.numpy as jnp
@@ -71,8 +72,7 @@ def test_accumulate_log_matches_jax_and_brute_force(net):
     ids, nxt = NETWORKS[net]()
     topo = routing.build_topology(ids, nxt)
     q = np.random.default_rng(3).uniform(0, 1, len(ids))
-    tables = torch.as_tensor(topo.ptr_tables, dtype=torch.int64)
-    ours = routing.accumulate_downstream_log(torch.from_numpy(q), tables).numpy()
+    ours = routing.accumulate_downstream_log(torch.from_numpy(q), topo).numpy()
     ref = np.asarray(
         jrouting.accumulate_downstream_log(jnp.asarray(q), jnp.asarray(topo.ptr_tables))
     )
@@ -91,10 +91,9 @@ def test_accumulate_log_takes_columns():
     ids, nxt = _random_forest(np.random.default_rng(2), 100)
     topo = routing.build_topology(ids, nxt)
     q = np.random.default_rng(4).uniform(0, 1, (100, 7))
-    tables = torch.as_tensor(topo.ptr_tables, dtype=torch.int64)
-    block = routing.accumulate_downstream_log(torch.from_numpy(q), tables).numpy()
+    block = routing.accumulate_downstream_log(torch.from_numpy(q), topo).numpy()
     for j in range(7):
-        col = routing.accumulate_downstream_log(torch.from_numpy(q[:, j].copy()), tables)
+        col = routing.accumulate_downstream_log(torch.from_numpy(q[:, j].copy()), topo)
         np.testing.assert_array_equal(block[:, j], col.numpy())
 
 
@@ -137,7 +136,85 @@ def test_link_outflow_matches_jax():
 def test_device_tables_cache_one_slot():
     ids, nxt = _chain(10)
     a, b = routing.build_topology(ids, nxt), routing.build_topology(ids, nxt)
-    ta = routing._device_tables(a, torch.device("cpu"))
-    assert routing._device_tables(a, torch.device("cpu")) is ta
-    tb = routing._device_tables(b, torch.device("cpu"))
-    assert tb is not ta and torch.equal(tb, ta)
+    ta = routing._device_plan(a, torch.device("cpu"))
+    assert routing._device_plan(a, torch.device("cpu")) is ta
+    tb = routing._device_plan(b, torch.device("cpu"))
+    assert tb is not ta and torch.equal(tb.perm, ta.perm)
+    assert all(torch.equal(x, y) for x, y in zip(tb.blocks, ta.blocks))
+
+
+def _fan_in(rng, n, n_targets):
+    """A few targets (a small tree among themselves), each fed by many
+    sources, the rows shuffled."""
+    next_row = np.full(n, -1, np.int64)
+    next_row[1:n_targets] = rng.integers(0, np.arange(1, n_targets))
+    next_row[n_targets:] = rng.integers(0, n_targets, n - n_targets)
+    shuffle = rng.permutation(n)
+    inv = np.argsort(shuffle)
+    rows = np.where(next_row[shuffle] >= 0, inv[np.clip(next_row[shuffle], 0, None)], -1)
+    return np.arange(1, n + 1), np.where(rows >= 0, rows + 1, -1)
+
+
+def _reference_sums(q, next_idx):
+    """The documented order, stated plainly: a recursive depth-first
+    preorder (children in row order), each subtree's range cut greedily
+    into aligned power-of-two blocks, each block the sum of its halves, the
+    blocks added left to right, every sum rounded to q's dtype."""
+    n = len(next_idx)
+    children = [[] for _ in range(n)]
+    for u in range(n):
+        if next_idx[u] >= 0:
+            children[next_idx[u]].append(u)
+    order, size = [], np.zeros(n, np.int64)
+
+    def visit(v):
+        order.append(v)
+        size[v] = 1 + sum(visit(c) for c in children[v])
+        return size[v]
+
+    for r in range(n):
+        if next_idx[r] < 0:
+            visit(r)
+    x = q[order]
+    pos = np.empty(n, np.int64)
+    pos[order] = np.arange(n)
+
+    def block(k, i):
+        if k == 0:
+            return x[i]
+        return block(k - 1, 2 * i) + block(k - 1, 2 * i + 1)
+
+    out = np.empty_like(q)
+    for v in range(n):
+        lo, hi, acc = pos[v], pos[v] + size[v], None
+        while lo < hi:
+            k = 0
+            while lo % (2 << k) == 0 and lo + (2 << k) <= hi:
+                k += 1
+            b = block(k, lo >> k)
+            acc = b if acc is None else acc + b
+            lo += 1 << k
+        out[v] = acc
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_accumulate_sums_in_a_fixed_order(seed):
+    """Several sources per target, float32 values over eight decades, where
+    the order of summation shows in the bits: the result equals the plain
+    statement of the documented order bit for bit, in every call, and
+    differs from a row-order sum somewhere (so the check can tell)."""
+    rng = np.random.default_rng(seed)
+    ids, nxt = _fan_in(rng, 200, 5)
+    topo = routing.build_topology(ids, nxt)
+    q = (10.0 ** rng.uniform(-8, 0, 200)).astype(np.float32)
+    want = _reference_sums(q, topo.next_idx)
+    got = [routing.accumulate_downstream_log(torch.from_numpy(q), topo).numpy() for _ in range(2)]
+    assert got[0].dtype == np.float32
+    np.testing.assert_array_equal(got[0], want)
+    np.testing.assert_array_equal(got[1], want)
+    row_order = routing.accumulate_downstream(
+        torch.from_numpy(q), torch.as_tensor(topo.next_idx), topo.depth
+    ).numpy()
+    assert (row_order != want).any()
+    np.testing.assert_allclose(want, row_order, rtol=1e-5)

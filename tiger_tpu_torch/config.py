@@ -56,8 +56,7 @@ class TimeInfo:
     start: _dt.datetime = _dt.datetime(2000, 1, 1)
     end: _dt.datetime = _dt.datetime(2000, 1, 3)
     # Windowed (streaming) execution, chunk_days at a time; 0 = solve the
-    # whole span in one shot.  The port's run() refuses > 0 until chunked
-    # runs are ported.
+    # whole span in one shot.
     chunk_days: float = 0.0
 
     @property
@@ -71,9 +70,8 @@ class InitialInfo:
     file: str = ""  # state file (hot mode); NetCDF final-state layout
     cold_state: Optional[List[float]] = None  # per-variable cold-start y0
     # Crash recovery for chunked runs: continue the original simulation from
-    # the state file's sim_time_minutes (refused by the port's run() until
-    # chunked runs are ported).  Plain hot start (resume: false) begins a
-    # new run at t=0 from the saved state.
+    # the state file's sim_time_minutes.  Plain hot start (resume: false)
+    # begins a new run at t=0 from the saved state.
     resume: bool = False
 
 

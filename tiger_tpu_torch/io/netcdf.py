@@ -15,6 +15,7 @@ takes torch tensors on any device, pulling a CUDA tensor slab by slab.
 
 from __future__ import annotations
 
+import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
@@ -263,6 +264,27 @@ class NetCDFWriter:
             ds.attrs[k] = np.bytes_(v.encode()) if isinstance(v, str) else v
         return ds
 
+    def def_var_empty(self, name: str, shape: tuple, dims: tuple[str, ...], dtype, compression: int = 0, attrs: Optional[dict] = None):
+        """Define a data variable without writing values: the caller fills
+        it later by slicing the returned h5py dataset (the windowed writers,
+        where the whole array never exists)."""
+        kwargs = {}
+        if compression and len(shape) > 0:
+            kwargs = dict(compression="gzip", compression_opts=int(compression), shuffle=True)
+        ds = self._f.create_dataset(name, shape=shape, dtype=np.dtype(dtype), **kwargs)
+        for axis, dim in enumerate(dims):
+            ds.dims[axis].attach_scale(self._dims[dim])
+        for k, v in (attrs or {}).items():
+            ds.attrs[k] = np.bytes_(v.encode()) if isinstance(v, str) else v
+        return ds
+
+    def end_define(self):
+        """Nothing to do: an HDF5 file takes definitions at any time (the
+        classic ``ClassicStreamWriter`` writes its header here)."""
+
+    def flush(self):
+        self._f.flush()
+
     def set_attr(self, name: str, value):
         self._f.attrs[name] = np.bytes_(value.encode()) if isinstance(value, str) else value
 
@@ -332,6 +354,306 @@ class ClassicNetCDFWriter:
         self.close()
 
 
+# Classic NetCDF (CDF-1/2) header tags and type codes, as the format's
+# specification gives them.
+_NC_DIMENSION, _NC_VARIABLE, _NC_ATTRIBUTE = b"\0\0\0\x0a", b"\0\0\0\x0b", b"\0\0\0\x0c"
+_ABSENT = b"\0" * 8
+_NC_CHARS = {1: "b", 2: "c", 3: "h", 4: "i", 5: "f", 6: "d"}  # nc_type -> numpy char
+_NC_CODES = {("b", 1): 1, ("B", 1): 2, ("c", 1): 2, ("S", 1): 2, ("h", 2): 3,
+             ("i", 4): 4, ("l", 4): 4, ("f", 4): 5, ("d", 8): 6}
+#: The largest variable whose size a CDF-2 header states (vsize is 32-bit);
+#: only the last variable may be larger, and its vsize then reads 2^32 - 1.
+_VSIZE_MAX = 2**32 - 4
+#: Bytes of the file a variable's slab write maps at a time.
+MAP_BYTES = 32 * 2**20
+
+
+def _be(dtype) -> np.dtype:
+    return np.dtype(dtype).newbyteorder(">")
+
+
+def _nc_name(name: str) -> bytes:
+    raw = name.encode("latin1")
+    return np.array(len(raw), ">i4").tobytes() + raw + b"\0" * (-len(raw) % 4)
+
+
+def _nc_att(value) -> bytes:
+    """One attribute's nc_type, count and values, encoded as scipy's
+    ``netcdf_file`` encodes them: numpy values keep their type, a Python
+    int is NC_INT, a float NC_FLOAT, a string NC_CHAR."""
+    if hasattr(value, "dtype"):
+        code = _NC_CODES[value.dtype.char, value.dtype.itemsize]
+    else:
+        sample = value
+        if not isinstance(value, (str, bytes)):
+            try:
+                sample = value[0]
+            except TypeError:
+                pass
+        code = next(c for cls, c in ((int, 4), (float, 5), (str, 2), (bytes, 2))
+                    if isinstance(sample, cls))
+    char = _NC_CHARS[code]
+    arr = np.asarray(value, dtype="S" if char == "c" else ">" + char)
+    raw = arr.tobytes()
+    n = arr.itemsize if char == "c" else arr.size
+    return np.array([code, n], ">i4").tobytes() + raw + b"\0" * (-len(raw) % 4)
+
+
+def _nc_att_list(attrs: dict) -> bytes:
+    if not attrs:
+        return _ABSENT
+    out = _NC_ATTRIBUTE + np.array(len(attrs), ">i4").tobytes()
+    for k, v in attrs.items():
+        out += _nc_name(k) + _nc_att(v)
+    return out
+
+
+class _Cursor:
+    """Reads a classic header field by field."""
+
+    def __init__(self, fh):
+        self._fh = fh
+
+    def raw(self, n: int) -> bytes:
+        b = self._fh.read(n)
+        if len(b) != n:
+            raise ValueError("truncated classic NetCDF header")
+        return b
+
+    def int(self, width: int = 4) -> int:
+        return int(np.frombuffer(self.raw(width), ">i4" if width == 4 else ">i8")[0])
+
+    def name(self) -> str:
+        n = self.int()
+        s = self.raw(n)
+        self.raw(-n % 4)
+        return s.decode("latin1")
+
+    def att_list(self) -> dict:
+        tag, count = self.raw(4), self.int()
+        if tag not in (_ABSENT[:4], _NC_ATTRIBUTE):
+            raise ValueError("bad attribute list in a classic NetCDF header")
+        out = {}
+        for _ in range(count):
+            key = self.name()
+            char, n = _NC_CHARS[self.int()], self.int()
+            nbytes = n * np.dtype(">" + char if char != "c" else "S1").itemsize
+            raw = self.raw(nbytes)
+            self.raw(-nbytes % 4)
+            if char == "c":
+                out[key] = raw.rstrip(b"\0")
+            else:
+                vals = np.frombuffer(raw, ">" + char).astype(char)
+                out[key] = vals[0] if vals.shape == (1,) else vals
+        return out
+
+
+class ClassicVariable:
+    """One fixed-size variable of a ``ClassicStreamWriter`` file: its shape,
+    native dtype and attributes, its values (``np.asarray``), and hyperslab
+    writes ``var[:, a:b(, :)] = block`` made in place."""
+
+    def __init__(self, writer, name, dims, shape, dtype, attrs, values=None):
+        self._w = writer
+        self.name, self.dims, self.shape = name, tuple(dims), tuple(shape)
+        self.dtype = np.dtype(dtype).newbyteorder("=")
+        self.attrs = dict(attrs or {})
+        self.values = values  # coordinate values, written with the header
+        self.begin = None
+
+    @property
+    def nbytes(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64)) * self.dtype.itemsize
+
+    def _map(self, r0: int, r1: int) -> np.memmap:
+        row = self.nbytes // max(self.shape[0], 1)
+        return np.memmap(self._w._fh, dtype=_be(self.dtype), mode="r+",
+                         offset=self.begin + r0 * row, shape=(r1 - r0,) + self.shape[1:])
+
+    def __array__(self, dtype=None, copy=None):
+        out = np.empty(self.shape, self.dtype)
+        if self.shape[0]:
+            out[...] = self._map(0, self.shape[0])
+        return out if dtype is None else out.astype(dtype)
+
+    def __setitem__(self, key, block) -> None:
+        """Write ``block`` into the hyperslab ``key``: a slice of rows of
+        the first dimension (step 1) and any basic index of the others,
+        converted to the variable's type.  The file is mapped MAP_BYTES at a
+        time, so a write holds no more of it than that in host memory."""
+        key = key if isinstance(key, tuple) else (key,)
+        start, stop, step = key[0].indices(self.shape[0])
+        if step != 1:
+            raise IndexError("a classic variable is written over a contiguous range of rows")
+        block = np.asarray(block)
+        rows = max(1, MAP_BYTES // max(self.nbytes // max(self.shape[0], 1), 1))
+        for r0 in range(start, stop, rows):
+            r1 = min(stop, r0 + rows)
+            mm = self._map(r0, r1)
+            mm[(slice(None),) + key[1:]] = block[r0 - start : r1 - start]
+            del mm
+
+
+class ClassicStreamWriter:
+    """Classic NetCDF (CDF-2, 64-bit offsets) written in place, without h5py.
+
+    Define the dimensions, coordinates and variables as with
+    ``NetCDFWriter`` (``def_dim``, ``set_dim_attrs``, ``set_attr``,
+    ``def_var_empty``), then ``end_define``: it writes the header and the
+    coordinate values and sizes the file with ``truncate``, so the data
+    variables start as holes of a sparse file.  Their hyperslabs are then
+    written in place (``ClassicVariable.__setitem__``); ``flush`` makes the
+    written slabs durable.  Nothing holds a whole variable in host memory,
+    unlike ``ClassicNetCDFWriter`` (scipy), which writes at close.
+
+    Coordinates come first and the data variables after them, in the order
+    defined: CDF-2 states each variable's size in 32 bits, so only the last
+    variable may exceed 4 GiB.  ``ClassicStreamWriter.open`` re-opens such a
+    file for more writes (crash resume).
+    """
+
+    def __init__(self, path: str):
+        self.path = path
+        self._dims: dict = {}
+        self._vars: dict = {}
+        self._gatts: dict = {}
+        self._fh = None
+
+    # -- definition -----------------------------------------------------
+    def def_dim(self, name: str, size: int, coord: Optional[np.ndarray] = None, dtype=None):
+        self._dims[name] = int(size)
+        if coord is not None:
+            coord = np.asarray(coord, dtype)
+            self._vars[name] = ClassicVariable(self, name, (name,), coord.shape, coord.dtype,
+                                               None, coord)
+
+    def def_var_empty(self, name: str, shape: tuple, dims: tuple[str, ...], dtype, compression: int = 0, attrs: Optional[dict] = None):
+        """A variable filled later (classic NetCDF has no compression, so
+        ``compression`` is ignored)."""
+        if tuple(shape) != tuple(self._dims[d] for d in dims):
+            raise ValueError(f"{name}: shape {tuple(shape)} does not match dims {dims}")
+        var = ClassicVariable(self, name, dims, shape, dtype, attrs)
+        self._vars[name] = var
+        return var
+
+    def set_attr(self, name: str, value):
+        self._gatts[name] = value
+
+    def set_dim_attrs(self, dim: str, attrs: dict):
+        self._vars[dim].attrs.update(attrs)
+
+    def end_define(self):
+        """Write the header and the coordinates; size the file."""
+        if self._fh is not None:
+            return
+        order = ([v for v in self._vars.values() if v.values is not None]
+                 + [v for v in self._vars.values() if v.values is None])
+        dim_ids = {d: i for i, d in enumerate(self._dims)}
+        for v in order[:-1]:
+            if v.nbytes > _VSIZE_MAX:
+                raise ValueError(
+                    f"{self.path}: {v.name} takes {v.nbytes} bytes; classic NetCDF (CDF-2) "
+                    "holds one variable above 4 GiB, the last (install h5py for NETCDF4)"
+                )
+
+        def header(begins) -> bytes:
+            out = b"CDF\x02" + np.array(0, ">i4").tobytes()
+            if self._dims:
+                out += _NC_DIMENSION + np.array(len(self._dims), ">i4").tobytes()
+                for d, n in self._dims.items():
+                    out += _nc_name(d) + np.array(n, ">i4").tobytes()
+            else:
+                out += _ABSENT
+            out += _nc_att_list(self._gatts)
+            if not order:
+                return out + _ABSENT
+            out += _NC_VARIABLE + np.array(len(order), ">i4").tobytes()
+            for v, begin in zip(order, begins):
+                size = v.nbytes + (-v.nbytes % 4)
+                out += (_nc_name(v.name) + np.array(len(v.dims), ">i4").tobytes()
+                        + np.array([dim_ids[d] for d in v.dims], ">i4").tobytes()
+                        + _nc_att_list(v.attrs)
+                        + np.array(_NC_CODES[v.dtype.char, v.dtype.itemsize], ">i4").tobytes()
+                        + np.array(size if size <= _VSIZE_MAX else 2**32 - 1, ">u4").tobytes()
+                        + np.array(begin, ">i8").tobytes())
+            return out
+
+        begins, at = [], len(header([0] * len(order)))
+        for v in order:
+            begins.append(at)
+            at += v.nbytes + (-v.nbytes % 4)
+        head = header(begins)
+        self._fh = open(self.path, "w+b")
+        self._fh.write(head)
+        for v, begin in zip(order, begins):
+            v.begin = begin
+            if v.values is not None:
+                self._fh.seek(begin)
+                self._fh.write(np.ascontiguousarray(v.values, _be(v.dtype)).tobytes())
+        self._fh.truncate(at)
+        self._fh.flush()
+        self._vars = {v.name: v for v in order}
+
+    # -- data -----------------------------------------------------------
+    def __contains__(self, name: str) -> bool:
+        return name in self._vars
+
+    def __getitem__(self, name: str) -> ClassicVariable:
+        return self._vars[name]
+
+    def flush(self):
+        """Make every written slab durable (the checkpoint barrier)."""
+        if self._fh is not None:
+            self._fh.flush()
+            os.fsync(self._fh.fileno())
+
+    def close(self):
+        self.end_define()
+        self._fh.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    @classmethod
+    def open(cls, path: str) -> "ClassicStreamWriter":
+        """Re-open a classic file of fixed-size variables for writing."""
+        w = cls(path)
+        w._fh = open(path, "r+b")
+        try:
+            cur = _Cursor(w._fh)
+            if cur.raw(3) != b"CDF":
+                raise ValueError(f"{path} is not a classic NetCDF file")
+            width = {1: 4, 2: 8}[cur.raw(1)[0]]
+            cur.int()  # numrecs
+            tag, n_dims = cur.raw(4), cur.int()
+            for _ in range(n_dims):
+                name = cur.name()
+                w._dims[name] = cur.int()
+            w._gatts = cur.att_list()
+            tag, n_vars = cur.raw(4), cur.int()
+            dim_names = list(w._dims)
+            for _ in range(n_vars):
+                name = cur.name()
+                dims = [dim_names[cur.int()] for _ in range(cur.int())]
+                attrs = cur.att_list()
+                char = _NC_CHARS[cur.int()]
+                cur.int()  # vsize
+                begin = cur.int(width)
+                shape = tuple(w._dims[d] for d in dims)
+                if any(n == 0 for n in shape):
+                    raise ValueError(f"{path}: record variable {name!r} is not supported")
+                var = ClassicVariable(w, name, dims, shape, char if char != "c" else "S1", attrs)
+                var.begin = begin
+                w._vars[name] = var
+        except Exception:
+            w._fh.close()
+            raise
+        return w
+
+
 def output_format() -> str:
     """The NetCDF format of the outputs here: 'NETCDF4' (the JAX package's)
     where h5py is installed, 'classic' where it is not."""
@@ -345,6 +667,27 @@ def output_format() -> str:
 def open_writer(path: str):
     """The writer of the outputs, in ``output_format()``."""
     return NetCDFWriter(path) if output_format() == "NETCDF4" else ClassicNetCDFWriter(path)
+
+
+def open_windowed_writer(path: str):
+    """The writer of a file filled window by window, in ``output_format()``:
+    ``NetCDFWriter`` (its ``def_var_empty``) or ``ClassicStreamWriter``."""
+    return NetCDFWriter(path) if output_format() == "NETCDF4" else ClassicStreamWriter(path)
+
+
+def reopen_windowed(path: str):
+    """An existing output file opened for more windows (crash resume), in
+    the file's own format: an h5py ``File`` or a ``ClassicStreamWriter``.
+    Both index variables by name and write ``var[:, a:b] = block``."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"resume requested but output file is missing: {path}")
+    with open(path, "rb") as fh:
+        classic = fh.read(3) == b"CDF"
+    if classic:
+        return ClassicStreamWriter.open(path)
+    import h5py
+
+    return h5py.File(path, "r+")
 
 
 def read_netcdf(path: str, names) -> tuple:

@@ -77,15 +77,23 @@ def forcing_meta_c(forcings: ForcingSet | None, config: SolverConfig) -> Forcing
     return m
 
 
-def kernel_inputs(name, model, y0, h0, params, forcings, query_times):
+def kernel_inputs(name, model, y0, h0, params, forcings, query_times, t_shift=0.0):
     """Validate a CUDA launch's inputs; returns (y0 [5,S], params [15,S]).
 
     The kernels take Model 204 in float32 with every tensor on y0's device:
-    anything else raises (there is no fallback for a CUDA tensor).
+    anything else raises (there is no fallback for a CUDA tensor).  They
+    take no ``t_shift``: Model 204's rhs does not read t, and a model that
+    does (``reads_time``) is refused with a shift rather than run without.
     """
     if not isinstance(model, Model204):
         raise NotImplementedError(
             f"{name}: the CUDA kernel implements Model204 only, got {type(model).__name__}"
+        )
+    if t_shift and getattr(model, "reads_time", True):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel does not pass t_shift={t_shift} to the rhs of "
+            f"{type(model).__name__}, which reads t (time-dependent models wait for "
+            "ROADMAP Queue 1 #10)"
         )
     dev, s_count = y0.device, y0.shape[0]
 

@@ -101,26 +101,27 @@ def radau(
     params: dict | None = None,
     forcings: ForcingSet | None = None,
     config: SolverConfig = SolverConfig(),
+    t_shift: float = 0.0,
 ) -> RadauResult:
     """B2 over ``y0[n, N]`` from t0 to tf; ``query_times`` sorted and unique.
 
     CPU tensors run ``radau_plain``; CUDA tensors launch the kernel on the
     current stream without synchronising (float32 Model 204 only; any other
-    input raises).
+    input raises).  ``t_shift`` as in ``kernels.rk45.rk45``.
     """
     if y0.device.type == "cpu":
-        return radau_plain(model, y0, h0, t0, tf, query_times, params, forcings, config)
+        return radau_plain(model, y0, h0, t0, tf, query_times, params, forcings, config, t_shift)
     if y0.device.type != "cuda":
         raise ValueError(f"radau: no implementation for device {y0.device}")
-    return _radau_cuda(model, y0, h0, t0, tf, query_times, params, forcings, config)
+    return _radau_cuda(model, y0, h0, t0, tf, query_times, params, forcings, config, t_shift)
 
 
-def _radau_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg) -> RadauResult:
+def _radau_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -> RadauResult:
     global radau_launches
     # The kernel's warp maxima read non-negative floats as unsigned integers.
     if not (cfg.rtol >= 0.0 and cfg.atol >= 0.0):
         raise ValueError(f"radau: the CUDA kernel needs rtol, atol >= 0, got {cfg.rtol}, {cfg.atol}")
-    y0_soa, p_block = kernel_inputs("radau", model, y0, h0, params, forcings, qt)
+    y0_soa, p_block = kernel_inputs("radau", model, y0, h0, params, forcings, qt, t_shift)
     s_count, dev = y0.shape[0], y0.device
     q_total = 0 if qt is None else qt.shape[0]
     y_final = torch.empty((N_EQ, s_count), dtype=torch.float32, device=dev)
@@ -170,6 +171,7 @@ def radau_plain(
     params: dict | None = None,
     forcings: ForcingSet | None = None,
     config: SolverConfig = SolverConfig(),
+    t_shift: float = 0.0,
 ) -> RadauResult:
     """B2's plain PyTorch version, in y0's dtype (float32 or float64).
 
@@ -195,9 +197,13 @@ def radau_plain(
     fd_eps = float(np.sqrt(np.finfo(_NP_DTYPE[dtype]).eps))
     eye = torch.eye(n, dtype=torch.bool, device=dev)[:, :, None]
 
+    shift = torch.tensor(float(t_shift), dtype=dtype, device=dev) if t_shift else None
+
     def rhs(t, y, f_vals):
         # y: [N, ...] with the system index last; extra middle dimensions
         # (stages, Jacobian columns) broadcast against the [S] params.
+        if shift is not None:
+            t = t + shift
         return torch.stack(model.rhs_tuple(t, y, p, f_vals))
 
     # State [N, S], stage slopes [3, N, S], factors [N, N, S]: every update

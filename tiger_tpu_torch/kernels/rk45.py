@@ -92,23 +92,25 @@ def rk45(
     params: dict | None = None,
     forcings: ForcingSet | None = None,
     config: SolverConfig = SolverConfig(),
+    t_shift: float = 0.0,
 ) -> RK45Result:
     """B1 over ``y0[S, N]`` from t0 to tf; ``query_times`` sorted and unique.
 
     CPU tensors run ``rk45_plain``; CUDA tensors launch the kernel on the
     current stream without synchronising (float32 Model 204 only; any other
-    input raises).
+    input raises).  ``t_shift`` [min] is added to the time the model's rhs
+    sees (forcing gathers stay unshifted).
     """
     if y0.device.type == "cpu":
-        return rk45_plain(model, y0, h0, t0, tf, query_times, params, forcings, config)
+        return rk45_plain(model, y0, h0, t0, tf, query_times, params, forcings, config, t_shift)
     if y0.device.type != "cuda":
         raise ValueError(f"rk45: no implementation for device {y0.device}")
-    return _rk45_cuda(model, y0, h0, t0, tf, query_times, params, forcings, config)
+    return _rk45_cuda(model, y0, h0, t0, tf, query_times, params, forcings, config, t_shift)
 
 
-def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg) -> RK45Result:
+def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -> RK45Result:
     global rk45_launches
-    y0_soa, p_block = kernel_inputs("rk45", model, y0, h0, params, forcings, qt)
+    y0_soa, p_block = kernel_inputs("rk45", model, y0, h0, params, forcings, qt, t_shift)
     s_count, dev = y0.shape[0], y0.device
     q_total = 0 if qt is None else qt.shape[0]
     y_final = torch.empty((N_EQ, s_count), dtype=torch.float32, device=dev)
@@ -198,6 +200,7 @@ def rk45_plain(
     params: dict | None = None,
     forcings: ForcingSet | None = None,
     config: SolverConfig = SolverConfig(),
+    t_shift: float = 0.0,
 ) -> RK45Result:
     """B1's plain PyTorch version, in y0's dtype (float32 or float64).
 
@@ -216,7 +219,11 @@ def rk45_plain(
     a, c = tableau.DP_A.tolist(), tableau.DP_C.tolist()
     b, e, pm = tableau.DP_B.tolist(), tableau.DP_E.tolist(), tableau.DP_P.tolist()
 
+    shift = torch.tensor(float(t_shift), dtype=dtype, device=dev) if t_shift else None
+
     def rhs(t, y, f_vals):
+        if shift is not None:
+            t = t + shift
         return torch.stack(model.rhs_tuple(t, y, p, f_vals))
 
     # State and stage slopes as [N, S] tensors: every update below is

@@ -9,6 +9,9 @@ A model is a frozen dataclass with
     (one entry per system), ``params`` a dict of such tensors (or None),
     ``forcings`` an indexable of forcing tensors frozen at the step-start
     time (or None).  It returns a tuple of ``N_EQ`` tensors.
+  - ``reads_time`` (optional class attribute): False when the rhs ignores
+    t.  The kernels take no time shift and refuse one for a model that
+    reads t (or does not say).
 
 The batched plain solvers call ``rhs_tuple`` with [S]-shaped tensors; the
 CUDA kernels carry their own device twin of each model they support.

@@ -183,6 +183,11 @@ def num_systems(params: SpatialParams) -> int:
     return len(params["stream"])
 
 
+def slice_rows(params: SpatialParams, idx) -> SpatialParams:
+    """Row-subset the SoA."""
+    return {k: v[idx] for k, v in params.items()}
+
+
 def model_params(params: SpatialParams) -> Dict[str, np.ndarray]:
     """The float fields the model RHS consumes (drops the id columns)."""
     return {k: params[k] for k in FLOAT_FIELDS}

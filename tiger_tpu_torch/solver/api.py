@@ -43,8 +43,14 @@ def solve(
     params: Optional[dict] = None,
     forcings: Optional[ForcingSet] = None,
     config: SolverConfig = SolverConfig(),
+    t_shift: float = 0.0,
 ) -> SolveResult:
     """Integrate ``y0[S, N]`` from t0 to tf with dense output at query_times.
+
+    ``t_shift`` [min] is added to the time the model's rhs sees: windowed
+    runs integrate each window in window-relative time, and a model that
+    reads t must see the absolute one.  Forcing gathers are not shifted.
+    The kernels take Model 204, whose rhs does not read t.
 
     Runs on ``y0``'s device; every input tensor must be on it (CUDA runs
     the kernels in float32; CPU runs their plain versions in y0's dtype).
@@ -72,8 +78,8 @@ def solve(
             raise ValueError(f"query_times extend past tf ({float(query_times[-1])} > {tf})")
     t0, tf = float(t0), float(tf)
     qt, inverse = dedup_queries(query_times, y0.dtype)
-    h0 = initial_step(model, y0, t0, params, forcings, config)
-    rk = rk45(model, y0, h0, t0, tf, qt, params, forcings, config)
+    h0 = initial_step(model, y0, t0, params, forcings, config, t_shift)
+    rk = rk45(model, y0, h0, t0, tf, qt, params, forcings, config, t_shift)
     y_final, dense, failed = rk.y_final, rk.dense, rk.failed
 
     rows = torch.nonzero(rk.stiff).squeeze(1)  # the one host sync
@@ -82,7 +88,8 @@ def solve(
     if n_stiff:
         sub_forc = None if forcings is None else forcings.take_systems(rows)
         sub_params = None if params is None else {k: v[rows] for k, v in params.items()}
-        rd = radau(model, y0[rows], rk.h0[rows], t0, tf, qt, sub_params, sub_forc, config)
+        rd = radau(model, y0[rows], rk.h0[rows], t0, tf, qt, sub_params, sub_forc, config,
+                   t_shift)
         # In-place merge into the RK45 phase's own output tensors.
         ok = ~rd.failed
         y_final[rows] = torch.where(ok[:, None], rd.y_final.to(y_final.dtype), y_final[rows])

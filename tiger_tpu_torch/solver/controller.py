@@ -44,17 +44,20 @@ def initial_step(
     params: dict | None = None,
     forcings: ForcingSet | None = None,
     config: SolverConfig = SolverConfig(),
+    t_shift: float = 0.0,
 ) -> torch.Tensor:
     """Per-system initial steps [S] on ``y0``'s device, in ``y0``'s dtype.
 
     ``config.initial_step`` (an explicit scalar) wins; otherwise
-    ``config.h0_mode`` selects the estimate.
+    ``config.h0_mode`` selects the estimate.  The rhs sees t0 + ``t_shift``
+    (in ``y0``'s dtype); the forcing is sampled at t0.
     """
     s_count, n_eq = y0.shape
     dtype, device = y0.dtype, y0.device
     if config.initial_step is not None:
         return torch.full((s_count,), config.initial_step, dtype=dtype, device=device)
     t0_t = torch.full((), float(t0), dtype=dtype, device=device)
+    t_rhs = t0_t + torch.tensor(float(t_shift), dtype=dtype, device=device) if t_shift else t0_t
     if config.h0_mode == "global-zero-y0":
         cols = [torch.zeros((1,), dtype=dtype, device=device) for _ in range(n_eq)]
         p_row = None if params is None else {k: v[:1] for k, v in params.items()}
@@ -64,7 +67,7 @@ def initial_step(
                 v[:1].to(dtype)
                 for v in gather_forcings_column(forcings.data, forcings.meta, t0_t)
             )
-        h = _estimate(model, t0_t, cols, p_row, f_vals, config.rtol, config.atol)
+        h = _estimate(model, t_rhs, cols, p_row, f_vals, config.rtol, config.atol)
         return h.expand(s_count).contiguous()
     cols = [y0[:, i] for i in range(n_eq)]
     f_vals = None
@@ -73,4 +76,4 @@ def initial_step(
             v.to(dtype)
             for v in gather_forcings_column(forcings.data, forcings.meta, t0_t)
         )
-    return _estimate(model, t0_t, cols, params, f_vals, config.rtol, config.atol)
+    return _estimate(model, t_rhs, cols, params, f_vals, config.rtol, config.atol)
