@@ -558,13 +558,14 @@ def test_chunked_i16_refusals(tmp_path, ranges, match):
 # --- the windowed CLI run -------------------------------------------------
 
 
-@pytest.mark.parametrize("precision", ["f64", "f32"])
-def test_chunked_run_matches_jax(tmp_path, precision):
-    """Both packages' windowed runs (2 windows, checkpoints every day) write
-    the same files within the CLI's tolerances, and the same summary keys."""
+@pytest.mark.parametrize("precision,states", [("f64", None), ("f32", None), ("f64", [3, 0])])
+def test_chunked_run_matches_jax(tmp_path, precision, states):
+    """Both packages' windowed runs (2 windows, checkpoints every day, all
+    states or a subset) write the same files within the CLI's tolerances,
+    and the same summary keys."""
     sc = make_scenario(tmp_path)
     changes = dict(time__chunk_days=1.0, output__checkpoint_interval="1d",
-                   solver__precision=precision)
+                   solver__precision=precision, output__states=states)
     if precision == "f32":
         changes.update(solver__rtol=1e-5, solver__atol=1e-8)
     jcfg, cfg = _configs(sc, tmp_path, **changes)
@@ -578,6 +579,8 @@ def test_chunked_run_matches_jax(tmp_path, precision):
                 h5py.File(tmp_path / "jax" / f"{name}_basin_rank_0.nc") as fb:
             a, b = np.asarray(fa[var]), np.asarray(fb[var])
             assert np.array_equal(fa["system"], fb["system"]), name
+            if name in ("final", "dense"):
+                assert np.array_equal(fa["variable"], fb["variable"]), name
             if name == "state":
                 assert fa.attrs["sim_time_minutes"] == fb.attrs["sim_time_minutes"] == 2880.0
         _assert_close(a, b, precision)
@@ -608,29 +611,34 @@ def test_chunked_cli_module_runs_a_windowed_config(tmp_path):
     assert dense["outputs"].shape == (12, 49, 5) and np.isfinite(dense["outputs"]).all()
 
 
-def _basin_cfg(tmp_path, outdir, **initial):
+def _basin_cfg(tmp_path, outdir, output=None, **initial):
     from tiger_tpu_torch.scenario import write_basin
 
     # No stiff link: radau_plain over a Hu = 1e-6 link's transient takes
     # the CPU ~20 s (the card's crash-and-resume test has stiff links).
     doc = write_basin(str(tmp_path / "basin"), 24, days=2.0, n_lon=8)
     doc["time"]["chunk_days"] = 1.0
-    doc["output"].update(checkpoint_interval="1d", path=str(tmp_path / outdir))
+    doc["output"].update(checkpoint_interval="1d", path=str(tmp_path / outdir), **(output or {}))
     if initial:
         doc["initial"] = dict(mode="hot", resume=True, **initial)
     return config_from_dict(doc)
 
 
-@pytest.mark.parametrize("fmt", ["NETCDF4", "classic"])
-def test_crash_resume_bitwise(tmp_path, monkeypatch, fmt):
+@pytest.mark.parametrize("fmt,precision", [("NETCDF4", None), ("classic", None),
+                                            ("classic", "i16")])
+def test_crash_resume_bitwise(tmp_path, monkeypatch, fmt, precision):
     """tests/test_chunked.py::test_crash_resume_bitwise on the port, in both
     output formats (classic: h5py hidden, so the streaming classic writer
-    fills and re-opens the files): kill a windowed run in its second
-    window, resume from the day-1 checkpoint into the same files, and get
-    the files of an uninterrupted run bit for bit."""
+    fills and re-opens the files) and with int16 dense output: kill a
+    windowed run in its second window, resume from the day-1 checkpoint
+    into the same files, and get the files of an uninterrupted run bit for
+    bit."""
     if fmt == "classic":
         monkeypatch.setitem(sys.modules, "h5py", None)
-    run(_basin_cfg(tmp_path, "ref"), device="cpu")
+    output = {}
+    if precision == "i16":
+        output = dict(precision="i16", i16_ranges={v: [0.0, 6.0] for v in range(5)})
+    run(_basin_cfg(tmp_path, "ref", output), device="cpu")
 
     real_solve, calls = chunked.solve, {"n": 0}
 
@@ -643,17 +651,21 @@ def test_crash_resume_bitwise(tmp_path, monkeypatch, fmt):
     with monkeypatch.context() as m:
         m.setattr(chunked, "solve", dying_solve)
         with pytest.raises(RuntimeError, match="simulated crash"):
-            run(_basin_cfg(tmp_path, "crashed"), device="cpu")
+            run(_basin_cfg(tmp_path, "crashed", output), device="cpu")
     state = tmp_path / "crashed" / "state_basin_rank_0.nc"
     (y, _), (_, attrs) = read_netcdf(str(state), ("outputs",)), read_netcdf(str(state), ())
     assert attrs["sim_time_minutes"] == 1440.0
-    out = run(_basin_cfg(tmp_path, "crashed", file=str(state)), device="cpu")
+    out = run(_basin_cfg(tmp_path, "crashed", output, file=str(state)), device="cpu")
     assert out["n_windows"] == 1 and out["n_failed"] == 0
-    for name, var in OUTPUTS:
+    outputs = list(OUTPUTS)
+    if precision == "i16":
+        outputs = [o for o in outputs if o[0] != "dense"] + [("dense", f"outputs_{v}")
+                                                              for v in range(5)]
+    for name, var in outputs:
         paths = [tmp_path / d / f"{name}_basin_rank_0.nc" for d in ("ref", "crashed")]
         assert all((open(p, "rb").read(3) == b"CDF") == (fmt == "classic") for p in paths)
         a, b = (read_netcdf(str(p), (var,))[0][var] for p in paths)
-        assert a.dtype == b.dtype and np.array_equal(a, b), name
+        assert a.dtype == b.dtype and np.array_equal(a, b), (name, var)
 
 
 def test_resume_rejects_misaligned_time(tmp_path):

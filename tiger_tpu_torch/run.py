@@ -356,8 +356,8 @@ def _run_chunked(cfg, model, y0, t0, tf, query_times, model_params, specs, sp, m
     final_path = os.path.join(outdir, f"final_{prefix}_rank_0.nc")
     dense_path = os.path.join(outdir, f"dense_{prefix}_rank_0.nc")
     state_path = os.path.join(outdir, f"state_{prefix}_rank_0.nc")
-    out_dtype = {None: torch.empty((), dtype=dtype).numpy().dtype, "f32": np.float32,
-                 "f64": np.float64, "i16": np.int16}[cfg.output.precision]
+    out_dtype = {None: np.float64 if dtype == torch.float64 else np.float32,
+                 "f32": np.float32, "f64": np.float64, "i16": np.int16}[cfg.output.precision]
     if cfg.output.precision == "i16":
         missing = [int(v) for v in state_ids if int(v) not in cfg.output.i16_ranges]
         if missing:
