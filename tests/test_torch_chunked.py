@@ -25,7 +25,6 @@ import os
 import sys
 
 import h5py
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -41,7 +40,7 @@ from tiger_tpu.models import Model204 as JModel204
 from tiger_tpu.run import run as j_run
 from tiger_tpu.solver import SolverConfig as JSolverConfig
 from tiger_tpu_torch import chunked
-from tiger_tpu_torch.config import config_from_dict, load_config
+from tiger_tpu_torch.config import config_from_dict
 from tiger_tpu_torch.forcing import ForcingSet, ForcingSpec
 from tiger_tpu_torch.io import netcdf as tnetcdf
 from tiger_tpu_torch.io import output as toutput
