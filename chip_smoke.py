@@ -43,6 +43,27 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
      declared ranges: within 0.75 of a code step of (a)'s values.  For
      information: (a) against an unchunked run, and the routing against the
      index_add version it replaced, timed at 131,072 links x 97 queries.
+  9. the solver options (each kernel's option instances; options_phase).
+     (a) every instance against its plain version: B1's six (the I and PI
+     controllers, each plain, with FSAL and compensated) on 1,024 systems
+     over 1 day, FSAL also against the default instance; B2's six (the
+     three error modes, each with and without the predictor) on the
+     systems the default B1 flagged there (4), over the first 10 minutes
+     only, since the plain Radau pays ~45 ms of launches an attempt;
+     'reference' ends every stiff system at max_steps (its estimate caps h
+     near the tolerance), so it runs with max_steps 300 at rtol 1e-3.  (b)
+     the slice's path at full width, with the launch counters set to 0
+     just before: solve() at 131,072 systems with compensated float32
+     (precision f32c) at the reference's rtol 1e-6 / atol 1e-9, and with
+     the PI controller at the main path's rtol 1e-5 / atol 1e-8, each one
+     warm-up and 3 timed runs; one solve() with each other instance (B1's
+     fail no system; B2's option instances report the stiff systems their
+     float32 estimates fail over the 2 days, as data); each
+     instance's own time at the main path's shapes; and compensated and
+     plain float32 at rtol 1e-6 against rk45_plain in float64 on the first
+     4,096 systems: compensated the closer in the median system.  (c) the CLI at 131,072 links
+     with solver.precision f32c: its dense file equals a direct solve() bit
+     for bit, its routed discharge the direct one.
 Each kernel must equal its plain version exactly: max_abs_err 0, NaN in the
 same places, every flag and every counter of every system equal.  The line
 before the last is the kernels' JSON record; the last line is
@@ -126,12 +147,16 @@ def io_bytes(s_count: int, n_rows: int, n_q: int, out_words: int) -> int:
     return 4 * (s_count * (5 + 1 + 15 + n_rows) + n_q + s_count * (5 + 5 * n_q + out_words))
 
 
-def b1_ops(attempts: int, queries: int) -> int:
+def b1_ops(attempts: int, queries: int, options: int = 0) -> int:
     """B1's operations (rk45.cu): per attempt, seven right-hand sides, the
     stage, update and error sums (11 per nonzero tableau entry), the error norm
     (40), the slope-jump test (15), the controller, stiffness tests and Kahan t
     (57); per dense query, the quartic coefficients (10 per nonzero entry of
-    DP_P, at most once a query) and the polynomial (58)."""
+    DP_P, at most once a query) and the polynomial (58).  The option
+    instances: FSAL takes k1 from its carry (one right-hand side less); the
+    compensated commit adds y + dy and a TwoSum per component (25); PI adds
+    facold^beta, its product and facold's update (3)."""
+    from tiger_tpu_torch.kernels.rk45 import COMPENSATED, FSAL, PI
     from tiger_tpu_torch.solver import tableau
 
     def nnz(x) -> int:
@@ -139,7 +164,17 @@ def b1_ops(attempts: int, queries: int) -> int:
 
     per_attempt = (7 * RHS_OPS + 11 * (nnz(tableau.DP_A) + nnz(tableau.DP_B) + nnz(tableau.DP_E))
                    + 40 + 15 + 57 + STEP_OPS)
+    per_attempt += (-RHS_OPS if options & FSAL else 0) + (25 if options & COMPENSATED else 0)
+    per_attempt += 3 if options & PI else 0
     return attempts * per_attempt + queries * (10 * nnz(tableau.DP_P) + 58)
+
+
+# B2's option instances (radau.cu): radau5's error is the defect (30), one
+# real solve (45), the product by h and the norm (20) where embedded3's sum
+# and norm are (45), and its safety one division more; the predictor's start
+# is the theta powers and weights (60) and 15 slopes of 3 x 7 (315).
+B2_RADAU5_OPS = 30 + 45 + 20 - 45 + 2
+B2_PREDICTOR_OPS = 60 + 315
 
 
 def timed(fn, reps: int = 1):
@@ -170,9 +205,11 @@ def check_rk45(label, ker, ref, hu_rows) -> float:
     return err
 
 
-def check_radau(label, ker, ref) -> float:
-    """Phases 4 and 6: B2 equals radau_plain bit for bit; returns max_abs_err."""
-    err = max(max_abs(ker.y_final, ref.y_final), max_abs(ker.dense, ref.dense))
+def check_radau(label, ker, ref, may_fail: bool = False) -> float:
+    """Phases 4, 6 and 9: B2 equals radau_plain bit for bit; returns
+    max_abs_err.  Unless ``may_fail``, no system may fail."""
+    err = max(max_abs(torch.nan_to_num(ker.y_final), torch.nan_to_num(ref.y_final)),
+              max_abs(ker.dense, ref.dense))
     n_sys = ker.failed.numel()
     same = [int((a == b).sum()) for a, b in zip(ker.stats, ref.stats)]
     att_k, att_p = int(ker.stats.n_attempts.sum()), int(ref.stats.n_attempts.sum())
@@ -180,7 +217,10 @@ def check_radau(label, ker, ref) -> float:
           f"systems with equal (accepted, rejected, attempts, sweeps, factorizations) {same} of "
           f"{n_sys}, attempts {att_k} vs {att_p}, sweeps {int(ker.stats.n_newton.sum())}, worst "
           f"system {int(ker.stats.n_attempts.max())} vs {int(ref.stats.n_attempts.max())}")
-    check(not bool(ker.failed.any() or ref.failed.any()), f"{label}: a Radau solve failed")
+    check(may_fail or not bool(ker.failed.any() or ref.failed.any()), f"{label}: a Radau solve failed")
+    check(bool(torch.equal(ker.failed, ref.failed)), f"{label}: B2 fails other systems than radau_plain")
+    check(bool(torch.equal(torch.isnan(ker.y_final), torch.isnan(ref.y_final))),
+          f"{label}: B2's NaN differ from radau_plain's")
     check(err == 0.0, f"{label}: B2 differs from radau_plain by {err:.3e}")
     check(all(n == n_sys for n in same), f"{label}: B2's counters differ from radau_plain's")
     return err
@@ -555,6 +595,276 @@ def windowed_phase(smi: str) -> dict:
     return launches
 
 
+# Phase 9: each kernel's option instances, by the names the wrappers count
+# them under (kernels.rk45.INSTANCES, kernels.radau.instance_name).
+B1_OPTIONS = {
+    "default": {},
+    "pi": dict(controller="pi"),
+    "fsal": dict(fsal=True),
+    "fsal+pi": dict(fsal=True, controller="pi"),
+    "compensated": dict(compensated=True),
+    "compensated+pi": dict(compensated=True, controller="pi"),
+}
+B2_OPTIONS = {
+    "embedded3": {},
+    "embedded3+predictor": dict(radau_predictor=True),
+    "reference": dict(radau_error_mode="reference"),
+    "reference+predictor": dict(radau_error_mode="reference", radau_predictor=True),
+    "radau5": dict(radau_error_mode="radau5"),
+    "radau5+predictor": dict(radau_error_mode="radau5", radau_predictor=True),
+}
+# Instances that fail stiff systems in 9a's span: 'reference' caps h near
+# the tolerance until max_steps (in the JAX package too).
+B2_MAY_FAIL = ("reference", "reference+predictor")
+OPTION_SYSTEMS, OPTION_DAYS, OPTION_STIFF = 1024, 1.0, 1 / 256
+RADAU_CHECK_SPAN = 10.0  # minutes: the plain Radau pays ~45 ms of launches an attempt
+REFERENCE_CHECK = dict(rtol=1e-3, atol=1e-6, max_steps=300)
+TIGHT = dict(rtol=1e-6, atol=1e-9)  # the reference's tolerances (SolverConfig defaults)
+ACCURACY_SYSTEMS = 4096
+
+
+def options_phase(smi: str) -> dict:
+    """Phase 9: the solver options; returns each kernel's instance records."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from tiger_tpu_torch import Model204, SolverConfig, routing, solve
+    from tiger_tpu_torch.config import config_from_dict
+    from tiger_tpu_torch.forcing import ForcingSet
+    from tiger_tpu_torch.io.netcdf import read_netcdf
+    from tiger_tpu_torch.kernels import radau as k_radau
+    from tiger_tpu_torch.kernels import rk45 as k_rk45
+    from tiger_tpu_torch.profiling import Metrics
+    from tiger_tpu_torch.run import run
+    from tiger_tpu_torch.scenario import STIFF_HU, scenario, solve_written_basin, write_basin
+    from tiger_tpu_torch.solver.controller import initial_step
+
+    phase_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    model = Model204()
+    base = SolverConfig(rtol=1e-5, atol=1e-8, max_steps=100_000)
+    b1 = {name: {} for name in B1_OPTIONS}
+    b2 = {name: {} for name in B2_OPTIONS}
+
+    def b1_cfg(name, **extra):
+        return dataclasses.replace(base, **B1_OPTIONS[name], **extra)
+
+    def b2_cfg(name, **extra):
+        return dataclasses.replace(base, **B2_OPTIONS[name], **extra)
+
+    # (a) every instance against its plain version.
+    tf = OPTION_DAYS * 1440.0
+    y0, params, forc = scenario(OPTION_SYSTEMS, OPTION_DAYS, OPTION_STIFF, device=dev)
+    qt = torch.arange(0.0, tf + 1e-9, 60.0, dtype=torch.float32, device=dev)
+    h0 = initial_step(model, y0, 0.0, params, forc, base)
+    hu_rows = params["Hu"] < STIFF_HU * 10
+    results = {}
+    for name in B1_OPTIONS:
+        cfg = b1_cfg(name)
+        ker = k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, cfg)
+        start = time.perf_counter()
+        ref = k_rk45.rk45_plain(model, y0, h0, 0.0, tf, qt, params, forc, cfg)
+        torch.cuda.synchronize()
+        b1[name]["check_plain_s"] = time.perf_counter() - start
+        b1[name]["max_abs_err"] = check_rk45(
+            f"phase 9a B1 {name} vs rk45_plain ({OPTION_SYSTEMS} systems, {OPTION_DAYS:g} day)",
+            ker, ref, hu_rows)
+        results[name] = ker
+        if cfg.fsal:
+            twin = "pi" if cfg.controller == "pi" else "default"
+            diff = k_rk45.rk45_mismatch(ker, results[twin])
+            phase(f"phase 9a B1 {name} vs the {twin} instance: entries that differ {diff}")
+            check(not any(diff.values()), f"phase 9a: FSAL differs from the {twin} instance: {diff}")
+    rows = torch.nonzero(results["default"].stiff).squeeze(1)
+    check(rows.numel() > 0, "phase 9a flagged no system")
+    sy0, sp = y0[rows].contiguous(), {k: v[rows].contiguous() for k, v in params.items()}
+    sf = forc.take_systems(rows)
+    qt_r = torch.arange(0.0, RADAU_CHECK_SPAN + 1e-9, 5.0, dtype=torch.float32, device=dev)
+    for name in B2_OPTIONS:
+        cfg = b2_cfg(name, **(REFERENCE_CHECK if name.startswith("reference") else {}))
+        sh0 = initial_step(model, sy0, 0.0, sp, sf, cfg)
+        ker = k_radau.radau(model, sy0, sh0, 0.0, RADAU_CHECK_SPAN, qt_r, sp, sf, cfg)
+        start = time.perf_counter()
+        ref = k_radau.radau_plain(model, sy0, sh0, 0.0, RADAU_CHECK_SPAN, qt_r, sp, sf, cfg)
+        torch.cuda.synchronize()
+        b2[name]["check_plain_s"] = time.perf_counter() - start
+        b2[name]["max_abs_err"] = check_radau(
+            f"phase 9a B2 {name} vs radau_plain ({rows.numel()} systems, first "
+            f"{RADAU_CHECK_SPAN:g} min)", ker, ref, may_fail=name in B2_MAY_FAIL)
+
+    # (b) the slice's path at full width, and (c) the CLI with f32c; the
+    # launch counters are set to 0 just before and read just after.
+    tf = DAYS * 1440.0
+    y0, params, forc = scenario(MAIN_SYSTEMS, DAYS, STIFF_FRAC, device=dev)
+    qt = torch.arange(0.0, tf + 1e-9, 60.0, dtype=torch.float32, device=dev)
+    hu_rows = params["Hu"] < STIFF_HU * 10
+    f32c = b1_cfg("compensated", **TIGHT)
+    torch.cuda.synchronize()
+    k_rk45.rk45_launches = k_radau.radau_launches = 0
+    for counts in (k_rk45.rk45_instance_launches, k_radau.radau_instance_launches):
+        counts.update(dict.fromkeys(counts, 0))
+
+    def main_runs(cfg, label):
+        res = solve(model, y0, 0.0, tf, qt, params, forc, cfg)  # warm-up
+        torch.cuda.synchronize()
+        walls = []
+        for i in range(1, 4):
+            start = time.perf_counter()
+            res = solve(model, y0 + i * 1e-7, 0.0, tf, qt, params, forc, cfg)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - start)
+        rk_att = int(res.rk_stats.n_attempts.sum())
+        rd_att = 0 if res.radau_stats is None else int(res.radau_stats.n_attempts.sum())
+        n_failed = int(res.failed.sum())
+        phase(f"phase 9b {label} ({MAIN_SYSTEMS} systems, {DAYS:g} days, {qt.numel()} queries, "
+              f"rtol {cfg.rtol:g} / atol {cfg.atol:g}): wall median {sorted(walls)[1]:.6f} s "
+              f"(min {min(walls):.6f}, max {max(walls):.6f}), rk attempts {rk_att}, rejected "
+              f"{int(res.rk_stats.n_rejected.sum())}, radau attempts {rd_att}, n_stiff "
+              f"{res.n_stiff}, n_failed {n_failed} | {smi}")
+        check(n_failed == 0, f"phase 9b {label}: {n_failed} systems failed")
+        check(bool(res.stiff[hu_rows].all()), f"phase 9b {label}: a Hu=1e-6 row was not flagged stiff")
+        check(bool(torch.isfinite(res.y_final).all()), f"phase 9b {label}: non-finite y_final")
+        return res, walls
+
+    res_c, walls_c = main_runs(f32c, "solve() compensated f32 (f32c)")
+    res_p, walls_p = main_runs(b1_cfg("pi"), "solve() PI controller")
+    res_i = solve(model, y0, 0.0, tf, qt, params, forc, base)
+    torch.cuda.synchronize()
+    rej_i, rej_p = int(res_i.rk_stats.n_rejected.sum()), int(res_p.rk_stats.n_rejected.sum())
+    phase(f"phase 9b rejected attempts: PI {rej_p} against the I controller's {rej_i}; "
+          f"attempts {int(res_p.rk_stats.n_attempts.sum())} against {int(res_i.rk_stats.n_attempts.sum())}")
+    others = {}
+    for name in ("fsal", "fsal+pi", "compensated+pi"):
+        r = solve(model, y0, 0.0, tf, qt, params, forc, b1_cfg(name))
+        others[f"B1 {name}"] = (r.n_stiff, int(r.failed.sum()))
+    for name in B2_OPTIONS:
+        if name != "embedded3":
+            r = solve(model, y0, 0.0, tf, qt, params, forc, b2_cfg(name))
+            others[f"B2 {name}"] = (r.n_stiff, int(r.failed.sum()))
+            b2[name]["main_path_failed"] = others[f"B2 {name}"][1]
+    torch.cuda.synchronize()
+    phase(f"phase 9b one solve() with each other instance, (n_stiff, n_failed): {others}")
+    # B2's option instances may fail stiff systems over the 2 days: they
+    # are the Radau error estimates and Newton starts as the JAX package
+    # runs them in float32 (9a holds each to its plain version); B1's may not.
+    check(all(nf == 0 for key, (_, nf) in others.items() if key.startswith("B1")),
+          f"phase 9b: a B1 instance failed systems: {others}")
+
+    with tempfile.TemporaryDirectory(prefix="tiger_f32c_") as tmp:
+        doc = write_basin(os.path.join(tmp, "basin"), MAIN_SYSTEMS, DAYS, STIFF_FRAC)
+        doc["solver"].update(precision="f32c", tolerances=dict(TIGHT))
+        cfg = config_from_dict(doc)
+        check(cfg.solver_config().compensated and cfg.solver_config().rtol == TIGHT["rtol"],
+              "phase 9c: the config is not f32c at rtol 1e-6")
+        run(cfg, metrics=Metrics())  # warm-up
+        metrics = Metrics()
+        start = time.perf_counter()
+        out = run(cfg, metrics=metrics)
+        wall = time.perf_counter() - start
+        launches = {"rk45": dict(k_rk45.rk45_instance_launches),
+                    "radau": dict(k_radau.radau_instance_launches)}
+        total = {"rk45": k_rk45.rk45_launches, "radau": k_radau.radau_launches}
+        res, cli_params, sp = solve_written_basin(cfg, "cuda")
+        dense = read_netcdf(os.path.join(cfg.output.path, "dense_basin_rank_0.nc"),
+                            ("outputs",))[0]["outputs"]
+        q = read_netcdf(os.path.join(cfg.output.path, "discharge_basin_rank_0.nc"),
+                        ("discharge",))[0]["discharge"]
+        topo = routing.build_topology(sp["stream"], sp["next_stream"])
+        direct = routing.routed_discharge(res.dense, cli_params, topo).cpu().numpy()
+        same_dense = bool(np.array_equal(dense, res.dense.cpu().numpy()))
+        same_q = bool(np.array_equal(q, direct.astype(np.float64)))
+        phase(f"phase 9c CLI f32c ({MAIN_SYSTEMS} links, {DAYS:g} days, rtol 1e-6 / atol 1e-9): "
+              f"wall {wall:.6f} s, phases_s { {k: round(v, 6) for k, v in metrics.phases.items()} }, "
+              f"n_stiff {out['n_stiff']}, n_failed {out['n_failed']}; dense file equals solve() "
+              f"{same_dense}, discharge equals routed_discharge() {same_q} | {smi}")
+        check(out["n_failed"] == 0, f"phase 9c: {out['n_failed']} links failed")
+        check(same_dense and same_q, "phase 9c: the f32c run's files differ from the direct path")
+    phase(f"phase 9b-c launches by instance (the main path's): {launches}, in all {total}")
+    for kernel, counts in launches.items():
+        check(all(n > 0 for n in counts.values()), f"phase 9: a {kernel} instance was not launched: {counts}")
+    for name in B1_OPTIONS:
+        b1[name]["launches"] = launches["rk45"][name]
+    for name in B2_OPTIONS:
+        b2[name]["launches"] = launches["radau"][name]
+
+    # Each instance's time at the main path's shapes (launches made to
+    # measure, after the counts were read).
+    h0 = initial_step(model, y0, 0.0, params, forc, base)
+    n_rows, n_q, n_q_after = forc.data.shape[0], qt.numel(), int((qt > 0.0).sum())
+    for name in B1_OPTIONS:
+        cfg = b1_cfg(name)
+        ker, ms = timed(lambda: k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, cfg), reps=3)
+        options = k_rk45.rk45_options(cfg)
+        ops = b1_ops(int(ker.stats.n_attempts.sum()), int((~ker.stiff).sum()) * n_q_after, options)
+        bnd = bound(ops, io_bytes(MAIN_SYSTEMS, n_rows, n_q, 5))
+        geo = k_rk45.rk45_geometry(MAIN_SYSTEMS, options)
+        b1[name].update(ms=ms, bound_ms=bnd[0], bound_by=bnd[1], pool_bytes=geo["shared_bytes"],
+                        attempts=int(ker.stats.n_attempts.sum()))
+        if name == "default":
+            rows = torch.nonzero(ker.stiff).squeeze(1)
+    h0_t = initial_step(model, y0, 0.0, params, forc, f32c)
+    ker_c, ms_c = timed(lambda: k_rk45.rk45(model, y0, h0_t, 0.0, tf, qt, params, forc, f32c), reps=3)
+    b1["compensated"]["f32c_ms"] = ms_c
+    sy0, sp = y0[rows].contiguous(), {k: v[rows].contiguous() for k, v in params.items()}
+    sf, sh0 = forc.take_systems(rows), h0[rows].contiguous()
+    for name in B2_OPTIONS:
+        cfg = b2_cfg(name)
+        ker, ms = timed(lambda: k_radau.radau(model, sy0, sh0, 0.0, tf, qt, sp, sf, cfg), reps=3)
+        att, swp = int(ker.stats.n_attempts.sum()), int(ker.stats.n_newton.sum())
+        extra = (B2_RADAU5_OPS if cfg.radau_error_mode == "radau5" else 0) + (
+            B2_PREDICTOR_OPS if cfg.radau_predictor else 0)
+        ops = att * (B2_ATTEMPT_OPS + extra) + swp * B2_SWEEP_OPS + rows.numel() * n_q_after * B2_QUERY_OPS
+        bnd = bound(ops, io_bytes(rows.numel(), n_rows, n_q, 6))
+        b2[name].update(ms=ms, bound_ms=bnd[0], bound_by=bnd[1], attempts=att,
+                        worst_system_attempts=int(ker.stats.n_attempts.max()),
+                        failed=int(ker.failed.sum()))
+    rows_c = torch.nonzero(ker_c.stiff).squeeze(1)
+    _, ms_c2 = timed(lambda: k_radau.radau(
+        model, y0[rows_c].contiguous(), h0_t[rows_c].contiguous(), 0.0, tf, qt,
+        {k: v[rows_c].contiguous() for k, v in params.items()}, forc.take_systems(rows_c), f32c),
+        reps=3)
+    b2["embedded3"]["f32c_ms"] = ms_c2
+    phase(f"phase 9b instance times at the main path's shapes ({MAIN_SYSTEMS} systems for B1, "
+          f"its {rows.numel()} stiff ones for B2, {DAYS:g} days, rtol 1e-5 / atol 1e-8; f32c_ms at "
+          f"rtol 1e-6 / atol 1e-9, B2 on its {rows_c.numel()} stiff systems): B1 {b1} | B2 {b2} | {smi}")
+
+    # Compensated and plain float32 at the reference's tolerances against
+    # rk45_plain in float64, on the first systems.
+    sub = torch.arange(ACCURACY_SYSTEMS, device=dev)
+    ay0, ap = y0[sub].contiguous(), {k: v[sub].contiguous() for k, v in params.items()}
+    af = forc.take_systems(sub)
+    ah0 = h0_t[sub].contiguous()
+    start = time.perf_counter()
+    r64 = k_rk45.rk45_plain(model, ay0.double(), ah0.double(), 0.0, tf, qt.double(),
+                            {k: v.double() for k, v in ap.items()},
+                            ForcingSet(af.data.double(), af.meta), f32c)
+    torch.cuda.synchronize()
+    plain64_s = time.perf_counter() - start
+    # Each system's largest relative error of y_final (states above 1e-3)
+    # against float64.  The median system shows the rounding the Kahan
+    # commit removes; the tail is systems whose float32 steps fall on the
+    # other side of a forcing jump than float64's, alike for both.
+    rel = {}
+    for label, cfg in (("compensated", f32c), ("plain", dataclasses.replace(f32c, compensated=False))):
+        r = k_rk45.rk45(model, ay0, ah0, 0.0, tf, qt, ap, af, cfg)
+        ok = ~(r.stiff | r64.stiff)
+        a, b = r.y_final[ok].double(), r64.y_final[ok]
+        per = torch.where(b.abs() > 1e-3, (a - b).abs() / b.abs(), torch.zeros_like(b)).amax(dim=1)
+        q = torch.quantile(per, torch.tensor([0.5, 0.9, 0.99], dtype=per.dtype, device=dev))
+        rel[label] = dict(zip(("median", "p90", "p99"), q.tolist()), max=float(per.max()))
+    phase(f"phase 9b accuracy at rtol 1e-6 / atol 1e-9 ({ACCURACY_SYSTEMS} systems, {DAYS:g} days; "
+          f"rk45_plain float64 on the card {plain64_s:.1f} s): each system's largest relative error "
+          f"of y_final (states above 1e-3) against float64, compensated f32 {rel['compensated']}, "
+          f"plain f32 {rel['plain']}")
+    check(rel["compensated"]["median"] < rel["plain"]["median"],
+          f"phase 9b: compensated f32 is not closer to float64: {rel}")
+    phase(f"phase 9 took {time.perf_counter() - phase_start:.1f} s")
+    return {"rk45": b1, "radau": b2, "walls": {"f32c": walls_c, "pi": walls_p}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -715,6 +1025,9 @@ def main() -> None:
     # 8. the windowed CLI at full width (its own launch counts)
     windowed_launches = windowed_phase(smi)
 
+    # 9. the solver options (their own launch counts)
+    instances = options_phase(smi)
+
     say(json.dumps({"kernels": [
         {"name": "rk45", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/rk45.cu",
          "replaces": "tiger_tpu/kernels/rk45_pallas.py:1051", "launches": launches["rk45"],
@@ -722,13 +1035,13 @@ def main() -> None:
          "bound_by": bound_b1[1], "library_ms": None, "worst_system_attempts": worst_b1,
          "tail_systems": TAIL_SYSTEMS, "tail_ms": tail_b1, "lane_efficiency": lane_eff,
          "geometry": geo, "cli_launches": cli_launches["rk45"],
-         "windowed_launches": windowed_launches["rk45"]},
+         "windowed_launches": windowed_launches["rk45"], "instances": instances["rk45"]},
         {"name": "radau", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/radau.cu",
          "replaces": "tiger_tpu/kernels/radau_pallas.py:987", "launches": launches["radau"],
          "max_abs_err": err_b2, "ms": ms_b2, "plain_ms": plain_b2, "bound_ms": bound_b2[0],
          "bound_by": bound_b2[1], "library_ms": None, "worst_system_attempts": worst_b2,
          "sweeps_per_attempt": swp_b2 / att_b2, "cli_launches": cli_launches["radau"],
-         "windowed_launches": windowed_launches["radau"]},
+         "windowed_launches": windowed_launches["radau"], "instances": instances["radau"]},
     ]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

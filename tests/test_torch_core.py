@@ -79,20 +79,13 @@ def test_solver_config_defaults_equal():
 @pytest.mark.parametrize(
     "solver, override",
     [
-        ("rk45", {"fsal": True}),
-        ("rk45", {"compensated": True}),
-        ("rk45", {"controller": "pi"}),
         ("rk45", {"dense_lockstep": True}),
         ("rk45", {"forcing_dtype": "bf16"}),
-        ("radau", {"radau_predictor": True}),
         ("radau", {"radau_factor_reuse": True}),
-        ("radau", {"radau_error_mode": "radau5"}),
-        ("radau", {"radau_error_mode": "reference"}),
+        ("radau", {"forcing_dtype": "bf16"}),
         # solve() refuses either solver's options before any work, so even
         # a run with no stiff system cannot ignore a Radau option.
-        ("solve", {"controller": "pi"}),
-        ("solve", {"radau_predictor": True}),
-        ("solve", {"radau_error_mode": "radau5"}),
+        ("solve", {"radau_factor_reuse": True}),
     ],
 )
 def test_unported_options_raise(solver, override):
@@ -423,3 +416,28 @@ def test_model_registry_matches_jax():
         get_model(200)
     with pytest.raises(KeyError, match="known"):
         get_model(999)
+
+
+def test_every_legal_option_set_has_a_kernel_instance():
+    """Every SolverConfig that validation accepts picks an instance of B1
+    and of B2, and together they reach all twelve."""
+    import itertools
+
+    from tiger_tpu_torch.kernels import radau as k_radau
+    from tiger_tpu_torch.kernels import rk45 as k_rk45
+
+    b1, b2 = set(), set()
+    for fsal, comp, controller, mode, pred in itertools.product(
+            (False, True), (False, True), ("i", "pi"), ("embedded3", "reference", "radau5"),
+            (False, True)):
+        if fsal and comp:
+            with pytest.raises(ValueError, match="mutually exclusive"):
+                SolverConfig(fsal=fsal, compensated=comp)
+            continue
+        cfg = SolverConfig(fsal=fsal, compensated=comp, controller=controller,
+                           radau_error_mode=mode, radau_predictor=pred)
+        b1.add(k_rk45.INSTANCES[k_rk45.rk45_options(cfg)])
+        assert (mode, pred) in k_radau.INSTANCES
+        b2.add(k_radau.instance_name(cfg))
+    assert b1 == set(k_rk45.rk45_instance_launches) and len(b1) == 6
+    assert b2 == set(k_radau.radau_instance_launches) and len(b2) == 6

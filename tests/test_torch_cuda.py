@@ -43,6 +43,24 @@ OPTIONS = {
     "step_capped": (dict(max_steps=40), True),  # systems stop short: failed, NaN
 }
 
+# Each kernel's option instances beside its default one (B1: csrc/rk45.cu
+# Rk45Option; B2: csrc/radau.cu RadauErrMode x predictor).
+RK45_INSTANCES = {
+    "fsal": dict(fsal=True),
+    "compensated": dict(compensated=True),
+    "pi": dict(controller="pi", pi_beta=0.08),
+    "fsal_pi": dict(fsal=True, controller="pi"),
+    "compensated_pi": dict(compensated=True, controller="pi"),
+}
+RADAU_INSTANCES = {
+    "predictor": dict(radau_predictor=True),
+    "reference": dict(radau_error_mode="reference", rtol=1e-3, atol=1e-6, max_steps=2_000),
+    "reference_predictor": dict(radau_error_mode="reference", radau_predictor=True, rtol=1e-3,
+                                atol=1e-6, max_steps=2_000),
+    "radau5": dict(radau_error_mode="radau5"),
+    "radau5_predictor": dict(radau_error_mode="radau5", radau_predictor=True),
+}
+
 
 @pytest.fixture(scope="module")
 def case():
@@ -389,3 +407,63 @@ def test_chunked_run_crash_and_resume_equal_bit_for_bit(tmp_path, monkeypatch):
         a, b = (read_netcdf(str(tmp_path / d / f"{name}_basin_rank_0.nc"), (var,))[0][var]
                 for d in ("ref", "crashed"))
         assert a.dtype == b.dtype and np.array_equal(a, b), name
+
+
+@pytest.mark.parametrize("name", sorted(RK45_INSTANCES))
+def test_rk45_option_instance_equals_plain(name):
+    """Each option instance of B1 equals rk45_plain bit for bit on 256
+    systems (a pool's share passes through its slots), and FSAL also
+    equals the default instance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model, y0, h0, qt, p, f, cfg = _b1_inputs(256, "defaults")
+    cfg = dataclasses.replace(cfg, **RK45_INSTANCES[name])
+    before = k_rk45.rk45_launches
+    ker = k_rk45.rk45(model, y0, h0, 0.0, TF, qt, p, f, cfg)
+    ref = k_rk45.rk45_plain(model, y0, h0, 0.0, TF, qt, p, f, cfg)
+    torch.cuda.synchronize()
+    assert k_rk45.rk45_launches == before + 1
+    _assert_rk45_equal(ker, ref)
+    assert bool(ker.stiff[p["Hu"] < 1e-5].all())
+    if cfg.fsal:
+        without = k_rk45.rk45(model, y0, h0, 0.0, TF, qt, p, f, dataclasses.replace(cfg, fsal=False))
+        torch.cuda.synchronize()
+        _assert_rk45_equal(ker, without)
+
+
+@pytest.mark.parametrize("name", sorted(RADAU_INSTANCES))
+def test_radau_option_instance_equals_plain(stiff_case, name):
+    """Each option instance of B2 equals radau_plain bit for bit on the
+    stiff systems over the first half hour ('reference' fails them at
+    max_steps, as in the plain version: its estimate caps h near the
+    tolerance)."""
+    y0, p, f, qt = _first(stiff_case, 33)
+    cfg = dataclasses.replace(CFG, **RADAU_INSTANCES[name])
+    h0 = initial_step(Model204(), y0, 0.0, p, f, cfg)
+    _radau_pair(Model204(), y0, h0, qt, p, f, cfg)
+
+
+def test_f32c_run_equals_a_direct_solve(tmp_path):
+    """solver.precision f32c (compensated B1) through the CLI on the card
+    at the reference's rtol 1e-6 / atol 1e-9, with the PI controller: the
+    dense and final files equal a direct solve() bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tiger_tpu_torch.config import config_from_dict
+    from tiger_tpu_torch.io.netcdf import read_netcdf
+    from tiger_tpu_torch.run import run
+    from tiger_tpu_torch.scenario import solve_written_basin, write_basin
+
+    doc = write_basin(str(tmp_path), 384, days=0.5, stiff_frac=0.01)
+    doc["solver"].update(precision="f32c", tolerances={"rtol": 1e-6, "atol": 1e-9}, controller="pi")
+    cfg = config_from_dict(doc)
+    assert cfg.solver_config().compensated and cfg.solver_config().rtol == 1e-6
+    k_rk45.rk45_launches = k_radau.radau_launches = 0
+    out = run(cfg)
+    assert k_rk45.rk45_launches > 0 and k_radau.radau_launches > 0
+    assert out["n_failed"] == 0
+    res, _, _ = solve_written_basin(cfg, "cuda")
+    for name, want in (("dense", res.dense), ("final", res.y_final)):
+        got = read_netcdf(os.path.join(cfg.output.path, f"{name}_basin_rank_0.nc"),
+                          ("outputs",))[0]["outputs"]
+        assert np.array_equal(got, want.cpu().numpy()), name

@@ -18,7 +18,8 @@ from tiger_tpu.models import Model204 as JModel204
 from tiger_tpu.solver.config import SolverConfig as JSolverConfig
 from tiger_tpu.solver.controller import initial_step as j_initial_step
 from tiger_tpu.solver.radau import radau_solve as j_radau_solve
-from tiger_tpu_torch import Model204, SolverConfig, convert
+from tiger_tpu.models import DummyModel as JDummyModel
+from tiger_tpu_torch import DummyModel, Model204, SolverConfig, convert
 from tiger_tpu_torch.kernels.radau import radau_plain
 from tiger_tpu_torch.solver import radau_solve
 
@@ -100,8 +101,11 @@ def test_float64_plain_is_the_same_solution(f32_pair):
         dict(newton_reject_unconverged=False, radau_h_freeze_hi=1.2, newton_max_iter=4),
         dict(forcing_step_align=False, fill_t0_queries=False, nan_shrink=1.0,
              radau_max_rejects=20, newton_tol=1e-6),
+        dict(radau_predictor=True),
+        dict(radau_error_mode="radau5"),
+        dict(radau_error_mode="radau5", radau_predictor=True),
     ],
-    ids=["newton_options", "reference_switches"],
+    ids=["newton_options", "reference_switches", "predictor", "radau5", "radau5_predictor"],
 )
 def test_f64_options_match_vmap_radau(options):
     """Every supported Radau option steers the plain version as it steers
@@ -116,10 +120,116 @@ def test_f64_options_match_vmap_radau(options):
                        config=SolverConfig(**cfg))
     np.testing.assert_array_equal(ours.failed.numpy(), np.asarray(ref.failed))
     # (The vmap path counts Newton sweeps by its own rule; the sweep count
-    # is held against the Pallas kernel above.)
+    # is held against the Pallas kernel above.)  radau5's controller reads
+    # the attempt's sweep count, and the vmap path's full Newton (each
+    # stage's Jacobian, every sweep) takes other counts than the kernels'
+    # simplified Newton (measured 443 against 461 sweeps, 308 against 447
+    # with the predictor), so its attempts differ by a few percent (156
+    # against 159; 151 against 159) while the trajectories agree to 6.4e-11
+    # relative.
     for name in ("n_attempts", "n_accepted", "n_rejected"):
-        np.testing.assert_array_equal(
-            getattr(ours.stats, name).numpy(), np.asarray(getattr(ref.stats, name)), name
-        )
+        got, want = getattr(ours.stats, name).numpy(), np.asarray(getattr(ref.stats, name))
+        if cfg.get("radau_error_mode") != "radau5":
+            np.testing.assert_array_equal(got, want, name)
+        elif name != "n_rejected":  # a handful, which moves by a few
+            assert np.all(np.abs(got - want) <= 0.1 * want), (name, got, want)
     np.testing.assert_allclose(ours.y_final.numpy(), np.asarray(ref.y_final), rtol=1e-9, atol=1e-12)
     np.testing.assert_allclose(ours.dense.numpy(), np.asarray(ref.dense), rtol=1e-9, atol=1e-12)
+
+
+F32_OPTIONS = {
+    "predictor": dict(radau_predictor=True),
+    "radau5": dict(radau_error_mode="radau5"),
+    "radau5_predictor": dict(radau_error_mode="radau5", radau_predictor=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(F32_OPTIONS))
+def test_f32_options_match_pallas_radau(case):
+    """Each option in float32, on the stiff rows over the first hour (the
+    span of test_f64_options_match_vmap_radau).  radau5 is held to the
+    Pallas kernel as test_f32_matches_pallas_radau holds the default.
+
+    The predictor starts Newton from the last attempt's polynomial, and the
+    two packages' float32 roundings move its sweep counts and then the step
+    sequence (measured 630/585 against 661/684 attempts; 268/356 against
+    462/333 with radau5).  Its float32 runs also scatter the static store,
+    whose capacity Hu is 1e-6 m on these rows, around its value: 5.7e-7
+    and 9.0e-7 (port, Pallas) where float64 at rtol 1e-9 gives 6.2e-7,
+    and with radau5 -2.1e-6 and -9.6e-8.  So each package's run is held to
+    that float64 solution, both within 5e-6 m (5 Hu) and 2e-3 relative.
+    The float64 test above holds the predictor's arithmetic against the
+    vmap path step for step."""
+    (y0, p, f, qt, h0), (ty0, tp, tf_, tq, th0) = _subset(np.float32)
+    cfg = dict(CFG, **F32_OPTIONS[case])
+    ref = radau_solve_pallas(JModel204(), y0, 0.0, 60.0, qt[:2], p, f, h0=h0,
+                             config=JSolverConfig(**cfg), interpret=True)
+    ours = radau_solve(Model204(), ty0, 0.0, 60.0, tq[:2], tp, tf_, h0=th0,
+                       config=SolverConfig(**cfg))
+    assert not ours.failed.any() and not np.asarray(ref.failed).any()
+    if not cfg.get("radau_predictor"):
+        np.testing.assert_allclose(ours.y_final.numpy(), np.asarray(ref.y_final),
+                                   rtol=1e-4, atol=1e-7)
+        np.testing.assert_allclose(ours.dense.numpy(), np.asarray(ref.dense), rtol=1e-4, atol=1e-7)
+        att, ref_att = ours.stats.n_attempts.numpy(), np.asarray(ref.stats.n_attempts)
+        assert np.all(np.abs(att - ref_att) <= 0.02 * ref_att)
+        swp, ref_swp = ours.stats.n_newton.numpy(), np.asarray(ref.stats.n_newton)
+        assert np.all(np.abs(swp - ref_swp) <= 0.02 * ref_swp)
+        return
+    (_, _, _, _, _), (y64, p64, f64, q64, h64) = _subset(np.float64)
+    tight = radau_plain(Model204(), y64, h64, 0.0, 60.0, q64[:2], p64, f64,
+                        SolverConfig(**dict(cfg, rtol=1e-9, atol=1e-12)))
+    assert not tight.failed.any()
+    for got in (ours.dense.numpy(), np.asarray(ref.dense)):
+        np.testing.assert_allclose(got, tight.dense.numpy(), rtol=2e-3, atol=5e-6)
+
+
+def test_f32_radau5_predictor_fails_the_stiff_rows_as_the_pallas_kernel_does():
+    """Over the full 6 hours radau5 with the predictor fails both stiff rows
+    in float32, in the Pallas kernel (max_steps) as in the port
+    (radau_max_rejects): neither reports a solution it did not reach."""
+    (y0, p, f, qt, h0), (ty0, tp, tf_, tq, th0) = _subset(np.float32)
+    cfg = dict(CFG, radau_error_mode="radau5", radau_predictor=True, max_steps=5_000)
+    ref = radau_solve_pallas(JModel204(), y0, 0.0, TF, qt, p, f, h0=h0,
+                             config=JSolverConfig(**cfg), interpret=True)
+    ours = radau_solve(Model204(), ty0, 0.0, TF, tq, tp, tf_, h0=th0, config=SolverConfig(**cfg))
+    assert ours.failed.all() and np.asarray(ref.failed).all()
+    assert torch.isnan(ours.y_final).all() and np.isnan(np.asarray(ref.y_final)).all()
+
+
+@pytest.mark.parametrize("np_dtype", [np.float32, np.float64], ids=["float32", "float64"])
+def test_reference_error_mode_matches_jax(np_dtype):
+    """radau_error_mode='reference' (the reference's RADAU_E, exponent 1/5):
+    its weights do not sum to 0, so the estimate does not vanish with h and
+    caps h near the tolerance (tests/test_radau.py); on the stiff rows both
+    packages end every system at max_steps within the first 10 minutes.  So
+    it runs on the 5-state linear test system over 0.2 minutes, float64
+    against the vmap path (the same steps, 1e-9), float32 against the Pallas
+    kernel (5e-4 relative)."""
+    cfg = dict(rtol=1e-4, atol=1e-6, radau_error_mode="reference")
+    y0 = np.random.default_rng(3).uniform(0.5, 2.0, (3, 5)).astype(np_dtype)
+    qt = np.linspace(0.0, 0.2, 5).astype(np_dtype)
+    h0 = np.full(3, 1e-3, np_dtype)
+    if np_dtype == np.float64:
+        ref = j_radau_solve(JDummyModel(), jnp.asarray(y0), 0.0, 0.2, jnp.asarray(qt),
+                            h0=jnp.asarray(h0), config=JSolverConfig(**cfg))
+    else:
+        ref = radau_solve_pallas(JDummyModel(), jnp.asarray(y0), 0.0, 0.2, jnp.asarray(qt),
+                                 h0=jnp.asarray(h0), config=JSolverConfig(**cfg), interpret=True)
+    ours = radau_solve(DummyModel(), torch.from_numpy(y0), 0.0, 0.2, torch.from_numpy(qt),
+                       h0=torch.from_numpy(h0), config=SolverConfig(**cfg))
+    assert not ours.failed.any() and not np.asarray(ref.failed).any()
+    att = ours.stats.n_attempts.numpy()
+    if np_dtype == np.float64:
+        np.testing.assert_array_equal(att, np.asarray(ref.stats.n_attempts))
+        rtol = 1e-9
+    else:
+        assert np.all(np.abs(att - np.asarray(ref.stats.n_attempts)) <= 0.02 * att)
+        rtol = 5e-4
+    # Many more steps than the default error estimate takes.
+    plain = radau_solve(DummyModel(), torch.from_numpy(y0), 0.0, 0.2, torch.from_numpy(qt),
+                        h0=torch.from_numpy(h0),
+                        config=SolverConfig(**dict(cfg, radau_error_mode="embedded3")))
+    assert int(att.min()) > 4 * int(plain.stats.n_attempts.max())
+    np.testing.assert_allclose(ours.y_final.numpy(), np.asarray(ref.y_final), rtol=rtol, atol=1e-12)
+    np.testing.assert_allclose(ours.dense.numpy(), np.asarray(ref.dense), rtol=rtol, atol=1e-12)

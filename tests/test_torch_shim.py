@@ -25,7 +25,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from tests.test_torch_cuda import OPTIONS
+from tests.test_torch_cuda import OPTIONS, RK45_INSTANCES
 from tiger_tpu_torch import Model204, SolverConfig
 from tiger_tpu_torch.kernels import _build
 from tiger_tpu_torch.kernels import rk45 as k_rk45
@@ -91,3 +91,26 @@ def test_schedule_changes_no_result(shim_lib, monkeypatch, n_sys, name):
     assert int(alone.stats.n_attempts.min()) > 0
     if n_sys >= 31 and cfg.stiff_detect and cfg.max_steps > 40:
         assert bool(alone.stiff[p["Hu"] < 1e-5].all())
+
+
+@pytest.mark.parametrize("name", sorted(RK45_INSTANCES))
+def test_option_instance_schedule_changes_no_result(shim_lib, monkeypatch, name):
+    """Each option instance (its pool rows k0, y_c and facold stored and
+    loaded between slices) gives every system the result it gets alone,
+    and the FSAL instances give the default instances' results: bit for
+    bit, 100 systems over 6 hours with stiff rows and hourly rain."""
+    cfg = dataclasses.replace(CFG, **RK45_INSTANCES[name])
+    model = Model204()
+    y0, p, f = scenario(100, TF / 1440.0, 0.05, device="cpu")
+    qt = torch.arange(0.0, TF + 1e-9, 60.0)
+    h0 = initial_step(model, y0, 0.0, p, f, cfg)
+    pooled = _run(shim_lib, monkeypatch, "tt_rk45_launch", model, y0, h0, qt, p, f, cfg)
+    alone = _run(shim_lib, monkeypatch, "tt_rk45_serial", model, y0, h0, qt, p, f, cfg)
+    diff = k_rk45.rk45_mismatch(pooled, alone)
+    assert not any(diff.values()), diff
+    assert bool(alone.stiff[p["Hu"] < 1e-5].all())
+    if cfg.fsal:
+        plain_k1 = _run(shim_lib, monkeypatch, "tt_rk45_launch", model, y0, h0, qt, p, f,
+                        dataclasses.replace(cfg, fsal=False))
+        diff = k_rk45.rk45_mismatch(pooled, plain_k1)
+        assert not any(diff.values()), diff

@@ -131,7 +131,8 @@ class SolverInfo:
     # 'f64' matches the reference (double everywhere); 'f32' is the
     # kernels' precision (pair it with rtol >= ~1e-5: tolerances below f32
     # rounding accumulate past them); 'f32c' is f32 with compensated (Kahan)
-    # state accumulation (SolverConfig.compensated, not ported yet).
+    # state accumulation (SolverConfig.compensated): it holds the
+    # reference's rtol 1e-6 / atol 1e-9 on the card.
     precision: str = "f64"
     # Forcing precision (SolverConfig.forcing_dtype); 'bf16' answered a
     # TPU memory limit and the port's solver refuses it.

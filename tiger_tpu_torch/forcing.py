@@ -152,6 +152,21 @@ def _true_div(t: torch.Tensor, dt: float) -> torch.Tensor:
     return t / torch.full((), dt, dtype=t.dtype, device=t.device)
 
 
+def _sample_index(t: torch.Tensor, n_t: int, dt: float, snap: float) -> torch.Tensor:
+    """The ZOH sample a gather at ``t`` reads: floor(t / dt + snap) in [0, n_t - 1]."""
+    return torch.clamp(torch.floor(_true_div(t, dt) + snap).to(torch.int64), 0, n_t - 1)
+
+
+def forcing_index_changed(meta: ForcingMeta, t_a: torch.Tensor, t_b: torch.Tensor,
+                          snap: float = 0.0) -> torch.Tensor:
+    """[S] bool: a gather at ``t_b`` reads another sample of some forcing
+    than a gather at ``t_a`` (RK45's FSAL carry is stale there)."""
+    out = torch.zeros(t_a.shape, dtype=torch.bool, device=t_a.device)
+    for n_t, dt in zip(meta.n_steps, meta.dt_min):
+        out = out | (_sample_index(t_a, n_t, dt, snap) != _sample_index(t_b, n_t, dt, snap))
+    return out
+
+
 def gather_forcings_column(
     data: torch.Tensor, meta: ForcingMeta, t, snap: float = 0.0
 ) -> tuple:
@@ -165,7 +180,7 @@ def gather_forcings_column(
         t = torch.tensor(float(t), dtype=torch.float64, device=data.device)
     vals = []
     for off, n_t, dt in zip(meta.offsets, meta.n_steps, meta.dt_min):
-        idx = torch.clamp(torch.floor(_true_div(t, dt) + snap).to(torch.int64), 0, n_t - 1)
+        idx = _sample_index(t, n_t, dt, snap)
         if idx.ndim == 0:
             vals.append(data[off + idx])
         else:

@@ -129,7 +129,7 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.tt_rk45_geometry.argtypes = [ctypes.c_int64, ctypes.c_void_p]
+        lib.tt_rk45_geometry.argtypes = [ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p]
         lib.tt_rk45_geometry.restype = ctypes.c_int
         for name in ("tt_rk45_args_size", "tt_radau_args_size"):
             fn = getattr(lib, name)

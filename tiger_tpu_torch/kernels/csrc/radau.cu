@@ -2,15 +2,29 @@
 //
 // Replaces the TPU kernel tiger_tpu/kernels/radau_pallas.py: _make_kernel's
 // inner `kernel` (l.169-852), launched by pl.pallas_call in _pipeline
-// (l.987).  Same per-system semantics with the default options (embedded3
-// error, no predictor, no factor reuse): per attempt one forward-difference
+// (l.987).  Same per-system semantics (no factor reuse): per attempt one
+// forward-difference
 // Jacobian at (t, y) with eps = sqrt(float32 eps); the simplified-Newton
 // matrix solved in the eigenbasis of A^-1 (tableau._radau_eig) as one real
 // and one complex 5x5 unpivoted Doolittle LU; masked Newton sweeps, at most
 // newton_max_iter in all, converged by the absolute test OR RADAU5's
-// kappa-scaled test (NaN counts as converged); the embedded3 error;
-// unconverged steps rejected with h/2; collocation dense output; and
-// radau_max_rejects consecutive rejections -> failed.
+// kappa-scaled test (NaN counts as converged); the error estimate of
+// radau_error_mode; unconverged steps rejected with h/2; collocation dense
+// output; and radau_max_rejects consecutive rejections -> failed.  The TPU
+// kernel's options are compile-time here, one instance per error mode with
+// and without the predictor (radau_dispatch), so the default instance keeps
+// its instructions:
+//   - error modes (l.157-162, 439-490): 'embedded3' (E3, exponent 1/3) and
+//     'reference' (the reference's E, 1/5) are the embedded difference;
+//     'radau5' (1/4) is RADAU5's smoothed h M_r^-1 (f0 + sum_s EA_s z_s),
+//     two triangular solves on the real factor every lane already holds,
+//     and after a rejection, once more at the perturbed state y + e.  Its
+//     controller scales the safety by (2M + 1) / (2M + sweeps);
+//   - the predictor (l.276-322, 601-617): Newton starts from the stage
+//     values the last attempt's collocation polynomial extrapolates.  The
+//     last attempt's slopes are the warp's shared z, read before the new
+//     start overwrites them; h_prev, the theta offset and whether the last
+//     Newton converged to finite slopes are scalars alike on every lane.
 //
 // What bounds it on the H100: latency.  The main path hands B2 ~131 stiff
 // systems, and each needs ~3,100 attempts that depend on one another, so
@@ -46,6 +60,8 @@
 // radau_plain bit for bit.  The tableau and eigen-constants come from the
 // kernel's parameter space (passed from tableau.py, never retyped here).
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace tt {
@@ -71,8 +87,12 @@ struct RadauArgs {
   float newton_tol, kappa, tol_eps, fd_eps;
   int32_t max_steps, max_rejects, newton_max_iter, reject_unconverged;
   int32_t fill_t0_queries;
+  int32_t err_mode;     // RadauErrMode: which instance the launcher starts
+  int32_t predictor;    // with the Newton predictor
+  float safety_newton;  // radau5: safety * (2 newton_max_iter + 1)
   ForcingMeta forcing;
-  float ra[3][3], rc[3], rb[3], re[3], rw[3][3];  // tableau.RADAU_*
+  float ra[3][3], rc[3], rb[3], re[3], rw[3][3];  // tableau.RADAU_*; re: E3 or E
+  float ea[3], inv_a[3][3];                       // tableau.RADAU_ERR_EA, RADAU_A_INV
   float gam, alp, bet;                            // eigenvalues of A^-1
   float v1[3], v2r[3], v2i[3];                    // eigenvector columns
   float p1[3], p2r[3], p2i[3];                    // rows of Lambda V^-1
@@ -179,7 +199,11 @@ __device__ __forceinline__ float warp_jmax(float v) {
   return __uint_as_float(__reduce_max_sync(kAllLanes, __float_as_uint(v)));
 }
 
+// SolverConfig.radau_error_mode (kernels/radau.py ERR_MODES).
+enum RadauErrMode : int32_t { kEmbedded3 = 0, kReference = 1, kRadau5 = 2 };
+
 // One system on the block's 32 lanes; every lane runs every loop trip.
+template <int ERR, bool PRED>
 __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shared& sh) {
   const int lane = threadIdx.x;
   const int64_t S = a.n_sys;
@@ -205,6 +229,12 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
 #pragma unroll
   for (int j = 0; j < 3; ++j) ra_st[j] = st == 0 ? a.ra[0][j] : st == 1 ? a.ra[1][j] : a.ra[2][j];
   const float v1_us = pick(a.v1, us), v2r_us = pick(a.v2r, us), v2i_us = pick(a.v2i, us);
+  float inv_a_us[3] = {};  // row us of A^-1 (the predictor)
+  if constexpr (PRED) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      inv_a_us[j] = us == 0 ? a.inv_a[0][j] : us == 1 ? a.inv_a[1][j] : a.inv_a[2][j];
+  }
 
   int q = 0;
   for (int e = lane; e < a.n_q * kNEq; e += kWarp) {
@@ -217,6 +247,11 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
   float t = t0, t_c = 0.f, h = __ldg(a.h0 + s);
   int32_t reject = 0, failed = 0, n_acc = 0, n_rej = 0, n_att = 0, n_swp = 0;
   int32_t n_fct = 0;
+  // The predictor's state: the last attempt's step, the theta offset of
+  // the next step on its polynomial (1 after an accept, 0 after a reject),
+  // and whether its slopes (in sh.z) may seed.
+  float h_prev = 1.f, z_base = 0.f;
+  bool have = false;
 
   TT_PHASE_START
   while (t < tf && !failed && n_att < a.max_steps) {
@@ -252,6 +287,34 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
     // lane's slope z[us][ui] stays in a register, the shared copy feeds
     // the stage evaluations.
     float z_own = sh.jf[0][ui];
+    if constexpr (PRED) {
+      // Z0_i = (h_prev / h) sum_j A^-1[i][j] (I(theta_j) - I(base)) z_prev,
+      // theta_j = base + c_j h / h_prev, in radau_plain's order.
+      const float ratio = h_eff / h_prev;
+      if (have && ratio <= 2.f) {
+        const float base2 = z_base * z_base, base3 = base2 * z_base;
+        float i_th[3][3];  // [stage][node]
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          const float th = z_base + a.rc[i] * ratio;
+          const float th2 = th * th, th3 = th2 * th;
+#pragma unroll
+          for (int sg = 0; sg < 3; ++sg)
+            i_th[sg][i] = a.rw[sg][0] * (th - z_base) + a.rw[sg][1] * (th2 - base2) +
+                          a.rw[sg][2] * (th3 - base3);
+        }
+        const float zp0 = sh.z[0][ui], zp1 = sh.z[1][ui], zp2 = sh.z[2][ui];
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const float vjk = i_th[0][j] * zp0 + i_th[1][j] * zp1 + i_th[2][j] * zp2;
+          const float term = inv_a_us[j] * vjk;
+          acc = j == 0 ? term : acc + term;
+        }
+        z_own = (h_prev / h_eff) * acc;
+      }
+      __syncwarp();  // every lane has read the last slopes
+    }
     if (upd_lane) sh.z[us][ui] = z_own;
     const float tol_own = a.atol + a.rtol * fabsf(pick(y, ui));
 
@@ -366,11 +429,41 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
       for (int j = 0; j < 3; ++j) yo = yo + (h_eff * a.rb[j]) * sh.z[j][i];
       y_out[i] = yo;
     }
-    float ec = 0.f;
+    float err;
+    if constexpr (ERR == kRadau5) {
+      const float tol = a.atol + a.rtol * jmax(fabsf(pick(y, comp)), fabsf(pick(y_out, comp)));
+      // e = h M_r^-1 (f0 + sum_s EA_s z_s), every lane for the whole state.
+      float defect[kNEq], e[kNEq];
 #pragma unroll
-    for (int j = 0; j < 3; ++j) ec = ec + (h_eff * a.re[j]) * sh.z[j][comp];
-    const float tol = a.atol + a.rtol * jmax(fabsf(pick(y, comp)), fabsf(pick(y_out, comp)));
-    const float err = warp_jmax(lane < kNEq ? fabsf(ec / tol) : 0.f);
+      for (int i = 0; i < kNEq; ++i) {
+        defect[i] = sh.jf[0][i] + a.ea[0] * sh.z[0][i] + a.ea[1] * sh.z[1][i] +
+                    a.ea[2] * sh.z[2][i];
+        e[i] = defect[i];
+      }
+      fa.real_solve(e);
+#pragma unroll
+      for (int i = 0; i < kNEq; ++i) e[i] = h_eff * e[i];
+      err = warp_jmax(lane < kNEq ? fabsf(pick(e, comp) / tol) : 0.f);
+      if (err > 1.f && reject > 0) {
+        // After a rejection: the defect's f again at y + e.
+        float yp[kNEq], fp[kNEq];
+#pragma unroll
+        for (int i = 0; i < kNEq; ++i) yp[i] = y[i] + e[i];
+        model.rhs(yp, f, n_forc, fp);
+#pragma unroll
+        for (int i = 0; i < kNEq; ++i) e[i] = fp[i] + defect[i] - sh.jf[0][i];
+        fa.real_solve(e);
+#pragma unroll
+        for (int i = 0; i < kNEq; ++i) e[i] = h_eff * e[i];
+        err = warp_jmax(lane < kNEq ? fabsf(pick(e, comp) / tol) : 0.f);
+      }
+    } else {
+      float ec = 0.f;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) ec = ec + (h_eff * a.re[j]) * sh.z[j][comp];
+      const float tol = a.atol + a.rtol * jmax(fabsf(pick(y, comp)), fabsf(pick(y_out, comp)));
+      err = warp_jmax(lane < kNEq ? fabsf(ec / tol) : 0.f);
+    }
     const bool newt_fail = a.reject_unconverged && !conv;
     const bool accept = err <= 1.f && !newt_fail;
 
@@ -396,7 +489,10 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
       }
     }
 
-    const float raw_fac = a.safety * powf(1.f / (err + 1e-16f), a.expo);
+    float safety = a.safety;
+    if constexpr (ERR == kRadau5)
+      safety = a.safety_newton / ((float)(2 * a.newton_max_iter) + (float)sweeps);
+    const float raw_fac = safety * powf(1.f / (err + 1e-16f), a.expo);
     const float fac_acc = jclip(raw_fac, a.min_scale, a.max_scale);
     float fac_rej = jclip(is_nan(raw_fac) ? a.nan_shrink : jmin(raw_fac, 1.f),
                           a.min_scale, a.max_scale);
@@ -405,6 +501,14 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
     if (a.h_freeze_hi > 1.f && accept && fac_acc >= 1.f && fac_acc <= a.h_freeze_hi)
       h_new = h_eff;
 
+    if constexpr (PRED) {
+      // Only a converged Newton solution with finite slopes seeds the next
+      // attempt.
+      const bool finite = __all_sync(kAllLanes, !upd_lane || isfinite(z_own));
+      have = conv && finite;
+      h_prev = h_eff;
+      z_base = accept ? 1.f : 0.f;
+    }
     const int32_t reject_new = accept ? 0 : reject + 1;
     if (!accept && reject_new > a.max_rejects) failed = 1;
     if (accept) {
@@ -437,9 +541,30 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
 }
 
 // One block, one warp, per system.
+template <int ERR, bool PRED>
 __global__ void __launch_bounds__(kWarp) radau_kernel(const RadauArgs a) {
   __shared__ Shared sh;
-  radau_system(a, blockIdx.x, sh);
+  radau_system<ERR, PRED>(a, blockIdx.x, sh);
+}
+
+// Calls f(std::integral_constant<int, ERR>{}, std::bool_constant<PRED>{})
+// for the instance of (err_mode, predictor); false if it has none.
+template <class F>
+inline bool radau_dispatch(int32_t err_mode, int32_t predictor, F&& f) {
+  if (predictor != 0 && predictor != 1) return false;
+  const auto with_pred = [&](auto err) {
+    if (predictor) {
+      f(err, std::true_type{});
+    } else {
+      f(err, std::false_type{});
+    }
+  };
+  switch (err_mode) {
+    case kEmbedded3: with_pred(std::integral_constant<int, kEmbedded3>{}); return true;
+    case kReference: with_pred(std::integral_constant<int, kReference>{}); return true;
+    case kRadau5: with_pred(std::integral_constant<int, kRadau5>{}); return true;
+    default: return false;
+  }
 }
 
 }  // namespace tt
@@ -448,10 +573,16 @@ __global__ void __launch_bounds__(kWarp) radau_kernel(const RadauArgs a) {
 
 extern "C" int tt_radau_args_size() { return (int)sizeof(tt::RadauArgs); }
 
-// Enqueues B2 on `stream`; returns cudaGetLastError() (0 on success).
+// Enqueues the instance of (err_mode, predictor) on `stream`; returns
+// cudaGetLastError() (0 on success; cudaErrorInvalidValue for a set
+// without one).
 extern "C" int tt_radau_launch(const tt::RadauArgs* args, void* stream) {
   if (args->n_sys <= 0) return 0;
-  tt::radau_kernel<<<(unsigned)args->n_sys, tt::kWarp, 0, (cudaStream_t)stream>>>(*args);
+  const bool known = tt::radau_dispatch(args->err_mode, args->predictor, [&](auto err, auto pred) {
+    tt::radau_kernel<decltype(err)::value, decltype(pred)::value>
+        <<<(unsigned)args->n_sys, tt::kWarp, 0, (cudaStream_t)stream>>>(*args);
+  });
+  if (!known) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

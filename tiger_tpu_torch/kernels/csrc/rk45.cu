@@ -2,14 +2,27 @@
 //
 // Replaces the TPU kernel tiger_tpu/kernels/rk45_pallas.py: _make_kernel's
 // inner `kernel` (l.243-866), launched by pl.pallas_call in
-// _pallas_pipeline (l.1051).  Same per-system semantics with the default
-// options (no FSAL, no Kahan-compensated y, I controller): ZOH forcing frozen
+// _pallas_pipeline (l.1051).  Same per-system semantics: ZOH forcing frozen
 // at step start, the step capped at the tf landing and then at the next
 // forcing boundary, seven stages, the inf-norm embedded error, the
 // slope-jump guard, the I controller with NaN shrink, Kahan-compensated t,
 // the stiffness criteria (reject streak, h-floor streak, Hairer's |h*lambda|
 // test every stiff_test_every accepted steps), quartic dense output into
-// the queries in (t, t + h], and per-system counters.
+// the queries in (t, t + h], and per-system counters.  The TPU kernel's
+// options are compile-time here (Rk45Option, one instance per legal set:
+// the I or PI controller, each plain, with FSAL or compensated), so the
+// default instance keeps its instructions and its pool:
+//   - FSAL (l.437-454, 726-777): k1 is carried from the last advance's k7
+//     (y_out is accumulated in stage 7's association, so k7 = f(t + h,
+//     y_out) bit for bit), and evaluated anew after a step that crossed a
+//     forcing sample; its results equal the default instance's bit for bit;
+//   - compensated (l.495-551, 790-803): dy accumulated on its own, the
+//     error test on y + dy, and the state committed by TwoSum into y and
+//     its Kahan low word y_c;
+//   - PI (l.623-640): the Lund-stabilised factor base * facold^beta on an
+//     advance, the plain factor on a rejection, facold carried.
+// Each option state is one more row of the pool in the instances that use
+// it (k0[5], y_c[5], facold).
 //
 // What bounds it on the H100: neither rate of the card.  An attempt is a
 // dependent chain of seven right-hand sides, ~700 operations against ~20
@@ -60,6 +73,8 @@
 // TT_RK45_SLICE attempts a slice.  -DTT_RK45_PHASES adds per-warp probes
 // (python -m tiger_tpu_torch.rk45_phases).
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "rk45_tableau.cuh"  // TT_DP_TABLEAU, written by _build.py
 
@@ -100,11 +115,23 @@ struct Rk45Args {
   int32_t n_q;
   int32_t safe_pow;
   float t0, tf, h_floor;
-  float rtol, atol, safety, min_scale, max_scale, expo;
-  float slope_jump_thresh, min_step_fraction, nan_shrink, stiff_hlamb;
+  float rtol, atol, safety, min_scale, max_scale, expo;  // expo: 0.2, or 0.2 - 0.75 beta (PI)
+  float slope_jump_thresh, min_step_fraction, nan_shrink, stiff_hlamb, pi_beta;
   int32_t max_rejects, max_steps, stiff_detect, stiff_streak, stiff_forgive;
   int32_t stiff_test_every, stiff_floor_streak, fill_t0_queries;
+  int32_t options;  // Rk45Option bits: which instance the launcher starts
   ForcingMeta forcing;
+};
+
+// The TPU kernel's options (SolverConfig.fsal, .compensated, .controller).
+// fsal and compensated exclude each other (SolverConfig.__post_init__), so
+// six sets have an instance: {I, PI} x {plain, FSAL, compensated}.
+enum Rk45Option : int32_t { kFsal = 1, kComp = 2, kPi = 4 };
+template <int OPT>
+struct Rk45Opt {
+  static constexpr bool fsal = (OPT & kFsal) != 0, comp = (OPT & kComp) != 0,
+                        pi = (OPT & kPi) != 0;
+  static_assert(!(fsal && comp), "fsal and compensated exclude each other");
 };
 
 // Everything a system carries from one attempt to the next.  With h0 it is
@@ -112,6 +139,9 @@ struct Rk45Args {
 // (rk45_pallas.py:850-865 writes the same fields).
 struct Rk45State {
   float y[kNEq], t, t_c, h;  // t_c: Kahan compensation of t
+  float k0[kNEq];   // FSAL: f(t, y), carried from the last advance
+  float y_c[kNEq];  // compensated: the Kahan low word of y
+  float facold;     // PI: the last committed error norm (1e-4 at the start)
   int32_t reject, iasti, nonsti, fstreak;  // reject streak, detector counters, h-floor streak
   int32_t n_acc, n_rej, n_att;
   int32_t q;      // query cursor: the first query strictly past t
@@ -122,10 +152,27 @@ __device__ __forceinline__ bool rk45_live(const Rk45Args& a, const Rk45State& st
   return st.t < a.tf && !st.stiff && st.n_att < a.max_steps;
 }
 
+// The forcing sample index of every forcing differs between times t and u.
+__device__ __forceinline__ bool forcing_sample_changed(const ForcingMeta& m, float t, float u) {
+  bool changed = false;
+#pragma unroll
+  for (int j = 0; j < kMaxForcings; ++j) {
+    if (j < m.n_forc) {
+      const int it = min(max((int)(t / m.dt[j] + m.snap), 0), m.n_steps[j] - 1);
+      const int iu = min(max((int)(u / m.dt[j] + m.snap), 0), m.n_steps[j] - 1);
+      changed = changed || it != iu;
+    }
+  }
+  return changed;
+}
+
 // Start of system s: state from y0 and h0, and the dense rows with
-// qt <= t0 as y0 (fill_t0_queries), the rest as 0.
+// qt <= t0 as y0 (fill_t0_queries), the rest as 0.  FSAL's first k1 is
+// f(t0, y0) on the forcing at t0.
+template <int OPT>
 __device__ __forceinline__ void rk45_admit(const Rk45Args& a, int64_t s, Rk45State& st,
                                            float& h0) {
+  using O = Rk45Opt<OPT>;
   const int64_t S = a.n_sys;
 #pragma unroll
   for (int i = 0; i < kNEq; ++i) st.y[i] = __ldg(a.y0 + i * S + s);
@@ -144,11 +191,25 @@ __device__ __forceinline__ void rk45_admit(const Rk45Args& a, int64_t s, Rk45Sta
   st.reject = st.iasti = st.nonsti = st.fstreak = 0;
   st.n_acc = st.n_rej = st.n_att = 0;
   st.stiff = 0;
+  if constexpr (O::fsal) {
+    Model204 model;
+    model.load(a.params, S, s, a.safe_pow);
+    float f[kMaxForcings];
+    gather_forcings(a.forc, S, s, a.forcing, st.t, f);
+    model.rhs(st.y, f, a.forcing.n_forc, st.k0);
+  }
+  if constexpr (O::comp) {
+#pragma unroll
+    for (int i = 0; i < kNEq; ++i) st.y_c[i] = 0.f;
+  }
+  if constexpr (O::pi) st.facold = 1e-4f;
 }
 
 // One attempt of system s.  Returns whether it filled dense rows.
+template <int OPT>
 __device__ __forceinline__ bool rk45_attempt(const Rk45Args& a, const Model204& model,
                                              const float h0, const int64_t s, Rk45State& st) {
+  using O = Rk45Opt<OPT>;
   constexpr DpTableau tb = TT_DP_TABLEAU;
   const int64_t S = a.n_sys;
   const float t = st.t, h = st.h, tf = a.tf;
@@ -160,9 +221,16 @@ __device__ __forceinline__ bool rk45_attempt(const Rk45Args& a, const Model204& 
   float f[kMaxForcings];
   gather_forcings(a.forc, S, s, a.forcing, t, f);
 
-  // Seven stages; forcing frozen at step start for all of them.
+  // Seven stages; forcing frozen at step start for all of them.  FSAL
+  // takes k1 from the carry: the last advance's k7, or for a rejected
+  // system the same (t, y)'s.
   float k[7][kNEq], g6[kNEq];
-  model.rhs(y, f, a.forcing.n_forc, k[0]);
+  if constexpr (O::fsal) {
+#pragma unroll
+    for (int i = 0; i < kNEq; ++i) k[0][i] = st.k0[i];
+  } else {
+    model.rhs(y, f, a.forcing.n_forc, k[0]);
+  }
 #pragma unroll
   for (int sg = 1; sg < 7; ++sg) {
     float acc[kNEq];
@@ -183,25 +251,38 @@ __device__ __forceinline__ bool rk45_attempt(const Rk45Args& a, const Model204& 
     model.rhs(acc, f, a.forcing.n_forc, k[sg]);
   }
 
-  // 5th-order update and embedded error, in the TPU kernel's order.
-  float y_out[kNEq], err_c[kNEq];
+  // 5th-order update and embedded error, in the TPU kernel's order: y_out
+  // in stage 7's association (so FSAL's k7 is f(t + h, y_out)), or, when
+  // compensated, the increment dy on its own and y_out = y + dy.
+  float y_out[kNEq], err_c[kNEq], dy[kNEq];
 #pragma unroll
   for (int i = 0; i < kNEq; ++i) {
     y_out[i] = y[i];
     err_c[i] = 0.f;
+    dy[i] = 0.f;
   }
 #pragma unroll
   for (int sg = 0; sg < 7; ++sg) {
     if (tb.b[sg] != 0.f) {
       const float hw = h_eff * tb.b[sg];
 #pragma unroll
-      for (int i = 0; i < kNEq; ++i) y_out[i] = y_out[i] + hw * k[sg][i];
+      for (int i = 0; i < kNEq; ++i) {
+        if constexpr (O::comp) {
+          dy[i] = dy[i] + hw * k[sg][i];
+        } else {
+          y_out[i] = y_out[i] + hw * k[sg][i];
+        }
+      }
     }
     if (tb.e[sg] != 0.f) {
       const float hw = h_eff * tb.e[sg];
 #pragma unroll
       for (int i = 0; i < kNEq; ++i) err_c[i] = err_c[i] + hw * k[sg][i];
     }
+  }
+  if constexpr (O::comp) {
+#pragma unroll
+    for (int i = 0; i < kNEq; ++i) y_out[i] = y[i] + dy[i];
   }
   float err = 0.f, jump_mag = 0.f;
 #pragma unroll
@@ -249,8 +330,15 @@ __device__ __forceinline__ bool rk45_attempt(const Rk45Args& a, const Model204& 
   }
 
   // I controller: clip on accept, capped at 1 (NaN -> nan_shrink) on reject.
+  // PI: an advance takes base * facold^beta (through the same powf), and a
+  // committed step that was not clamped at tf sets facold.
   const float base_fac = a.safety * powf(1.f / (err + 1e-16f), a.expo);
-  const float fac_acc = jclip(base_fac, a.min_scale, a.max_scale);
+  float raw_fac = base_fac;
+  if constexpr (O::pi) {
+    raw_fac = base_fac * powf(st.facold, a.pi_beta);
+    if (advance && !clamp) st.facold = jmax(err, 1e-4f);
+  }
+  const float fac_acc = jclip(raw_fac, a.min_scale, a.max_scale);
   const float fac_rej =
       jclip(is_nan(base_fac) ? a.nan_shrink : jmin(base_fac, 1.f), a.min_scale,
             a.max_scale);
@@ -295,8 +383,31 @@ __device__ __forceinline__ bool rk45_attempt(const Rk45Args& a, const Model204& 
   if (advance) {
     st.t_c = (t1 - t) - kh;
     st.t = t1;
+    if constexpr (O::comp) {
+      // TwoSum of y and dy less the carried low word.
 #pragma unroll
-    for (int i = 0; i < kNEq; ++i) y[i] = y_out[i];
+      for (int i = 0; i < kNEq; ++i) {
+        const float khs = dy[i] - st.y_c[i];
+        const float y_kah = y[i] + khs;
+        st.y_c[i] = (y_kah - y[i]) - khs;
+        y[i] = y_kah;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kNEq; ++i) y[i] = y_out[i];
+    }
+    if constexpr (O::fsal) {
+      // k7 read the forcing of t: past a sample boundary the next k1 is
+      // evaluated on the new sample.
+      if (forcing_sample_changed(a.forcing, t, t1)) {
+        float f1[kMaxForcings];
+        gather_forcings(a.forc, S, s, a.forcing, t1, f1);
+        model.rhs(y, f1, a.forcing.n_forc, st.k0);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kNEq; ++i) st.k0[i] = k[6][i];
+      }
+    }
   }
   st.stiff = st.stiff || stiff_new;
   st.h = h_new;
@@ -324,14 +435,22 @@ __device__ __forceinline__ void rk45_finish(const Rk45Args& a, int64_t s, const 
 
 // ---- the pool ----
 // Rows of the pool's float and int blocks; slot i of row r is block[r * kPool + i].
+// The option rows follow pH0 in the instances that carry them.
 enum PoolF { pY = 0, pT = kNEq, pTc, pH, pH0, kPoolFloats };
 enum PoolI { pReject, pIasti, pNonsti, pFstreak, pNAcc, pNRej, pNAtt, pQ, pSys, kPoolInts };
-constexpr size_t kPoolBytes = (size_t)kPool * (8 + 4 * (kPoolFloats + kPoolInts));
 constexpr unsigned long long kFreeKey = 0xFFFFFFFFull;  // above every live t
 
+template <int OPT>
 struct Pool {
+  using O = Rk45Opt<OPT>;
+  static constexpr int pK0 = kPoolFloats;                     // FSAL: k0[5]
+  static constexpr int pYc = pK0 + (O::fsal ? kNEq : 0);      // compensated: y_c[5]
+  static constexpr int pFacold = pYc + (O::comp ? kNEq : 0);  // PI: facold
+  static constexpr int kFloats = pFacold + (O::pi ? 1 : 0);
+  static constexpr size_t kBytes = (size_t)kPool * (8 + 4 * (kFloats + kPoolInts));
+
   unsigned long long* key;  // [kPool] sort keys; after the sort, the slots in run order
-  float* f;                 // [kPoolFloats, kPool]
+  float* f;                 // [kFloats, kPool]
   int32_t* i;               // [kPoolInts, kPool]; row pSys: the system's offset in the share, -1 free
 
   __device__ __forceinline__ void store(int slot, const Rk45State& st) const {
@@ -340,6 +459,15 @@ struct Pool {
     f[pT * kPool + slot] = st.t;
     f[pTc * kPool + slot] = st.t_c;
     f[pH * kPool + slot] = st.h;
+    if constexpr (O::fsal) {
+#pragma unroll
+      for (int c = 0; c < kNEq; ++c) f[(pK0 + c) * kPool + slot] = st.k0[c];
+    }
+    if constexpr (O::comp) {
+#pragma unroll
+      for (int c = 0; c < kNEq; ++c) f[(pYc + c) * kPool + slot] = st.y_c[c];
+    }
+    if constexpr (O::pi) f[pFacold * kPool + slot] = st.facold;
     i[pReject * kPool + slot] = st.reject;
     i[pIasti * kPool + slot] = st.iasti;
     i[pNonsti * kPool + slot] = st.nonsti;
@@ -355,6 +483,15 @@ struct Pool {
     st.t = f[pT * kPool + slot];
     st.t_c = f[pTc * kPool + slot];
     st.h = f[pH * kPool + slot];
+    if constexpr (O::fsal) {
+#pragma unroll
+      for (int c = 0; c < kNEq; ++c) st.k0[c] = f[(pK0 + c) * kPool + slot];
+    }
+    if constexpr (O::comp) {
+#pragma unroll
+      for (int c = 0; c < kNEq; ++c) st.y_c[c] = f[(pYc + c) * kPool + slot];
+    }
+    if constexpr (O::pi) st.facold = f[pFacold * kPool + slot];
     st.reject = i[pReject * kPool + slot];
     st.iasti = i[pIasti * kPool + slot];
     st.nonsti = i[pNonsti * kPool + slot];
@@ -456,12 +593,13 @@ struct WarpProbe {
 #define TT_PROBE(x)
 #endif
 
+template <int OPT>
 __global__ void __launch_bounds__(kThreads, 1) rk45_kernel(const Rk45Args a) {
   extern __shared__ unsigned long long smem[];
-  Pool pool;
+  Pool<OPT> pool;
   pool.key = smem;
   pool.f = reinterpret_cast<float*>(smem + kPool);
-  pool.i = reinterpret_cast<int32_t*>(pool.f + (size_t)kPoolFloats * kPool);
+  pool.i = reinterpret_cast<int32_t*>(pool.f + (size_t)Pool<OPT>::kFloats * kPool);
   const int tid = threadIdx.x;
   TT_PROBE(WarpProbe probe; probe.start();)
 
@@ -497,7 +635,7 @@ __global__ void __launch_bounds__(kThreads, 1) rk45_kernel(const Rk45Args a) {
       const int slot = (int)(unsigned)pool.key[n_live + j];
       Rk45State st;
       float h0;
-      rk45_admit(a, next + j, st, h0);
+      rk45_admit<OPT>(a, next + j, st, h0);
       pool.store(slot, st);
       pool.f[pH0 * kPool + slot] = h0;
       pool.i[pSys * kPool + slot] = (int32_t)(next + j - lo);
@@ -519,7 +657,7 @@ __global__ void __launch_bounds__(kThreads, 1) rk45_kernel(const Rk45Args a) {
       model.load(a.params, a.n_sys, s, a.safe_pow);
       bool live = rk45_live(a, st);
       for (int k = 0; k < kSlice && live; ++k) {
-        const bool filled = rk45_attempt(a, model, h0, s, st);
+        const bool filled = rk45_attempt<OPT>(a, model, h0, s, st);
         (void)filled;
         TT_PROBE(probe.count(filled);)
         live = rk45_live(a, st);
@@ -538,15 +676,34 @@ __global__ void __launch_bounds__(kThreads, 1) rk45_kernel(const Rk45Args a) {
   TT_PROBE(probe.write();)
 }
 
+// Calls f(std::integral_constant<int, OPT>{}) for the instance of the
+// option set `options`; false if it has none.
+template <class F>
+inline bool rk45_dispatch(int32_t options, F&& f) {
+  switch (options) {
+    case 0: f(std::integral_constant<int, 0>{}); return true;
+    case kFsal: f(std::integral_constant<int, kFsal>{}); return true;
+    case kComp: f(std::integral_constant<int, kComp>{}); return true;
+    case kPi: f(std::integral_constant<int, kPi>{}); return true;
+    case kFsal | kPi: f(std::integral_constant<int, kFsal | kPi>{}); return true;
+    case kComp | kPi: f(std::integral_constant<int, kComp | kPi>{}); return true;
+    default: return false;
+  }
+}
+
 }  // namespace tt
 
 // ---- launch ----
 
 extern "C" int tt_rk45_args_size() { return (int)sizeof(tt::Rk45Args); }
 
-// The launch geometry of n_sys systems on the current device: one block per
-// SM, fewer where a block's share would fall under a warp of systems.
-extern "C" int tt_rk45_geometry(int64_t n_sys, int32_t* out) {
+// The launch geometry of n_sys systems on the current device for the
+// instance of `options`: one block per SM, fewer where a block's share
+// would fall under a warp of systems.
+extern "C" int tt_rk45_geometry(int64_t n_sys, int32_t options, int32_t* out) {
+  size_t pool_bytes = 0;
+  if (!tt::rk45_dispatch(options, [&](auto opt) { pool_bytes = tt::Pool<decltype(opt)::value>::kBytes; }))
+    return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -556,20 +713,26 @@ extern "C" int tt_rk45_geometry(int64_t n_sys, int32_t* out) {
   out[1] = tt::kThreads;
   out[2] = tt::kPool;
   out[3] = tt::kSlice;
-  out[4] = (int32_t)tt::kPoolBytes;  // dynamic shared memory a block
+  out[4] = (int32_t)pool_bytes;  // dynamic shared memory a block
   return 0;
 }
 
-// Enqueues B1 on `stream`; returns the CUDA error code (0 on success).
+// Enqueues the instance of args->options on `stream`; returns the CUDA
+// error code (0 on success; cudaErrorInvalidValue for a set without one).
 extern "C" int tt_rk45_launch(const tt::Rk45Args* args, void* stream) {
   if (args->n_sys <= 0) return 0;
   int32_t geo[5];
-  int rc = tt_rk45_geometry(args->n_sys, geo);
+  int rc = tt_rk45_geometry(args->n_sys, args->options, geo);
   if (rc != 0) return rc;
-  rc = (int)cudaFuncSetAttribute(tt::rk45_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)tt::kPoolBytes);
+  tt::rk45_dispatch(args->options, [&](auto opt) {
+    constexpr int OPT = decltype(opt)::value;
+    constexpr size_t bytes = tt::Pool<OPT>::kBytes;
+    rc = (int)cudaFuncSetAttribute(tt::rk45_kernel<OPT>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (rc == 0)
+      tt::rk45_kernel<OPT><<<(unsigned)geo[0], tt::kThreads, bytes, (cudaStream_t)stream>>>(*args);
+  });
   if (rc != 0) return rc;
-  tt::rk45_kernel<<<(unsigned)geo[0], tt::kThreads, tt::kPoolBytes, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }
 

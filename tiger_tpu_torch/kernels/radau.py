@@ -61,9 +61,11 @@ class RadauArgsC(ctypes.Structure):
         ("fd_eps", c_float),
         ("max_steps", c_i32), ("max_rejects", c_i32), ("newton_max_iter", c_i32),
         ("reject_unconverged", c_i32), ("fill_t0_queries", c_i32),
+        ("err_mode", c_i32), ("predictor", c_i32), ("safety_newton", c_float),
         ("forcing", ForcingMetaC),
         ("ra", (c_float * 3) * 3), ("rc", c_float * 3), ("rb", c_float * 3),
-        ("re", c_float * 3), ("rw", (c_float * 3) * 3),
+        ("re", c_float * 3), ("rw", (c_float * 3) * 3), ("ea", c_float * 3),
+        ("inv_a", (c_float * 3) * 3),
         ("gam", c_float), ("alp", c_float), ("bet", c_float),
         ("v1", c_float * 3), ("v2r", c_float * 3), ("v2i", c_float * 3),
         ("p1", c_float * 3), ("p2r", c_float * 3), ("p2i", c_float * 3),
@@ -73,6 +75,36 @@ class RadauArgsC(ctypes.Structure):
 def _kappa(cfg: SolverConfig) -> float:
     """RADAU5's scaled Newton exit threshold (radau_pallas.py l.532-535)."""
     return max(10.0 * _F32_EPS / cfg.rtol, min(0.03, float(np.sqrt(cfg.rtol))))
+
+
+#: The error estimate of each ``radau_error_mode`` (radau_pallas.py
+#: l.157-162, 439-490): its code in ``RadauArgs.err_mode`` and the step
+#: controller's exponent.
+ERR_MODES = {"embedded3": (0, 1.0 / 3.0), "reference": (1, 0.2), "radau5": (2, 0.25)}
+#: The option sets B2 has an instance for: each error mode, with and
+#: without the predictor.
+INSTANCES = tuple((mode, pred) for mode in ERR_MODES for pred in (False, True))
+
+
+def instance_name(config: SolverConfig) -> str:
+    """B2's instance for ``config``: the error mode, '+predictor' with it."""
+    return config.radau_error_mode + ("+predictor" if config.radau_predictor else "")
+
+
+#: ``radau_launches`` by instance (``instance_name``).
+radau_instance_launches = {mode + suffix: 0 for mode in ERR_MODES for suffix in ("", "+predictor")}
+
+
+def newton_safety(cfg: SolverConfig) -> float:
+    """RADAU5's safety numerator safety * (2M + 1), M = newton_max_iter: an
+    attempt that took n sweeps grows h by at most it / (2M + n)."""
+    return cfg.safety * (2.0 * cfg.newton_max_iter + 1.0)
+
+
+def _embedded_weights(cfg: SolverConfig):
+    """The embedded error weights: RADAU_E3, or the reference's RADAU_E
+    (radau5 mode uses neither)."""
+    return tableau.RADAU_E if cfg.radau_error_mode == "reference" else tableau.RADAU_E3
 
 
 def _eig_constants():
@@ -118,6 +150,10 @@ def radau(
 
 def _radau_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -> RadauResult:
     global radau_launches
+    if (cfg.radau_error_mode, cfg.radau_predictor) not in INSTANCES:
+        raise NotImplementedError(
+            f"radau: the CUDA kernel has no instance for radau_error_mode="
+            f"{cfg.radau_error_mode!r}, radau_predictor={cfg.radau_predictor}")
     # The kernel's warp maxima read non-negative floats as unsigned integers.
     if not (cfg.rtol >= 0.0 and cfg.atol >= 0.0):
         raise ValueError(f"radau: the CUDA kernel needs rtol, atol >= 0, got {cfg.rtol}, {cfg.atol}")
@@ -129,6 +165,7 @@ def _radau_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -
     failed = torch.empty((s_count,), dtype=torch.int32, device=dev)
     stats = torch.empty((5, s_count), dtype=torch.int32, device=dev)
     gam, alp, bet, v1, v2r, v2i, p1, p2r, p2i = _eig_constants()
+    err_mode, expo = ERR_MODES[cfg.radau_error_mode]
     a = RadauArgsC(
         y0=y0_soa.data_ptr(), h0=h0.data_ptr(), params=p_block.data_ptr(),
         forc=data_ptr(None if forcings is None else forcings.data), qt=data_ptr(qt),
@@ -136,23 +173,26 @@ def _radau_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -
         stats=stats.data_ptr(),
         n_sys=s_count, n_q=q_total, safe_pow=int(model.safe_pow),
         t0=t0, tf=tf, rtol=cfg.rtol, atol=cfg.atol, safety=cfg.safety,
-        min_scale=cfg.min_scale, max_scale=cfg.max_scale, expo=1.0 / 3.0,
+        min_scale=cfg.min_scale, max_scale=cfg.max_scale, expo=expo,
         nan_shrink=cfg.nan_shrink, h_freeze_hi=cfg.radau_h_freeze_hi,
         newton_tol=cfg.newton_tol, kappa=_kappa(cfg), tol_eps=8.0 * _F32_EPS,
         fd_eps=float(np.sqrt(np.finfo(np.float32).eps)),
         max_steps=cfg.max_steps, max_rejects=cfg.radau_max_rejects,
         newton_max_iter=cfg.newton_max_iter,
         reject_unconverged=int(cfg.newton_reject_unconverged),
-        fill_t0_queries=int(cfg.fill_t0_queries),
+        fill_t0_queries=int(cfg.fill_t0_queries), err_mode=err_mode,
+        predictor=int(cfg.radau_predictor), safety_newton=newton_safety(cfg),
         forcing=forcing_meta_c(forcings, cfg),
         ra=c_floats(tableau.RADAU_A), rc=c_floats(tableau.RADAU_C),
-        rb=c_floats(tableau.RADAU_B), re=c_floats(tableau.RADAU_E3),
-        rw=c_floats(tableau.RADAU_DENSE),
+        rb=c_floats(tableau.RADAU_B), re=c_floats(_embedded_weights(cfg)),
+        rw=c_floats(tableau.RADAU_DENSE), ea=c_floats(tableau.RADAU_ERR_EA),
+        inv_a=c_floats(tableau.RADAU_A_INV),
         gam=gam, alp=alp, bet=bet, v1=c_floats(v1), v2r=c_floats(v2r),
         v2i=c_floats(v2i), p1=c_floats(p1), p2r=c_floats(p2r), p2i=c_floats(p2i),
     )
     launch("tt_radau_launch", "tt_radau_args_size", a, dev)
     radau_launches += 1
+    radau_instance_launches[instance_name(cfg)] += 1
     return RadauResult(
         y_final=y_final.t().contiguous(),
         dense=dense.permute(2, 0, 1).contiguous(),
@@ -187,8 +227,12 @@ def radau_plain(
     p = plain_params(model, params, dtype)
     qt = None if query_times is None else query_times.to(dtype).contiguous()
     snap = ZOH_SNAP if (cfg.forcing_step_align and forcings is not None) else 0.0
-    ra, rb, re, rw = (x.tolist() for x in (tableau.RADAU_A, tableau.RADAU_B,
-                                           tableau.RADAU_E3, tableau.RADAU_DENSE))
+    ra, rb, re, rw, rc, ea, inv_a = (
+        np.asarray(x).tolist() for x in (tableau.RADAU_A, tableau.RADAU_B, _embedded_weights(cfg),
+                                         tableau.RADAU_DENSE, tableau.RADAU_C,
+                                         tableau.RADAU_ERR_EA, tableau.RADAU_A_INV))
+    radau5, pred = cfg.radau_error_mode == "radau5", cfg.radau_predictor
+    expo = ERR_MODES[cfg.radau_error_mode][1]
     gam, alp, bet, v1, v2r, v2i, p1, p2r, p2i = _eig_constants()
     col = lambda v: torch.tensor(v, dtype=dtype, device=dev)[:, None, None]  # noqa: E731
     rc_t, ra_t = col(tableau.RADAU_C.tolist())[:, :, 0], torch.tensor(ra, dtype=dtype, device=dev)
@@ -219,6 +263,14 @@ def radau_plain(
     reject, n_acc, n_rej, n_att, n_swp, n_fct = zi, zi, zi, zi, zi, zi
     failed = torch.zeros(s_count, dtype=torch.bool, device=dev)
     dense = dense_init(qt, y, t0, cfg)
+    if pred:
+        # The predictor's state (radau_pallas.py _Carry.pred): the last
+        # attempt's stage slopes, its step, the theta offset of the next
+        # step on its collocation polynomial, and whether they may seed.
+        zp = torch.zeros((3, n, s_count), dtype=dtype, device=dev)
+        h_prev = torch.ones_like(t)
+        z_base = torch.zeros_like(t)
+        have = torch.zeros(s_count, dtype=torch.bool, device=dev)
 
     while True:
         act = (t < tf) & ~failed & (n_att < cfg.max_steps)
@@ -286,8 +338,33 @@ def radau_plain(
                 xr[k], xi[k] = ar * ci_re[k] - ai * ci_im[k], ar * ci_im[k] + ai * ci_re[k]
             return xr, xi
 
-        # Simplified Newton on the stage slopes z [3, N, S], from f(t, y).
+        # Simplified Newton on the stage slopes z [3, N, S], from f(t, y),
+        # or with the predictor from the stage values that the last
+        # attempt's collocation polynomial extrapolates (radau_pallas.py
+        # l.276-322): theta_i = base + c_i h/h_prev, Z0_i = (h_prev/h)
+        # sum_j A^-1[i,j] (I(theta_j) - I(base)) z_prev.
         z = f0.expand(3, n, s_count).clone()
+        if pred:
+            ratio = h_eff / h_prev
+            use = have & (ratio <= 2.0)
+            base2 = z_base * z_base
+            base3 = base2 * z_base
+            i_th = [[None] * 3 for _ in range(3)]
+            for i in range(3):
+                th = z_base + rc[i] * ratio
+                th2 = th * th
+                th3 = th2 * th
+                for s in range(3):
+                    i_th[s][i] = (rw[s][0] * (th - z_base) + rw[s][1] * (th2 - base2)
+                                  + rw[s][2] * (th3 - base3))
+            scale = h_prev / h_eff
+            for i in range(3):
+                acc = None
+                for j in range(3):
+                    vjk = i_th[0][j] * zp[0] + i_th[1][j] * zp[1] + i_th[2][j] * zp[2]
+                    term = inv_a[i][j] * vjk
+                    acc = term if acc is None else acc + term
+                z[i] = torch.where(use, scale * acc, z[i])
         conv = ~act
         sweeps = zi
         tol_y = cfg.atol + cfg.rtol * torch.abs(y)
@@ -315,15 +392,28 @@ def radau_plain(
             tol_eff = cfg.newton_tol + (8.0 * _F32_EPS) * zmag
             conv = conv | (maxd < tol_eff) | (h_eff * scaled < kappa) | torch.isnan(maxd)
 
-        # Step update and the embedded3 error.
+        # Step update and the error: embedded (E3, or the reference's E),
+        # or RADAU5's smoothed (mu/h I - J)^-1 (f0 + sum_s EA_s z_s) =
+        # h M_r^-1 (...) on the Newton factor, with its correction at the
+        # perturbed state y + e once the attempt before was rejected.
         y_out = y
-        err_c = torch.zeros_like(y)
         for s in range(3):
             y_out = y_out + (h_eff * rb[s]) * z[s]
-        for s in range(3):
-            err_c = err_c + (h_eff * re[s]) * z[s]
         tol = cfg.atol + cfg.rtol * torch.maximum(torch.abs(y), torch.abs(y_out))
-        err = torch.amax(torch.abs(err_c / tol), dim=0)
+        if radau5:
+            defect = f0 + ea[0] * z[0] + ea[1] * z[1] + ea[2] * z[2]
+            e_vec = h_eff * real_solve(defect)
+            err = torch.amax(torch.abs(e_vec / tol), dim=0)
+            retry = act & (err > 1.0) & (reject > 0)
+            if bool(retry.any()):
+                f_p = rhs(t, y + e_vec, f_vals)
+                e2 = h_eff * real_solve(f_p + defect - f0)
+                err = torch.where(retry, torch.amax(torch.abs(e2 / tol), dim=0), err)
+        else:
+            err_c = torch.zeros_like(y)
+            for s in range(3):
+                err_c = err_c + (h_eff * re[s]) * z[s]
+            err = torch.amax(torch.abs(err_c / tol), dim=0)
         newt_fail = ~conv if cfg.newton_reject_unconverged else torch.zeros_like(conv)
         accept = act & (err <= 1.0) & ~newt_fail
         rejected = act & ~accept
@@ -342,7 +432,14 @@ def radau_plain(
 
         fill_dense(dense, qt, t, t1, accept, h_eff, y, qm_coeffs)
 
-        raw_fac = cfg.safety * (1.0 / (err + 1e-16)) ** (1.0 / 3.0)
+        if radau5:
+            # RADAU5's Newton-effort-aware safety: divided as one IEEE
+            # division, as the kernel divides.
+            safety = torch.full_like(t, newton_safety(cfg)) / (
+                2.0 * cfg.newton_max_iter + sweeps.to(dtype))
+        else:
+            safety = cfg.safety
+        raw_fac = safety * (1.0 / (err + 1e-16)) ** expo
         fac_acc = torch.clamp(raw_fac, cfg.min_scale, cfg.max_scale)
         fac_rej = torch.where(
             torch.isnan(raw_fac), zero + cfg.nan_shrink, torch.clamp_max(raw_fac, 1.0)
@@ -354,6 +451,15 @@ def radau_plain(
         if cfg.radau_h_freeze_hi > 1.0:
             freeze = accept & (fac_acc >= 1.0) & (fac_acc <= cfg.radau_h_freeze_hi)
             h_new = torch.where(freeze, h_eff, h_new)
+
+        if pred:
+            # Only a converged, finite Newton solution may seed the next
+            # attempt (radau_pallas.py l.601-617).
+            have_new = conv & torch.isfinite(z).all(dim=1).all(dim=0)
+            zp = torch.where(act, z, zp)
+            h_prev = torch.where(act, h_eff, h_prev)
+            z_base = torch.where(accept, zero + 1.0, torch.where(act, zero, z_base))
+            have = torch.where(act, have_new, have)
 
         reject_new = torch.where(accept, zi, reject + 1)
         failed = failed | (rejected & (reject_new > cfg.radau_max_rejects))

@@ -7,6 +7,7 @@ reached through ``pl.pallas_call`` at l.1051).  A CUDA tensor goes to the
 hand-written kernel ``csrc/rk45.cu`` (or the call raises); a CPU tensor goes
 to ``rk45_plain``, the same per-system semantics as a batched, masked
 while-loop in torch.  ``rk45_launches`` counts the kernel's launches;
+``rk45_options`` picks the kernel's instance for a ``SolverConfig``,
 ``rk45_geometry`` says how a launch is laid out on the card,
 ``rk45_mismatch`` counts where two results differ bit for bit, and
 ``read_probes`` reads the per-warp counters of the ``PROBE_FLAGS`` build.
@@ -21,6 +22,7 @@ import torch
 from tiger_tpu_torch.forcing import (
     ZOH_SNAP,
     ForcingSet,
+    forcing_index_changed,
     gather_forcings_column,
     zoh_step_cap,
 )
@@ -61,21 +63,42 @@ class Rk45ArgsC(ctypes.Structure):
         ("rtol", c_float), ("atol", c_float), ("safety", c_float),
         ("min_scale", c_float), ("max_scale", c_float), ("expo", c_float),
         ("slope_jump_thresh", c_float), ("min_step_fraction", c_float),
-        ("nan_shrink", c_float), ("stiff_hlamb", c_float),
+        ("nan_shrink", c_float), ("stiff_hlamb", c_float), ("pi_beta", c_float),
         ("max_rejects", c_i32), ("max_steps", c_i32), ("stiff_detect", c_i32),
         ("stiff_streak", c_i32), ("stiff_forgive", c_i32),
         ("stiff_test_every", c_i32), ("stiff_floor_streak", c_i32),
-        ("fill_t0_queries", c_i32),
+        ("fill_t0_queries", c_i32), ("options", c_i32),
         ("forcing", ForcingMetaC),
     ]
 
 
-def rk45_geometry(n_sys: int) -> dict:
-    """How the kernel lays ``n_sys`` systems out on the current CUDA device:
-    blocks, threads a block, pool slots and dynamic shared memory a block,
-    attempts a time slice (csrc/rk45.cu)."""
+#: Option bits of ``Rk45Args.options`` (csrc/rk45.cu ``Rk45Option``).
+FSAL, COMPENSATED, PI = 1, 2, 4
+#: The option sets B1 has an instance for: {I, PI} x {plain, FSAL, compensated}.
+INSTANCES = {0: "default", FSAL: "fsal", COMPENSATED: "compensated", PI: "pi",
+             FSAL | PI: "fsal+pi", COMPENSATED | PI: "compensated+pi"}
+#: ``rk45_launches`` by instance.
+rk45_instance_launches = dict.fromkeys(INSTANCES.values(), 0)
+
+
+def rk45_options(config: SolverConfig) -> int:
+    """The option bits of ``config``: which instance of B1 runs it."""
+    return ((FSAL if config.fsal else 0) | (COMPENSATED if config.compensated else 0)
+            | (PI if config.controller == "pi" else 0))
+
+
+def controller_exponent(config: SolverConfig) -> float:
+    """The error exponent of the step controller: 1/5, or 1/5 - 0.75 beta
+    for the PI controller (rk45_pallas.py l.629)."""
+    return 0.2 - config.pi_beta * 0.75 if config.controller == "pi" else 0.2
+
+
+def rk45_geometry(n_sys: int, options: int = 0) -> dict:
+    """How the instance of ``options`` lays ``n_sys`` systems out on the
+    current CUDA device: blocks, threads a block, pool slots and dynamic
+    shared memory a block, attempts a time slice (csrc/rk45.cu)."""
     out = (c_i32 * 5)()
-    rc = _build.load().tt_rk45_geometry(n_sys, out)
+    rc = _build.load().tt_rk45_geometry(n_sys, options, out)
     if rc != 0:
         raise RuntimeError(f"tt_rk45_geometry: CUDA error {rc}")
     keys = ("blocks", "threads", "pool_slots", "slice_attempts", "shared_bytes")
@@ -110,6 +133,11 @@ def rk45(
 
 def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -> RK45Result:
     global rk45_launches
+    options = rk45_options(cfg)
+    if options not in INSTANCES:
+        raise NotImplementedError(
+            f"rk45: the CUDA kernel has no instance for fsal={cfg.fsal}, "
+            f"compensated={cfg.compensated}, controller={cfg.controller!r}")
     y0_soa, p_block = kernel_inputs("rk45", model, y0, h0, params, forcings, qt, t_shift)
     s_count, dev = y0.shape[0], y0.device
     q_total = 0 if qt is None else qt.shape[0]
@@ -125,19 +153,20 @@ def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) ->
         n_sys=s_count, n_q=q_total, safe_pow=int(model.safe_pow),
         t0=t0, tf=tf, h_floor=(tf - t0) * cfg.min_step_fraction,
         rtol=cfg.rtol, atol=cfg.atol, safety=cfg.safety,
-        min_scale=cfg.min_scale, max_scale=cfg.max_scale, expo=0.2,
+        min_scale=cfg.min_scale, max_scale=cfg.max_scale, expo=controller_exponent(cfg),
         slope_jump_thresh=cfg.slope_jump_thresh,
         min_step_fraction=cfg.min_step_fraction, nan_shrink=cfg.nan_shrink,
-        stiff_hlamb=cfg.stiff_hlamb, max_rejects=cfg.max_rejects,
+        stiff_hlamb=cfg.stiff_hlamb, pi_beta=cfg.pi_beta, max_rejects=cfg.max_rejects,
         max_steps=cfg.max_steps, stiff_detect=int(cfg.stiff_detect),
         stiff_streak=cfg.stiff_streak, stiff_forgive=cfg.stiff_forgive,
         stiff_test_every=cfg.stiff_test_every,
         stiff_floor_streak=cfg.stiff_floor_streak,
-        fill_t0_queries=int(cfg.fill_t0_queries),
+        fill_t0_queries=int(cfg.fill_t0_queries), options=options,
         forcing=forcing_meta_c(forcings, cfg),
     )
     launch("tt_rk45_launch", "tt_rk45_args_size", a, dev)
     rk45_launches += 1
+    rk45_instance_launches[INSTANCES[options]] += 1
     return RK45Result(
         y_final=y_final.t().contiguous(),
         dense=dense.permute(2, 0, 1).contiguous(),
@@ -220,11 +249,18 @@ def rk45_plain(
     b, e, pm = tableau.DP_B.tolist(), tableau.DP_E.tolist(), tableau.DP_P.tolist()
 
     shift = torch.tensor(float(t_shift), dtype=dtype, device=dev) if t_shift else None
+    fsal, comp, pi = cfg.fsal, cfg.compensated, cfg.controller == "pi"
+    expo = controller_exponent(cfg)
 
     def rhs(t, y, f_vals):
         if shift is not None:
             t = t + shift
         return torch.stack(model.rhs_tuple(t, y, p, f_vals))
+
+    def gather(t):
+        if forcings is None:
+            return None
+        return gather_forcings_column(forcings.data, forcings.meta, t, snap)
 
     # State and stage slopes as [N, S] tensors: every update below is
     # elementwise, in the TPU kernel's order, so it rounds as per-system
@@ -241,6 +277,12 @@ def rk45_plain(
     zero = torch.zeros((), dtype=dtype, device=dev)
     dense = dense_init(qt, y, t0, cfg)
     h_floor = (tf - t0) * cfg.min_step_fraction
+    # Option state (rk45_pallas.py _Carry): the FSAL slope k1 = f(t, y)
+    # carried from the last advance, the Kahan low word of y, and the PI
+    # controller's last committed error norm.
+    k0 = rhs(t, y, gather(t)) if fsal else None
+    y_c = torch.zeros_like(y) if comp else None
+    facold = torch.full_like(t, 1e-4) if pi else None
 
     while True:
         act = (t < tf) & ~stiff & (n_att < cfg.max_steps)
@@ -250,11 +292,11 @@ def rk45_plain(
         h_eff = torch.where(clamp, tf - t, h)
         if snap:
             h_eff = zoh_step_cap(forcings.meta, t, h_eff)
-        f_vals = None
-        if forcings is not None:
-            f_vals = gather_forcings_column(forcings.data, forcings.meta, t, snap)
+        f_vals = gather(t)
 
-        ks = [rhs(t, y, f_vals)]
+        # FSAL: an advanced system's k1 is its last k7 (or the refresh at
+        # a forcing boundary below); a rejected one's (t, y) are unchanged.
+        ks = [k0 if fsal else rhs(t, y, f_vals)]
         g6 = y
         for s in range(1, 7):
             acc = y
@@ -264,13 +306,22 @@ def rk45_plain(
             if s == 5:
                 g6 = acc
             ks.append(rhs(t + c[s] * h_eff, acc, f_vals))
+        # y_out in stage 7's association (DP's b row is its a row), so k7
+        # is f(t + h, y_out) bit for bit; compensated accumulates the
+        # increment dy on its own for the Kahan commit and tests y + dy.
         y_out = y
+        dy = torch.zeros_like(y) if comp else None
         err_c = torch.zeros_like(y)
         for s in range(7):
             if b[s] != 0.0:
-                y_out = y_out + (h_eff * b[s]) * ks[s]
+                if comp:
+                    dy = dy + (h_eff * b[s]) * ks[s]
+                else:
+                    y_out = y_out + (h_eff * b[s]) * ks[s]
             if e[s] != 0.0:
                 err_c = err_c + (h_eff * e[s]) * ks[s]
+        if comp:
+            y_out = y + dy
         tol = cfg.atol + cfg.rtol * torch.maximum(torch.abs(y), torch.abs(y_out))
         err = torch.amax(torch.abs(err_c / tol), dim=0)
         accept = err <= 1.0  # NaN rejects
@@ -295,8 +346,16 @@ def rk45_plain(
 
         fill_dense(dense, qt, t, t1, advance, h_eff, y, qm_coeffs)
 
-        base_fac = cfg.safety * (1.0 / (err + 1e-16)) ** 0.2
-        fac_acc = torch.clamp(base_fac, cfg.min_scale, cfg.max_scale)
+        base_fac = cfg.safety * (1.0 / (err + 1e-16)) ** expo
+        if pi:
+            # Lund-stabilised PI (rk45_pallas.py l.623-640): an advance is
+            # credited with the last committed error; a rejection uses the
+            # plain factor; clamped landings leave facold alone.
+            raw_fac = base_fac * facold ** cfg.pi_beta
+            facold = torch.where(advance & ~clamp, torch.clamp_min(err, 1e-4), facold)
+        else:
+            raw_fac = base_fac
+        fac_acc = torch.clamp(raw_fac, cfg.min_scale, cfg.max_scale)
         fac_rej = torch.where(
             torch.isnan(base_fac), zero + cfg.nan_shrink, torch.clamp_max(base_fac, 1.0)
         )
@@ -332,9 +391,28 @@ def rk45_plain(
         else:
             stiff_new = rejected & ((reject_new > cfg.max_rejects) | (h_new < h_floor))
 
+        t_new = torch.where(advance, t1, t)
+        if comp:
+            # Kahan commit (rk45_pallas.py l.790-803): the low word folds
+            # back into the increment.
+            khs = dy - y_c
+            y_kah = y + khs
+            y_c = torch.where(advance, (y_kah - y) - khs, y_c)
+            y_new = torch.where(advance, y_kah, y)
+        else:
+            y_new = torch.where(advance, y_out, y)
+        if fsal:
+            k0 = torch.where(advance, ks[6], k0)
+            if forcings is not None:
+                # k7 read the forcing of t; a step that crossed a sample
+                # boundary starts on the next sample, so its k1 is
+                # evaluated anew (rk45_pallas.py l.726-777).
+                crossed = advance & forcing_index_changed(forcings.meta, t, t_new, snap)
+                if bool(crossed.any()):
+                    k0 = torch.where(crossed, rhs(t_new, y_new, gather(t_new)), k0)
         t_c = torch.where(advance, (t1 - t) - kh, t_c)
-        t = torch.where(advance, t1, t)
-        y = torch.where(advance, y_out, y)
+        t = t_new
+        y = y_new
         stiff = stiff | stiff_new
         h = torch.where(act, h_new, h)
         reject = torch.where(act, reject_new, reject)

@@ -16,8 +16,9 @@ written per window, checkpoints every ``output.checkpoint_interval``, and
 ``initial.resume`` continues an interrupted run into its own files.
 
 What the port does not carry yet raises NotImplementedError naming its
-ROADMAP item (``_refuse_unported``): several processes, float64 on the card,
-and the compensated and PI solver options.
+ROADMAP item (``_refuse_unported``): several processes and float64 on the
+card.  ``solver.precision: f32c`` (compensated float32, the tight-tolerance
+path) and ``solver.controller: pi`` run on the card and on the CPU.
 """
 
 from __future__ import annotations
@@ -57,11 +58,6 @@ def _refuse_unported(cfg, device: torch.device) -> None:
         (device.type == "cuda" and cfg.solver.precision == "f64",
          "solver.precision f64 on the card waits for float64 kernels, ROADMAP Queue 1 #9 "
          "(the kernels take float32 only; device='cpu' runs f64)"),
-        (cfg.solver.precision == "f32c",
-         "solver.precision f32c (compensated f32) waits for the solver options, "
-         "ROADMAP Queue 1 #17"),
-        (cfg.solver.controller == "pi",
-         "solver.controller pi waits for the solver options, ROADMAP Queue 1 #17"),
     )
     for refused, why in refusals:
         if refused:

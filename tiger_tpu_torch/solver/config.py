@@ -134,24 +134,16 @@ class SolverConfig:
             raise ValueError(f"stiff_test_every must be a power of two, got {e}")
 
 
-#: Non-default values the port does not implement, per solver.  The RK45
-#: options (FSAL, Kahan-compensated y, the PI controller) and the Radau ones
-#: (predictor, radau5/reference error modes) are later work; lockstep dense
-#: fill, bf16 forcing and Radau factor reuse answer Mosaic/VMEM limits of the
-#: TPU kernels and are not to be ported.
+#: Non-default values the port does not implement, per solver: lockstep
+#: dense fill, bf16 forcing and Radau factor reuse answer Mosaic/VMEM limits
+#: of the TPU kernels and are not to be ported.
 _UNSUPPORTED = {
     "rk45": (
-        ("fsal", True),
-        ("compensated", True),
-        ("controller", "pi"),
         ("dense_lockstep", True),
         ("forcing_dtype", "bf16"),
     ),
     "radau": (
-        ("radau_predictor", True),
         ("radau_factor_reuse", True),
-        ("radau_error_mode", "radau5"),
-        ("radau_error_mode", "reference"),
         ("forcing_dtype", "bf16"),
     ),
 }
@@ -161,12 +153,14 @@ def require_supported(config: SolverConfig, solver: str) -> None:
     """Raise NotImplementedError for an option ``solver`` does not implement
     (``solver`` is 'rk45' or 'radau').
 
-    Some fields are accepted and have no effect here, because nothing they
-    steer exists in this package: ``dense_chunk`` (the JAX vmap path's
-    dense-fill width; it changes no result there either), and ``pi_beta``,
-    ``radau_reuse_lo``/``radau_reuse_hi`` and ``radau_refresh_sweeps``,
-    which act only with ``controller='pi'`` or ``radau_factor_reuse``,
-    both refused here.
+    Every other field acts as in the JAX package: ``fsal``,
+    ``compensated``, ``controller='pi'`` with its ``pi_beta`` (RK45), and
+    ``radau_predictor`` and every ``radau_error_mode`` (Radau).  Some fields
+    are accepted and have no effect here, because nothing they steer exists
+    in this package: ``dense_chunk`` (the JAX vmap path's dense-fill width;
+    it changes no result there either), and ``radau_reuse_lo``/
+    ``radau_reuse_hi`` and ``radau_refresh_sweeps``, which act only with
+    ``radau_factor_reuse``, refused here.
     """
     for name, value in _UNSUPPORTED[solver]:
         if getattr(config, name) == value:
