@@ -58,12 +58,17 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
      the PI controller at the main path's rtol 1e-5 / atol 1e-8, each one
      warm-up and 3 timed runs; one solve() with each other instance (B1's
      fail no system; B2's option instances report the stiff systems their
-     float32 estimates fail over the 2 days, as data); each
-     instance's own time at the main path's shapes; and compensated and
-     plain float32 at rtol 1e-6 against rk45_plain in float64 on the first
-     4,096 systems: compensated the closer in the median system.  (c) the CLI at 131,072 links
-     with solver.precision f32c: its dense file equals a direct solve() bit
-     for bit, its routed discharge the direct one.
+     float32 estimates fail over the 2 days, as data); each instance's own
+     time at the main path's shapes; B1 compensated at rtol 1e-6 against
+     rk45_plain over the 131,072 systems and B2 against radau_plain on the
+     systems it flagged, the full 2 days, with phases 3-4's exact check;
+     and (accuracy) compensated and plain float32 at rtol 1e-6 against
+     rk45_plain in float64 on the first 4,096 systems, beside a second
+     float64 run from an h0 2^-20 apart, with the tail's systems listed
+     (their attempts and the steps that ended in a forcing boundary's snap
+     window): compensated the closer in the median system.  (c) the CLI at
+     131,072 links with solver.precision f32c: its dense file equals a
+     direct solve() bit for bit, its routed discharge the direct one.
 Each kernel must equal its plain version exactly: max_abs_err 0, NaN in the
 same places, every flag and every counter of every system equal.  The line
 before the last is the kernels' JSON record; the last line is
@@ -239,8 +244,7 @@ def cli_phase(smi: str) -> dict:
     from tiger_tpu_torch.io import write_dense_netcdf, write_final_netcdf
     from tiger_tpu_torch.io.netcdf import output_format, read_netcdf
     from tiger_tpu_torch.params import load_spatial_params
-    from tiger_tpu_torch.kernels import radau as k_radau
-    from tiger_tpu_torch.kernels import rk45 as k_rk45
+    from tiger_tpu_torch.kernels import launch_totals, reset_launch_counts
     from tiger_tpu_torch.profiling import Metrics
     from tiger_tpu_torch.run import run
     from tiger_tpu_torch.scenario import STIFF_HU, solve_written_basin, write_basin
@@ -254,14 +258,13 @@ def cli_phase(smi: str) -> dict:
         why = ("h5py is installed" if fmt == "NETCDF4"
                else "h5py is not installed here, so scipy writes classic NetCDF")
         torch.cuda.synchronize()
-        k_rk45.rk45_launches = 0
-        k_radau.radau_launches = 0
+        reset_launch_counts()
         run(cfg, metrics=Metrics())  # warm-up
         metrics = Metrics()
         start = time.perf_counter()
         out = run(cfg, metrics=metrics)
         wall = time.perf_counter() - start
-        launches = {"rk45": k_rk45.rk45_launches, "radau": k_radau.radau_launches}
+        launches = launch_totals()
         phases = {k: round(v, 6) for k, v in metrics.phases.items()}
         phase(f"phase 7 CLI ({MAIN_SYSTEMS} links, {DAYS:g} days, {fmt} outputs: {why}): "
               f"wall {wall:.6f} s, phases_s {phases}, solve share of the wall "
@@ -400,8 +403,7 @@ def windowed_phase(smi: str) -> dict:
     from tiger_tpu_torch.config import config_from_dict
     from tiger_tpu_torch.forcing import ForcingSpec
     from tiger_tpu_torch.io.netcdf import output_format, read_netcdf
-    from tiger_tpu_torch.kernels import radau as k_radau
-    from tiger_tpu_torch.kernels import rk45 as k_rk45
+    from tiger_tpu_torch.kernels import launch_totals, reset_launch_counts
     from tiger_tpu_torch.models import Model204
     from tiger_tpu_torch.models.model204 import Y0_COMMON
     from tiger_tpu_torch.params import load_spatial_params, model_params
@@ -435,14 +437,13 @@ def windowed_phase(smi: str) -> dict:
         run(cfg_at("warm"), metrics=Metrics())
         torch.cuda.synchronize()
         metrics = Metrics()
-        k_rk45.rk45_launches = 0
-        k_radau.radau_launches = 0
+        reset_launch_counts()
         stop = _rss_sampler()
         start = time.perf_counter()
         out = run(cfg_at("a"), metrics=metrics)
         wall = time.perf_counter() - start
         rss_before, rss_peak = stop()
-        launches = {"rk45": k_rk45.rk45_launches, "radau": k_radau.radau_launches}
+        launches = launch_totals()
         windows = [round(b - a, 6) for k, _, a, b in sorted(metrics.spans, key=lambda x: x[1])
                    if k == "window"]
         device = metrics.span_list("device")
@@ -495,15 +496,16 @@ def windowed_phase(smi: str) -> dict:
         for w in range(n_win):
             w0 = 1440.0 * w
             qt = torch.as_tensor(np.arange(0 if w == 0 else 1, 25) * 60.0, device="cuda")
-            b1, b2 = k_rk45.rk45_launches, k_radau.radau_launches
+            before = launch_totals()
             res = solve(Model204(), y, 0.0, 1440.0, qt.to(torch.float32), params, loader(w0, w0 + 1440.0),
                         cfg.solver_config(), t_shift=w0)
             y = torch.where(torch.isnan(res.y_final), y, res.y_final)
             dense.append(res.dense.cpu().numpy())
             discharge.append(routing.routed_discharge(res.dense, params, topo).cpu().numpy())
             per_window.append(dict(n_stiff=res.n_stiff, hu_flagged=int(res.stiff[hu_rows].sum()),
-                                   failed=int(res.failed.sum()), b1=k_rk45.rk45_launches - b1,
-                                   b2=k_radau.radau_launches - b2))
+                                   failed=int(res.failed.sum()),
+                                   b1=launch_totals()["rk45"] - before["rk45"],
+                                   b2=launch_totals()["radau"] - before["radau"]))
         got = files("a")
         want = {"dense": np.concatenate(dense, axis=1), "final": y.cpu().numpy(),
                 "state": y.cpu().numpy().astype(np.float64),
@@ -621,6 +623,114 @@ RADAU_CHECK_SPAN = 10.0  # minutes: the plain Radau pays ~45 ms of launches an a
 REFERENCE_CHECK = dict(rtol=1e-3, atol=1e-6, max_steps=300)
 TIGHT = dict(rtol=1e-6, atol=1e-9)  # the reference's tolerances (SolverConfig defaults)
 ACCURACY_SYSTEMS = 4096
+SLIVER_MIN = 1e-3  # minutes: 4 ulps of float32 time at 2,880 min
+
+
+def snapped_landings(steps: tuple, meta) -> dict:
+    """{system: [(dt, k, sliver), ...]}: the advances of a run (``rk45_plain``'s
+    ``steps``, stacked: t, h, advance, t_new [iterations, S]) that ended
+    inside a ZOH snap window, more than SLIVER_MIN
+    minutes before the boundary k * dt.  From there the gather reads sample
+    k (floor(t / dt + ZOH_SNAP)), so the sliver up to the boundary is
+    integrated with the next sample's forcing: a run that lands there and
+    one that lands on the boundary differ by about the sliver times the
+    jump in the slope."""
+    from tiger_tpu_torch.forcing import ZOH_SNAP
+
+    _, _, moved, ends = steps
+    ends = ends.double()
+    out = {}
+    for n_t, dt in sorted(set(zip(meta.n_steps, meta.dt_min))):
+        x = ends / dt
+        k = torch.floor(x + ZOH_SNAP)
+        sliver = k * dt - ends
+        hit = moved & (k != torch.floor(x)) & (k < n_t) & (sliver > SLIVER_MIN)
+        for i, s in torch.nonzero(hit).tolist():
+            out.setdefault(s, []).append((dt, int(k[i, s]), round(float(sliver[i, s]), 5)))
+    return {s: sorted(v, key=lambda e: e[0] * e[1]) for s, v in out.items()}
+
+
+def accuracy(model, y0, params, forc, tf, qt, h0, f32c, hu_rows) -> dict:
+    """Phase 9b's accuracy check on y0's systems; returns each run's
+    error quantiles.
+
+    Compensated and plain float32 at the reference's tolerances against
+    rk45_plain in float64 on the first systems: each system's largest
+    relative error of y_final (states above 1e-3).  Beside them a second
+    float64 run whose h0 differs by 2^-20: how far two float64 runs lie
+    apart where their steps part.  rk45_plain records each run's steps
+    (its float32 runs equal the kernel's bit for bit: checked), so the
+    tail's systems are listed with their attempts and the advances that
+    ended inside a forcing boundary's snap window.
+    """
+    import dataclasses
+
+    from tiger_tpu_torch.forcing import ForcingSet
+    from tiger_tpu_torch.kernels import rk45 as k_rk45
+
+    dev = y0.device
+    sub = torch.arange(y0.shape[0], device=dev)
+    ay0, ap = y0.contiguous(), {k: v[sub].contiguous() for k, v in params.items()}
+    af, ah0 = forc.take_systems(sub), h0[sub].contiguous()
+    ap64, af64 = {k: v.double() for k, v in ap.items()}, ForcingSet(af.data.double(), af.meta)
+    start = time.perf_counter()
+    steps = []
+    r64 = k_rk45.rk45_plain(model, ay0.double(), ah0.double(), 0.0, tf, qt.double(), ap64, af64,
+                            f32c, steps=steps)
+    plain64_s = time.perf_counter() - start
+    stacked = {"float64": tuple(torch.stack(x) for x in zip(*steps))}
+    runs = {"float64 h0 x (1 + 2^-20)": k_rk45.rk45_plain(
+        model, ay0.double(), ah0.double() * (1.0 + 2.0 ** -20), 0.0, tf, qt.double(), ap64, af64, f32c)}
+    for label, cfg in (("compensated", f32c), ("plain", dataclasses.replace(f32c, compensated=False))):
+        steps = []
+        runs[label] = k_rk45.rk45(model, ay0, ah0, 0.0, tf, qt, ap, af, cfg)
+        ref = k_rk45.rk45_plain(model, ay0, ah0, 0.0, tf, qt, ap, af, cfg, steps=steps)
+        check_rk45(f"phase 9b accuracy, {label} f32: B1 vs rk45_plain ({ay0.shape[0]} systems)",
+                   runs[label], ref, hu_rows[sub])
+        stacked[label] = tuple(torch.stack(x) for x in zip(*steps))
+    del steps
+    landed = {k: snapped_landings(v, af.meta) for k, v in stacked.items()}
+    per, rel = {}, {}
+    for label, r in runs.items():
+        b = r64.y_final
+        e = torch.where(b.abs() > 1e-3, (r.y_final.double() - b).abs() / b.abs(), torch.zeros_like(b))
+        per[label] = torch.where(r.stiff | r64.stiff, float("nan"), e.amax(dim=1))
+        ok = per[label][~torch.isnan(per[label])]
+        q = torch.quantile(ok, torch.tensor([0.5, 0.9, 0.99], dtype=ok.dtype, device=dev))
+        rel[label] = dict(zip(("median", "p90", "p99"), q.tolist()), max=float(ok.max()))
+    attempts = {"float64": r64.stats.n_attempts, **{k: runs[k].stats.n_attempts for k in landed if k in runs}}
+    def hourly(r, i):  # system i's largest relative error of each dense row
+        b = r64.dense[i]
+        return torch.where(b.abs() > 1e-3, (r.dense[i].double() - b).abs() / b.abs(),
+                           torch.zeros_like(b)).amax(dim=1)
+
+    def advances(run, i, lo, hi):  # (t, h) of run's last 4 advances that start in [lo, hi)
+        t, h, adv, _ = (x[:, i] for x in stacked[run])
+        keep = adv & (t >= lo) & (t < hi)
+        return [(round(a, 5), round(b, 4)) for a, b in zip(t[keep].tolist(), h[keep].tolist())][-4:]
+
+    tail = []
+    for i in torch.topk(torch.nan_to_num(per["compensated"]), 5).indices.tolist():
+        err = hourly(runs["compensated"], i)
+        w = int(err.argmax())
+        lo, hi = float(qt[max(w - 1, 0)]), float(qt[w])
+        tail.append(dict(
+            system=i, **{k: f"{float(v[i]):.3e}" for k, v in per.items()},
+            attempts={k: int(v[i]) for k, v in attempts.items()},
+            snapped={k: v.get(i, []) for k, v in landed.items()},
+            worst_row=dict(t=hi, compensated=f"{float(err[w]):.3e}",
+                           plain=f"{float(hourly(runs['plain'], i)[w]):.3e}"),
+            advances_before_it={k: advances(k, i, lo, hi) for k in stacked}))
+    phase(f"phase 9b accuracy at rtol 1e-6 / atol 1e-9 ({ay0.shape[0]} systems, {tf / 1440.0:g} days; "
+          f"rk45_plain float64 on the card {plain64_s:.1f} s): each system's largest relative error "
+          f"of y_final (states above 1e-3) against float64: {rel}; systems with a snapped advance "
+          f"(more than {SLIVER_MIN:g} min before the boundary) {({k: len(v) for k, v in landed.items()})}; "
+          f"compensated's 5 largest (error, attempts, snapped advances as (dt, k, sliver min), the "
+          f"dense row where compensated lies furthest from float64 and each run's last 4 advances "
+          f"(t, h) in the hour before it): {tail}")
+    check(rel["compensated"]["median"] < rel["plain"]["median"],
+          f"phase 9b: compensated f32 is not closer to float64 in the median system: {rel}")
+    return rel
 
 
 def options_phase(smi: str) -> dict:
@@ -633,8 +743,8 @@ def options_phase(smi: str) -> dict:
 
     from tiger_tpu_torch import Model204, SolverConfig, routing, solve
     from tiger_tpu_torch.config import config_from_dict
-    from tiger_tpu_torch.forcing import ForcingSet
     from tiger_tpu_torch.io.netcdf import read_netcdf
+    from tiger_tpu_torch.kernels import launch_counts, launch_totals, reset_launch_counts
     from tiger_tpu_torch.kernels import radau as k_radau
     from tiger_tpu_torch.kernels import rk45 as k_rk45
     from tiger_tpu_torch.profiling import Metrics
@@ -703,9 +813,7 @@ def options_phase(smi: str) -> dict:
     hu_rows = params["Hu"] < STIFF_HU * 10
     f32c = b1_cfg("compensated", **TIGHT)
     torch.cuda.synchronize()
-    k_rk45.rk45_launches = k_radau.radau_launches = 0
-    for counts in (k_rk45.rk45_instance_launches, k_radau.radau_instance_launches):
-        counts.update(dict.fromkeys(counts, 0))
+    reset_launch_counts()
 
     def main_runs(cfg, label):
         res = solve(model, y0, 0.0, tf, qt, params, forc, cfg)  # warm-up
@@ -764,9 +872,7 @@ def options_phase(smi: str) -> dict:
         start = time.perf_counter()
         out = run(cfg, metrics=metrics)
         wall = time.perf_counter() - start
-        launches = {"rk45": dict(k_rk45.rk45_instance_launches),
-                    "radau": dict(k_radau.radau_instance_launches)}
-        total = {"rk45": k_rk45.rk45_launches, "radau": k_radau.radau_launches}
+        launches, total = launch_counts(), launch_totals()
         res, cli_params, sp = solve_written_basin(cfg, "cuda")
         dense = read_netcdf(os.path.join(cfg.output.path, "dense_basin_rank_0.nc"),
                             ("outputs",))[0]["outputs"]
@@ -805,9 +911,23 @@ def options_phase(smi: str) -> dict:
                         attempts=int(ker.stats.n_attempts.sum()))
         if name == "default":
             rows = torch.nonzero(ker.stiff).squeeze(1)
+    # The slice's own instance and tolerances: B1 compensated at rtol 1e-6 /
+    # atol 1e-9 on the 131,072 systems, and B2 on the systems it flagged,
+    # each against its plain version with phases 3-4's exact check.
     h0_t = initial_step(model, y0, 0.0, params, forc, f32c)
     ker_c, ms_c = timed(lambda: k_rk45.rk45(model, y0, h0_t, 0.0, tf, qt, params, forc, f32c), reps=3)
-    b1["compensated"]["f32c_ms"] = ms_c
+    ref_c, plain_c = timed(lambda: k_rk45.rk45_plain(model, y0, h0_t, 0.0, tf, qt, params, forc, f32c))
+    b1["compensated"].update(f32c_ms=ms_c, f32c_plain_ms=plain_c, f32c_max_abs_err=check_rk45(
+        f"phase 9b B1 compensated vs rk45_plain at rtol 1e-6 / atol 1e-9 ({MAIN_SYSTEMS} systems, "
+        f"{DAYS:g} days)", ker_c, ref_c, hu_rows))
+    rows_c = torch.nonzero(ker_c.stiff).squeeze(1)
+    cy0, cp = y0[rows_c].contiguous(), {k: v[rows_c].contiguous() for k, v in params.items()}
+    cf, ch0 = forc.take_systems(rows_c), h0_t[rows_c].contiguous()
+    rker_c, ms_c2 = timed(lambda: k_radau.radau(model, cy0, ch0, 0.0, tf, qt, cp, cf, f32c), reps=3)
+    rref_c, plain_c2 = timed(lambda: k_radau.radau_plain(model, cy0, ch0, 0.0, tf, qt, cp, cf, f32c))
+    b2["embedded3"].update(f32c_ms=ms_c2, f32c_plain_ms=plain_c2, f32c_max_abs_err=check_radau(
+        f"phase 9b B2 embedded3 vs radau_plain at rtol 1e-6 / atol 1e-9 ({rows_c.numel()} "
+        f"systems, {DAYS:g} days)", rker_c, rref_c))
     sy0, sp = y0[rows].contiguous(), {k: v[rows].contiguous() for k, v in params.items()}
     sf, sh0 = forc.take_systems(rows), h0[rows].contiguous()
     for name in B2_OPTIONS:
@@ -821,46 +941,11 @@ def options_phase(smi: str) -> dict:
         b2[name].update(ms=ms, bound_ms=bnd[0], bound_by=bnd[1], attempts=att,
                         worst_system_attempts=int(ker.stats.n_attempts.max()),
                         failed=int(ker.failed.sum()))
-    rows_c = torch.nonzero(ker_c.stiff).squeeze(1)
-    _, ms_c2 = timed(lambda: k_radau.radau(
-        model, y0[rows_c].contiguous(), h0_t[rows_c].contiguous(), 0.0, tf, qt,
-        {k: v[rows_c].contiguous() for k, v in params.items()}, forc.take_systems(rows_c), f32c),
-        reps=3)
-    b2["embedded3"]["f32c_ms"] = ms_c2
     phase(f"phase 9b instance times at the main path's shapes ({MAIN_SYSTEMS} systems for B1, "
-          f"its {rows.numel()} stiff ones for B2, {DAYS:g} days, rtol 1e-5 / atol 1e-8; f32c_ms at "
+          f"its {rows.numel()} stiff ones for B2, {DAYS:g} days, rtol 1e-5 / atol 1e-8; f32c_* at "
           f"rtol 1e-6 / atol 1e-9, B2 on its {rows_c.numel()} stiff systems): B1 {b1} | B2 {b2} | {smi}")
 
-    # Compensated and plain float32 at the reference's tolerances against
-    # rk45_plain in float64, on the first systems.
-    sub = torch.arange(ACCURACY_SYSTEMS, device=dev)
-    ay0, ap = y0[sub].contiguous(), {k: v[sub].contiguous() for k, v in params.items()}
-    af = forc.take_systems(sub)
-    ah0 = h0_t[sub].contiguous()
-    start = time.perf_counter()
-    r64 = k_rk45.rk45_plain(model, ay0.double(), ah0.double(), 0.0, tf, qt.double(),
-                            {k: v.double() for k, v in ap.items()},
-                            ForcingSet(af.data.double(), af.meta), f32c)
-    torch.cuda.synchronize()
-    plain64_s = time.perf_counter() - start
-    # Each system's largest relative error of y_final (states above 1e-3)
-    # against float64.  The median system shows the rounding the Kahan
-    # commit removes; the tail is systems whose float32 steps fall on the
-    # other side of a forcing jump than float64's, alike for both.
-    rel = {}
-    for label, cfg in (("compensated", f32c), ("plain", dataclasses.replace(f32c, compensated=False))):
-        r = k_rk45.rk45(model, ay0, ah0, 0.0, tf, qt, ap, af, cfg)
-        ok = ~(r.stiff | r64.stiff)
-        a, b = r.y_final[ok].double(), r64.y_final[ok]
-        per = torch.where(b.abs() > 1e-3, (a - b).abs() / b.abs(), torch.zeros_like(b)).amax(dim=1)
-        q = torch.quantile(per, torch.tensor([0.5, 0.9, 0.99], dtype=per.dtype, device=dev))
-        rel[label] = dict(zip(("median", "p90", "p99"), q.tolist()), max=float(per.max()))
-    phase(f"phase 9b accuracy at rtol 1e-6 / atol 1e-9 ({ACCURACY_SYSTEMS} systems, {DAYS:g} days; "
-          f"rk45_plain float64 on the card {plain64_s:.1f} s): each system's largest relative error "
-          f"of y_final (states above 1e-3) against float64, compensated f32 {rel['compensated']}, "
-          f"plain f32 {rel['plain']}")
-    check(rel["compensated"]["median"] < rel["plain"]["median"],
-          f"phase 9b: compensated f32 is not closer to float64: {rel}")
+    accuracy(model, y0[:ACCURACY_SYSTEMS], params, forc, tf, qt, h0_t, f32c, hu_rows)
     phase(f"phase 9 took {time.perf_counter() - phase_start:.1f} s")
     return {"rk45": b1, "radau": b2, "walls": {"f32c": walls_c, "pi": walls_p}}
 
@@ -872,7 +957,7 @@ def main() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from tiger_tpu_torch import Model204, SolverConfig, solve
-    from tiger_tpu_torch.kernels import _build
+    from tiger_tpu_torch.kernels import _build, launch_totals, reset_launch_counts
     from tiger_tpu_torch.kernels import radau as k_radau
     from tiger_tpu_torch.kernels import rk45 as k_rk45
     from tiger_tpu_torch.scenario import STIFF_HU, scenario
@@ -951,8 +1036,7 @@ def main() -> None:
     y0, params, forc, qt, h0 = inputs(MAIN_SYSTEMS)
     hu_rows = params["Hu"] < STIFF_HU * 10
     torch.cuda.synchronize()
-    k_rk45.rk45_launches = 0
-    k_radau.radau_launches = 0
+    reset_launch_counts()
     res = solve(model, y0, 0.0, tf, qt, params, forc, cfg)  # warm-up
     torch.cuda.synchronize()
     walls = []
@@ -961,7 +1045,7 @@ def main() -> None:
         res = solve(model, y0 + i * 1e-7, 0.0, tf, qt, params, forc, cfg)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - start)
-    launches = {"rk45": k_rk45.rk45_launches, "radau": k_radau.radau_launches}
+    launches = launch_totals()
     rk_att = int(res.rk_stats.n_attempts.sum())
     rd_att = 0 if res.radau_stats is None else int(res.radau_stats.n_attempts.sum())
     wall = sorted(walls)[1]

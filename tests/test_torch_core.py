@@ -30,6 +30,7 @@ from tiger_tpu.solver.controller import initial_step as j_initial_step
 from tiger_tpu_torch import convert
 from tiger_tpu_torch.forcing import ZOH_SNAP, ForcingSet, gather_forcings_column, zoh_step_cap
 from tiger_tpu_torch.kernels import _common as k_common
+from tiger_tpu_torch.kernels import launch_totals, reset_launch_counts
 from tiger_tpu_torch.kernels import radau as k_radau
 from tiger_tpu_torch.kernels import rk45 as k_rk45
 from tiger_tpu_torch.models import PARAM_FIELDS, Y0_COMMON, Model204
@@ -315,12 +316,11 @@ def test_convert_is_bit_exact():
 
 def test_cpu_tensors_run_plain_versions_and_count_no_launch():
     y0, p, f = scenario(8, 0.05, 0.25, device="cpu")
-    k_rk45.rk45_launches = 0
-    k_radau.radau_launches = 0
+    reset_launch_counts()
     qt = torch.arange(0.0, 72.0 + 1e-9, 12.0)
     res = tt.solve(Model204(), y0, 0.0, 72.0, qt, p, f, SolverConfig(rtol=1e-5, atol=1e-8))
     assert res.n_stiff > 0 and res.radau_stats is not None
-    assert k_rk45.rk45_launches == 0 and k_radau.radau_launches == 0
+    assert launch_totals() == {"rk45": 0, "radau": 0}
     assert res.y_final.device.type == "cpu"
 
 
@@ -439,5 +439,5 @@ def test_every_legal_option_set_has_a_kernel_instance():
         b1.add(k_rk45.INSTANCES[k_rk45.rk45_options(cfg)])
         assert (mode, pred) in k_radau.INSTANCES
         b2.add(k_radau.instance_name(cfg))
-    assert b1 == set(k_rk45.rk45_instance_launches) and len(b1) == 6
-    assert b2 == set(k_radau.radau_instance_launches) and len(b2) == 6
+    assert b1 == set(k_rk45.rk45_launches) and len(b1) == 6
+    assert b2 == set(k_radau.radau_launches) and len(b2) == 6

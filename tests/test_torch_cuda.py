@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from tiger_tpu_torch import Model204, SolverConfig, solve
-from tiger_tpu_torch.kernels import _build
+from tiger_tpu_torch.kernels import _build, launch_totals, reset_launch_counts
 from tiger_tpu_torch.kernels import radau as k_radau
 from tiger_tpu_torch.kernels import rk45 as k_rk45
 from tiger_tpu_torch.scenario import scenario
@@ -51,6 +51,8 @@ RK45_INSTANCES = {
     "pi": dict(controller="pi", pi_beta=0.08),
     "fsal_pi": dict(fsal=True, controller="pi"),
     "compensated_pi": dict(compensated=True, controller="pi"),
+    # f32c at the reference's own tolerances
+    "compensated_tight": dict(compensated=True, rtol=1e-6, atol=1e-9),
 }
 RADAU_INSTANCES = {
     "predictor": dict(radau_predictor=True),
@@ -91,11 +93,11 @@ def _options(name, case):
 def test_rk45_kernel_matches_plain(case, name):
     y0, _, qt, p, f = case
     model, cfg, h0 = _options(name, case)
-    before = k_rk45.rk45_launches
+    before = launch_totals()["rk45"]
     ker = k_rk45.rk45(model, y0, h0, 0.0, TF, qt, p, f, cfg)
     ref = k_rk45.rk45_plain(model, y0, h0, 0.0, TF, qt, p, f, cfg)
     torch.cuda.synchronize()
-    assert k_rk45.rk45_launches == before + 1
+    assert launch_totals()["rk45"] == before + 1
     _assert_rk45_equal(ker, ref)
 
 
@@ -179,11 +181,11 @@ def test_radau_kernel_matches_plain(case, name):
     sub = (y0[rows].contiguous(), h0[rows].contiguous())
     sp = {k: v[rows].contiguous() for k, v in p.items()}
     sf = f.take_systems(rows)
-    before = k_radau.radau_launches
+    before = launch_totals()["radau"]
     ker = k_radau.radau(model, *sub, 0.0, TF, qt, sp, sf, cfg)
     ref = k_radau.radau_plain(model, *sub, 0.0, TF, qt, sp, sf, cfg)
     torch.cuda.synchronize()
-    assert k_radau.radau_launches == before + 1
+    assert launch_totals()["radau"] == before + 1
     assert torch.equal(ker.failed, ref.failed)
     for a, b in zip(ker.stats, ref.stats):
         assert torch.equal(a, b)
@@ -215,11 +217,11 @@ def _first(stiff_case, n_sys):
 
 
 def _radau_pair(model, y0, h0, qt, p, f, cfg):
-    before = k_radau.radau_launches
+    before = launch_totals()["radau"]
     ker = k_radau.radau(model, y0, h0, 0.0, SPAN, qt, p, f, cfg)
     ref = k_radau.radau_plain(model, y0, h0, 0.0, SPAN, qt, p, f, cfg)
     torch.cuda.synchronize()
-    assert k_radau.radau_launches == before + 1
+    assert launch_totals()["radau"] == before + 1
     assert torch.equal(ker.failed, ref.failed)
     for a, b in zip(ker.stats, ref.stats):
         assert torch.equal(a, b)
@@ -323,9 +325,9 @@ def test_cli_run_equals_a_direct_solve(tmp_path):
 
     s_count = 384
     cfg = config_from_dict(write_basin(str(tmp_path), s_count, days=0.5, stiff_frac=0.01))
-    k_rk45.rk45_launches = k_radau.radau_launches = 0
+    reset_launch_counts()
     out = run(cfg)
-    assert k_rk45.rk45_launches > 0 and k_radau.radau_launches > 0
+    assert all(n > 0 for n in launch_totals().values())
     assert out["n_failed"] == 0 and out["n_stiff"] > 0
     res, params, sp = solve_written_basin(cfg, "cuda")
     files = {name: read_netcdf(os.path.join(cfg.output.path, f"{name}_basin_rank_0.nc"),
@@ -384,9 +386,9 @@ def test_chunked_run_crash_and_resume_equal_bit_for_bit(tmp_path, monkeypatch):
         doc["initial"] = dict(mode="hot", resume=True, **initial) if initial else {"mode": "cold"}
         return config_from_dict(doc)
 
-    k_rk45.rk45_launches = k_radau.radau_launches = 0
+    reset_launch_counts()
     out = run(cfg("ref"))
-    assert k_rk45.rk45_launches == 2 and k_radau.radau_launches >= 1
+    assert launch_totals()["rk45"] == 2 and launch_totals()["radau"] >= 1
     assert out["n_failed"] == 0 and out["n_stiff"] > 0 and out["n_windows"] == 2
     real_solve, calls = chunked.solve, {"n": 0}
 
@@ -418,17 +420,32 @@ def test_rk45_option_instance_equals_plain(name):
         pytest.skip("needs a CUDA device")
     model, y0, h0, qt, p, f, cfg = _b1_inputs(256, "defaults")
     cfg = dataclasses.replace(cfg, **RK45_INSTANCES[name])
-    before = k_rk45.rk45_launches
+    before = launch_totals()["rk45"]
     ker = k_rk45.rk45(model, y0, h0, 0.0, TF, qt, p, f, cfg)
     ref = k_rk45.rk45_plain(model, y0, h0, 0.0, TF, qt, p, f, cfg)
     torch.cuda.synchronize()
-    assert k_rk45.rk45_launches == before + 1
+    assert launch_totals()["rk45"] == before + 1
     _assert_rk45_equal(ker, ref)
     assert bool(ker.stiff[p["Hu"] < 1e-5].all())
     if cfg.fsal:
         without = k_rk45.rk45(model, y0, h0, 0.0, TF, qt, p, f, dataclasses.replace(cfg, fsal=False))
         torch.cuda.synchronize()
         _assert_rk45_equal(ker, without)
+
+
+def test_option_set_without_an_instance_raises():
+    """fsal with compensated has no B1 instance (SolverConfig refuses it;
+    forced here past the check): the C dispatcher refuses the launch and the
+    wrapper raises, naming the set; nothing falls back to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model, y0, h0, qt, p, f, cfg = _b1_inputs(64, "defaults")
+    cfg = dataclasses.replace(cfg, fsal=True)
+    object.__setattr__(cfg, "compensated", True)
+    before = launch_totals()["rk45"]
+    with pytest.raises(NotImplementedError, match="no instance for fsal=True, compensated=True"):
+        k_rk45.rk45(model, y0, h0, 0.0, TF, qt, p, f, cfg)
+    assert launch_totals()["rk45"] == before
 
 
 @pytest.mark.parametrize("name", sorted(RADAU_INSTANCES))
@@ -458,9 +475,9 @@ def test_f32c_run_equals_a_direct_solve(tmp_path):
     doc["solver"].update(precision="f32c", tolerances={"rtol": 1e-6, "atol": 1e-9}, controller="pi")
     cfg = config_from_dict(doc)
     assert cfg.solver_config().compensated and cfg.solver_config().rtol == 1e-6
-    k_rk45.rk45_launches = k_radau.radau_launches = 0
+    reset_launch_counts()
     out = run(cfg)
-    assert k_rk45.rk45_launches > 0 and k_radau.radau_launches > 0
+    assert all(n > 0 for n in launch_totals().values())
     assert out["n_failed"] == 0
     res, _, _ = solve_written_basin(cfg, "cuda")
     for name, want in (("dense", res.dense), ("final", res.y_final)):

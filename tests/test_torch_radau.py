@@ -6,6 +6,8 @@ steps, as the two-phase solve does.  The JAX side runs its Pallas kernel in
 interpret mode.
 """
 
+import types
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -13,6 +15,7 @@ import torch
 
 from __graft_entry__ import _scenario
 from tiger_tpu.forcing import ForcingSet as JForcingSet
+from tiger_tpu.kernels import radau_pallas
 from tiger_tpu.kernels.radau_pallas import radau_solve_pallas
 from tiger_tpu.models import Model204 as JModel204
 from tiger_tpu.solver.config import SolverConfig as JSolverConfig
@@ -22,11 +25,30 @@ from tiger_tpu.models import DummyModel as JDummyModel
 from tiger_tpu_torch import DummyModel, Model204, SolverConfig, convert
 from tiger_tpu_torch.kernels.radau import radau_plain
 from tiger_tpu_torch.solver import radau_solve
+from tiger_tpu_torch.solver.radau import RadauStats
 
 S, DAYS, STIFF_FRAC = 64, 0.25, 2 / 64
 TF = DAYS * 1440.0
 CFG = dict(rtol=1e-5, atol=1e-8, max_steps=100_000)
 ROWS = np.array([0, 63])
+
+
+class _Float64Jnp(types.ModuleType):
+    """jax.numpy with ``float32`` read as ``float64``.  The Pallas Radau
+    module builds its inputs, outputs and constants from ``jnp.float32``;
+    under this stand-in its kernel body runs in float64 (interpret mode)."""
+
+    def __getattr__(self, name):
+        return jnp.float64 if name == "float32" else getattr(jnp, name)
+
+
+def _pallas_radau_f64(monkeypatch, model, y0, h0, p, f, qt, tf, cfg):
+    """The Pallas Radau kernel in float64 over the float64 inputs: its
+    pipeline (what ``radau_solve_pallas`` calls after casting to float32)
+    with ``radau_pallas.jnp`` patched to ``_Float64Jnp``."""
+    monkeypatch.setattr(radau_pallas, "jnp", _Float64Jnp("jax.numpy"))
+    return radau_pallas._pipeline(model, y0, h0, p, f.data, qt, 0.0, tf, f.meta,
+                                  JSolverConfig(**cfg), tuple(sorted(p)), True, jnp.asarray(0.0))
 
 
 def _subset(np_dtype):
@@ -107,34 +129,36 @@ def test_float64_plain_is_the_same_solution(f32_pair):
     ],
     ids=["newton_options", "reference_switches", "predictor", "radau5", "radau5_predictor"],
 )
-def test_f64_options_match_vmap_radau(options):
+def test_f64_options_match_vmap_radau(options, monkeypatch):
     """Every supported Radau option steers the plain version as it steers
-    the JAX package's vmap Radau (the Pallas kernel's algorithm: one
-    Jacobian per attempt, the same attempt counts): the stiff rows over the
-    first hour, float64."""
+    the JAX package: the stiff rows over the first hour, float64.
+
+    Against the Pallas kernel run in float64 (``_pallas_radau_f64``), whose
+    simplified Newton (one Jacobian an attempt) the port shares: the same
+    failed rows and every counter equal, trajectories within 1e-9.  Against
+    the vmap path: the same failed rows and trajectories within 1e-9, and
+    the same attempts except with radau5.  radau5's controller reads the
+    attempt's sweep count, and the vmap path's full Newton (each stage's
+    Jacobian, every sweep) takes other counts (measured 443 against 461
+    sweeps), so its attempts differ (156 against 159)."""
     (y0, p, f, qt, h0), (ty0, tp, tf_, tq, th0) = _subset(np.float64)
     cfg = dict(CFG, **options)
     ref = j_radau_solve(JModel204(safe_pow=False), y0, 0.0, 60.0, qt[:2], p, f, h0=h0,
                         config=JSolverConfig(**cfg))
+    kernel = _pallas_radau_f64(monkeypatch, JModel204(safe_pow=False), y0, h0, p, f, qt[:2], 60.0, cfg)
     ours = radau_solve(Model204(safe_pow=False), ty0, 0.0, 60.0, tq[:2], tp, tf_, h0=th0,
                        config=SolverConfig(**cfg))
     np.testing.assert_array_equal(ours.failed.numpy(), np.asarray(ref.failed))
-    # (The vmap path counts Newton sweeps by its own rule; the sweep count
-    # is held against the Pallas kernel above.)  radau5's controller reads
-    # the attempt's sweep count, and the vmap path's full Newton (each
-    # stage's Jacobian, every sweep) takes other counts than the kernels'
-    # simplified Newton (measured 443 against 461 sweeps, 308 against 447
-    # with the predictor), so its attempts differ by a few percent (156
-    # against 159; 151 against 159) while the trajectories agree to 6.4e-11
-    # relative.
-    for name in ("n_attempts", "n_accepted", "n_rejected"):
-        got, want = getattr(ours.stats, name).numpy(), np.asarray(getattr(ref.stats, name))
-        if cfg.get("radau_error_mode") != "radau5":
-            np.testing.assert_array_equal(got, want, name)
-        elif name != "n_rejected":  # a handful, which moves by a few
-            assert np.all(np.abs(got - want) <= 0.1 * want), (name, got, want)
-    np.testing.assert_allclose(ours.y_final.numpy(), np.asarray(ref.y_final), rtol=1e-9, atol=1e-12)
-    np.testing.assert_allclose(ours.dense.numpy(), np.asarray(ref.dense), rtol=1e-9, atol=1e-12)
+    np.testing.assert_array_equal(ours.failed.numpy(), np.asarray(kernel.failed))
+    for name, got, want in zip(RadauStats._fields, ours.stats, kernel.stats):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), name)
+    if cfg.get("radau_error_mode") != "radau5":
+        for name in ("n_attempts", "n_accepted", "n_rejected"):
+            np.testing.assert_array_equal(getattr(ours.stats, name).numpy(),
+                                          np.asarray(getattr(ref.stats, name)), name)
+    for other in (ref, kernel):
+        np.testing.assert_allclose(ours.y_final.numpy(), np.asarray(other.y_final), rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(ours.dense.numpy(), np.asarray(other.dense), rtol=1e-9, atol=1e-12)
 
 
 F32_OPTIONS = {
@@ -184,10 +208,18 @@ def test_f32_options_match_pallas_radau(case):
         np.testing.assert_allclose(got, tight.dense.numpy(), rtol=2e-3, atol=5e-6)
 
 
-def test_f32_radau5_predictor_fails_the_stiff_rows_as_the_pallas_kernel_does():
+def test_f32_radau5_predictor_fails_the_stiff_rows_as_the_pallas_kernel_does(monkeypatch):
     """Over the full 6 hours radau5 with the predictor fails both stiff rows
-    in float32, in the Pallas kernel (max_steps) as in the port
-    (radau_max_rejects): neither reports a solution it did not reach."""
+    in float32, in the Pallas kernel as in the port: neither reports a
+    solution it did not reach.  The runs fail otherwise: the Pallas kernel's
+    crawls to max_steps with every other attempt rejected (2,547 of 5,000),
+    the port's meets radau_max_rejects rejections in a row first (at 984
+    and 1,354 attempts).  The two float32 runs part within the first half
+    minute, where a Newton sweep's rounding makes one attempt take one
+    sweep more (1,052 against 1,053 sweeps in 201 attempts) and radau5's
+    safety, which reads the sweep count, moves h.  In float64 neither fails
+    a row, and the port takes the Pallas kernel's every attempt, rejection
+    and sweep."""
     (y0, p, f, qt, h0), (ty0, tp, tf_, tq, th0) = _subset(np.float32)
     cfg = dict(CFG, radau_error_mode="radau5", radau_predictor=True, max_steps=5_000)
     ref = radau_solve_pallas(JModel204(), y0, 0.0, TF, qt, p, f, h0=h0,
@@ -195,6 +227,33 @@ def test_f32_radau5_predictor_fails_the_stiff_rows_as_the_pallas_kernel_does():
     ours = radau_solve(Model204(), ty0, 0.0, TF, tq, tp, tf_, h0=th0, config=SolverConfig(**cfg))
     assert ours.failed.all() and np.asarray(ref.failed).all()
     assert torch.isnan(ours.y_final).all() and np.isnan(np.asarray(ref.y_final)).all()
+    assert (np.asarray(ref.stats.n_attempts) == cfg["max_steps"]).all()
+    assert (ours.stats.n_attempts < cfg["max_steps"]).all()
+    (y0, p, f, qt, h0), (ty0, tp, tf_, tq, th0) = _subset(np.float64)
+    kernel = _pallas_radau_f64(monkeypatch, JModel204(), y0, h0, p, f, qt, TF, cfg)
+    ours = radau_solve(Model204(), ty0, 0.0, TF, tq, tp, tf_, h0=th0, config=SolverConfig(**cfg))
+    assert not ours.failed.any() and not np.asarray(kernel.failed).any()
+    for name, got, want in zip(RadauStats._fields, ours.stats, kernel.stats):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), name)
+
+
+@pytest.mark.parametrize("case", ["radau5", "predictor"])
+def test_f32_options_fail_the_rows_the_pallas_kernel_fails(case):
+    """radau5, and embedded3 with the predictor, over the full 6 hours in
+    float32: the same failed rows as the Pallas kernel (neither fails
+    these two; on the main path's 131 rows over 2 days some fail, PERF.md),
+    finite where not failed, attempts within 10% (the float32 runs part as
+    in the test above: measured 355/416 against 353/403 with radau5,
+    1,628/1,905 against 1,615/1,770 with the predictor)."""
+    (y0, p, f, qt, h0), (ty0, tp, tf_, tq, th0) = _subset(np.float32)
+    cfg = dict(CFG, max_steps=5_000, **F32_OPTIONS[case])
+    ref = radau_solve_pallas(JModel204(), y0, 0.0, TF, qt, p, f, h0=h0,
+                             config=JSolverConfig(**cfg), interpret=True)
+    ours = radau_solve(Model204(), ty0, 0.0, TF, tq, tp, tf_, h0=th0, config=SolverConfig(**cfg))
+    np.testing.assert_array_equal(ours.failed.numpy(), np.asarray(ref.failed))
+    assert torch.isfinite(ours.y_final[~ours.failed]).all()
+    att, ref_att = ours.stats.n_attempts.numpy(), np.asarray(ref.stats.n_attempts)
+    assert np.all(np.abs(att - ref_att) <= 0.1 * ref_att), (att, ref_att)
 
 
 @pytest.mark.parametrize("np_dtype", [np.float32, np.float64], ids=["float32", "float64"])

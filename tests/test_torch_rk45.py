@@ -17,7 +17,8 @@ from tiger_tpu.models import Model204 as JModel204
 from tiger_tpu.solver.config import SolverConfig as JSolverConfig
 from tiger_tpu.solver.rk45 import rk45_solve as j_rk45_solve
 from tiger_tpu_torch import DummyModel, Model204, SolverConfig, convert
-from tiger_tpu_torch.kernels.rk45 import rk45_mismatch
+from tiger_tpu_torch.forcing import ZOH_SNAP
+from tiger_tpu_torch.kernels.rk45 import rk45_mismatch, rk45_plain
 from tiger_tpu_torch.solver import rk45_solve
 
 S, DAYS, STIFF_FRAC = 64, 0.25, 2 / 64
@@ -269,30 +270,62 @@ F32_OPTIONS = {
 }
 
 
+def _rows_after_a_snapped_step(steps, n_q, dt=60.0):
+    """[S, Q] bool: the hourly query rows at whose boundary a run (rk45_plain's
+    ``steps``) ended a step inside the ZOH snap window, so the row is filled
+    from a step that read the next hour's forcing a sliver early."""
+    t_new = torch.stack([s[3] for s in steps]).double()
+    moved = torch.stack([s[2] for s in steps])
+    x = t_new / dt
+    k = torch.floor(x + ZOH_SNAP)
+    rows = np.zeros((t_new.shape[1], n_q), dtype=bool)
+    for i, s in torch.nonzero(moved & (k != torch.floor(x))).tolist():
+        if int(k[i, s]) < n_q:
+            rows[s, int(k[i, s])] = True
+    return rows
+
+
 @pytest.mark.parametrize("case", sorted(F32_OPTIONS))
 def test_f32_options_match_pallas_kernel(case):
     """As test_f32_matches_pallas_kernel, with each option: the same flags,
-    5e-4 relative, attempts within 2%.  Compensated runs are held to 2e-3:
-    the Pallas kernel's compensated float32 run lies up to 9.7e-4 relative
-    from the float64 run of the same options here (with PI 9.8e-4; the
-    port's 1.1e-4 and 9.5e-4), so twice that bounds the two."""
+    5e-4 relative, attempts within 2%.
+
+    The queries are hourly, on the rain's sample boundaries.  A float32 run
+    whose step ends inside the snap window just before a boundary reads the
+    next hour from there, and its row at that hour lies up to ~1e-3 from a
+    run that landed on the boundary.  Each float32 run does so on a few
+    rows of its own: so a row may lie off the Pallas kernel only where the
+    Pallas kernel and the JAX vmap path disagree by more than 5e-4 (measured:
+    1 row with compensated, 2 with compensated+pi) or where the port's own
+    run ended a step in the window (measured: 2 rows with compensated+pi),
+    and at most 3 rows."""
     (y0, p, f, qt), ours = _inputs(np.float32)
     cfg = dict(CFG, **F32_OPTIONS[case])
     ref = rk45_solve_pallas(
         JModel204(), y0, 0.0, TF, qt, p, f, config=JSolverConfig(**cfg), interpret=True
     )
+    # The vmap path has no FSAL, which changes no result (the test below).
+    vmap = j_rk45_solve(JModel204(), y0, 0.0, TF, qt, p, f, config=JSolverConfig(**dict(cfg, fsal=False)))
     ty0, tp, tforc, tq = ours
     mine = rk45_solve(Model204(), ty0, 0.0, TF, tq, tp, tforc, config=SolverConfig(**cfg))
+    steps = []
+    again = rk45_plain(Model204(), ty0, mine.h0, 0.0, TF, tq, tp, tforc, SolverConfig(**cfg), steps=steps)
+    assert not any(rk45_mismatch(again, mine).values())
     np.testing.assert_array_equal(mine.stiff.numpy(), np.asarray(ref.stiff))
     np.testing.assert_array_equal(mine.failed.numpy(), np.asarray(ref.failed))
+
+    def off(a, b):  # [S, Q] rows outside 5e-4 relative / 1e-7 absolute
+        return (np.abs(a - b) > 1e-7 + 5e-4 * np.abs(b)).any(axis=-1)
+
     ok = ~mine.stiff.numpy()
-    rtol = 2e-3 if cfg.get("compensated") else 5e-4
-    np.testing.assert_allclose(
-        mine.y_final.numpy()[ok], np.asarray(ref.y_final)[ok], rtol=rtol, atol=1e-7
-    )
-    np.testing.assert_allclose(
-        mine.dense.numpy()[ok], np.asarray(ref.dense)[ok], rtol=rtol, atol=1e-7
-    )
+    pallas, dense = np.asarray(ref.dense), mine.dense.numpy()
+    excused = off(pallas, np.asarray(vmap.dense)) | _rows_after_a_snapped_step(steps, tq.shape[0])
+    bad = off(dense, pallas) & ok[:, None]
+    assert not (bad & ~excused).any(), np.argwhere(bad & ~excused)
+    assert bad.sum() <= 3, np.argwhere(bad)
+    # y_final is the last query row's time (TF is a multiple of an hour).
+    final_bad = off(mine.y_final.numpy()[:, None], np.asarray(ref.y_final)[:, None])[:, 0] & ok
+    assert not (final_bad & ~excused[:, -1]).any(), np.nonzero(final_bad)
     att, ref_att = mine.stats.n_attempts.numpy(), np.asarray(ref.stats.n_attempts)
     assert abs(int(att.sum()) - int(ref_att.sum())) <= 0.02 * ref_att.sum()
 
@@ -333,3 +366,47 @@ def test_f32_compensated_holds_tight_tolerances():
         rel[comp] = float((np.abs(r.y_final.numpy() - y64) / np.maximum(np.abs(y64), 1e-12)).max())
     assert rel[True] < 2e-6, rel
     assert rel[True] <= 0.5 * rel[False], rel
+
+
+def test_f32_compensated_error_tail_matches_the_jax_package():
+    """Model 204 at rtol 1e-6 / atol 1e-9: 1,024 systems over 2 days, each
+    system's largest relative error of y_final (states above 1e-3) against
+    the same package's float64 run.  The Kahan commit takes the median
+    system's error down (the port 1.6e-7 against 1.9e-6 plain, measured;
+    the JAX vmap path, which commits y + h (b . k) in one rounding, 5.5e-7
+    against 1.05e-6), but not the tail: the largest errors, 3.3e-5 to 3.9e-5
+    for both precisions in both packages, are steps that end elsewhere than
+    float64's near a forcing boundary or a kink of the model, where each
+    run's truncation error differs.  The port's tail is the JAX package's:
+    p99 and largest within a factor 2 of it, run for run."""
+    tf = 2880.0
+    stats = {}
+    for pkg in ("jax", "port"):
+        y_final, stiff = {}, {}
+        for np_dtype, comp in ((np.float64, False), (np.float32, False), (np.float32, True)):
+            cfg = dict(rtol=1e-6, atol=1e-9, max_steps=100_000, compensated=comp)
+            y0, p, f = _scenario(1024, np_dtype, days=2.0, stiff_frac=1 / 1024)
+            if pkg == "jax":
+                r = j_rk45_solve(JModel204(), y0, 0.0, tf, None, p, f, config=JSolverConfig(**cfg))
+                y, s = np.asarray(r.y_final), np.asarray(r.stiff)
+            else:
+                ty0, tp, tforc, _ = convert.solver_inputs(
+                    np.asarray(y0), {k: np.asarray(v) for k, v in p.items()},
+                    np.asarray(f.data), f.meta, None, device="cpu",
+                    dtype={np.float32: torch.float32, np.float64: torch.float64}[np_dtype])
+                r = rk45_solve(Model204(), ty0, 0.0, tf, None, tp, tforc, config=SolverConfig(**cfg))
+                y, s = r.y_final.numpy(), r.stiff.numpy()
+            y_final[np_dtype, comp], stiff[np_dtype, comp] = y.astype(np.float64), s
+        ref, ref_stiff = y_final[np.float64, False], stiff[np.float64, False]
+        for comp in (False, True):
+            ok = ~(stiff[np.float32, comp] | ref_stiff)
+            rel = np.where(np.abs(ref) > 1e-3, np.abs(y_final[np.float32, comp] - ref) / np.abs(ref), 0.0)
+            per = rel.max(axis=1)[ok]
+            stats[pkg, comp] = dict(median=np.median(per), p99=np.quantile(per, 0.99), max=per.max())
+    for pkg in ("jax", "port"):
+        assert stats[pkg, True]["median"] < stats[pkg, False]["median"], stats
+    assert stats["port", True]["median"] < 0.2 * stats["port", False]["median"], stats
+    for comp in (False, True):
+        for key in ("p99", "max"):
+            ratio = stats["port", comp][key] / stats["jax", comp][key]
+            assert 0.5 < ratio < 2.0, (comp, key, stats)

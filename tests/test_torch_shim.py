@@ -64,7 +64,7 @@ def _run(lib, monkeypatch, entry, model, y0, h0, qt, p, f, cfg):
     """The wrapper's CUDA path on CPU tensors, its launch sent to ``entry``
     of the shim library."""
 
-    def launch(fn_name, size_name, args, device):
+    def launch(fn_name, size_name, args, device, options):
         assert fn_name == "tt_rk45_launch"
         assert getattr(lib, size_name)() == ctypes.sizeof(args)
         assert getattr(lib, entry)(ctypes.addressof(args), None) == 0

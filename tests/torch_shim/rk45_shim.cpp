@@ -43,7 +43,7 @@ extern "C" int tt_rk45_launch(const tt::Rk45Args* args, void*) {
       for (auto& th : threads) th.join();
     }
   });
-  return known ? 0 : 1;
+  return known ? 0 : tt::kNoInstance;
 }
 
 extern "C" int tt_rk45_serial(const tt::Rk45Args* args, void*) {

@@ -131,8 +131,9 @@ class SolverInfo:
     # 'f64' matches the reference (double everywhere); 'f32' is the
     # kernels' precision (pair it with rtol >= ~1e-5: tolerances below f32
     # rounding accumulate past them); 'f32c' is f32 with compensated (Kahan)
-    # state accumulation (SolverConfig.compensated): it holds the
-    # reference's rtol 1e-6 / atol 1e-9 on the card.
+    # state accumulation (SolverConfig.compensated): at rtol 1e-6 / atol
+    # 1e-9 it takes out most of f32's rounding drift, not the differences
+    # that float32's and float64's own step choices make (PERF.md).
     precision: str = "f64"
     # Forcing precision (SolverConfig.forcing_dtype); 'bf16' answered a
     # TPU memory limit and the port's solver refuses it.
@@ -366,8 +367,8 @@ def config_from_dict(doc: dict) -> SimulationConfig:
                 f"solver.precision f32 with rtol={cfg.solver.rtol:g}: tolerances "
                 "below ~1e-5 are at float32 rounding level — the trajectory "
                 "accumulation rounds past them.  Raise rtol (>=1e-5), use "
-                "precision f32c (compensated f32: holds these tolerances at "
-                "kernel speed), or f64.",
+                "precision f32c (compensated f32: takes most of that rounding "
+                "out at kernel speed), or f64.",
                 stacklevel=2,
             )
     if p := doc.get("mpi") or doc.get("parallel"):

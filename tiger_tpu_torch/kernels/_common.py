@@ -127,16 +127,24 @@ def data_ptr(x: torch.Tensor | None) -> int:
     return 0 if x is None else x.data_ptr()
 
 
-def launch(fn_name: str, size_name: str, args: ctypes.Structure, device) -> None:
-    """Enqueue a kernel on the device's current stream; raise if refused."""
+#: What a launcher returns for an option set that has no instance of its
+#: kernel (csrc/common.cuh kNoInstance).
+_NO_INSTANCE = -1
+
+
+def launch(fn_name: str, size_name: str, args: ctypes.Structure, device, options: str) -> None:
+    """Enqueue a kernel on the device's current stream; raise if refused.
+    ``options`` names the option set the arguments ask for."""
     lib = _build.load()
     if getattr(lib, size_name)() != ctypes.sizeof(args):
         raise RuntimeError(f"{fn_name}: argument struct differs from the built library's")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn_name)(ctypes.addressof(args), stream)
+    if rc == _NO_INSTANCE:
+        raise NotImplementedError(f"{fn_name}: the kernel has no instance for {options}")
     if rc != 0:
-        raise RuntimeError(f"{fn_name}: CUDA error {rc}")
+        raise RuntimeError(f"{fn_name} ({options}): CUDA error {rc}")
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,7 @@ namespace tt {
 
 constexpr int kNEq = 5;          // Model 204 state size
 constexpr int kMaxForcings = 4;  // forcing blocks a launch may carry
+constexpr int kNoInstance = -1;  // a launcher's code for an option set without an instance
 
 // Rows of the [15, S] parameter block, in tiger_tpu_torch.models.PARAM_FIELDS
 // order (the wrappers stack the params dict in that order).

@@ -574,15 +574,14 @@ inline bool radau_dispatch(int32_t err_mode, int32_t predictor, F&& f) {
 extern "C" int tt_radau_args_size() { return (int)sizeof(tt::RadauArgs); }
 
 // Enqueues the instance of (err_mode, predictor) on `stream`; returns
-// cudaGetLastError() (0 on success; cudaErrorInvalidValue for a set
-// without one).
+// cudaGetLastError() (0 on success; kNoInstance for a set without one).
 extern "C" int tt_radau_launch(const tt::RadauArgs* args, void* stream) {
   if (args->n_sys <= 0) return 0;
   const bool known = tt::radau_dispatch(args->err_mode, args->predictor, [&](auto err, auto pred) {
     tt::radau_kernel<decltype(err)::value, decltype(pred)::value>
         <<<(unsigned)args->n_sys, tt::kWarp, 0, (cudaStream_t)stream>>>(*args);
   });
-  if (!known) return (int)cudaErrorInvalidValue;
+  if (!known) return tt::kNoInstance;
   return (int)cudaGetLastError();
 }
 

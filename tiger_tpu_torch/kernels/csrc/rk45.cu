@@ -703,7 +703,7 @@ extern "C" int tt_rk45_args_size() { return (int)sizeof(tt::Rk45Args); }
 extern "C" int tt_rk45_geometry(int64_t n_sys, int32_t options, int32_t* out) {
   size_t pool_bytes = 0;
   if (!tt::rk45_dispatch(options, [&](auto opt) { pool_bytes = tt::Pool<decltype(opt)::value>::kBytes; }))
-    return (int)cudaErrorInvalidValue;
+    return tt::kNoInstance;
   int dev = 0, sms = 0;
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -718,7 +718,7 @@ extern "C" int tt_rk45_geometry(int64_t n_sys, int32_t options, int32_t* out) {
 }
 
 // Enqueues the instance of args->options on `stream`; returns the CUDA
-// error code (0 on success; cudaErrorInvalidValue for a set without one).
+// error code (0 on success; kNoInstance for a set without one).
 extern "C" int tt_rk45_launch(const tt::Rk45Args* args, void* stream) {
   if (args->n_sys <= 0) return 0;
   int32_t geo[5];

@@ -5,7 +5,7 @@ method -- the work of the TPU kernel ``tiger_tpu/kernels/radau_pallas.py``
 (``_make_kernel``'s ``kernel``, reached through ``pl.pallas_call`` at
 l.987).  A CUDA tensor goes to the hand-written kernel ``csrc/radau.cu`` (or
 the call raises); a CPU tensor goes to ``radau_plain``.  ``radau_launches``
-counts the kernel's launches.
+counts the kernel's launches by instance.
 """
 
 from __future__ import annotations
@@ -36,9 +36,6 @@ from tiger_tpu_torch.kernels._common import (
 from tiger_tpu_torch.solver import tableau
 from tiger_tpu_torch.solver.config import SolverConfig
 from tiger_tpu_torch.solver.radau import RadauResult, RadauStats
-
-#: Kernel launches since import (or since a caller reset it to 0).
-radau_launches = 0
 
 #: float32 machine epsilon: the Newton tolerances use it in every dtype, as
 #: the TPU kernel does (radau_pallas.py _F32_EPS).
@@ -91,8 +88,9 @@ def instance_name(config: SolverConfig) -> str:
     return config.radau_error_mode + ("+predictor" if config.radau_predictor else "")
 
 
-#: ``radau_launches`` by instance (``instance_name``).
-radau_instance_launches = {mode + suffix: 0 for mode in ERR_MODES for suffix in ("", "+predictor")}
+#: Kernel launches by instance (``instance_name``) since import (or since a
+#: caller set them to 0: ``kernels.reset_launch_counts``).
+radau_launches = {mode + suffix: 0 for mode in ERR_MODES for suffix in ("", "+predictor")}
 
 
 def newton_safety(cfg: SolverConfig) -> float:
@@ -149,11 +147,6 @@ def radau(
 
 
 def _radau_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -> RadauResult:
-    global radau_launches
-    if (cfg.radau_error_mode, cfg.radau_predictor) not in INSTANCES:
-        raise NotImplementedError(
-            f"radau: the CUDA kernel has no instance for radau_error_mode="
-            f"{cfg.radau_error_mode!r}, radau_predictor={cfg.radau_predictor}")
     # The kernel's warp maxima read non-negative floats as unsigned integers.
     if not (cfg.rtol >= 0.0 and cfg.atol >= 0.0):
         raise ValueError(f"radau: the CUDA kernel needs rtol, atol >= 0, got {cfg.rtol}, {cfg.atol}")
@@ -190,9 +183,9 @@ def _radau_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -
         gam=gam, alp=alp, bet=bet, v1=c_floats(v1), v2r=c_floats(v2r),
         v2i=c_floats(v2i), p1=c_floats(p1), p2r=c_floats(p2r), p2i=c_floats(p2i),
     )
-    launch("tt_radau_launch", "tt_radau_args_size", a, dev)
-    radau_launches += 1
-    radau_instance_launches[instance_name(cfg)] += 1
+    launch("tt_radau_launch", "tt_radau_args_size", a, dev,
+           f"radau_error_mode={cfg.radau_error_mode!r}, radau_predictor={cfg.radau_predictor}")
+    radau_launches[instance_name(cfg)] += 1
     return RadauResult(
         y_final=y_final.t().contiguous(),
         dense=dense.permute(2, 0, 1).contiguous(),

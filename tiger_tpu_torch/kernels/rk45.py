@@ -6,8 +6,8 @@ kernel ``tiger_tpu/kernels/rk45_pallas.py`` (``_make_kernel``'s ``kernel``,
 reached through ``pl.pallas_call`` at l.1051).  A CUDA tensor goes to the
 hand-written kernel ``csrc/rk45.cu`` (or the call raises); a CPU tensor goes
 to ``rk45_plain``, the same per-system semantics as a batched, masked
-while-loop in torch.  ``rk45_launches`` counts the kernel's launches;
-``rk45_options`` picks the kernel's instance for a ``SolverConfig``,
+while-loop in torch.  ``rk45_launches`` counts the kernel's launches by
+instance; ``rk45_options`` picks the kernel's instance for a ``SolverConfig``,
 ``rk45_geometry`` says how a launch is laid out on the card,
 ``rk45_mismatch`` counts where two results differ bit for bit, and
 ``read_probes`` reads the per-warp counters of the ``PROBE_FLAGS`` build.
@@ -47,9 +47,6 @@ from tiger_tpu_torch.solver import tableau
 from tiger_tpu_torch.solver.config import SolverConfig
 from tiger_tpu_torch.solver.rk45 import RK45Result, RKStats
 
-#: Kernel launches since import (or since a caller reset it to 0).
-rk45_launches = 0
-
 
 class Rk45ArgsC(ctypes.Structure):
     """Mirror of ``tt::Rk45Args`` (csrc/rk45.cu)."""
@@ -77,8 +74,9 @@ FSAL, COMPENSATED, PI = 1, 2, 4
 #: The option sets B1 has an instance for: {I, PI} x {plain, FSAL, compensated}.
 INSTANCES = {0: "default", FSAL: "fsal", COMPENSATED: "compensated", PI: "pi",
              FSAL | PI: "fsal+pi", COMPENSATED | PI: "compensated+pi"}
-#: ``rk45_launches`` by instance.
-rk45_instance_launches = dict.fromkeys(INSTANCES.values(), 0)
+#: Kernel launches by instance since import (or since a caller set them to
+#: 0: ``kernels.reset_launch_counts``).
+rk45_launches = dict.fromkeys(INSTANCES.values(), 0)
 
 
 def rk45_options(config: SolverConfig) -> int:
@@ -132,12 +130,7 @@ def rk45(
 
 
 def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -> RK45Result:
-    global rk45_launches
     options = rk45_options(cfg)
-    if options not in INSTANCES:
-        raise NotImplementedError(
-            f"rk45: the CUDA kernel has no instance for fsal={cfg.fsal}, "
-            f"compensated={cfg.compensated}, controller={cfg.controller!r}")
     y0_soa, p_block = kernel_inputs("rk45", model, y0, h0, params, forcings, qt, t_shift)
     s_count, dev = y0.shape[0], y0.device
     q_total = 0 if qt is None else qt.shape[0]
@@ -164,9 +157,9 @@ def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) ->
         fill_t0_queries=int(cfg.fill_t0_queries), options=options,
         forcing=forcing_meta_c(forcings, cfg),
     )
-    launch("tt_rk45_launch", "tt_rk45_args_size", a, dev)
-    rk45_launches += 1
-    rk45_instance_launches[INSTANCES[options]] += 1
+    launch("tt_rk45_launch", "tt_rk45_args_size", a, dev,
+           f"fsal={cfg.fsal}, compensated={cfg.compensated}, controller={cfg.controller!r}")
+    rk45_launches[INSTANCES[options]] += 1
     return RK45Result(
         y_final=y_final.t().contiguous(),
         dense=dense.permute(2, 0, 1).contiguous(),
@@ -230,6 +223,8 @@ def rk45_plain(
     forcings: ForcingSet | None = None,
     config: SolverConfig = SolverConfig(),
     t_shift: float = 0.0,
+    *,
+    steps: list | None = None,
 ) -> RK45Result:
     """B1's plain PyTorch version, in y0's dtype (float32 or float64).
 
@@ -238,6 +233,9 @@ def rk45_plain(
     ``slope`` (accepted but cut by the slope-jump guard) and ``rejected``;
     every update commits through ``torch.where`` and the loop ends when no
     system is active.  Works on any device; the CPU path of ``rk45``.
+    Given a list as ``steps``, it appends (t, h_eff, advance, t_new), [S]
+    tensors, for every iteration: where each system was, the step it tried,
+    whether it advanced, and where it went.
     """
     cfg = config
     dtype, dev = y0.dtype, y0.device
@@ -411,6 +409,8 @@ def rk45_plain(
                 if bool(crossed.any()):
                     k0 = torch.where(crossed, rhs(t_new, y_new, gather(t_new)), k0)
         t_c = torch.where(advance, (t1 - t) - kh, t_c)
+        if steps is not None:
+            steps.append((t, h_eff, advance, t_new))
         t = t_new
         y = y_new
         stiff = stiff | stiff_new
