@@ -69,6 +69,24 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
      window): compensated the closer in the median system.  (c) the CLI at
      131,072 links with solver.precision f32c: its dense file equals a
      direct solve() bit for bit, its routed discharge the direct one.
+ 10. float64 (float64_phase): each kernel's double instance of the default
+     option set, at the reference's tolerances (SolverConfig() defaults,
+     rtol 1e-6 / atol 1e-9).  With the launch counters set to 0 just
+     before: (c) the slice's path at full width, solve() in float64 at
+     131,072 systems, 2 days, 49 hourly queries, one warm-up and 3 timed
+     runs; (d) the CLI at 131,072 links with a config that sets neither
+     solver.precision nor the tolerances, so it runs f64 at the defaults:
+     its dense, final, state and discharge files equal a direct solve() and
+     routed_discharge() bit for bit; (e) the same basin in 2 one-day windows
+     with a daily checkpoint: its files equal the windows run by hand bit
+     for bit.  Then (a) B1's double instance against rk45_plain in float64
+     over the 131,072 systems and 2 days, and (b) B2's against radau_plain
+     in float64 on every system (a) flagged, with phases 3-4's exact check;
+     the plain Radau pays its ~30-45 ms of launches an attempt whatever the
+     rows, so (b) runs the longest leading span (2 days down to 45 minutes)
+     whose worst system's attempts, at PLAIN_RADAU_MS an attempt or the ms
+     measured on the shortest span if more, keep the whole script inside
+     F64_BUDGET_S.
 Each kernel must equal its plain version exactly: max_abs_err 0, NaN in the
 same places, every flag and every counter of every system equal.  The line
 before the last is the kernels' JSON record; the last line is
@@ -93,9 +111,11 @@ RTOL, ATOL = 1e-3, 1e-6
 TAIL_SYSTEMS = 32  # one warp of B1's slowest systems
 
 # The bound of each kernel: its operations over the H100 SXM's float32 peak
-# outside the tensor cores, or its bytes (each input read once, each output
-# written once) over the HBM3 rate, whichever takes longer.
-F32_PEAK, HBM_RATE = 67e12, 3.35e12
+# outside the tensor cores (the double instances: over its float64 peak
+# outside the tensor cores, 34 TFLOP/s, NVIDIA's data sheet), or its bytes
+# (each input read once, each output written once) over the HBM3 rate,
+# whichever takes longer.
+F32_PEAK, F64_PEAK, HBM_RATE = 67e12, 34e12, 3.35e12
 # Floating-point operations, counted from the kernels' code: each +, -, *, /,
 # min, max, abs, compare-and-select and libm call is one (a division or a libm
 # call costs the card many instructions, so the bound is generous).
@@ -138,18 +158,20 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
-    """(bound_ms, bound_by) of work that does ``ops`` operations and moves
-    ``nbytes`` bytes."""
-    ops_ms, bytes_ms = ops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+def bound(ops: float, nbytes: float, peak: float = F32_PEAK) -> tuple[float, str]:
+    """(bound_ms, bound_by) of work that does ``ops`` operations at
+    ``peak`` and moves ``nbytes`` bytes."""
+    ops_ms, bytes_ms = ops / peak * 1e3, nbytes / HBM_RATE * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def io_bytes(s_count: int, n_rows: int, n_q: int, out_words: int) -> int:
-    """Bytes of one launch over ``s_count`` systems: y0, h0, params, the
-    ``n_rows`` forcing rows and the queries in; y_final, dense and
-    ``out_words`` flag and counter words a system out (all 4 bytes a word)."""
-    return 4 * (s_count * (5 + 1 + 15 + n_rows) + n_q + s_count * (5 + 5 * n_q + out_words))
+def io_bytes(s_count: int, n_rows: int, n_q: int, out_words: int, real: int = 4) -> int:
+    """Bytes of one launch over ``s_count`` systems: y0, h0, params and the
+    queries in, ``real`` bytes a value, and the ``n_rows`` float32 forcing
+    rows; y_final and dense out, ``real`` bytes a value, and ``out_words``
+    4-byte flag and counter words a system."""
+    return (real * (s_count * (5 + 1 + 15) + n_q + s_count * (5 + 5 * n_q))
+            + 4 * s_count * (n_rows + out_words))
 
 
 def b1_ops(attempts: int, queries: int, options: int = 0) -> int:
@@ -889,8 +911,9 @@ def options_phase(smi: str) -> dict:
         check(out["n_failed"] == 0, f"phase 9c: {out['n_failed']} links failed")
         check(same_dense and same_q, "phase 9c: the f32c run's files differ from the direct path")
     phase(f"phase 9b-c launches by instance (the main path's): {launches}, in all {total}")
-    for kernel, counts in launches.items():
-        check(all(n > 0 for n in counts.values()), f"phase 9: a {kernel} instance was not launched: {counts}")
+    for kernel, counts in launches.items():  # the float instances (phase 10 has the double ones)
+        check(all(n > 0 for name, n in counts.items() if not name.endswith("/f64")),
+              f"phase 9: a {kernel} instance was not launched: {counts}")
     for name in B1_OPTIONS:
         b1[name]["launches"] = launches["rk45"][name]
     for name in B2_OPTIONS:
@@ -948,6 +971,228 @@ def options_phase(smi: str) -> dict:
     accuracy(model, y0[:ACCURACY_SYSTEMS], params, forc, tf, qt, h0_t, f32c, hu_rows)
     phase(f"phase 9 took {time.perf_counter() - phase_start:.1f} s")
     return {"rk45": b1, "radau": b2, "walls": {"f32c": walls_c, "pi": walls_p}}
+
+
+# Phase 10: float64.  The whole script's aim, in seconds from its start:
+# (b)'s span is the longest of F64_SPANS (minutes) that keeps it inside.
+F64_BUDGET_S = 1050.0
+F64_SPANS = (2880.0, 1440.0, 720.0, 360.0, 180.0, 90.0, 45.0)
+F64_MARGIN = 1.15  # on the predicted seconds of a plain Radau span
+# ms an attempt of the worst system that radau_plain takes over the 2 days
+# (31.5-37.5 ms measured, PERF.md §6); over the first minutes, where no
+# query falls and the systems sweep alike, it takes a third of that.
+PLAIN_RADAU_MS = 40.0
+
+
+def _read_files(folder: str, names) -> dict:
+    import os
+
+    from tiger_tpu_torch.io.netcdf import read_netcdf
+
+    return {key: read_netcdf(os.path.join(folder, f"{key}_basin_rank_0.nc"), (var,))[0][var]
+            for key, var in names}
+
+
+def float64_phase(smi: str) -> dict:
+    """Phase 10: the double instances; returns their instance records."""
+    import copy
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from tiger_tpu_torch import Model204, SolverConfig, chunked, routing, solve
+    from tiger_tpu_torch.checkpoint import cold_state
+    from tiger_tpu_torch.config import config_from_dict
+    from tiger_tpu_torch.forcing import ForcingSpec
+    from tiger_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tiger_tpu_torch.kernels import radau as k_radau
+    from tiger_tpu_torch.kernels import rk45 as k_rk45
+    from tiger_tpu_torch.models.model204 import Y0_COMMON
+    from tiger_tpu_torch.params import load_spatial_params, model_params
+    from tiger_tpu_torch.profiling import Metrics
+    from tiger_tpu_torch.run import run
+    from tiger_tpu_torch.scenario import STIFF_HU, scenario, solve_written_basin, write_basin
+    from tiger_tpu_torch.solver.controller import initial_step
+
+    phase_start = time.perf_counter()
+    f64 = torch.float64
+    dev = torch.device("cuda", 0)
+    model, cfg = Model204(), SolverConfig()  # the reference's rtol 1e-6 / atol 1e-9
+    check(cfg.rtol == 1e-6 and cfg.atol == 1e-9, "phase 10: SolverConfig() is not at 1e-6 / 1e-9")
+    tf = DAYS * 1440.0
+    y0, params, forc = scenario(MAIN_SYSTEMS, DAYS, STIFF_FRAC, device=dev, dtype=f64)
+    qt = torch.arange(0.0, tf + 1e-9, 60.0, dtype=f64, device=dev)
+    hu_rows = params["Hu"] < STIFF_HU * 10
+    b1, b2 = {}, {}
+    outputs = (("final", "outputs"), ("dense", "outputs"), ("discharge", "discharge"),
+               ("state", "outputs"))
+
+    # (c) the slice's path at full width; the counters are set to 0 just
+    # before (c) and read just after (e).
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    res = solve(model, y0, 0.0, tf, qt, params, forc, cfg)  # warm-up
+    torch.cuda.synchronize()
+    walls = []
+    for i in range(1, 4):
+        start = time.perf_counter()
+        res = solve(model, y0 + i * 1e-7, 0.0, tf, qt, params, forc, cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - start)
+    wall = sorted(walls)[1]
+    rk_att = int(res.rk_stats.n_attempts.sum())
+    rd_att = 0 if res.radau_stats is None else int(res.radau_stats.n_attempts.sum())
+    n_failed = int(res.failed.sum())
+    phase(f"phase 10c solve() float64 ({MAIN_SYSTEMS} systems, {DAYS:g} days, {qt.numel()} "
+          f"queries, rtol 1e-6 / atol 1e-9): {(rk_att + rd_att) / wall:.6e} system-steps/s, wall "
+          f"median {wall:.6f} s (min {min(walls):.6f}, max {max(walls):.6f}), n_stiff "
+          f"{res.n_stiff}, rk attempts {rk_att}, radau attempts {rd_att}, n_failed {n_failed}, "
+          f"launches {launch_counts()} | {smi}")
+    check(res.y_final.dtype == f64 and res.dense.dtype == f64, "phase 10c: the result is not float64")
+    check(n_failed == 0, f"phase 10c: {n_failed} systems failed")
+    check(bool(res.stiff[hu_rows].all()), "phase 10c: a Hu=1e-6 row was not flagged stiff")
+    check(bool(torch.isfinite(res.y_final).all()), "phase 10c: non-finite y_final")
+
+    with tempfile.TemporaryDirectory(prefix="tiger_f64_") as tmp:
+        # (d) the CLI: a config that sets neither solver.precision nor the
+        # tolerances runs f64 at rtol 1e-6 / atol 1e-9.
+        doc = write_basin(os.path.join(tmp, "basin"), MAIN_SYSTEMS, DAYS, STIFF_FRAC)
+        doc["solver"] = {"method": "RK45"}
+        doc["output"]["path"] = os.path.join(tmp, "cli")
+        cli_cfg = config_from_dict(doc)
+        check(cli_cfg.solver.precision == "f64" and cli_cfg.solver_config() == cfg,
+              "phase 10d: the config without solver.precision is not f64 at the defaults")
+        run(cli_cfg, metrics=Metrics())  # warm-up
+        metrics = Metrics()
+        start = time.perf_counter()
+        out = run(cli_cfg, metrics=metrics)
+        cli_wall = time.perf_counter() - start
+        direct, cli_params, sp = solve_written_basin(cli_cfg, "cuda")
+        topo = routing.build_topology(sp["stream"], sp["next_stream"])
+        y_direct = direct.y_final.cpu().numpy()
+        want = {"dense": direct.dense.cpu().numpy(), "final": y_direct, "state": y_direct,
+                "discharge": routing.routed_discharge(direct.dense, cli_params, topo).cpu().numpy()}
+        got = _read_files(cli_cfg.output.path, outputs)
+        same_d = {k: bool(got[k].dtype == np.float64 and np.array_equal(got[k], want[k])) for k in want}
+        phase(f"phase 10d CLI without solver.precision ({MAIN_SYSTEMS} links, {DAYS:g} days, f64 "
+              f"at rtol 1e-6 / atol 1e-9): wall {cli_wall:.6f} s, phases_s "
+              f"{ {k: round(v, 6) for k, v in metrics.phases.items()} }, n_stiff {out['n_stiff']}, "
+              f"n_failed {out['n_failed']}; float64 files equal solve() and routed_discharge() "
+              f"bit for bit {same_d} | {smi}")
+        check(out["n_failed"] == 0, f"phase 10d: {out['n_failed']} links failed")
+        check(all(same_d.values()), f"phase 10d: the run's files differ from the direct path: {same_d}")
+
+        # (e) the same basin in 2 one-day windows with a daily checkpoint,
+        # and the windows by hand.
+        win = copy.deepcopy(doc)
+        win["time"]["chunk_days"] = 1.0
+        win["output"].update(path=os.path.join(tmp, "win"), checkpoint_interval="1d")
+        win_cfg = config_from_dict(win)
+        start = time.perf_counter()
+        win_out = run(win_cfg, metrics=Metrics())
+        win_wall = time.perf_counter() - start
+        p64 = {k: torch.as_tensor(v, device="cuda").to(f64) for k, v in model_params(sp).items()}
+        specs = [ForcingSpec(os.path.join(win_cfg.forcings.path, f["file"]), f["var"],
+                             float(f["dt_hours"])) for f in win_cfg.forcings.files]
+        loader = chunked.netcdf_window_loader(specs, sp["stream"], win_cfg.forcings.lookup, "cuda")
+        y = torch.as_tensor(cold_state(Y0_COMMON, MAIN_SYSTEMS), device="cuda").to(f64)
+        dense, discharge = [], []
+        for w in range(int(DAYS)):
+            w0 = 1440.0 * w
+            wq = torch.as_tensor(np.arange(0 if w == 0 else 1, 25) * 60.0, device="cuda").to(f64)
+            r = solve(model, y, 0.0, 1440.0, wq, p64, loader(w0, w0 + 1440.0), cfg, t_shift=w0)
+            y = torch.where(torch.isnan(r.y_final), y, r.y_final)
+            dense.append(r.dense.cpu().numpy())
+            discharge.append(routing.routed_discharge(r.dense, p64, topo).cpu().numpy())
+        want = {"dense": np.concatenate(dense, axis=1), "final": y.cpu().numpy(),
+                "state": y.cpu().numpy(), "discharge": np.concatenate(discharge, axis=1)}
+        got = _read_files(win_cfg.output.path, outputs)
+        same_e = {k: bool(got[k].dtype == np.float64 and got[k].shape == want[k].shape
+                          and np.array_equal(got[k], want[k])) for k in want}
+        phase(f"phase 10e windowed f64 ({MAIN_SYSTEMS} links, {int(DAYS)} one-day windows, a "
+              f"daily checkpoint): wall {win_wall:.6f} s, n_windows {win_out['n_windows']}, n_stiff "
+              f"{win_out['n_stiff']}, n_failed {win_out['n_failed']}; float64 files equal the "
+              f"windows by hand bit for bit {same_e} | {smi}")
+        check(win_out["n_failed"] == 0 and win_out["n_windows"] == int(DAYS),
+              f"phase 10e: {win_out['n_failed']} failed, {win_out['n_windows']} windows")
+        check(all(same_e.values()), f"phase 10e: the windowed files differ from the windows by hand: {same_e}")
+
+    launches = launch_counts()
+    b1["launches"], b2["launches"] = launches["rk45"]["default/f64"], launches["radau"]["embedded3/f64"]
+    phase(f"phase 10c-e launches by instance: {launches}")
+    check(b1["launches"] > 0 and b2["launches"] > 0,
+          f"phase 10: a double instance was not launched: {launches}")
+
+    # (a) B1's double instance against rk45_plain in float64 at full width
+    # (launches made to check and to time, after the counts were read).
+    h0 = initial_step(model, y0, 0.0, params, forc, cfg)
+    ker, ms = timed(lambda: k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, cfg), reps=3)
+    ref, plain_ms = timed(lambda: k_rk45.rk45_plain(model, y0, h0, 0.0, tf, qt, params, forc, cfg))
+    err = check_rk45(f"phase 10a B1 default/f64 vs rk45_plain float64 ({MAIN_SYSTEMS} systems, "
+                     f"{DAYS:g} days, rtol 1e-6 / atol 1e-9)", ker, ref, hu_rows)
+    n_rows, n_q, n_q_after = forc.data.shape[0], qt.numel(), int((qt > 0.0).sum())
+    att = int(ker.stats.n_attempts.sum())
+    bnd = bound(b1_ops(att, int((~ker.stiff).sum()) * n_q_after),
+                io_bytes(MAIN_SYSTEMS, n_rows, n_q, 5, real=8), F64_PEAK)
+    geo = k_rk45.rk45_geometry(MAIN_SYSTEMS, 0, f64)
+    b1.update(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bnd[0], bound_by=bnd[1],
+              attempts=att, worst_system_attempts=int(ker.stats.n_attempts.max()),
+              pool_bytes=geo["shared_bytes"], threads=geo["threads"], library_ms=None)
+
+    # (b) B2's double instance on every system (a) flagged: its time over
+    # the 2 days, then the plain Radau over the longest leading span the
+    # budget allows.
+    rows = torch.nonzero(ker.stiff).squeeze(1)
+    sy0, sp_ = y0[rows].contiguous(), {k: v[rows].contiguous() for k, v in params.items()}
+    sf, sh0 = forc.take_systems(rows), h0[rows].contiguous()
+    rker, r_ms = timed(lambda: k_radau.radau(model, sy0, sh0, 0.0, tf, qt, sp_, sf, cfg), reps=3)
+    r_att, r_swp = int(rker.stats.n_attempts.sum()), int(rker.stats.n_newton.sum())
+    r_bnd = bound(r_att * B2_ATTEMPT_OPS + r_swp * B2_SWEEP_OPS + rows.numel() * n_q_after * B2_QUERY_OPS,
+                  io_bytes(rows.numel(), n_rows, n_q, 6, real=8), F64_PEAK)
+    r_worst = int(rker.stats.n_attempts.max())
+
+    def span_run(span, plain=False):
+        sq = qt[qt <= span + 1e-9]
+        fn = k_radau.radau_plain if plain else k_radau.radau
+        return timed(lambda: fn(model, sy0, sh0, 0.0, span, sq, sp_, sf, cfg))
+
+    worst = {span: int(span_run(span)[0].stats.n_attempts.max()) for span in F64_SPANS}
+    short = F64_SPANS[-1]
+    s_ref, s_plain_ms = span_run(short, plain=True)
+    s_ker, s_ms = span_run(short)
+    check_radau(f"phase 10b B2 embedded3/f64 vs radau_plain float64 ({rows.numel()} systems, "
+                f"first {short:g} min)", s_ker, s_ref)
+    per_attempt_ms = s_plain_ms / max(worst[short], 1)
+    predict_ms = max(per_attempt_ms, PLAIN_RADAU_MS)
+    left_s = F64_BUDGET_S - (time.perf_counter() - _T0)
+    span = next((x for x in F64_SPANS
+                 if x == short or worst[x] * predict_ms * 1e-3 * F64_MARGIN <= left_s), short)
+    phase(f"phase 10b span: radau_plain {per_attempt_ms:.3f} ms an attempt of the worst system "
+          f"(first {short:g} min), worst system's attempts by leading span (min) {worst}, "
+          f"{left_s:.1f} s left of F64_BUDGET_S {F64_BUDGET_S:g}: the check runs the first "
+          f"{span:g} min (predicted {worst[span] * predict_ms * 1e-3:.1f} s at {predict_ms:.3f} "
+          f"ms an attempt)")
+    if span != short:
+        s_ref, s_plain_ms = span_run(span, plain=True)
+        s_ker, s_ms = span_run(span)
+    r_err = check_radau(f"phase 10b B2 embedded3/f64 vs radau_plain float64 ({rows.numel()} "
+                        f"systems, first {span:g} of {tf:g} min, worst system "
+                        f"{int(s_ker.stats.n_attempts.max())} of its {r_worst} attempts)", s_ker, s_ref)
+    b2.update(ms=r_ms, max_abs_err=r_err, bound_ms=r_bnd[0], bound_by=r_bnd[1], attempts=r_att,
+              worst_system_attempts=r_worst, sweeps_per_attempt=r_swp / r_att, systems=rows.numel(),
+              check_span_min=span, check_span_ms=s_ms, plain_ms=s_plain_ms,
+              plain_ms_per_attempt=per_attempt_ms, worst_by_span=worst,
+              us_per_attempt=1e3 * r_ms / r_worst, library_ms=None)
+    phase(f"phase 10 kernel times (float64, rtol 1e-6 / atol 1e-9): B1 default/f64 {ms:.3f} ms vs "
+          f"rk45_plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {F64_PEAK / 1e12:g} "
+          f"TFLOP/s), {att} attempts, worst system {b1['worst_system_attempts']}, geometry {geo}; "
+          f"B2 embedded3/f64 {r_ms:.3f} ms on {rows.numel()} systems over {DAYS:g} days, bound "
+          f"{r_bnd[0]:.4f} ms ({r_bnd[1]}), {r_att} attempts, worst system {r_worst} "
+          f"({1e3 * r_ms / r_worst:.3f} us an attempt), {r_swp / r_att:.4f} sweeps an attempt; over "
+          f"the first {span:g} min B2 {s_ms:.3f} ms vs radau_plain {s_plain_ms:.3f} ms | {smi}")
+    phase(f"phase 10 took {time.perf_counter() - phase_start:.1f} s")
+    return {"rk45": b1, "radau": b2}
 
 
 def main() -> None:
@@ -1111,6 +1356,11 @@ def main() -> None:
 
     # 9. the solver options (their own launch counts)
     instances = options_phase(smi)
+
+    # 10. float64 (its own launch counts)
+    doubles = float64_phase(smi)
+    instances["rk45"]["default/f64"] = doubles["rk45"]
+    instances["radau"]["embedded3/f64"] = doubles["radau"]
 
     say(json.dumps({"kernels": [
         {"name": "rk45", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/rk45.cu",

@@ -70,12 +70,18 @@ def _assert_close(ours, ref, precision):
     np.testing.assert_array_less(np.abs(ours - ref), rtol * np.abs(ref) + atol + 1e-300)
 
 
-@pytest.mark.parametrize("precision", ["f64", "f32"])
+@pytest.mark.parametrize("precision", ["f64", "f32", "default"])
 def test_run_matches_jax(scenario, tmp_path, precision):
-    changes = {"solver__precision": precision}
+    """Both packages' runs of the scenario, held to the bound of the
+    precision.  'default' leaves solver.precision out of the config, as
+    the scenario's YAML does: both packages run it in float64."""
+    changes = {} if precision == "default" else {"solver__precision": precision}
     if precision == "f32":
         changes.update(solver__rtol=1e-5, solver__atol=1e-8)
     jcfg, cfg = _configs(scenario, tmp_path, **changes)
+    if precision == "default":
+        assert jcfg.solver.precision == cfg.solver.precision == "f64"
+        precision = "f64"
     ref, ours = j_run(jcfg, use_mesh=False), run(cfg, device="cpu")
     assert set(ours) == set(ref)
     for key in ("num_systems", "n_stiff", "n_failed"):
@@ -206,7 +212,10 @@ def _refused(scenario, tmp_path, device="cpu", **changes):
 
 
 REFUSED = {
-    "f64_on_the_card": (dict(solver__precision="f64", device="cuda"), "#9"),
+    # float64 on the card runs the default options only (the double
+    # instances); the PI controller there waits for #9c.
+    "f64_pi_on_the_card": (dict(solver__precision="f64", solver__controller="pi",
+                                device="cuda"), "#9c"),
     "model_200": (dict(model__uid=200), "#10"),
 }
 
@@ -252,6 +261,26 @@ def test_unported_options_raise(scenario, tmp_path, case):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         _refused(scenario, tmp_path, **changes)()
     assert not (tmp_path / "torch").exists()  # refused before any output
+
+
+@pytest.mark.parametrize("precision", ["f64", "default"])
+def test_f64_on_the_card_is_not_refused(scenario, tmp_path, precision):
+    """solver.precision f64, the default, passes the port's refusals on the
+    card (``_refuse_unported`` sees the device; no card is needed)."""
+    import torch
+
+    from tiger_tpu_torch.run import _refuse_unported
+
+    changes = {} if precision == "default" else {"solver__precision": precision}
+    _, cfg = _configs(scenario, tmp_path, **changes)
+    assert cfg.solver.precision == "f64"
+    _refuse_unported(cfg, torch.device("cuda"))
+    cfg.solver.controller = "pi"
+    with pytest.raises(NotImplementedError, match=r"controller='pi'.*ROADMAP Queue 1 #9c"):
+        _refuse_unported(cfg, torch.device("cuda"))
+    _refuse_unported(cfg, torch.device("cpu"))  # the CPU runs every option in float64
+    cfg.solver.precision = "f32"
+    _refuse_unported(cfg, torch.device("cuda"))  # and the card in float32
 
 
 def test_several_processes_raise(scenario, tmp_path, monkeypatch):

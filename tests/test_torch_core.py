@@ -333,6 +333,73 @@ def test_wrappers_refuse_other_devices():
         k_radau.radau(Model204(), y0, h0, 0.0, 1.0)
 
 
+def _kernel_case(dtype):
+    y0, p, f = scenario(4, 0.05, 0.25, device="cpu", dtype=dtype)
+    return dict(y0=y0, h0=torch.ones(4, dtype=dtype), params=p, forcings=f,
+                query_times=torch.arange(0.0, 60.0 + 1e-9, 30.0, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_kernel_inputs_take_float32_or_float64(dtype):
+    """The kernels' input check takes a call whose tensors are all in y0's
+    dtype, float32 or float64, with float32 forcing data (both kernels have
+    instances of both scalars)."""
+    c = _kernel_case(dtype)
+    assert c["forcings"].data.dtype == torch.float32
+    y0_soa, p_block = k_common.kernel_inputs("rk45", Model204(), c["y0"], c["h0"], c["params"],
+                                             c["forcings"], c["query_times"])
+    assert y0_soa.dtype == p_block.dtype == dtype and p_block.shape == (15, 4)
+
+
+MIXED = {
+    "h0": lambda c: c.update(h0=c["h0"].float()),
+    "params": lambda c: c["params"].update(Hu=c["params"]["Hu"].float()),
+    "query_times": lambda c: c.update(query_times=c["query_times"].float()),
+    "forcing_data": lambda c: c.update(
+        forcings=ForcingSet(c["forcings"].data.double(), c["forcings"].meta)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MIXED))
+def test_kernel_inputs_refuse_mixed_dtypes(case):
+    """A float64 call with one tensor in another dtype (or float64 forcing
+    data) raises TypeError before any launch."""
+    c = _kernel_case(torch.float64)
+    MIXED[case](c)
+    with pytest.raises(TypeError, match="must be torch.float"):
+        k_common.kernel_inputs("radau", Model204(), c["y0"], c["h0"], c["params"],
+                               c["forcings"], c["query_times"])
+
+
+F64_OPTION_SETS = {
+    "default": ({}, []),
+    "fsal": (dict(fsal=True), ["fsal=True"]),
+    "compensated": (dict(compensated=True), ["compensated=True"]),
+    "pi": (dict(controller="pi"), ["controller='pi'"]),
+    "predictor": (dict(radau_predictor=True), ["radau_predictor=True"]),
+    "radau5": (dict(radau_error_mode="radau5"), ["radau_error_mode='radau5'"]),
+    "reference": (dict(radau_error_mode="reference"), ["radau_error_mode='reference'"]),
+    "fsal_pi_predictor": (dict(fsal=True, controller="pi", radau_predictor=True),
+                          ["fsal=True", "controller='pi'", "radau_predictor=True"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(F64_OPTION_SETS))
+def test_float64_unported_names_the_sets_without_a_double_instance(case):
+    """The kernels' double instances run the default option set; every
+    other option is named (solve() and run() refuse it on the card in
+    float64, ROADMAP Queue 1 #9c), each under the kernel it belongs to."""
+    from tiger_tpu_torch.solver.config import float64_unported, require_supported
+
+    options, want = F64_OPTION_SETS[case]
+    cfg = SolverConfig(**options)
+    assert float64_unported(cfg) == want
+    assert float64_unported(cfg, ("rk45",)) + float64_unported(cfg, ("radau",)) == want
+    # CPU tensors run every option set in float64: nothing refuses them.
+    for solver in ("rk45", "radau"):
+        require_supported(cfg, solver, torch.ones((2, 5), dtype=torch.float64))
+
+
 @pytest.mark.parametrize(
     "meta",
     [((0, 6), (6, 2), (60.0, 1440.0)), ((0, -1), (6, 1), (60.0, 1440.0)),
@@ -419,8 +486,9 @@ def test_model_registry_matches_jax():
 
 
 def test_every_legal_option_set_has_a_kernel_instance():
-    """Every SolverConfig that validation accepts picks an instance of B1
-    and of B2, and together they reach all twelve."""
+    """Every SolverConfig that validation accepts picks a float instance of
+    B1 and of B2, and together they reach all twelve; the launch counters
+    hold those and the double instances of the default set."""
     import itertools
 
     from tiger_tpu_torch.kernels import radau as k_radau
@@ -439,5 +507,7 @@ def test_every_legal_option_set_has_a_kernel_instance():
         b1.add(k_rk45.INSTANCES[k_rk45.rk45_options(cfg)])
         assert (mode, pred) in k_radau.INSTANCES
         b2.add(k_radau.instance_name(cfg))
-    assert b1 == set(k_rk45.rk45_launches) and len(b1) == 6
-    assert b2 == set(k_radau.radau_launches) and len(b2) == 6
+    assert b1 == set(k_rk45.INSTANCES.values()) and len(b1) == 6
+    assert len(b2) == 6
+    assert set(k_rk45.rk45_launches) == b1 | {"default/f64"}
+    assert set(k_radau.radau_launches) == b2 | {"embedded3/f64"}

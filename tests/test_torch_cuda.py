@@ -300,8 +300,12 @@ def test_plain_gather_divides_on_the_card_as_on_the_cpu():
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(case):
     y0, h0, qt, p, f = case
-    with pytest.raises(TypeError, match="float32"):
+    # float64 runs the double instances, but every tensor in y0's dtype:
+    # float32 params (and queries) beside a float64 state are refused.
+    with pytest.raises(TypeError, match="float64"):
         k_rk45.rk45(Model204(), y0.double(), h0.double(), 0.0, TF, qt, p, f, CFG)
+    with pytest.raises(TypeError, match="float16"):
+        k_rk45.rk45(Model204(), y0.half(), h0.half(), 0.0, TF, qt, p, f, CFG)
     with pytest.raises(ValueError, match="contiguous"):
         k_rk45.rk45(Model204(), y0, h0, 0.0, TF, qt[::2], p, f, CFG)
     with pytest.raises(ValueError, match="on cpu"):
@@ -484,3 +488,256 @@ def test_f32c_run_equals_a_direct_solve(tmp_path):
         got = read_netcdf(os.path.join(cfg.output.path, f"{name}_basin_rank_0.nc"),
                           ("outputs",))[0]["outputs"]
         assert np.array_equal(got, want.cpu().numpy()), name
+
+
+# ---- float64: the double instances of the default option set ---------------
+
+
+def _double(y0, p, f, qt):
+    return (y0.double(), {k: v.double() for k, v in p.items()}, f, qt.double())
+
+
+@pytest.fixture(scope="module")
+def case64(case):
+    y0, _, qt, p, f = case
+    return _double(y0, p, f, qt)
+
+
+@pytest.mark.parametrize("name", sorted(OPTIONS))
+def test_rk45_f64_instance_equals_plain(case64, name):
+    """B1's double instance equals rk45_plain in float64 bit for bit, on
+    the option cases of the float instances (each a default option set)."""
+    y0, p, f, qt = case64
+    options, safe_pow = OPTIONS[name]
+    cfg = dataclasses.replace(CFG, **options)
+    model = Model204(safe_pow=safe_pow)
+    h0 = initial_step(model, y0, 0.0, p, f, cfg)
+    before = k_rk45.rk45_launches["default/f64"]
+    ker = k_rk45.rk45(model, y0, h0, 0.0, TF, qt, p, f, cfg)
+    ref = k_rk45.rk45_plain(model, y0, h0, 0.0, TF, qt, p, f, cfg)
+    torch.cuda.synchronize()
+    assert k_rk45.rk45_launches["default/f64"] == before + 1
+    assert ker.y_final.dtype == ker.dense.dtype == torch.float64
+    _assert_rk45_equal(ker, ref)
+
+
+@pytest.mark.parametrize("n_sys,build", POOL_CASES)
+def test_rk45_f64_pooled_schedule_equals_plain(case, n_sys, build):
+    """The double instance's pool (256 lanes a block) under both builds,
+    with admission into freed slots at 4,097 and 16,384 systems."""
+    model, y0, h0, qt, p, f, cfg = _b1_inputs(n_sys, "defaults")
+    y0, p, f, qt = _double(y0, p, f, qt)
+    h0 = initial_step(model, y0, 0.0, p, f, cfg)
+    ref = k_rk45.rk45_plain(model, y0, h0, 0.0, TF, qt, p, f, cfg)
+    with _build.flags_in_use(_build.NVCC_FLAGS + POOL_BUILDS[build]):
+        ker = k_rk45.rk45(model, y0, h0, 0.0, TF, qt, p, f, cfg)
+        torch.cuda.synchronize()
+    _assert_rk45_equal(ker, ref)
+
+
+def test_rk45_f64_two_launches_give_the_same_bytes(case):
+    model, y0, h0, qt, p, f, cfg = _b1_inputs(4097, "defaults")
+    y0, p, f, qt = _double(y0, p, f, qt)
+    h0 = initial_step(model, y0, 0.0, p, f, cfg)
+    one = k_rk45.rk45(model, y0, h0, 0.0, TF, qt, p, f, cfg)
+    two = k_rk45.rk45(model, y0, h0, 0.0, TF, qt, p, f, cfg)
+    torch.cuda.synchronize()
+    for a, b in zip((one.y_final, one.dense, one.stiff, one.failed, *one.stats),
+                    (two.y_final, two.dense, two.stiff, two.failed, *two.stats)):
+        assert torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def test_rk45_f64_nan_state_ends_as_in_plain(case):
+    model, y0, h0, qt, p, f, cfg = _b1_inputs(31, "defaults")
+    y0, p, f, qt = _double(y0, p, f, qt)
+    h0 = initial_step(model, y0, 0.0, p, f, cfg)
+    y0[3, 4] = float("nan")
+    ker = k_rk45.rk45(model, y0, h0, 0.0, TF, qt, p, f, cfg)
+    ref = k_rk45.rk45_plain(model, y0, h0, 0.0, TF, qt, p, f, cfg)
+    torch.cuda.synchronize()
+    _assert_rk45_equal(ker, ref)
+    assert bool(ker.stiff[3]) and int(ker.stats.n_accepted[3]) == 0
+    assert bool(torch.isnan(ker.y_final[3]).all())
+
+
+@pytest.mark.parametrize("name", sorted(OPTIONS))
+@pytest.mark.parametrize("n_sys", [1, 3, 33, 131])
+def test_radau_f64_warp_per_system_equals_plain(stiff_case, n_sys, name):
+    """B2's double instance equals radau_plain in float64 bit for bit on
+    the stiff systems over the first half hour (its warp maxima reduce
+    64-bit patterns)."""
+    y0, p, f, qt = _double(*_first(stiff_case, n_sys))
+    options, safe_pow = OPTIONS[name]
+    cfg = dataclasses.replace(CFG, **options)
+    model = Model204(safe_pow=safe_pow)
+    before = k_radau.radau_launches["embedded3/f64"]
+    ker = _radau_pair(model, y0, initial_step(model, y0, 0.0, p, f, cfg), qt, p, f, cfg)
+    assert k_radau.radau_launches["embedded3/f64"] == before + 1
+    assert ker.y_final.dtype == torch.float64
+    if name == "step_capped":
+        assert bool(ker.failed.all())
+
+
+def test_radau_f64_keeps_a_nan_in_the_warp_maxima(stiff_case):
+    y0, p, f, qt = _double(*_first(stiff_case, 3))
+    h0 = initial_step(Model204(), y0, 0.0, p, f, CFG)
+    y0[0, 4] = float("nan")
+    ker = _radau_pair(Model204(), y0, h0, qt, p, f, CFG)
+    assert ker.failed.tolist() == [True, False, False]
+    assert int(ker.stats.n_accepted[0]) == 0
+
+
+# Option sets with no double instance (ROADMAP Queue 1 #9c), per kernel.
+NO_F64_INSTANCE = {
+    "rk45_fsal": ("rk45", dict(fsal=True)),
+    "rk45_pi": ("rk45", dict(controller="pi")),
+    "rk45_compensated": ("rk45", dict(compensated=True)),
+    "radau_predictor": ("radau", dict(radau_predictor=True)),
+    "radau_radau5": ("radau", dict(radau_error_mode="radau5")),
+    "radau_reference": ("radau", dict(radau_error_mode="reference")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NO_F64_INSTANCE))
+def test_f64_option_set_without_an_instance_raises(case64, name):
+    """In float64 the C dispatcher refuses a set without a double instance
+    and the wrapper raises naming #9c, launching nothing; solve() refuses
+    it before any launch.  Nothing falls back to the plain version."""
+    y0, p, f, qt = case64
+    kernel, options = NO_F64_INSTANCE[name]
+    cfg = dataclasses.replace(CFG, **options)
+    h0 = initial_step(Model204(), y0, 0.0, p, f, CFG)
+    wrapper = k_rk45.rk45 if kernel == "rk45" else k_radau.radau
+    before = launch_totals()
+    with pytest.raises(NotImplementedError, match="#9c"):
+        wrapper(Model204(), y0, h0, 0.0, TF, qt, p, f, cfg)
+    with pytest.raises(NotImplementedError, match="#9c"):
+        solve(Model204(), y0, 0.0, TF, qt, p, f, cfg)
+    assert launch_totals() == before
+
+
+def test_solve_f64_on_card(case64):
+    y0, p, f, qt = case64
+    reset_launch_counts()
+    res = solve(Model204(), y0, 0.0, TF, qt, p, f, SolverConfig())
+    assert k_rk45.rk45_launches["default/f64"] == 1 and k_radau.radau_launches["embedded3/f64"] == 1
+    assert res.y_final.dtype == res.dense.dtype == torch.float64
+    assert res.n_stiff >= 5 and not res.failed.any()
+    assert bool(res.stiff[p["Hu"] < 1e-5].all())
+    assert bool(torch.isfinite(res.y_final).all())
+
+
+def test_f64_default_run_equals_a_direct_solve(tmp_path):
+    """A config without solver.precision runs float64 on the card (the
+    double instances): its dense, final and state files equal a direct
+    solve() bit for bit, its discharge the direct routed discharge."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tiger_tpu_torch import routing
+    from tiger_tpu_torch.config import config_from_dict
+    from tiger_tpu_torch.io.netcdf import read_netcdf
+    from tiger_tpu_torch.run import run
+    from tiger_tpu_torch.scenario import solve_written_basin, write_basin
+
+    doc = write_basin(str(tmp_path), 384, days=0.5, stiff_frac=0.01)
+    doc["solver"].pop("precision")
+    doc["solver"]["tolerances"] = {"rtol": 1e-6, "atol": 1e-9}
+    cfg = config_from_dict(doc)
+    assert cfg.solver.precision == "f64"
+    reset_launch_counts()
+    out = run(cfg)
+    assert k_rk45.rk45_launches["default/f64"] == 1 and k_radau.radau_launches["embedded3/f64"] == 1
+    assert out["n_failed"] == 0 and out["n_stiff"] > 0
+    res, params, sp = solve_written_basin(cfg, "cuda")
+    assert res.y_final.dtype == torch.float64
+    files = {name: read_netcdf(os.path.join(cfg.output.path, f"{name}_basin_rank_0.nc"),
+                               (var,))[0][var]
+             for name, var in (("final", "outputs"), ("dense", "outputs"),
+                               ("discharge", "discharge"), ("state", "outputs"))}
+    assert files["dense"].dtype == np.float64
+    assert np.array_equal(files["dense"], res.dense.cpu().numpy())
+    assert np.array_equal(files["final"], res.y_final.cpu().numpy())
+    assert np.array_equal(files["state"], res.y_final.cpu().numpy())
+    topo = routing.build_topology(sp["stream"], sp["next_stream"])
+    direct = routing.routed_discharge(res.dense, params, topo).cpu().numpy()
+    assert np.array_equal(files["discharge"], direct.astype(np.float64))
+
+
+def test_f64_chunked_run_equals_the_windows_and_a_resume(tmp_path, monkeypatch):
+    """A windowed float64 run on the card (2 one-day windows, a daily
+    checkpoint): its files equal the windows run by hand, and a run killed
+    in its second window and resumed from the day-1 checkpoint, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tiger_tpu_torch import chunked, routing
+    from tiger_tpu_torch.checkpoint import cold_state
+    from tiger_tpu_torch.config import config_from_dict
+    from tiger_tpu_torch.forcing import ForcingSpec
+    from tiger_tpu_torch.io.netcdf import read_netcdf
+    from tiger_tpu_torch.models.model204 import Y0_COMMON
+    from tiger_tpu_torch.params import load_spatial_params, model_params
+    from tiger_tpu_torch.run import run
+    from tiger_tpu_torch.scenario import write_basin
+
+    doc = write_basin(str(tmp_path / "basin"), 384, days=2.0, stiff_frac=0.01)
+    doc["time"]["chunk_days"] = 1.0
+    doc["solver"] = {"precision": "f64", "tolerances": {"rtol": 1e-6, "atol": 1e-9}}
+
+    def cfg(outdir, **initial):
+        doc["output"].update(checkpoint_interval="1d", path=str(tmp_path / outdir))
+        doc["initial"] = dict(mode="hot", resume=True, **initial) if initial else {"mode": "cold"}
+        return config_from_dict(doc)
+
+    def files(outdir):
+        return {name: read_netcdf(str(tmp_path / outdir / f"{name}_basin_rank_0.nc"), (var,))[0][var]
+                for name, var in (("final", "outputs"), ("dense", "outputs"),
+                                  ("discharge", "discharge"), ("state", "outputs"))}
+
+    reset_launch_counts()
+    out = run(cfg("ref"))
+    assert k_rk45.rk45_launches["default/f64"] == 2 and k_radau.radau_launches["embedded3/f64"] >= 1
+    assert out["n_failed"] == 0 and out["n_stiff"] > 0 and out["n_windows"] == 2
+    ref = files("ref")
+    assert ref["dense"].dtype == ref["state"].dtype == np.float64
+
+    # The windows by hand.
+    c = cfg("ref")
+    sp = load_spatial_params(c.params_file)
+    params = {k: torch.as_tensor(v, device="cuda").to(torch.float64)
+              for k, v in model_params(sp).items()}
+    specs = [ForcingSpec(os.path.join(c.forcings.path, x["file"]), x["var"], float(x["dt_hours"]))
+             for x in c.forcings.files]
+    loader = chunked.netcdf_window_loader(specs, sp["stream"], c.forcings.lookup, "cuda")
+    topo = routing.build_topology(sp["stream"], sp["next_stream"])
+    y = torch.as_tensor(cold_state(Y0_COMMON, 384), device="cuda").to(torch.float64)
+    dense, discharge = [], []
+    for w in range(2):
+        w0 = 1440.0 * w
+        qt = torch.as_tensor(np.arange(0 if w == 0 else 1, 25) * 60.0, device="cuda")
+        res = solve(Model204(), y, 0.0, 1440.0, qt.to(torch.float64), params,
+                    loader(w0, w0 + 1440.0), c.solver_config(), t_shift=w0)
+        y = torch.where(torch.isnan(res.y_final), y, res.y_final)
+        dense.append(res.dense.cpu().numpy())
+        discharge.append(routing.routed_discharge(res.dense, params, topo).cpu().numpy())
+    assert np.array_equal(ref["dense"], np.concatenate(dense, axis=1))
+    assert np.array_equal(ref["final"], y.cpu().numpy())
+    assert np.array_equal(ref["state"], y.cpu().numpy())
+    assert np.array_equal(ref["discharge"], np.concatenate(discharge, axis=1))
+
+    # A crash in the second window, then the resume.
+    real_solve, calls = chunked.solve, {"n": 0}
+
+    def dying_solve(*a, **kw):
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise RuntimeError("simulated crash")
+        return real_solve(*a, **kw)
+
+    monkeypatch.setattr(chunked, "solve", dying_solve)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        run(cfg("crashed"))
+    monkeypatch.setattr(chunked, "solve", real_solve)
+    run(cfg("crashed", file=str(tmp_path / "crashed" / "state_basin_rank_0.nc")))
+    again = files("crashed")
+    for name in ref:
+        assert again[name].dtype == ref[name].dtype and np.array_equal(again[name], ref[name]), name

@@ -11,79 +11,114 @@ its pool in several admissions, more systems are live than there are lanes
 (the least-t order decides who runs), and the drain packs the last systems
 into fewer lanes.  The same library runs every system alone, from its start
 to its end, through the same attempt function: the schedule must change no
-system's result, bit for bit.  (Against ``rk45_plain`` the g++ build differs
-where glibc's exp2f/log2f/powf round otherwise than torch's; on the card the
-two agree bit for bit, which tests/test_torch_cuda.py checks.)
+system's result, bit for bit, in float32 and, through the double instance,
+in float64.  (Against ``rk45_plain`` the g++ build differs where glibc's
+exp2f/log2f/powf round otherwise than torch's; on the card the two agree
+bit for bit, which tests/test_torch_cuda.py checks.)  The same g++ builds
+check that the ctypes mirrors of the kernels' argument structs have the
+C++ structs' sizes, and the double tableau's constants are checked against
+``solver/tableau.py`` here too.
 """
 
 import ctypes
 import dataclasses
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from tests.test_torch_cuda import OPTIONS, RK45_INSTANCES
 from tiger_tpu_torch import Model204, SolverConfig
 from tiger_tpu_torch.kernels import _build
+from tiger_tpu_torch.kernels import radau as k_radau
 from tiger_tpu_torch.kernels import rk45 as k_rk45
 from tiger_tpu_torch.scenario import scenario
+from tiger_tpu_torch.solver import tableau
 from tiger_tpu_torch.solver.controller import initial_step
 
 SHIM = Path(__file__).resolve().with_name("torch_shim")
 CFG = SolverConfig(rtol=1e-5, atol=1e-8, max_steps=100_000)
 TF = 360.0
-SHAPE = ("-DTT_RK45_THREADS=8", "-DTT_RK45_POOL=16", "-DTT_RK45_SLICE=4", "-DTT_SHIM_BLOCKS=2")
+SHAPE = ("-DTT_RK45_THREADS=8", "-DTT_RK45_THREADS_F64=8", "-DTT_RK45_POOL=16",
+         "-DTT_RK45_SLICE=4", "-DTT_SHIM_BLOCKS=2")
+F64 = {torch.float32: 0, torch.float64: 1}
+
+
+def _gxx(work, body: str, source: str, lib_name: str, *defines) -> ctypes.CDLL:
+    """g++ builds ``source`` (tests/torch_shim) with ``body``'s kernel body
+    (csrc/<body>.cu above its launch section) as ``<body>_body.h``."""
+    text = (_build.CSRC / f"{body}.cu").read_text()
+    (work / f"{body}_body.h").write_text(text.split("// ---- launch ----")[0])
+    (work / "rk45_tableau.cuh").write_text(_build.tableau_header())
+    lib_path = work / lib_name
+    cmd = ["g++", "-std=c++20", "-O1", "-pthread", "-ffp-contract=off", "-shared", "-fPIC",
+           "-x", "c++", *defines, "-I", str(SHIM), "-I", str(work), "-I", str(_build.CSRC),
+           "-o", str(lib_path), str(SHIM / source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lib = ctypes.CDLL(str(lib_path))
+    for name in ("tt_rk45_args_size", "tt_radau_args_size"):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = [ctypes.c_int32]
+            getattr(lib, name).restype = ctypes.c_int
+    return lib
 
 
 @pytest.fixture(scope="module")
 def shim_lib(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
-    work = tmp_path_factory.mktemp("rk45_shim")
-    source = (_build.CSRC / "rk45.cu").read_text()
-    (work / "rk45_body.h").write_text(source.split("// ---- launch ----")[0])
-    (work / "rk45_tableau.cuh").write_text(_build.tableau_header())
-    lib_path = work / "librk45_shim.so"
-    cmd = ["g++", "-std=c++20", "-O1", "-pthread", "-ffp-contract=off", "-shared", "-fPIC",
-           "-x", "c++", *SHAPE, "-I", str(SHIM), "-I", str(work), "-I", str(_build.CSRC),
-           "-o", str(lib_path), str(SHIM / "rk45_shim.cpp")]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    lib = ctypes.CDLL(str(lib_path))
+    lib = _gxx(tmp_path_factory.mktemp("rk45_shim"), "rk45", "rk45_shim.cpp",
+               "librk45_shim.so", *SHAPE)
     for name in ("tt_rk45_launch", "tt_rk45_serial"):
-        getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p]
         getattr(lib, name).restype = ctypes.c_int
-    lib.tt_rk45_args_size.restype = ctypes.c_int
     return lib
+
+
+@pytest.fixture(scope="module")
+def radau_sizes_lib(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    return _gxx(tmp_path_factory.mktemp("radau_sizes"), "radau", "radau_sizes.cpp",
+                "libradau_sizes.so")
 
 
 def _run(lib, monkeypatch, entry, model, y0, h0, qt, p, f, cfg):
     """The wrapper's CUDA path on CPU tensors, its launch sent to ``entry``
     of the shim library."""
 
-    def launch(fn_name, size_name, args, device, options):
+    def launch(fn_name, size_name, args, f64, device, options):
         assert fn_name == "tt_rk45_launch"
-        assert getattr(lib, size_name)() == ctypes.sizeof(args)
-        assert getattr(lib, entry)(ctypes.addressof(args), None) == 0
+        assert getattr(lib, size_name)(int(f64)) == ctypes.sizeof(args)
+        assert getattr(lib, entry)(ctypes.addressof(args), int(f64), None) == 0
 
     monkeypatch.setattr(k_rk45, "launch", launch)
     return k_rk45._rk45_cuda(model, y0, h0, 0.0, TF, qt, p, f, cfg)
 
 
-@pytest.mark.parametrize("name", sorted(OPTIONS))
+# Every option case in float32, and again in float64 (the double instance:
+# these cases change SolverConfig fields, never the instance's option set).
+SCALAR_CASES = [pytest.param(name, torch.float32, id=name) for name in sorted(OPTIONS)] + [
+    pytest.param(name, torch.float64, id=f"{name}_f64") for name in sorted(OPTIONS)]
+
+
+@pytest.mark.parametrize("name,dtype", SCALAR_CASES)
 @pytest.mark.parametrize("n_sys", [1, 31, 100])
-def test_schedule_changes_no_result(shim_lib, monkeypatch, n_sys, name):
+def test_schedule_changes_no_result(shim_lib, monkeypatch, n_sys, name, dtype):
     options, safe_pow = OPTIONS[name]
     cfg = dataclasses.replace(CFG, **options)
     model = Model204(safe_pow=safe_pow)
-    y0, p, f = scenario(n_sys, TF / 1440.0, 0.05, device="cpu")
-    qt = torch.arange(0.0, TF + 1e-9, 60.0)
+    y0, p, f = scenario(n_sys, TF / 1440.0, 0.05, device="cpu", dtype=dtype)
+    qt = torch.arange(0.0, TF + 1e-9, 60.0, dtype=dtype)
     h0 = initial_step(model, y0, 0.0, p, f, cfg)
     pooled = _run(shim_lib, monkeypatch, "tt_rk45_launch", model, y0, h0, qt, p, f, cfg)
     alone = _run(shim_lib, monkeypatch, "tt_rk45_serial", model, y0, h0, qt, p, f, cfg)
+    assert pooled.y_final.dtype == pooled.dense.dtype == dtype
     diff = k_rk45.rk45_mismatch(pooled, alone)
     assert not any(diff.values()), diff
     # The run did something: attempts were made, and where the scenario has
@@ -114,3 +149,60 @@ def test_option_instance_schedule_changes_no_result(shim_lib, monkeypatch, name)
                         dataclasses.replace(cfg, fsal=False))
         diff = k_rk45.rk45_mismatch(pooled, plain_k1)
         assert not any(diff.values()), diff
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("kernel", ["rk45", "radau"])
+def test_args_mirrors_match_the_kernel_structs(shim_lib, radau_sizes_lib, kernel, dtype):
+    """Each ctypes mirror (kernels.rk45.ARGS, kernels.radau.ARGS) has the
+    size of the C++ struct it mirrors, as g++ lays it out: the float
+    struct and the double one (whose scalars and ForcingMeta are double)."""
+    lib, args = ((shim_lib, k_rk45.ARGS) if kernel == "rk45" else (radau_sizes_lib, k_radau.ARGS))
+    size = getattr(lib, f"tt_{kernel}_args_size")(F64[dtype])
+    assert size == ctypes.sizeof(args[dtype])
+    if dtype == torch.float64:
+        assert size > ctypes.sizeof(args[torch.float32])
+
+
+def test_tableau_header_holds_the_float64_tableau():
+    """``TT_DP_TABLEAU_F64`` (the double instance's tableau) parses back to
+    solver/tableau.py's float64 values exactly, and ``TT_DP_TABLEAU`` to
+    those values rounded to float32."""
+    header = _build.tableau_header()
+    want = np.concatenate([np.ravel(x) for x in (tableau.DP_A, tableau.DP_C, tableau.DP_B,
+                                                 tableau.DP_E, tableau.DP_P)])
+    for name, dtype in (("TT_DP_TABLEAU_F64", np.float64), ("TT_DP_TABLEAU", np.float32)):
+        body = header.split(f"#define {name} ")[1].split("#define")[0]
+        literals = re.findall(r"-?0x[0-9a-f.]+p[+-]\d+f?", body)
+        assert all(v.endswith("f") == (dtype == np.float32) for v in literals), name
+        got = np.array([float.fromhex(v.rstrip("f")) for v in literals])
+        assert got.shape == want.shape, name
+        assert np.array_equal(got, want.astype(dtype).astype(np.float64)), name
+
+
+def test_radau_double_constants_are_the_float64_tableau(monkeypatch):
+    """B2's double instance gets tableau.py's float64 constants and the
+    solver's scalars as doubles (not floats widened); its float instance
+    the same rounded to float32."""
+    seen = {}
+
+    def launch(fn_name, size_name, args, f64, device, options):
+        seen[bool(f64)] = args
+
+    monkeypatch.setattr(k_radau, "launch", launch)
+    for dtype in (torch.float32, torch.float64):
+        y0, p, f = scenario(2, 0.1, 1.0, device="cpu", dtype=dtype)
+        h0 = torch.ones(2, dtype=dtype)
+        qt = torch.arange(0.0, 60.0 + 1e-9, 30.0, dtype=dtype)
+        k_radau._radau_cuda(Model204(), y0, h0, 0.0, 60.0, qt, p, f, CFG)
+    for f64, dtype in ((True, np.float64), (False, np.float32)):
+        a = seen[f64]
+        for field, want in (("ra", tableau.RADAU_A), ("rb", tableau.RADAU_B),
+                            ("rc", tableau.RADAU_C), ("re", tableau.RADAU_E3),
+                            ("rw", tableau.RADAU_DENSE), ("inv_a", tableau.RADAU_A_INV)):
+            got = np.array([list(r) if hasattr(r, "__len__") else r for r in getattr(a, field)])
+            assert np.array_equal(got, np.asarray(want, np.float64).astype(dtype)), field
+        assert a.gam == float(dtype(tableau.RADAU_EIG_GAMMA))
+        assert a.rtol == float(dtype(CFG.rtol)) and a.atol == float(dtype(CFG.atol))
+        assert a.forcing.snap == float(dtype(5e-4))
+        assert a.fd_eps == float(dtype(np.sqrt(np.finfo(dtype).eps)))

@@ -6,8 +6,8 @@
 // kThreads std::threads each, one block after another; tt_rk45_serial runs
 // each system alone from its start to its end through the same admit,
 // attempt and finish functions, which is what the schedule must not change.
-// Both run the instance of args->options, as the kernel library's launcher
-// does.
+// Both run the instance of (f64, args->options), as the kernel library's
+// launcher does.
 #include "rk45_body.h"
 
 #include <thread>
@@ -19,46 +19,61 @@
 
 namespace tt {
 // Large enough for every instance's pool.
-unsigned long long smem[(std::max({Pool<0>::kBytes, Pool<kFsal | kPi>::kBytes,
-                                   Pool<kComp | kPi>::kBytes}) + 7) / 8];
-}
+unsigned long long smem[(std::max({Pool<float, 0>::kBytes, Pool<float, kFsal | kPi>::kBytes,
+                                   Pool<float, kComp | kPi>::kBytes, Pool<double, 0>::kBytes}) +
+                         7) / 8];
 
-extern "C" int tt_rk45_args_size() { return (int)sizeof(tt::Rk45Args); }
-
-extern "C" int tt_rk45_launch(const tt::Rk45Args* args, void*) {
+template <class T>
+int launch_as(const Rk45Args<T>& a) {
   shim::grid_dim.x = TT_SHIM_BLOCKS;
-  shim::block_dim.x = tt::kThreads;
-  const bool known = tt::rk45_dispatch(args->options, [&](auto opt) {
+  shim::block_dim.x = kThreads<T>;
+  const bool known = rk45_dispatch<T>(a.options, [&](auto opt) {
     constexpr int OPT = decltype(opt)::value;
     for (unsigned b = 0; b < TT_SHIM_BLOCKS; ++b) {
-      std::barrier<> barrier(tt::kThreads);
+      std::barrier<> barrier(kThreads<T>);
       shim::block_barrier = &barrier;
       std::vector<std::thread> threads;
-      for (unsigned t = 0; t < (unsigned)tt::kThreads; ++t)
-        threads.emplace_back([=] {
+      for (unsigned t = 0; t < (unsigned)kThreads<T>; ++t)
+        threads.emplace_back([=, &a] {
           shim::thread_idx.x = t;
           shim::block_idx.x = b;
-          tt::rk45_kernel<OPT>(*args);
+          rk45_kernel<T, OPT>(a);
         });
       for (auto& th : threads) th.join();
     }
   });
-  return known ? 0 : tt::kNoInstance;
+  return known ? 0 : kNoInstance;
 }
 
-extern "C" int tt_rk45_serial(const tt::Rk45Args* args, void*) {
-  const tt::Rk45Args& a = *args;
-  const bool known = tt::rk45_dispatch(a.options, [&](auto opt) {
+template <class T>
+int serial_as(const Rk45Args<T>& a) {
+  const bool known = rk45_dispatch<T>(a.options, [&](auto opt) {
     constexpr int OPT = decltype(opt)::value;
     for (int64_t s = 0; s < a.n_sys; ++s) {
-      tt::Rk45State st;
-      tt::Model204 model;
-      float h0;
-      tt::rk45_admit<OPT>(a, s, st, h0);
+      Rk45State<T> st;
+      Model204<T> model;
+      T h0;
+      rk45_admit<T, OPT>(a, s, st, h0);
       model.load(a.params, a.n_sys, s, a.safe_pow);
-      while (tt::rk45_live(a, st)) tt::rk45_attempt<OPT>(a, model, h0, s, st);
-      tt::rk45_finish(a, s, st);
+      while (rk45_live(a, st)) rk45_attempt<T, OPT>(a, model, h0, s, st);
+      rk45_finish(a, s, st);
     }
   });
   return known ? 0 : 1;
+}
+}  // namespace tt
+
+// As in the kernel library, f64 picks the scalar: 0 float, 1 double.
+extern "C" int tt_rk45_args_size(int32_t f64) {
+  return f64 ? (int)sizeof(tt::Rk45Args<double>) : (int)sizeof(tt::Rk45Args<float>);
+}
+
+extern "C" int tt_rk45_launch(const void* args, int32_t f64, void*) {
+  return f64 ? tt::launch_as(*static_cast<const tt::Rk45Args<double>*>(args))
+             : tt::launch_as(*static_cast<const tt::Rk45Args<float>*>(args));
+}
+
+extern "C" int tt_rk45_serial(const void* args, int32_t f64, void*) {
+  return f64 ? tt::serial_as(*static_cast<const tt::Rk45Args<double>*>(args))
+             : tt::serial_as(*static_cast<const tt::Rk45Args<float>*>(args));
 }

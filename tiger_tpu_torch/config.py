@@ -128,12 +128,14 @@ class SolverInfo:
     min_scale: float = 0.2
     max_scale: float = 10.0
     initial_step: Optional[float] = None
-    # 'f64' matches the reference (double everywhere); 'f32' is the
-    # kernels' precision (pair it with rtol >= ~1e-5: tolerances below f32
-    # rounding accumulate past them); 'f32c' is f32 with compensated (Kahan)
-    # state accumulation (SolverConfig.compensated): at rtol 1e-6 / atol
-    # 1e-9 it takes out most of f32's rounding drift, not the differences
-    # that float32's and float64's own step choices make (PERF.md).
+    # 'f64' matches the reference (double everywhere; on the card the
+    # kernels' double instances, which run the default solver options);
+    # 'f32' is the kernels' float precision (pair it with rtol >= ~1e-5:
+    # tolerances below f32 rounding accumulate past them); 'f32c' is f32
+    # with compensated (Kahan) state accumulation (SolverConfig.compensated):
+    # at rtol 1e-6 / atol 1e-9 it takes out most of f32's rounding drift,
+    # not the differences that float32's and float64's own step choices
+    # make (PERF.md).
     precision: str = "f64"
     # Forcing precision (SolverConfig.forcing_dtype); 'bf16' answered a
     # TPU memory limit and the port's solver refuses it.

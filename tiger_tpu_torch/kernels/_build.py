@@ -2,14 +2,22 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
 with a plain C interface, which is loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds).  The library lands in
+headers, so a build takes seconds).  The kernels are built without FMA
+contraction.  Each kernel source is compiled twice: as it stands, for its
+float instances and the C entry points, and with ``-DTT_DOUBLE_INSTANCES``
+as relocatable device code, for its double instance, which is device-linked
+with ``csrc/contracted.cu`` (the double pow, built with contraction so that
+it rounds as torch's CUDA pow does).  The float instances' build is the one
+they always had.  The library lands in
 ``build/tiger_tpu_torch/`` at the repository root, named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused.  Nothing but the repository's own sources is compiled, beside one
 header that is written here: the Dormand-Prince tableau of
-``solver/tableau.py`` as a constexpr initialiser (``rk45_tableau.cuh``), so
-B1 can fold its tests for zero entries at compile time without the
-tableau ever being retyped by hand.
+``solver/tableau.py`` as constexpr initialisers (``rk45_tableau.cuh``), one
+rounded to float32 for the float instances and one with its exact float64
+values for the double instance, so B1 can fold its tests for zero entries
+at compile time without the tableau ever being retyped by hand.  Every
+instance, float and double, is in the one library of one build.
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ NVCC_FLAGS = (
     "-fmad=false",
     "-Xptxas", "-v",  # registers, spills and stack per kernel, into the log
 )
+#: Built apart from the kernels, with nvcc's default FMA contraction.
+CONTRACTED = "contracted.cu"
 #: The same build with nvcc's default FMA contraction, to measure what
 #: ``-fmad=false`` costs (``python -m tiger_tpu_torch.profile_solve``).
 FMAD_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
@@ -53,18 +63,22 @@ def _sources() -> list[Path]:
 
 
 def tableau_header() -> str:
-    """``rk45_tableau.cuh``: tableau.DP_* rounded to float32, as the
-    initialiser of ``tt::DpTableau`` (a, c, b, e, p) in hexadecimal floats."""
+    """``rk45_tableau.cuh``: tableau.DP_* as the initialisers of
+    ``tt::DpTableau`` (a, c, b, e, p) in hexadecimal literals:
+    ``TT_DP_TABLEAU`` rounded to float32, ``TT_DP_TABLEAU_F64`` the float64
+    values themselves (the numbers the plain versions multiply by)."""
 
-    def braces(x) -> str:
+    def braces(x, f32: bool) -> str:
         if np.ndim(x) == 0:
-            return float(np.float32(x)).hex() + "f"
-        return "{" + ", ".join(braces(v) for v in x) + "}"
+            return float(np.float32(x)).hex() + "f" if f32 else float(x).hex()
+        return "{" + ", ".join(braces(v, f32) for v in x) + "}"
 
     rows = (tableau.DP_A, tableau.DP_C, tableau.DP_B, tableau.DP_E, tableau.DP_P)
-    body = ", \\\n    ".join(braces(np.asarray(r, np.float64)) for r in rows)
-    return ("// Written by tiger_tpu_torch/kernels/_build.py from solver/tableau.py.\n"
-            "#pragma once\n#define TT_DP_TABLEAU \\\n  { \\\n    " + body + " \\\n  }\n")
+    out = "// Written by tiger_tpu_torch/kernels/_build.py from solver/tableau.py.\n#pragma once\n"
+    for name, f32 in (("TT_DP_TABLEAU", True), ("TT_DP_TABLEAU_F64", False)):
+        body = ", \\\n    ".join(braces(np.asarray(r, np.float64), f32) for r in rows)
+        out += f"#define {name} \\\n  {{ \\\n    " + body + " \\\n  }\n"
+    return out
 
 
 def source_hash(flags: tuple[str, ...] = NVCC_FLAGS) -> str:
@@ -105,14 +119,39 @@ def build(flags: tuple[str, ...] = NVCC_FLAGS) -> tuple[Path, float, str]:
     (include / "rk45_tableau.cuh").write_text(tableau_header())
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *flags, "-I", str(include), "-o", tmp, *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc, compile_flags = _nvcc(), [f for f in flags if f != "-shared"]
+    arch = [f for f in flags if f.startswith(("-gencode", "arch="))] + ["-Xcompiler", "-fPIC"]
+    kernels = [p for p in sorted(CSRC.glob("*.cu")) if p.name != CONTRACTED]
+    objects = {p.stem: include / f"{p.stem}.o" for p in kernels}
+    rdc = {CONTRACTED: include / "contracted.o",
+           **{p.name: include / f"{p.stem}_f64.o" for p in kernels}}
+    dlink = include / "dlink.o"
+    # Every compile at once, then the device link of the relocatable code,
+    # then the library.
+    compiles = [[nvcc, *(f for f in compile_flags if f != "-fmad=false"), "-rdc=true", "-c",
+                 "-o", str(rdc[CONTRACTED]), str(CSRC / CONTRACTED)]]
+    for p in kernels:
+        common = [nvcc, *compile_flags, "-I", str(include), "-c"]
+        compiles.append([*common, "-rdc=true", "-DTT_DOUBLE_INSTANCES", "-o", str(rdc[p.name]), str(p)])
+        compiles.append([*common, "-o", str(objects[p.stem]), str(p)])
+    links = (
+        [nvcc, *arch, "-dlink", "-o", str(dlink), *map(str, rdc.values())],
+        [nvcc, *flags, "-o", tmp, *map(str, objects.values()), *map(str, rdc.values()), str(dlink)],
+    )
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    results = [(proc.returncode, out) for proc in procs for out in [proc.communicate()[0]]]
+    for cmd in links:
+        if all(rc == 0 for rc, _ in results):
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            results.append((proc.returncode, proc.stdout + proc.stderr))
     seconds = time.perf_counter() - start
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    log = "".join(out for _, out in results)
+    failed = [rc for rc, _ in results if rc != 0]
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
     log_path.write_text(log)
     os.replace(tmp, lib_path)
     return lib_path, seconds, log
@@ -125,15 +164,17 @@ def load() -> ctypes.CDLL:
     if lib is None:
         path, _, _ = build(_flags_in_use)
         lib = ctypes.CDLL(str(path))
+        # The int32 argument of each entry point picks the scalar: 0 float, 1 double.
         for name in ("tt_rk45_launch", "tt_radau_launch"):
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.tt_rk45_geometry.argtypes = [ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p]
+        lib.tt_rk45_geometry.argtypes = [ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+                                         ctypes.c_void_p]
         lib.tt_rk45_geometry.restype = ctypes.c_int
         for name in ("tt_rk45_args_size", "tt_radau_args_size"):
             fn = getattr(lib, name)
-            fn.argtypes = []
+            fn.argtypes = [ctypes.c_int32]
             fn.restype = ctypes.c_int
         _libs[_flags_in_use] = lib
     return lib

@@ -1,8 +1,8 @@
 """What the two kernels' wrappers and plain versions share.
 
-The ctypes mirror of ``csrc/common.cuh``'s ForcingMeta, the check of a CUDA
-launch's inputs, the launch itself, and the plain versions' parameter and
-dense-output helpers.
+The ctypes mirrors of ``csrc/common.cuh``'s ForcingMeta (one a scalar), the
+check of a CUDA launch's inputs, the launch itself, and the plain versions'
+parameter and dense-output helpers.
 """
 
 from __future__ import annotations
@@ -20,35 +20,48 @@ from tiger_tpu_torch.solver.config import SolverConfig
 N_EQ = 5
 MAX_FORCINGS = 4
 c_float, c_i32, c_i64, c_ptr = ctypes.c_float, ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p
+#: The kernels' scalar T of each solve dtype: float instances take float32
+#: tensors, double instances float64 ones.
+C_REAL = {torch.float32: c_float, torch.float64: ctypes.c_double}
 
 
-class ForcingMetaC(ctypes.Structure):
-    """Mirror of ``tt::ForcingMeta`` (csrc/common.cuh)."""
+def _forcing_meta_type(real):
+    class ForcingMetaC(ctypes.Structure):
+        """Mirror of ``tt::ForcingMeta<T>`` (csrc/common.cuh)."""
 
-    _fields_ = [
-        ("n_forc", c_i32),
-        ("offset", c_i32 * MAX_FORCINGS),
-        ("n_steps", c_i32 * MAX_FORCINGS),
-        ("dt", c_float * MAX_FORCINGS),
-        ("n_cap", c_i32),
-        ("cap_n_steps", c_i32 * MAX_FORCINGS),
-        ("cap_dt", c_float * MAX_FORCINGS),
-        ("snap", c_float),
-        ("align", c_i32),
-    ]
+        _fields_ = [
+            ("n_forc", c_i32),
+            ("offset", c_i32 * MAX_FORCINGS),
+            ("n_steps", c_i32 * MAX_FORCINGS),
+            ("dt", real * MAX_FORCINGS),
+            ("n_cap", c_i32),
+            ("cap_n_steps", c_i32 * MAX_FORCINGS),
+            ("cap_dt", real * MAX_FORCINGS),
+            ("snap", real),
+            ("align", c_i32),
+        ]
+
+    return ForcingMetaC
 
 
-def c_floats(x):
-    """numpy 1-D/2-D array -> ctypes float array (values rounded to f32)."""
+#: ``tt::ForcingMeta<T>`` by solve dtype.
+FORCING_META = {dtype: _forcing_meta_type(real) for dtype, real in C_REAL.items()}
+
+
+def c_reals(x, real=c_float):
+    """numpy 1-D/2-D array -> ctypes array of ``real`` (c_float rounds the
+    values to float32; c_double keeps them)."""
     x = np.asarray(x, np.float64)
     if x.ndim == 1:
-        return (c_float * len(x))(*x.tolist())
-    row_t = c_float * x.shape[1]
+        return (real * len(x))(*x.tolist())
+    row_t = real * x.shape[1]
     return (row_t * x.shape[0])(*[row_t(*r.tolist()) for r in x])
 
 
-def forcing_meta_c(forcings: ForcingSet | None, config: SolverConfig) -> ForcingMetaC:
-    m = ForcingMetaC()
+def forcing_meta_c(forcings: ForcingSet | None, config: SolverConfig,
+                   dtype: torch.dtype = torch.float32) -> ctypes.Structure:
+    """The kernels' ForcingMeta of ``forcings`` for a solve in ``dtype``."""
+    m = FORCING_META[dtype]()
     if forcings is None:
         return m
     meta = forcings.meta
@@ -80,10 +93,12 @@ def forcing_meta_c(forcings: ForcingSet | None, config: SolverConfig) -> Forcing
 def kernel_inputs(name, model, y0, h0, params, forcings, query_times, t_shift=0.0):
     """Validate a CUDA launch's inputs; returns (y0 [5,S], params [15,S]).
 
-    The kernels take Model 204 in float32 with every tensor on y0's device:
-    anything else raises (there is no fallback for a CUDA tensor).  They
-    take no ``t_shift``: Model 204's rhs does not read t, and a model that
-    does (``reads_time``) is refused with a shift rather than run without.
+    The kernels take Model 204 in float32 or float64 (y0's dtype), with
+    h0, every param and the query times in y0's dtype, the forcing data in
+    float32, and every tensor on y0's device: anything else raises (there
+    is no fallback for a CUDA tensor).  They take no ``t_shift``: Model
+    204's rhs does not read t, and a model that does (``reads_time``) is
+    refused with a shift rather than run without.
     """
     if not isinstance(model, Model204):
         raise NotImplementedError(
@@ -96,14 +111,16 @@ def kernel_inputs(name, model, y0, h0, params, forcings, query_times, t_shift=0.
             "ROADMAP Queue 1 #10)"
         )
     dev, s_count = y0.device, y0.shape[0]
+    if y0.dtype not in C_REAL:
+        raise TypeError(f"{name}: y0 must be float32 or float64, got {y0.dtype}")
 
-    def check(label, x, shape):
+    def check(label, x, shape, dtype=y0.dtype):
         if not torch.is_tensor(x):
             raise TypeError(f"{name}: {label} must be a tensor")
         if x.device != dev:
             raise ValueError(f"{name}: {label} is on {x.device}, y0 on {dev}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name}: {label} must be float32, got {x.dtype}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name}: {label} must be {dtype} (y0 is {y0.dtype}), got {x.dtype}")
         if tuple(x.shape) != tuple(shape):
             raise ValueError(f"{name}: {label} has shape {tuple(x.shape)}, expected {tuple(shape)}")
         if not x.is_contiguous():
@@ -117,7 +134,7 @@ def kernel_inputs(name, model, y0, h0, params, forcings, query_times, t_shift=0.
     for k in PARAM_FIELDS:
         check(f"params[{k!r}]", params[k], (s_count,))
     if forcings is not None:
-        check("forcings.data", forcings.data, (forcings.data.shape[0], s_count))
+        check("forcings.data", forcings.data, (forcings.data.shape[0], s_count), torch.float32)
     if query_times is not None:
         check("query_times", query_times, (query_times.shape[0],))
     return y0.t().contiguous(), torch.stack([params[k] for k in PARAM_FIELDS])
@@ -132,16 +149,22 @@ def data_ptr(x: torch.Tensor | None) -> int:
 _NO_INSTANCE = -1
 
 
-def launch(fn_name: str, size_name: str, args: ctypes.Structure, device, options: str) -> None:
+def launch(fn_name: str, size_name: str, args: ctypes.Structure, f64: bool, device,
+           options: str) -> None:
     """Enqueue a kernel on the device's current stream; raise if refused.
-    ``options`` names the option set the arguments ask for."""
+    ``f64`` picks the double instances (``args`` is then the double
+    struct); ``options`` names the option set the arguments ask for."""
     lib = _build.load()
-    if getattr(lib, size_name)() != ctypes.sizeof(args):
+    if getattr(lib, size_name)(int(f64)) != ctypes.sizeof(args):
         raise RuntimeError(f"{fn_name}: argument struct differs from the built library's")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn_name)(ctypes.addressof(args), stream)
+        rc = getattr(lib, fn_name)(ctypes.addressof(args), int(f64), stream)
     if rc == _NO_INSTANCE:
+        if f64:
+            raise NotImplementedError(
+                f"{fn_name}: the kernel has no float64 instance for {options}: float64 runs "
+                "the default option set only; the others wait for ROADMAP Queue 1 #9c")
         raise NotImplementedError(f"{fn_name}: the kernel has no instance for {options}")
     if rc != 0:
         raise RuntimeError(f"{fn_name} ({options}): CUDA error {rc}")

@@ -6,6 +6,10 @@
 // _gather_forcings l.185-211 and _zoh_step_cap l.214-225), NaN-propagating
 // min/max with jnp.maximum/minimum semantics, and the Model-204 right-hand
 // side (tiger_tpu/models/model204.py, rhs_tuple over derived_params).
+// Each is a template over the scalar T of the solve, float or double: the
+// double instances repeat the float ones' operations in double, as the plain
+// versions do for a float64 tensor (constants written T(x) are the plain
+// versions' Python numbers, rounded to T; the float32 forcing data widened).
 //
 // Every struct here is mirrored field by field by a ctypes.Structure in
 // tiger_tpu_torch/kernels/_common.py; the launchers export sizeof() so the
@@ -31,19 +35,52 @@ enum Param204 {
 
 // Packed-forcing description (forcing.ForcingMeta) plus the step-cap table:
 // the distinct (n_steps, dt) pairs in sorted order, as _zoh_step_cap loops.
+// Its times are in the solve's scalar: the plain versions divide a float64
+// t by dt as a float64 tensor and add ZOH_SNAP as a double.
+template <class T>
 struct ForcingMeta {
   int32_t n_forc;
   int32_t offset[kMaxForcings];
   int32_t n_steps[kMaxForcings];
-  float dt[kMaxForcings];  // minutes per sample
+  T dt[kMaxForcings];  // minutes per sample
   int32_t n_cap;
   int32_t cap_n_steps[kMaxForcings];
-  float cap_dt[kMaxForcings];
-  float snap;     // index snap of the gather and the step cap: ZOH_SNAP when aligned, else 0
+  T cap_dt[kMaxForcings];
+  T snap;         // index snap of the gather and the step cap: ZOH_SNAP when aligned, else 0
   int32_t align;  // SolverConfig.forcing_step_align with forcings present
 };
 
-__device__ __forceinline__ bool is_nan(float x) { return x != x; }
+template <class T>
+__device__ __forceinline__ bool is_nan(T x) { return x != x; }
+
+// The libm calls of the kernels, by scalar: the float instances keep the
+// f-suffixed functions, the double ones take the double functions, which
+// are the ones torch's CUDA kernels call for a float64 tensor.
+__device__ __forceinline__ float fabs_t(float x) { return fabsf(x); }
+__device__ __forceinline__ double fabs_t(double x) { return fabs(x); }
+__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
+__device__ __forceinline__ float floor_t(float x) { return floorf(x); }
+__device__ __forceinline__ double floor_t(double x) { return floor(x); }
+__device__ __forceinline__ float exp2_t(float x) { return exp2f(x); }
+__device__ __forceinline__ double exp2_t(double x) { return exp2(x); }
+__device__ __forceinline__ float log2_t(float x) { return log2f(x); }
+__device__ __forceinline__ double log2_t(double x) { return log2(x); }
+__device__ __forceinline__ float pow_t(float x, float y) { return powf(x, y); }
+// Double pow on the card is contracted.cu's, built with FMA contraction as
+// torch's CUDA pow is (the host branch serves CPU rehearsals of the code;
+// -DTT_POW_INLINE, for profile_solve --f64-pow only, inlines libdevice's
+// pow under -fmad=false to measure what the call costs).
+#if defined(__CUDA_ARCH__) && !defined(TT_POW_INLINE)
+__device__ double pow_contracted(double x, double y);
+#endif
+__device__ __forceinline__ double pow_t(double x, double y) {
+#if defined(__CUDA_ARCH__) && !defined(TT_POW_INLINE)
+  return pow_contracted(x, y);
+#else
+  return pow(x, y);
+#endif
+}
 
 // jnp.maximum / jnp.minimum: NaN in either operand gives NaN (fmaxf and
 // fminf would drop it, and a NaN error norm must reject, not accept).  On
@@ -69,22 +106,35 @@ __device__ __forceinline__ float jmin(float a, float b) {
   return is_nan(a) ? a : (is_nan(b) ? b : fminf(a, b));
 #endif
 }
-__device__ __forceinline__ float jclip(float x, float lo, float hi) {
+// The PTX ISA has max.NaN and min.NaN for f32 (and f16/bf16) only, so the
+// double forms are the selects of the host branch above; torch's CUDA
+// maximum/minimum are the same selects (NaN in the first operand first).
+__device__ __forceinline__ double jmax(double a, double b) {
+  return is_nan(a) ? a : (is_nan(b) ? b : fmax(a, b));
+}
+__device__ __forceinline__ double jmin(double a, double b) {
+  return is_nan(a) ? a : (is_nan(b) ? b : fmin(a, b));
+}
+template <class T>
+__device__ __forceinline__ T jclip(T x, T lo, T hi) {
   return jmin(jmax(x, lo), hi);
 }
 
 // ZOH gather at the step-start time t: index = trunc(t/dt + snap) clamped
-// to the record (rk45_pallas.py:202 truncates with astype(int32)).
+// to the record (rk45_pallas.py:202 truncates with astype(int32)).  The
+// forcing data is float32 in every instance; a double instance widens the
+// sample it reads, as the plain version's .to(float64) does.
+template <class T>
 __device__ __forceinline__ void gather_forcings(
     const float* __restrict__ forc, int64_t n_sys, int64_t s,
-    const ForcingMeta& m, float t, float (&f)[kMaxForcings]) {
+    const ForcingMeta<T>& m, T t, T (&f)[kMaxForcings]) {
 #pragma unroll
   for (int j = 0; j < kMaxForcings; ++j) {
-    f[j] = 0.f;
+    f[j] = T(0);
     if (j < m.n_forc) {
       int idx = (int)(t / m.dt[j] + m.snap);
       idx = min(max(idx, 0), m.n_steps[j] - 1);
-      f[j] = __ldg(forc + (int64_t)(m.offset[j] + idx) * n_sys + s);
+      f[j] = (T)__ldg(forc + (int64_t)(m.offset[j] + idx) * n_sys + s);
     }
   }
 }
@@ -92,15 +142,15 @@ __device__ __forceinline__ void gather_forcings(
 // Clamp h so the step from t lands on (never across) the next sample
 // boundary; no boundary past a record's last sample.  Called only when
 // m.align is set, so m.snap is forcing.ZOH_SNAP here.
-__device__ __forceinline__ float zoh_step_cap(const ForcingMeta& m, float t,
-                                              float h) {
+template <class T>
+__device__ __forceinline__ T zoh_step_cap(const ForcingMeta<T>& m, T t, T h) {
 #pragma unroll
   for (int j = 0; j < kMaxForcings; ++j) {
     if (j < m.n_cap) {
-      const float dt = m.cap_dt[j];
-      const float k = floorf(t / dt + m.snap);
-      float nb = (k + 1.f) * dt - t;
-      if (k + 1.f >= (float)m.cap_n_steps[j]) nb = INFINITY;
+      const T dt = m.cap_dt[j];
+      const T k = floor_t(t / dt + m.snap);
+      T nb = (k + T(1)) * dt - t;
+      if (k + T(1) >= (T)m.cap_n_steps[j]) nb = T(INFINITY);
       h = jmin(h, nb);
     }
   }
@@ -108,11 +158,12 @@ __device__ __forceinline__ float zoh_step_cap(const ForcingMeta& m, float t,
 }
 
 // Model 204 over derived parameters (model204.py derived_params/rhs_tuple).
+template <class T>
 struct Model204 {
-  float temp_thr, melt_f, hu, inv_hu, infil, manning_c, perco, inv_a3, inv_a4;
+  T temp_thr, melt_f, hu, inv_hu, infil, manning_c, perco, inv_a3, inv_a4;
   int32_t safe_pow;
 
-  __device__ __forceinline__ void load(const float* __restrict__ p,
+  __device__ __forceinline__ void load(const T* __restrict__ p,
                                        int64_t n_sys, int64_t s, int32_t safe) {
     auto at = [&](int k) { return __ldg(p + (int64_t)k * n_sys + s); };
     temp_thr = at(kTempThr);
@@ -120,40 +171,40 @@ struct Model204 {
     hu = at(kHu);
     infil = at(kInfil);
     perco = at(kPerco);
-    manning_c = sqrtf(at(kSlope)) / at(kNMann) * (at(kL) / at(kAh) * 60.f);
-    inv_hu = 1.f / hu;
-    const float a3 = at(kAlpha3), a4 = at(kAlpha4);
-    inv_a3 = a3 >= 1.f ? 1.f / a3 : 0.f;
-    inv_a4 = a4 >= 1.f ? 1.f / a4 : 0.f;
+    manning_c = sqrt_t(at(kSlope)) / at(kNMann) * (at(kL) / at(kAh) * T(60));
+    inv_hu = T(1) / hu;
+    const T a3 = at(kAlpha3), a4 = at(kAlpha4);
+    inv_a3 = a3 >= T(1) ? T(1) / a3 : T(0);
+    inv_a4 = a4 >= T(1) ? T(1) / a4 : T(0);
     safe_pow = safe;
   }
 
-  __device__ __forceinline__ void rhs(const float (&y)[kNEq],
-                                      const float (&f)[kMaxForcings],
-                                      int32_t n_forc, float (&dy)[kNEq]) const {
-    const float two_thirds = (float)(2.0 / 3.0);
-    const float rain = n_forc > 0 ? f[0] : 0.f;
-    const float temp = n_forc > 1 ? f[1] : 0.f;
+  __device__ __forceinline__ void rhs(const T (&y)[kNEq],
+                                      const T (&f)[kMaxForcings],
+                                      int32_t n_forc, T (&dy)[kNEq]) const {
+    const T two_thirds = T(2.0 / 3.0);
+    const T rain = n_forc > 0 ? f[0] : T(0);
+    const T temp = n_forc > 1 ? f[1] : T(0);
     // 1) Snow
-    const float snowmelt = temp >= temp_thr ? jmin(y[0], temp * melt_f) : 0.f;
-    const float x1 = rain + snowmelt;
+    const T snowmelt = temp >= temp_thr ? jmin(y[0], temp * melt_f) : T(0);
+    const T x1 = rain + snowmelt;
     dy[0] = rain - snowmelt;
     // 2) Static store
-    const float x2 = jmax(0.f, x1 + y[1] - hu);
-    const float d1 = x1 - x2;
-    const float e_max = jmin(0.1f * temp, y[1]);
+    const T x2 = jmax(T(0), x1 + y[1] - hu);
+    const T d1 = x1 - x2;
+    const T e_max = jmin(T(0.1) * temp, y[1]);
     dy[1] = d1 - (y[1] * inv_hu) * e_max;
     // 3) Surface store (Manning); _pow23 is exp2/log2, not pow
-    const float x3 = jmin(x2, infil);
-    const float d2 = x2 - x3;
-    const float p23 =
-        safe_pow ? exp2f(two_thirds * log2f(jmax(jmax(y[2], 0.f), 1e-30f)))
-                 : powf(y[2], two_thirds);  // NaN for y[2] < 0, like pow
-    const float w = jmin(1.f, p23 * manning_c);
+    const T x3 = jmin(x2, infil);
+    const T d2 = x2 - x3;
+    const T p23 =
+        safe_pow ? exp2_t(two_thirds * log2_t(jmax(jmax(y[2], T(0)), T(1e-30))))
+                 : pow_t(y[2], two_thirds);  // NaN for y[2] < 0, like pow
+    const T w = jmin(T(1), p23 * manning_c);
     dy[2] = d2 - y[2] * w;
     // 4) Gravitational store and aquifer
-    const float x4 = jmin(x3, perco);
-    const float d3 = x3 - x4;
+    const T x4 = jmin(x3, perco);
+    const T d3 = x3 - x4;
     dy[3] = d3 - y[3] * inv_a3;
     dy[4] = x4 - y[4] * inv_a4;
   }

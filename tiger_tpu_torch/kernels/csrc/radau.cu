@@ -1,4 +1,5 @@
-// B2: fused 3-stage Radau IIA (order 5) over the stiff subset, float32.
+// B2: fused 3-stage Radau IIA (order 5) over the stiff subset, in float32 or
+// float64.
 //
 // Replaces the TPU kernel tiger_tpu/kernels/radau_pallas.py: _make_kernel's
 // inner `kernel` (l.169-852), launched by pl.pallas_call in _pipeline
@@ -59,67 +60,85 @@
 // contraction off (-fmad=false, as rk45.cu) the kernel agrees with
 // radau_plain bit for bit.  The tableau and eigen-constants come from the
 // kernel's parameter space (passed from tableau.py, never retyped here).
+//
+// The scalar is a template parameter as well: six float instances, and a
+// double instance of the default set (embedded3, no predictor), which
+// repeats the float code in double (the TPU kernel is float32 only and
+// runs float64 through the vmap path, tiger_tpu/solver/radau.py
+// radau_step; radau_dispatch).  A double warp maximum reduces the high
+// words of the bit patterns, then the low words of the lanes that hold the
+// highest high word (warp_jmax).  The file is compiled twice, as rk45.cu is:
+// as it stands for the float instances and the entry points, and with
+// -DTT_DOUBLE_INSTANCES, as relocatable device code, for the double one.
 
 #include <type_traits>
 
 #include "common.cuh"
+
+#ifdef TT_DOUBLE_INSTANCES
+#undef TT_RADAU_PHASES  // the probes time the float instances
+#endif
 
 namespace tt {
 
 constexpr int kWarp = 32;
 constexpr unsigned kAllLanes = 0xffffffffu;
 
+// One struct a scalar, its scalars and constants in T (a double instance
+// gets tableau.py's float64 values, not floats widened).
+template <class T>
 struct RadauArgs {
-  const float* y0;      // [5, S]
-  const float* h0;      // [S]
-  const float* params;  // [15, S], PARAM_FIELDS order
-  const float* forc;    // [T_total, S]; unused when forcing.n_forc == 0
-  const float* qt;      // [Q] sorted, unique
-  float* y_final;       // [5, S]; NaN where the system did not finish
-  float* dense;         // [Q, 5, S]
+  const T* y0;          // [5, S]
+  const T* h0;          // [S]
+  const T* params;      // [15, S], PARAM_FIELDS order
+  const float* forc;    // [T_total, S] float32 in every instance; unused when forcing.n_forc == 0
+  const T* qt;          // [Q] sorted, unique
+  T* y_final;           // [5, S]; NaN where the system did not finish
+  T* dense;             // [Q, 5, S]
   int32_t* failed;      // [S]
   int32_t* stats;       // [5, S]: accepted, rejected, attempted, sweeps, factorizations
   int64_t n_sys;
   int32_t n_q;
   int32_t safe_pow;
-  float t0, tf;
-  float rtol, atol, safety, min_scale, max_scale, expo, nan_shrink, h_freeze_hi;
-  float newton_tol, kappa, tol_eps, fd_eps;
+  T t0, tf;
+  T rtol, atol, safety, min_scale, max_scale, expo, nan_shrink, h_freeze_hi;
+  T newton_tol, kappa, tol_eps, fd_eps;
   int32_t max_steps, max_rejects, newton_max_iter, reject_unconverged;
   int32_t fill_t0_queries;
   int32_t err_mode;     // RadauErrMode: which instance the launcher starts
   int32_t predictor;    // with the Newton predictor
-  float safety_newton;  // radau5: safety * (2 newton_max_iter + 1)
-  ForcingMeta forcing;
-  float ra[3][3], rc[3], rb[3], re[3], rw[3][3];  // tableau.RADAU_*; re: E3 or E
-  float ea[3], inv_a[3][3];                       // tableau.RADAU_ERR_EA, RADAU_A_INV
-  float gam, alp, bet;                            // eigenvalues of A^-1
-  float v1[3], v2r[3], v2i[3];                    // eigenvector columns
-  float p1[3], p2r[3], p2i[3];                    // rows of Lambda V^-1
+  T safety_newton;      // radau5: safety * (2 newton_max_iter + 1)
+  ForcingMeta<T> forcing;
+  T ra[3][3], rc[3], rb[3], re[3], rw[3][3];  // tableau.RADAU_*; re: E3 or E
+  T ea[3], inv_a[3][3];                       // tableau.RADAU_ERR_EA, RADAU_A_INV
+  T gam, alp, bet;                            // eigenvalues of A^-1
+  T v1[3], v2r[3], v2i[3];                    // eigenvector columns
+  T p1[3], p2r[3], p2i[3];                    // rows of Lambda V^-1
 };
 
 // The two factors of (I - h A (x) J) in the eigenbasis of A^-1, in each
 // lane's registers: every lane factors both matrices and runs both solves.
+template <class T>
 struct Factors {
-  float mr[kNEq][kNEq], mr_inv[kNEq];      // gamma I - h J, unit-lower L + U
-  float cre[kNEq][kNEq], cim[kNEq][kNEq];  // (alpha + beta i) I - h J
-  float ci_re[kNEq], ci_im[kNEq];          // 1 / diag of the complex U
+  T mr[kNEq][kNEq], mr_inv[kNEq];      // gamma I - h J, unit-lower L + U
+  T cre[kNEq][kNEq], cim[kNEq][kNEq];  // (alpha + beta i) I - h J
+  T ci_re[kNEq], ci_im[kNEq];          // 1 / diag of the complex U
 
-  __device__ __forceinline__ void real_solve(float (&x)[kNEq]) const {
+  __device__ __forceinline__ void real_solve(T (&x)[kNEq]) const {
 #pragma unroll
     for (int k = 0; k < kNEq; ++k)
 #pragma unroll
       for (int i = k + 1; i < kNEq; ++i) x[i] = x[i] - mr[i][k] * x[k];
 #pragma unroll
     for (int k = kNEq - 1; k >= 0; --k) {
-      float acc = x[k];
+      T acc = x[k];
 #pragma unroll
       for (int j = k + 1; j < kNEq; ++j) acc = acc - mr[k][j] * x[j];
       x[k] = acc * mr_inv[k];
     }
   }
 
-  __device__ __forceinline__ void cplx_solve(float (&xr)[kNEq], float (&xi)[kNEq]) const {
+  __device__ __forceinline__ void cplx_solve(T (&xr)[kNEq], T (&xi)[kNEq]) const {
 #pragma unroll
     for (int k = 0; k < kNEq; ++k)
 #pragma unroll
@@ -129,7 +148,7 @@ struct Factors {
       }
 #pragma unroll
     for (int k = kNEq - 1; k >= 0; --k) {
-      float ar = xr[k], ai = xi[k];
+      T ar = xr[k], ai = xi[k];
 #pragma unroll
       for (int j = k + 1; j < kNEq; ++j) {
         ar = ar - (cre[k][j] * xr[j] - cim[k][j] * xi[j]);
@@ -142,19 +161,20 @@ struct Factors {
 };
 
 // What one lane hands another within an attempt.
+template <class T>
 struct Shared {
-  float jf[kNEq + 1][kNEq];  // f(t, y), then f(t, y + h_eps[j] e_j) for j = 0..4
-  float h_eps[kNEq];
-  float mr[kNEq][kNEq], cre[kNEq][kNEq];  // gamma I - h J and Re((alpha + beta i) I - h J)
-  float z[3][kNEq];                       // stage slopes
-  float b[3][kNEq];                       // stage residuals f(stage) - z
+  T jf[kNEq + 1][kNEq];  // f(t, y), then f(t, y + h_eps[j] e_j) for j = 0..4
+  T h_eps[kNEq];
+  T mr[kNEq][kNEq], cre[kNEq][kNEq];  // gamma I - h J and Re((alpha + beta i) I - h J)
+  T z[3][kNEq];                       // stage slopes
+  T b[3][kNEq];                       // stage residuals f(stage) - z
 };
 
 // x[i] for a lane-dependent i, by selects (an indexed register array would
 // go to local memory).
-template <int N>
-__device__ __forceinline__ float pick(const float (&x)[N], int i) {
-  float v = x[0];
+template <int N, class T>
+__device__ __forceinline__ T pick(const T (&x)[N], int i) {
+  T v = x[0];
 #pragma unroll
   for (int k = 1; k < N; ++k) v = i == k ? x[k] : v;
   return v;
@@ -198,21 +218,32 @@ __device__ unsigned long long radau_phase_cycles[kPhases + 1];
 __device__ __forceinline__ float warp_jmax(float v) {
   return __uint_as_float(__reduce_max_sync(kAllLanes, __float_as_uint(v)));
 }
+// The same for doubles, whose bit patterns order as the values do too;
+// __reduce_max_sync has no 64-bit form, so it takes the highest high word,
+// then the highest low word among the lanes that hold it: exactly the
+// 64-bit maximum.
+__device__ __forceinline__ double warp_jmax(double v) {
+  const unsigned long long u = (unsigned long long)__double_as_longlong(v);
+  const unsigned hi = (unsigned)(u >> 32), lo = (unsigned)u;
+  const unsigned top = __reduce_max_sync(kAllLanes, hi);
+  const unsigned low = __reduce_max_sync(kAllLanes, hi == top ? lo : 0u);
+  return __longlong_as_double((long long)(((unsigned long long)top << 32) | low));
+}
 
 // SolverConfig.radau_error_mode (kernels/radau.py ERR_MODES).
 enum RadauErrMode : int32_t { kEmbedded3 = 0, kReference = 1, kRadau5 = 2 };
 
 // One system on the block's 32 lanes; every lane runs every loop trip.
-template <int ERR, bool PRED>
-__device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shared& sh) {
+template <class T, int ERR, bool PRED>
+__device__ __forceinline__ void radau_system(const RadauArgs<T>& a, int64_t s, Shared<T>& sh) {
   const int lane = threadIdx.x;
   const int64_t S = a.n_sys;
-  Model204 model;
+  Model204<T> model;
   model.load(a.params, S, s, a.safe_pow);
-  float y[kNEq];
+  T y[kNEq];
 #pragma unroll
   for (int i = 0; i < kNEq; ++i) y[i] = __ldg(a.y0 + i * S + s);
-  const float t0 = a.t0, tf = a.tf;
+  const T t0 = a.t0, tf = a.tf;
   const int32_t n_forc = a.forcing.n_forc;
 
   // Each lane's roles; a lane past a role's range repeats an in-range
@@ -225,11 +256,11 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
   const int upd = upd_lane ? lane : 0;                   // stage slope z[us][ui]
   const int us = upd / kNEq, ui = upd % kNEq;
   const int comp = lane < kNEq ? lane : 0;               // state component
-  float ra_st[3];  // row st of the Radau A
+  T ra_st[3];  // row st of the Radau A
 #pragma unroll
   for (int j = 0; j < 3; ++j) ra_st[j] = st == 0 ? a.ra[0][j] : st == 1 ? a.ra[1][j] : a.ra[2][j];
-  const float v1_us = pick(a.v1, us), v2r_us = pick(a.v2r, us), v2i_us = pick(a.v2i, us);
-  float inv_a_us[3] = {};  // row us of A^-1 (the predictor)
+  const T v1_us = pick(a.v1, us), v2r_us = pick(a.v2r, us), v2i_us = pick(a.v2i, us);
+  T inv_a_us[3] = {};  // row us of A^-1 (the predictor)
   if constexpr (PRED) {
 #pragma unroll
     for (int j = 0; j < 3; ++j)
@@ -240,32 +271,32 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
   for (int e = lane; e < a.n_q * kNEq; e += kWarp) {
     const int qi = e / kNEq, i = e % kNEq;
     const bool pre = a.fill_t0_queries && __ldg(a.qt + qi) <= t0;
-    a.dense[((int64_t)qi * kNEq + i) * S + s] = pre ? pick(y, i) : 0.f;
+    a.dense[((int64_t)qi * kNEq + i) * S + s] = pre ? pick(y, i) : T(0);
   }
   while (q < a.n_q && __ldg(a.qt + q) <= t0) ++q;
 
-  float t = t0, t_c = 0.f, h = __ldg(a.h0 + s);
+  T t = t0, t_c = T(0), h = __ldg(a.h0 + s);
   int32_t reject = 0, failed = 0, n_acc = 0, n_rej = 0, n_att = 0, n_swp = 0;
   int32_t n_fct = 0;
   // The predictor's state: the last attempt's step, the theta offset of
   // the next step on its polynomial (1 after an accept, 0 after a reject),
   // and whether its slopes (in sh.z) may seed.
-  float h_prev = 1.f, z_base = 0.f;
+  T h_prev = T(1), z_base = T(0);
   bool have = false;
 
   TT_PHASE_START
   while (t < tf && !failed && n_att < a.max_steps) {
-    float h_eff = t + h > tf ? tf - t : h;
+    T h_eff = t + h > tf ? tf - t : h;
     if (a.forcing.align) h_eff = zoh_step_cap(a.forcing, t, h_eff);
-    float f[kMaxForcings];
+    T f[kMaxForcings];
     gather_forcings(a.forc, S, s, a.forcing, t, f);
     TT_PHASE(0)  // step start: h_eff, step cap, forcing gather
 
     // f(t, y) and the five forward-difference columns in one pass.
     {
       const int j = jc - 1;  // the perturbed component; -1 on lane 0
-      const float h_eps = a.fd_eps * jmax(1.f, fabsf(pick(y, j)));
-      float yp[kNEq], fp[kNEq];
+      const T h_eps = a.fd_eps * jmax(T(1), fabs_t(pick(y, j)));
+      T yp[kNEq], fp[kNEq];
 #pragma unroll
       for (int i = 0; i < kNEq; ++i) yp[i] = i == j ? y[i] + h_eps : y[i];
       model.rhs(yp, f, n_forc, fp);
@@ -279,36 +310,36 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
     TT_PHASE(1)  // the six right-hand sides of f and the Jacobian
 
     // One Jacobian entry per lane, into both matrices' entry (ei, ej).
-    const float jac = (sh.jf[ej + 1][ei] - sh.jf[0][ei]) / sh.h_eps[ej];
-    const float m_ent = ei == ej ? a.gam - h_eff * jac : (-h_eff) * jac;
-    const float c_ent = ei == ej ? a.alp - h_eff * jac : (-h_eff) * jac;
+    const T jac = (sh.jf[ej + 1][ei] - sh.jf[0][ei]) / sh.h_eps[ej];
+    const T m_ent = ei == ej ? a.gam - h_eff * jac : (-h_eff) * jac;
+    const T c_ent = ei == ej ? a.alp - h_eff * jac : (-h_eff) * jac;
 
     // Simplified Newton on the stage slopes Z, started at f(t, y): this
     // lane's slope z[us][ui] stays in a register, the shared copy feeds
     // the stage evaluations.
-    float z_own = sh.jf[0][ui];
+    T z_own = sh.jf[0][ui];
     if constexpr (PRED) {
       // Z0_i = (h_prev / h) sum_j A^-1[i][j] (I(theta_j) - I(base)) z_prev,
       // theta_j = base + c_j h / h_prev, in radau_plain's order.
-      const float ratio = h_eff / h_prev;
-      if (have && ratio <= 2.f) {
-        const float base2 = z_base * z_base, base3 = base2 * z_base;
-        float i_th[3][3];  // [stage][node]
+      const T ratio = h_eff / h_prev;
+      if (have && ratio <= T(2)) {
+        const T base2 = z_base * z_base, base3 = base2 * z_base;
+        T i_th[3][3];  // [stage][node]
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
-          const float th = z_base + a.rc[i] * ratio;
-          const float th2 = th * th, th3 = th2 * th;
+          const T th = z_base + a.rc[i] * ratio;
+          const T th2 = th * th, th3 = th2 * th;
 #pragma unroll
           for (int sg = 0; sg < 3; ++sg)
             i_th[sg][i] = a.rw[sg][0] * (th - z_base) + a.rw[sg][1] * (th2 - base2) +
                           a.rw[sg][2] * (th3 - base3);
         }
-        const float zp0 = sh.z[0][ui], zp1 = sh.z[1][ui], zp2 = sh.z[2][ui];
-        float acc = 0.f;
+        const T zp0 = sh.z[0][ui], zp1 = sh.z[1][ui], zp2 = sh.z[2][ui];
+        T acc = T(0);
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
-          const float vjk = i_th[0][j] * zp0 + i_th[1][j] * zp1 + i_th[2][j] * zp2;
-          const float term = inv_a_us[j] * vjk;
+          const T vjk = i_th[0][j] * zp0 + i_th[1][j] * zp1 + i_th[2][j] * zp2;
+          const T term = inv_a_us[j] * vjk;
           acc = j == 0 ? term : acc + term;
         }
         z_own = (h_prev / h_eff) * acc;
@@ -316,7 +347,7 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
       __syncwarp();  // every lane has read the last slopes
     }
     if (upd_lane) sh.z[us][ui] = z_own;
-    const float tol_own = a.atol + a.rtol * fabsf(pick(y, ui));
+    const T tol_own = a.atol + a.rtol * fabs_t(pick(y, ui));
 
     if (lane < kNEq * kNEq) {
       sh.mr[ei][ej] = m_ent;
@@ -325,21 +356,21 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
     __syncwarp();
 
     // Both unpivoted Doolittle LUs, on every lane (see the note at the top).
-    Factors fa;
+    Factors<T> fa;
 #pragma unroll
     for (int i = 0; i < kNEq; ++i)
 #pragma unroll
       for (int j = 0; j < kNEq; ++j) {
         fa.mr[i][j] = sh.mr[i][j];
         fa.cre[i][j] = sh.cre[i][j];
-        fa.cim[i][j] = i == j ? a.bet : 0.f;
+        fa.cim[i][j] = i == j ? a.bet : T(0);
       }
 #pragma unroll
     for (int k = 0; k < kNEq; ++k) {
-      fa.mr_inv[k] = 1.f / fa.mr[k][k];
+      fa.mr_inv[k] = T(1) / fa.mr[k][k];
 #pragma unroll
       for (int i = k + 1; i < kNEq; ++i) {
-        const float m = fa.mr[i][k] * fa.mr_inv[k];
+        const T m = fa.mr[i][k] * fa.mr_inv[k];
         fa.mr[i][k] = m;
 #pragma unroll
         for (int j = k + 1; j < kNEq; ++j) fa.mr[i][j] = fa.mr[i][j] - m * fa.mr[k][j];
@@ -347,14 +378,14 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
     }
 #pragma unroll
     for (int k = 0; k < kNEq; ++k) {
-      const float inv_den =
-          1.f / (fa.cre[k][k] * fa.cre[k][k] + fa.cim[k][k] * fa.cim[k][k]);
+      const T inv_den =
+          T(1) / (fa.cre[k][k] * fa.cre[k][k] + fa.cim[k][k] * fa.cim[k][k]);
       fa.ci_re[k] = fa.cre[k][k] * inv_den;
       fa.ci_im[k] = -fa.cim[k][k] * inv_den;
 #pragma unroll
       for (int i = k + 1; i < kNEq; ++i) {
-        const float m_re = fa.cre[i][k] * fa.ci_re[k] - fa.cim[i][k] * fa.ci_im[k];
-        const float m_im = fa.cre[i][k] * fa.ci_im[k] + fa.cim[i][k] * fa.ci_re[k];
+        const T m_re = fa.cre[i][k] * fa.ci_re[k] - fa.cim[i][k] * fa.ci_im[k];
+        const T m_im = fa.cre[i][k] * fa.ci_im[k] + fa.cim[i][k] * fa.ci_re[k];
         fa.cre[i][k] = m_re;
         fa.cim[i][k] = m_im;
 #pragma unroll
@@ -372,12 +403,12 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
     for (int it = 0; it < a.newton_max_iter; ++it) {
       // Stage `st`'s residual f(t, y + h sum_j A[st][j] z_j) - z_st.
       {
-        float ys[kNEq], fs[kNEq];
+        T ys[kNEq], fs[kNEq];
 #pragma unroll
         for (int i = 0; i < kNEq; ++i) ys[i] = y[i];
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
-          const float hw = h_eff * ra_st[j];
+          const T hw = h_eff * ra_st[j];
 #pragma unroll
           for (int i = 0; i < kNEq; ++i) ys[i] = ys[i] + hw * sh.z[j][i];
         }
@@ -390,10 +421,10 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
       __syncwarp();
       TT_PHASE(3)  // sweep: the stage right-hand sides
       // u = (P (x) I) b; one real and one complex solve, on every lane.
-      float w1[kNEq], wr[kNEq], wi[kNEq];
+      T w1[kNEq], wr[kNEq], wi[kNEq];
 #pragma unroll
       for (int i = 0; i < kNEq; ++i) {
-        const float b0 = sh.b[0][i], b1 = sh.b[1][i], b2 = sh.b[2][i];
+        const T b0 = sh.b[0][i], b1 = sh.b[1][i], b2 = sh.b[2][i];
         w1[i] = a.p1[0] * b0 + a.p1[1] * b1 + a.p1[2] * b2;
         wr[i] = a.p2r[0] * b0 + a.p2r[1] * b1 + a.p2r[2] * b2;
         wi[i] = a.p2i[0] * b0 + a.p2i[1] * b1 + a.p2i[2] * b2;
@@ -403,15 +434,15 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
       ++sweeps;
       TT_PHASE(4)  // sweep: w and both solves
       // dZ = V w + conj, one entry per lane; the three norms by warp jmax.
-      const float d = v1_us * pick(w1, ui) + 2.f * (v2r_us * pick(wr, ui) - v2i_us * pick(wi, ui));
+      const T d = v1_us * pick(w1, ui) + T(2) * (v2r_us * pick(wr, ui) - v2i_us * pick(wi, ui));
       z_own = z_own + d;
-      const float ad = fabsf(d);
-      const float maxd = warp_jmax(upd_lane ? ad : 0.f);
-      const float scaled = warp_jmax(upd_lane ? ad / tol_own : 0.f);
-      const float zmag = warp_jmax(upd_lane ? fabsf(z_own) : 0.f);
+      const T ad = fabs_t(d);
+      const T maxd = warp_jmax(upd_lane ? ad : T(0));
+      const T scaled = warp_jmax(upd_lane ? ad / tol_own : T(0));
+      const T zmag = warp_jmax(upd_lane ? fabs_t(z_own) : T(0));
       if (upd_lane) sh.z[us][ui] = z_own;
       __syncwarp();
-      const float tol_eff = a.newton_tol + a.tol_eps * zmag;
+      const T tol_eff = a.newton_tol + a.tol_eps * zmag;
       TT_PHASE(5)  // sweep: slope updates and the three warp maxima
       if (maxd < tol_eff || h_eff * scaled < a.kappa || is_nan(maxd)) {
         conv = true;
@@ -421,19 +452,19 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
 
     // Step update (every lane, for the whole state) and the embedded3
     // error (one component per lane).
-    float y_out[kNEq];
+    T y_out[kNEq];
 #pragma unroll
     for (int i = 0; i < kNEq; ++i) {
-      float yo = y[i];
+      T yo = y[i];
 #pragma unroll
       for (int j = 0; j < 3; ++j) yo = yo + (h_eff * a.rb[j]) * sh.z[j][i];
       y_out[i] = yo;
     }
-    float err;
+    T err;
     if constexpr (ERR == kRadau5) {
-      const float tol = a.atol + a.rtol * jmax(fabsf(pick(y, comp)), fabsf(pick(y_out, comp)));
+      const T tol = a.atol + a.rtol * jmax(fabs_t(pick(y, comp)), fabs_t(pick(y_out, comp)));
       // e = h M_r^-1 (f0 + sum_s EA_s z_s), every lane for the whole state.
-      float defect[kNEq], e[kNEq];
+      T defect[kNEq], e[kNEq];
 #pragma unroll
       for (int i = 0; i < kNEq; ++i) {
         defect[i] = sh.jf[0][i] + a.ea[0] * sh.z[0][i] + a.ea[1] * sh.z[1][i] +
@@ -443,10 +474,10 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
       fa.real_solve(e);
 #pragma unroll
       for (int i = 0; i < kNEq; ++i) e[i] = h_eff * e[i];
-      err = warp_jmax(lane < kNEq ? fabsf(pick(e, comp) / tol) : 0.f);
-      if (err > 1.f && reject > 0) {
+      err = warp_jmax(lane < kNEq ? fabs_t(pick(e, comp) / tol) : T(0));
+      if (err > T(1) && reject > 0) {
         // After a rejection: the defect's f again at y + e.
-        float yp[kNEq], fp[kNEq];
+        T yp[kNEq], fp[kNEq];
 #pragma unroll
         for (int i = 0; i < kNEq; ++i) yp[i] = y[i] + e[i];
         model.rhs(yp, f, n_forc, fp);
@@ -455,50 +486,50 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
         fa.real_solve(e);
 #pragma unroll
         for (int i = 0; i < kNEq; ++i) e[i] = h_eff * e[i];
-        err = warp_jmax(lane < kNEq ? fabsf(pick(e, comp) / tol) : 0.f);
+        err = warp_jmax(lane < kNEq ? fabs_t(pick(e, comp) / tol) : T(0));
       }
     } else {
-      float ec = 0.f;
+      T ec = T(0);
 #pragma unroll
       for (int j = 0; j < 3; ++j) ec = ec + (h_eff * a.re[j]) * sh.z[j][comp];
-      const float tol = a.atol + a.rtol * jmax(fabsf(pick(y, comp)), fabsf(pick(y_out, comp)));
-      err = warp_jmax(lane < kNEq ? fabsf(ec / tol) : 0.f);
+      const T tol = a.atol + a.rtol * jmax(fabs_t(pick(y, comp)), fabs_t(pick(y_out, comp)));
+      err = warp_jmax(lane < kNEq ? fabs_t(ec / tol) : T(0));
     }
     const bool newt_fail = a.reject_unconverged && !conv;
-    const bool accept = err <= 1.f && !newt_fail;
+    const bool accept = err <= T(1) && !newt_fail;
 
-    const float kh = h_eff - t_c;
-    const float t1 = t + kh;
+    const T kh = h_eff - t_c;
+    const T t1 = t + kh;
     if (accept && q < a.n_q && __ldg(a.qt + q) <= t1) {
-      float qm[3];
+      T qm[3];
 #pragma unroll
       for (int m = 0; m < 3; ++m) {
-        float acc = 0.f;
+        T acc = T(0);
 #pragma unroll
         for (int j = 0; j < 3; ++j) acc = acc + a.rw[j][m] * sh.z[j][comp];
         qm[m] = acc;
       }
-      const float y_comp = pick(y, comp);
-      float tq;
+      const T y_comp = pick(y, comp);
+      T tq;
       while (q < a.n_q && (tq = __ldg(a.qt + q)) <= t1) {
-        const float theta = (tq - t) / h_eff;
-        const float th2 = theta * theta;
-        const float poly = qm[0] * theta + qm[1] * th2 + qm[2] * th2 * theta;
+        const T theta = (tq - t) / h_eff;
+        const T th2 = theta * theta;
+        const T poly = qm[0] * theta + qm[1] * th2 + qm[2] * th2 * theta;
         if (lane < kNEq) a.dense[((int64_t)q * kNEq + comp) * S + s] = y_comp + h_eff * poly;
         ++q;
       }
     }
 
-    float safety = a.safety;
+    T safety = a.safety;
     if constexpr (ERR == kRadau5)
-      safety = a.safety_newton / ((float)(2 * a.newton_max_iter) + (float)sweeps);
-    const float raw_fac = safety * powf(1.f / (err + 1e-16f), a.expo);
-    const float fac_acc = jclip(raw_fac, a.min_scale, a.max_scale);
-    float fac_rej = jclip(is_nan(raw_fac) ? a.nan_shrink : jmin(raw_fac, 1.f),
-                          a.min_scale, a.max_scale);
-    if (newt_fail) fac_rej = 0.5f;  // Newton failure says nothing about the error
-    float h_new = h_eff * (accept ? fac_acc : fac_rej);
-    if (a.h_freeze_hi > 1.f && accept && fac_acc >= 1.f && fac_acc <= a.h_freeze_hi)
+      safety = a.safety_newton / ((T)(2 * a.newton_max_iter) + (T)sweeps);
+    const T raw_fac = safety * pow_t(T(1) / (err + T(1e-16)), a.expo);
+    const T fac_acc = jclip(raw_fac, a.min_scale, a.max_scale);
+    T fac_rej = jclip(is_nan(raw_fac) ? a.nan_shrink : jmin(raw_fac, T(1)),
+                      a.min_scale, a.max_scale);
+    if (newt_fail) fac_rej = T(0.5);  // Newton failure says nothing about the error
+    T h_new = h_eff * (accept ? fac_acc : fac_rej);
+    if (a.h_freeze_hi > T(1) && accept && fac_acc >= T(1) && fac_acc <= a.h_freeze_hi)
       h_new = h_eff;
 
     if constexpr (PRED) {
@@ -507,7 +538,7 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
       const bool finite = __all_sync(kAllLanes, !upd_lane || isfinite(z_own));
       have = conv && finite;
       h_prev = h_eff;
-      z_base = accept ? 1.f : 0.f;
+      z_base = accept ? T(1) : T(0);
     }
     const int32_t reject_new = accept ? 0 : reject + 1;
     if (!accept && reject_new > a.max_rejects) failed = 1;
@@ -529,7 +560,7 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
   TT_PHASE_END
 
   const bool completed = t >= tf;
-  if (lane < kNEq) a.y_final[comp * S + s] = completed ? pick(y, comp) : NAN;
+  if (lane < kNEq) a.y_final[comp * S + s] = completed ? pick(y, comp) : T(NAN);
   if (lane == 0) {
     a.failed[s] = (failed || !completed) ? 1 : 0;
     a.stats[s] = n_acc;
@@ -541,29 +572,37 @@ __device__ __forceinline__ void radau_system(const RadauArgs& a, int64_t s, Shar
 }
 
 // One block, one warp, per system.
-template <int ERR, bool PRED>
-__global__ void __launch_bounds__(kWarp) radau_kernel(const RadauArgs a) {
-  __shared__ Shared sh;
-  radau_system<ERR, PRED>(a, blockIdx.x, sh);
+template <class T, int ERR, bool PRED>
+__global__ void __launch_bounds__(kWarp) radau_kernel(const RadauArgs<T> a) {
+  __shared__ Shared<T> sh;
+  radau_system<T, ERR, PRED>(a, blockIdx.x, sh);
 }
 
 // Calls f(std::integral_constant<int, ERR>{}, std::bool_constant<PRED>{})
-// for the instance of (err_mode, predictor); false if it has none.
-template <class F>
+// for the instance of (err_mode, predictor) in scalar T; false if it has
+// none.  double has embedded3 without the predictor only (the others:
+// ROADMAP Queue 1 #9c).
+template <class T, class F>
 inline bool radau_dispatch(int32_t err_mode, int32_t predictor, F&& f) {
   if (predictor != 0 && predictor != 1) return false;
-  const auto with_pred = [&](auto err) {
-    if (predictor) {
-      f(err, std::true_type{});
-    } else {
-      f(err, std::false_type{});
+  if constexpr (std::is_same<T, double>::value) {
+    if (err_mode != kEmbedded3 || predictor) return false;
+    f(std::integral_constant<int, kEmbedded3>{}, std::false_type{});
+    return true;
+  } else {
+    const auto with_pred = [&](auto err) {
+      if (predictor) {
+        f(err, std::true_type{});
+      } else {
+        f(err, std::false_type{});
+      }
+    };
+    switch (err_mode) {
+      case kEmbedded3: with_pred(std::integral_constant<int, kEmbedded3>{}); return true;
+      case kReference: with_pred(std::integral_constant<int, kReference>{}); return true;
+      case kRadau5: with_pred(std::integral_constant<int, kRadau5>{}); return true;
+      default: return false;
     }
-  };
-  switch (err_mode) {
-    case kEmbedded3: with_pred(std::integral_constant<int, kEmbedded3>{}); return true;
-    case kReference: with_pred(std::integral_constant<int, kReference>{}); return true;
-    case kRadau5: with_pred(std::integral_constant<int, kRadau5>{}); return true;
-    default: return false;
   }
 }
 
@@ -571,19 +610,45 @@ inline bool radau_dispatch(int32_t err_mode, int32_t predictor, F&& f) {
 
 // ---- launch ----
 
-extern "C" int tt_radau_args_size() { return (int)sizeof(tt::RadauArgs); }
+namespace tt {
 
-// Enqueues the instance of (err_mode, predictor) on `stream`; returns
-// cudaGetLastError() (0 on success; kNoInstance for a set without one).
-extern "C" int tt_radau_launch(const tt::RadauArgs* args, void* stream) {
+template <class T>
+int radau_launch(const RadauArgs<T>* args, void* stream) {
   if (args->n_sys <= 0) return 0;
-  const bool known = tt::radau_dispatch(args->err_mode, args->predictor, [&](auto err, auto pred) {
-    tt::radau_kernel<decltype(err)::value, decltype(pred)::value>
-        <<<(unsigned)args->n_sys, tt::kWarp, 0, (cudaStream_t)stream>>>(*args);
+  const bool known = radau_dispatch<T>(args->err_mode, args->predictor, [&](auto err, auto pred) {
+    radau_kernel<T, decltype(err)::value, decltype(pred)::value>
+        <<<(unsigned)args->n_sys, kWarp, 0, (cudaStream_t)stream>>>(*args);
   });
-  if (!known) return tt::kNoInstance;
+  if (!known) return kNoInstance;
   return (int)cudaGetLastError();
 }
+
+// The double instance's host side, defined in the -DTT_DOUBLE_INSTANCES
+// build of this file and called by the entry point of the other.
+int radau_launch_f64(const void* args, void* stream);
+
+#ifdef TT_DOUBLE_INSTANCES
+int radau_launch_f64(const void* args, void* stream) {
+  return radau_launch(static_cast<const RadauArgs<double>*>(args), stream);
+}
+#endif
+
+}  // namespace tt
+
+#ifndef TT_DOUBLE_INSTANCES
+// In each entry point f64 picks the scalar: 0 float (RadauArgs<float>), 1
+// double (RadauArgs<double>).
+extern "C" int tt_radau_args_size(int32_t f64) {
+  return f64 ? (int)sizeof(tt::RadauArgs<double>) : (int)sizeof(tt::RadauArgs<float>);
+}
+
+// Enqueues the instance of (f64, err_mode, predictor) on `stream`; returns
+// cudaGetLastError() (0 on success; kNoInstance for a set without one).
+extern "C" int tt_radau_launch(const void* args, int32_t f64, void* stream) {
+  return f64 ? tt::radau_launch_f64(args, stream)
+             : tt::radau_launch(static_cast<const tt::RadauArgs<float>*>(args), stream);
+}
+#endif
 
 #ifdef TT_RADAU_PHASES
 // Copies the phase counters (kPhases sums, then the slowest block's total)

@@ -1,4 +1,5 @@
-// B1: fused adaptive Dormand-Prince 5(4) over every system, float32.
+// B1: fused adaptive Dormand-Prince 5(4) over every system, in float32 or
+// float64.
 //
 // Replaces the TPU kernel tiger_tpu/kernels/rk45_pallas.py: _make_kernel's
 // inner `kernel` (l.243-866), launched by pl.pallas_call in
@@ -22,7 +23,17 @@
 //   - PI (l.623-640): the Lund-stabilised factor base * facold^beta on an
 //     advance, the plain factor on a rejection, facold carried.
 // Each option state is one more row of the pool in the instances that use
-// it (k0[5], y_c[5], facold).
+// it (k0[5], y_c[5], facold).  The scalar is a template parameter too: six
+// float instances, and a double instance of the default option set (the TPU
+// kernel is float32 only and runs float64 through the vmap path,
+// tiger_tpu/solver/rk45.py _rk45_system; rk45_dispatch).  A double system
+// needs twice the registers of a float one (~180 against ~120), so a double
+// block has TT_RK45_THREADS_F64 lanes (256: at most 255 registers a thread)
+// and its pool rows of state are 8 bytes a slot.  The file is compiled twice
+// (_build.py): as it stands, for the float instances and the entry points,
+// and with -DTT_DOUBLE_INSTANCES, as relocatable device code, for the double
+// instance, whose pow is contracted.cu's (common.cuh pow_t).  So the float
+// instances keep the code and the build they had.
 //
 // What bounds it on the H100: neither rate of the card.  An attempt is a
 // dependent chain of seven right-hand sides, ~700 operations against ~20
@@ -69,8 +80,8 @@
 // as the plain version's torch ops do and B1 equals rk45_plain bit for bit.
 //
 // Compile-time shape (all overridable with -D, for tests and measurements):
-// TT_RK45_THREADS lanes a block, TT_RK45_POOL slots (a power of two),
-// TT_RK45_SLICE attempts a slice.  -DTT_RK45_PHASES adds per-warp probes
+// TT_RK45_THREADS lanes a block (TT_RK45_THREADS_F64 for double), TT_RK45_POOL
+// slots (a power of two), TT_RK45_SLICE attempts a slice.  -DTT_RK45_PHASES adds per-warp probes
 // (python -m tiger_tpu_torch.rk45_phases).
 
 #include <type_traits>
@@ -78,8 +89,15 @@
 #include "common.cuh"
 #include "rk45_tableau.cuh"  // TT_DP_TABLEAU, written by _build.py
 
+#ifdef TT_DOUBLE_INSTANCES
+#undef TT_RK45_PHASES  // the probes count the float instances' warps
+#endif
+
 #ifndef TT_RK45_THREADS
 #define TT_RK45_THREADS 512
+#endif
+#ifndef TT_RK45_THREADS_F64
+#define TT_RK45_THREADS_F64 256
 #endif
 #ifndef TT_RK45_POOL
 #define TT_RK45_POOL 1024
@@ -90,37 +108,57 @@
 
 namespace tt {
 
-constexpr int kThreads = TT_RK45_THREADS;
+// Lanes a block, by scalar.
+template <class T>
+constexpr int kThreads = std::is_same<T, double>::value ? TT_RK45_THREADS_F64 : TT_RK45_THREADS;
 constexpr int kPool = TT_RK45_POOL;
 constexpr int kSlice = TT_RK45_SLICE;
 static_assert(kPool > 0 && (kPool & (kPool - 1)) == 0, "the bitonic sort needs a power of two");
-static_assert(kThreads % 32 == 0 || kThreads < 32, "whole warps, or (in a CPU rehearsal) a part of one");
+static_assert((kThreads<float> % 32 == 0 || kThreads<float> < 32) &&
+                  (kThreads<double> % 32 == 0 || kThreads<double> < 32),
+              "whole warps, or (in a CPU rehearsal) a part of one");
 
+template <class T>
 struct DpTableau {
-  float a[7][7], c[7], b[7], e[7], p[7][4];  // tableau.DP_*
+  T a[7][7], c[7], b[7], e[7], p[7][4];  // tableau.DP_*
 };
 
+// The tableau in T: tableau.DP_* rounded to float, or exactly its float64
+// values (the initialisers are the header _build.py writes).
+template <class T>
+__host__ __device__ constexpr DpTableau<T> dp_tableau() {
+  if constexpr (std::is_same<T, double>::value) {
+    return DpTableau<T> TT_DP_TABLEAU_F64;
+  } else {
+    return DpTableau<T> TT_DP_TABLEAU;
+  }
+}
+
+// One struct a scalar, its scalars in T: a double instance gets rtol 1e-6
+// as the plain version's double 1e-6, not a float widened.  The float
+// instances' struct is the one they always had.
+template <class T>
 struct Rk45Args {
-  const float* y0;      // [5, S]
-  const float* h0;      // [S] initial step (also the slope-cut floor base)
-  const float* params;  // [15, S], PARAM_FIELDS order
-  const float* forc;    // [T_total, S]; unused when forcing.n_forc == 0
-  const float* qt;      // [Q] sorted, unique
-  float* y_final;       // [5, S]; NaN where the system did not finish
-  float* dense;         // [Q, 5, S]
+  const T* y0;          // [5, S]
+  const T* h0;          // [S] initial step (also the slope-cut floor base)
+  const T* params;      // [15, S], PARAM_FIELDS order
+  const float* forc;    // [T_total, S] float32 in every instance; unused when forcing.n_forc == 0
+  const T* qt;          // [Q] sorted, unique
+  T* y_final;           // [5, S]; NaN where the system did not finish
+  T* dense;             // [Q, 5, S]
   int32_t* stiff;       // [S]
   int32_t* failed;      // [S]
   int32_t* stats;       // [3, S]: accepted, rejected, attempted
   int64_t n_sys;
   int32_t n_q;
   int32_t safe_pow;
-  float t0, tf, h_floor;
-  float rtol, atol, safety, min_scale, max_scale, expo;  // expo: 0.2, or 0.2 - 0.75 beta (PI)
-  float slope_jump_thresh, min_step_fraction, nan_shrink, stiff_hlamb, pi_beta;
+  T t0, tf, h_floor;
+  T rtol, atol, safety, min_scale, max_scale, expo;  // expo: 0.2, or 0.2 - 0.75 beta (PI)
+  T slope_jump_thresh, min_step_fraction, nan_shrink, stiff_hlamb, pi_beta;
   int32_t max_rejects, max_steps, stiff_detect, stiff_streak, stiff_forgive;
   int32_t stiff_test_every, stiff_floor_streak, fill_t0_queries;
   int32_t options;  // Rk45Option bits: which instance the launcher starts
-  ForcingMeta forcing;
+  ForcingMeta<T> forcing;
 };
 
 // The TPU kernel's options (SolverConfig.fsal, .compensated, .controller).
@@ -137,23 +175,26 @@ struct Rk45Opt {
 // Everything a system carries from one attempt to the next.  With h0 it is
 // also what a windowed solve would carry from one query window to the next
 // (rk45_pallas.py:850-865 writes the same fields).
+template <class T>
 struct Rk45State {
-  float y[kNEq], t, t_c, h;  // t_c: Kahan compensation of t
-  float k0[kNEq];   // FSAL: f(t, y), carried from the last advance
-  float y_c[kNEq];  // compensated: the Kahan low word of y
-  float facold;     // PI: the last committed error norm (1e-4 at the start)
+  T y[kNEq], t, t_c, h;  // t_c: Kahan compensation of t
+  T k0[kNEq];   // FSAL: f(t, y), carried from the last advance
+  T y_c[kNEq];  // compensated: the Kahan low word of y
+  T facold;     // PI: the last committed error norm (1e-4 at the start)
   int32_t reject, iasti, nonsti, fstreak;  // reject streak, detector counters, h-floor streak
   int32_t n_acc, n_rej, n_att;
   int32_t q;      // query cursor: the first query strictly past t
   int32_t stiff;  // a stiffness criterion tripped: the system ends
 };
 
-__device__ __forceinline__ bool rk45_live(const Rk45Args& a, const Rk45State& st) {
+template <class T>
+__device__ __forceinline__ bool rk45_live(const Rk45Args<T>& a, const Rk45State<T>& st) {
   return st.t < a.tf && !st.stiff && st.n_att < a.max_steps;
 }
 
 // The forcing sample index of every forcing differs between times t and u.
-__device__ __forceinline__ bool forcing_sample_changed(const ForcingMeta& m, float t, float u) {
+template <class T>
+__device__ __forceinline__ bool forcing_sample_changed(const ForcingMeta<T>& m, T t, T u) {
   bool changed = false;
 #pragma unroll
   for (int j = 0; j < kMaxForcings; ++j) {
@@ -169,9 +210,9 @@ __device__ __forceinline__ bool forcing_sample_changed(const ForcingMeta& m, flo
 // Start of system s: state from y0 and h0, and the dense rows with
 // qt <= t0 as y0 (fill_t0_queries), the rest as 0.  FSAL's first k1 is
 // f(t0, y0) on the forcing at t0.
-template <int OPT>
-__device__ __forceinline__ void rk45_admit(const Rk45Args& a, int64_t s, Rk45State& st,
-                                           float& h0) {
+template <class T, int OPT>
+__device__ __forceinline__ void rk45_admit(const Rk45Args<T>& a, int64_t s, Rk45State<T>& st,
+                                           T& h0) {
   using O = Rk45Opt<OPT>;
   const int64_t S = a.n_sys;
 #pragma unroll
@@ -181,50 +222,50 @@ __device__ __forceinline__ void rk45_admit(const Rk45Args& a, int64_t s, Rk45Sta
     const bool pre = a.fill_t0_queries && __ldg(a.qt + qi) <= a.t0;
 #pragma unroll
     for (int i = 0; i < kNEq; ++i)
-      a.dense[((int64_t)qi * kNEq + i) * S + s] = pre ? st.y[i] : 0.f;
+      a.dense[((int64_t)qi * kNEq + i) * S + s] = pre ? st.y[i] : T(0);
   }
   st.q = 0;
   while (st.q < a.n_q && __ldg(a.qt + st.q) <= a.t0) ++st.q;
   st.t = a.t0;
-  st.t_c = 0.f;
+  st.t_c = T(0);
   st.h = h0;
   st.reject = st.iasti = st.nonsti = st.fstreak = 0;
   st.n_acc = st.n_rej = st.n_att = 0;
   st.stiff = 0;
   if constexpr (O::fsal) {
-    Model204 model;
+    Model204<T> model;
     model.load(a.params, S, s, a.safe_pow);
-    float f[kMaxForcings];
+    T f[kMaxForcings];
     gather_forcings(a.forc, S, s, a.forcing, st.t, f);
     model.rhs(st.y, f, a.forcing.n_forc, st.k0);
   }
   if constexpr (O::comp) {
 #pragma unroll
-    for (int i = 0; i < kNEq; ++i) st.y_c[i] = 0.f;
+    for (int i = 0; i < kNEq; ++i) st.y_c[i] = T(0);
   }
-  if constexpr (O::pi) st.facold = 1e-4f;
+  if constexpr (O::pi) st.facold = T(1e-4);
 }
 
 // One attempt of system s.  Returns whether it filled dense rows.
-template <int OPT>
-__device__ __forceinline__ bool rk45_attempt(const Rk45Args& a, const Model204& model,
-                                             const float h0, const int64_t s, Rk45State& st) {
+template <class T, int OPT>
+__device__ __forceinline__ bool rk45_attempt(const Rk45Args<T>& a, const Model204<T>& model,
+                                             const T h0, const int64_t s, Rk45State<T>& st) {
   using O = Rk45Opt<OPT>;
-  constexpr DpTableau tb = TT_DP_TABLEAU;
+  constexpr DpTableau<T> tb = dp_tableau<T>();
   const int64_t S = a.n_sys;
-  const float t = st.t, h = st.h, tf = a.tf;
-  float(&y)[kNEq] = st.y;
+  const T t = st.t, h = st.h, tf = a.tf;
+  T(&y)[kNEq] = st.y;
 
   const bool clamp = t + h > tf;
-  float h_eff = clamp ? tf - t : h;
+  T h_eff = clamp ? tf - t : h;
   if (a.forcing.align) h_eff = zoh_step_cap(a.forcing, t, h_eff);
-  float f[kMaxForcings];
+  T f[kMaxForcings];
   gather_forcings(a.forc, S, s, a.forcing, t, f);
 
   // Seven stages; forcing frozen at step start for all of them.  FSAL
   // takes k1 from the carry: the last advance's k7, or for a rejected
   // system the same (t, y)'s.
-  float k[7][kNEq], g6[kNEq];
+  T k[7][kNEq], g6[kNEq];
   if constexpr (O::fsal) {
 #pragma unroll
     for (int i = 0; i < kNEq; ++i) k[0][i] = st.k0[i];
@@ -233,13 +274,13 @@ __device__ __forceinline__ bool rk45_attempt(const Rk45Args& a, const Model204& 
   }
 #pragma unroll
   for (int sg = 1; sg < 7; ++sg) {
-    float acc[kNEq];
+    T acc[kNEq];
 #pragma unroll
     for (int i = 0; i < kNEq; ++i) acc[i] = y[i];
 #pragma unroll
     for (int j = 0; j < sg; ++j) {
-      if (tb.a[sg][j] != 0.f) {
-        const float hw = h_eff * tb.a[sg][j];
+      if (tb.a[sg][j] != T(0)) {
+        const T hw = h_eff * tb.a[sg][j];
 #pragma unroll
         for (int i = 0; i < kNEq; ++i) acc[i] = acc[i] + hw * k[j][i];
       }
@@ -254,17 +295,17 @@ __device__ __forceinline__ bool rk45_attempt(const Rk45Args& a, const Model204& 
   // 5th-order update and embedded error, in the TPU kernel's order: y_out
   // in stage 7's association (so FSAL's k7 is f(t + h, y_out)), or, when
   // compensated, the increment dy on its own and y_out = y + dy.
-  float y_out[kNEq], err_c[kNEq], dy[kNEq];
+  T y_out[kNEq], err_c[kNEq], dy[kNEq];
 #pragma unroll
   for (int i = 0; i < kNEq; ++i) {
     y_out[i] = y[i];
-    err_c[i] = 0.f;
-    dy[i] = 0.f;
+    err_c[i] = T(0);
+    dy[i] = T(0);
   }
 #pragma unroll
   for (int sg = 0; sg < 7; ++sg) {
-    if (tb.b[sg] != 0.f) {
-      const float hw = h_eff * tb.b[sg];
+    if (tb.b[sg] != T(0)) {
+      const T hw = h_eff * tb.b[sg];
 #pragma unroll
       for (int i = 0; i < kNEq; ++i) {
         if constexpr (O::comp) {
@@ -274,8 +315,8 @@ __device__ __forceinline__ bool rk45_attempt(const Rk45Args& a, const Model204& 
         }
       }
     }
-    if (tb.e[sg] != 0.f) {
-      const float hw = h_eff * tb.e[sg];
+    if (tb.e[sg] != T(0)) {
+      const T hw = h_eff * tb.e[sg];
 #pragma unroll
       for (int i = 0; i < kNEq; ++i) err_c[i] = err_c[i] + hw * k[sg][i];
     }
@@ -284,44 +325,44 @@ __device__ __forceinline__ bool rk45_attempt(const Rk45Args& a, const Model204& 
 #pragma unroll
     for (int i = 0; i < kNEq; ++i) y_out[i] = y[i] + dy[i];
   }
-  float err = 0.f, jump_mag = 0.f;
+  T err = T(0), jump_mag = T(0);
 #pragma unroll
   for (int i = 0; i < kNEq; ++i) {
-    const float tol = a.atol + a.rtol * jmax(fabsf(y[i]), fabsf(y_out[i]));
-    err = jmax(err, fabsf(err_c[i] / tol));
-    jump_mag = jmax(jump_mag, fabsf(k[0][i] - k[1][i]));
+    const T tol = a.atol + a.rtol * jmax(fabs_t(y[i]), fabs_t(y_out[i]));
+    err = jmax(err, fabs_t(err_c[i] / tol));
+    jump_mag = jmax(jump_mag, fabs_t(k[0][i] - k[1][i]));
   }
-  const bool accept = err <= 1.f;  // NaN rejects
+  const bool accept = err <= T(1);  // NaN rejects
   const bool jump = jump_mag > a.slope_jump_thresh;
   const bool advance = accept && !jump;
   const bool slope = accept && jump;
 
   // Kahan-compensated commit time; also the dense window's upper bound.
-  const float kh = h_eff - st.t_c;
-  const float t1 = t + kh;
+  const T kh = h_eff - st.t_c;
+  const T t1 = t + kh;
 
   const bool fill = advance && st.q < a.n_q && __ldg(a.qt + st.q) <= t1;
   if (fill) {
-    float qm[4][kNEq];
+    T qm[4][kNEq];
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
 #pragma unroll
-      for (int i = 0; i < kNEq; ++i) qm[m][i] = 0.f;
+      for (int i = 0; i < kNEq; ++i) qm[m][i] = T(0);
 #pragma unroll
       for (int j = 0; j < 7; ++j) {
-        if (tb.p[j][m] != 0.f) {
+        if (tb.p[j][m] != T(0)) {
 #pragma unroll
           for (int i = 0; i < kNEq; ++i) qm[m][i] = qm[m][i] + tb.p[j][m] * k[j][i];
         }
       }
     }
-    float tq;
+    T tq;
     while (st.q < a.n_q && (tq = __ldg(a.qt + st.q)) <= t1) {
-      const float theta = (tq - t) / h_eff;
-      const float th2 = theta * theta;
+      const T theta = (tq - t) / h_eff;
+      const T th2 = theta * theta;
 #pragma unroll
       for (int i = 0; i < kNEq; ++i) {
-        const float poly = qm[0][i] * theta + qm[1][i] * th2 +
+        const T poly = qm[0][i] * theta + qm[1][i] * th2 +
                            qm[2][i] * th2 * theta + qm[3][i] * th2 * th2;
         a.dense[((int64_t)st.q * kNEq + i) * S + s] = y[i] + h_eff * poly;
       }
@@ -332,20 +373,20 @@ __device__ __forceinline__ bool rk45_attempt(const Rk45Args& a, const Model204& 
   // I controller: clip on accept, capped at 1 (NaN -> nan_shrink) on reject.
   // PI: an advance takes base * facold^beta (through the same powf), and a
   // committed step that was not clamped at tf sets facold.
-  const float base_fac = a.safety * powf(1.f / (err + 1e-16f), a.expo);
-  float raw_fac = base_fac;
+  const T base_fac = a.safety * pow_t(T(1) / (err + T(1e-16)), a.expo);
+  T raw_fac = base_fac;
   if constexpr (O::pi) {
-    raw_fac = base_fac * powf(st.facold, a.pi_beta);
-    if (advance && !clamp) st.facold = jmax(err, 1e-4f);
+    raw_fac = base_fac * pow_t(st.facold, a.pi_beta);
+    if (advance && !clamp) st.facold = jmax(err, T(1e-4));
   }
-  const float fac_acc = jclip(raw_fac, a.min_scale, a.max_scale);
-  const float fac_rej =
-      jclip(is_nan(base_fac) ? a.nan_shrink : jmin(base_fac, 1.f), a.min_scale,
+  const T fac_acc = jclip(raw_fac, a.min_scale, a.max_scale);
+  const T fac_rej =
+      jclip(is_nan(base_fac) ? a.nan_shrink : jmin(base_fac, T(1)), a.min_scale,
             a.max_scale);
-  const float h_slope = jmax(h_eff * 0.5f, h0 * a.min_step_fraction);
+  const T h_slope = jmax(h_eff * T(0.5), h0 * a.min_step_fraction);
   // A clamped landing step never shrinks the carried h.
-  const float h_adv = clamp ? jmax(h_eff * fac_acc, h) : h_eff * fac_acc;
-  const float h_new = advance ? h_adv : (slope ? h_slope : h_eff * fac_rej);
+  const T h_adv = clamp ? jmax(h_eff * fac_acc, h) : h_eff * fac_acc;
+  const T h_new = advance ? h_adv : (slope ? h_slope : h_eff * fac_rej);
   const int32_t reject_new = accept ? 0 : st.reject + 1;
 
   bool stiff_new;
@@ -356,13 +397,13 @@ __device__ __forceinline__ bool rk45_attempt(const Rk45Args& a, const Model204& 
     // Hairer's |h*lambda| from the two t+h stages, tested every
     // stiff_test_every-th accepted step (post-increment count); slope
     // cuts trip without waiting for the cadence.
-    float stnum = 0.f, stden = 0.f;
+    T stnum = T(0), stden = T(0);
 #pragma unroll
     for (int i = 0; i < kNEq; ++i) {
-      stnum = jmax(stnum, fabsf(k[6][i] - k[5][i]));
-      stden = jmax(stden, fabsf(y_out[i] - g6[i]));
+      stnum = jmax(stnum, fabs_t(k[6][i] - k[5][i]));
+      stden = jmax(stden, fabs_t(y_out[i] - g6[i]));
     }
-    const float hlamb = stden > 0.f ? h_eff * stnum / stden : 0.f;
+    const T hlamb = stden > T(0) ? h_eff * stnum / stden : T(0);
     const int32_t n_acc_next = st.n_acc + (advance ? 1 : 0);
     const bool tested = advance && (n_acc_next & (a.stiff_test_every - 1)) == 0;
     const bool over = hlamb > a.stiff_hlamb;
@@ -387,8 +428,8 @@ __device__ __forceinline__ bool rk45_attempt(const Rk45Args& a, const Model204& 
       // TwoSum of y and dy less the carried low word.
 #pragma unroll
       for (int i = 0; i < kNEq; ++i) {
-        const float khs = dy[i] - st.y_c[i];
-        const float y_kah = y[i] + khs;
+        const T khs = dy[i] - st.y_c[i];
+        const T y_kah = y[i] + khs;
         st.y_c[i] = (y_kah - y[i]) - khs;
         y[i] = y_kah;
       }
@@ -400,7 +441,7 @@ __device__ __forceinline__ bool rk45_attempt(const Rk45Args& a, const Model204& 
       // k7 read the forcing of t: past a sample boundary the next k1 is
       // evaluated on the new sample.
       if (forcing_sample_changed(a.forcing, t, t1)) {
-        float f1[kMaxForcings];
+        T f1[kMaxForcings];
         gather_forcings(a.forc, S, s, a.forcing, t1, f1);
         model.rhs(y, f1, a.forcing.n_forc, st.k0);
       } else {
@@ -421,11 +462,12 @@ __device__ __forceinline__ bool rk45_attempt(const Rk45Args& a, const Model204& 
 // The result of system s once it is no longer live.  Systems that did not
 // reach tf report NaN; they go to the stiff phase too, and count as failed
 // only if no stiffness criterion tripped.
-__device__ __forceinline__ void rk45_finish(const Rk45Args& a, int64_t s, const Rk45State& st) {
+template <class T>
+__device__ __forceinline__ void rk45_finish(const Rk45Args<T>& a, int64_t s, const Rk45State<T>& st) {
   const int64_t S = a.n_sys;
   const bool completed = st.t >= a.tf;
 #pragma unroll
-  for (int i = 0; i < kNEq; ++i) a.y_final[i * S + s] = completed ? st.y[i] : NAN;
+  for (int i = 0; i < kNEq; ++i) a.y_final[i * S + s] = completed ? st.y[i] : T(NAN);
   a.stiff[s] = (st.stiff || !completed) ? 1 : 0;
   a.failed[s] = (!completed && !st.stiff) ? 1 : 0;
   a.stats[s] = st.n_acc;
@@ -440,20 +482,20 @@ enum PoolF { pY = 0, pT = kNEq, pTc, pH, pH0, kPoolFloats };
 enum PoolI { pReject, pIasti, pNonsti, pFstreak, pNAcc, pNRej, pNAtt, pQ, pSys, kPoolInts };
 constexpr unsigned long long kFreeKey = 0xFFFFFFFFull;  // above every live t
 
-template <int OPT>
+template <class T, int OPT>
 struct Pool {
   using O = Rk45Opt<OPT>;
   static constexpr int pK0 = kPoolFloats;                     // FSAL: k0[5]
   static constexpr int pYc = pK0 + (O::fsal ? kNEq : 0);      // compensated: y_c[5]
   static constexpr int pFacold = pYc + (O::comp ? kNEq : 0);  // PI: facold
   static constexpr int kFloats = pFacold + (O::pi ? 1 : 0);
-  static constexpr size_t kBytes = (size_t)kPool * (8 + 4 * (kFloats + kPoolInts));
+  static constexpr size_t kBytes = (size_t)kPool * (8 + sizeof(T) * kFloats + 4 * kPoolInts);
 
   unsigned long long* key;  // [kPool] sort keys; after the sort, the slots in run order
-  float* f;                 // [kFloats, kPool]
+  T* f;                     // [kFloats, kPool]
   int32_t* i;               // [kPoolInts, kPool]; row pSys: the system's offset in the share, -1 free
 
-  __device__ __forceinline__ void store(int slot, const Rk45State& st) const {
+  __device__ __forceinline__ void store(int slot, const Rk45State<T>& st) const {
 #pragma unroll
     for (int c = 0; c < kNEq; ++c) f[(pY + c) * kPool + slot] = st.y[c];
     f[pT * kPool + slot] = st.t;
@@ -477,7 +519,7 @@ struct Pool {
     i[pNAtt * kPool + slot] = st.n_att;
     i[pQ * kPool + slot] = st.q;
   }
-  __device__ __forceinline__ void load(int slot, Rk45State& st) const {
+  __device__ __forceinline__ void load(int slot, Rk45State<T>& st) const {
 #pragma unroll
     for (int c = 0; c < kNEq; ++c) st.y[c] = f[(pY + c) * kPool + slot];
     st.t = f[pT * kPool + slot];
@@ -511,15 +553,21 @@ __device__ __forceinline__ unsigned long long slot_key(float t, int slot) {
   const unsigned ordered = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
   return ((unsigned long long)ordered << 32) | (unsigned)slot;
 }
+// A double t keys by its nearest float: the order only chooses who runs
+// next (ties fall to the slot's number), and no schedule changes a result.
+__device__ __forceinline__ unsigned long long slot_key(double t, int slot) {
+  return slot_key((float)t, slot);
+}
 
-// Ascending bitonic sort of key[0, kPool) by the whole block.  Thread tid
-// owns the elements tid + r * kThreads, so partners less than 32 apart
-// belong to lanes of one warp: a stage needs the block's barrier only if it,
-// or the stage after it, pairs elements 32 or more apart.
+// Ascending bitonic sort of key[0, kPool) by the whole block of THREADS.
+// Thread tid owns the elements tid + r * THREADS, so partners less than 32
+// apart belong to lanes of one warp: a stage needs the block's barrier only
+// if it, or the stage after it, pairs elements 32 or more apart.
+template <int THREADS>
 __device__ __forceinline__ void sort_keys(unsigned long long* key, int tid) {
   for (int k = 2; k <= kPool; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < kPool; i += kThreads) {
+      for (int i = tid; i < kPool; i += THREADS) {
         const int p = i ^ j;
         if (p > i) {
           const unsigned long long x = key[i], z = key[p];
@@ -593,13 +641,14 @@ struct WarpProbe {
 #define TT_PROBE(x)
 #endif
 
-template <int OPT>
-__global__ void __launch_bounds__(kThreads, 1) rk45_kernel(const Rk45Args a) {
+template <class T, int OPT>
+__global__ void __launch_bounds__(kThreads<T>, 1) rk45_kernel(const Rk45Args<T> a) {
+  constexpr int kLanes = kThreads<T>;
   extern __shared__ unsigned long long smem[];
-  Pool<OPT> pool;
+  Pool<T, OPT> pool;
   pool.key = smem;
-  pool.f = reinterpret_cast<float*>(smem + kPool);
-  pool.i = reinterpret_cast<int32_t*>(pool.f + (size_t)Pool<OPT>::kFloats * kPool);
+  pool.f = reinterpret_cast<T*>(smem + kPool);
+  pool.i = reinterpret_cast<int32_t*>(pool.f + (size_t)Pool<T, OPT>::kFloats * kPool);
   const int tid = threadIdx.x;
   TT_PROBE(WarpProbe probe; probe.start();)
 
@@ -607,7 +656,7 @@ __global__ void __launch_bounds__(kThreads, 1) rk45_kernel(const Rk45Args a) {
   const int64_t lo = a.n_sys * blockIdx.x / gridDim.x;
   const int64_t hi = a.n_sys * (blockIdx.x + 1) / gridDim.x;
   int64_t next = lo;
-  for (int i = tid; i < kPool; i += kThreads) pool.i[pSys * kPool + i] = -1;
+  for (int i = tid; i < kPool; i += kLanes) pool.i[pSys * kPool + i] = -1;
   __syncthreads();
 
   int n_live = 0;
@@ -617,25 +666,25 @@ __global__ void __launch_bounds__(kThreads, 1) rk45_kernel(const Rk45Args a) {
     // slice before still holds if it ran every live system and none ended.
     if (reorder) {
       n_live = 0;
-      for (int i0 = 0; i0 < kPool; i0 += kThreads) {
+      for (int i0 = 0; i0 < kPool; i0 += kLanes) {
         const int i = i0 + tid;
         const bool live = i < kPool && pool.i[pSys * kPool + i] >= 0;
         if (i < kPool)
           pool.key[i] = live ? slot_key(pool.f[pT * kPool + i], i) : (kFreeKey << 32) | (unsigned)i;
         n_live += __syncthreads_count(live);
       }
-      sort_keys(pool.key, tid);
+      sort_keys<kLanes>(pool.key, tid);
     }
 
     // Admit the next systems of the share into the free slots.  They start
     // at t0, behind every live system, so they head the run order.
     const int n_admit = (int)min((int64_t)(kPool - n_live), hi - next);
     if (n_live + n_admit == 0) break;
-    for (int j = tid; j < n_admit; j += kThreads) {
+    for (int j = tid; j < n_admit; j += kLanes) {
       const int slot = (int)(unsigned)pool.key[n_live + j];
-      Rk45State st;
-      float h0;
-      rk45_admit<OPT>(a, next + j, st, h0);
+      Rk45State<T> st;
+      T h0;
+      rk45_admit<T, OPT>(a, next + j, st, h0);
       pool.store(slot, st);
       pool.f[pH0 * kPool + slot] = h0;
       pool.i[pSys * kPool + slot] = (int32_t)(next + j - lo);
@@ -644,20 +693,20 @@ __global__ void __launch_bounds__(kThreads, 1) rk45_kernel(const Rk45Args a) {
     if (n_admit > 0) __syncthreads();
 
     // Run: lane p takes the p-th system of the order, the new ones first.
-    const int n_run = min(n_live + n_admit, kThreads);
+    const int n_run = min(n_live + n_admit, kLanes);
     bool ended = false;
     if (tid < n_run) {
       TT_PROBE(const long long run0 = clock64();)
       const int slot = (int)(unsigned)(tid < n_admit ? pool.key[n_live + tid] : pool.key[tid - n_admit]);
       const int64_t s = lo + pool.i[pSys * kPool + slot];
-      const float h0 = pool.f[pH0 * kPool + slot];
-      Rk45State st;
-      Model204 model;
+      const T h0 = pool.f[pH0 * kPool + slot];
+      Rk45State<T> st;
+      Model204<T> model;
       pool.load(slot, st);
       model.load(a.params, a.n_sys, s, a.safe_pow);
       bool live = rk45_live(a, st);
       for (int k = 0; k < kSlice && live; ++k) {
-        const bool filled = rk45_attempt<OPT>(a, model, h0, s, st);
+        const bool filled = rk45_attempt<T, OPT>(a, model, h0, s, st);
         (void)filled;
         TT_PROBE(probe.count(filled);)
         live = rk45_live(a, st);
@@ -671,23 +720,30 @@ __global__ void __launch_bounds__(kThreads, 1) rk45_kernel(const Rk45Args a) {
       }
       TT_PROBE(probe.run_cycles += (unsigned long long)(clock64() - run0);)
     }
-    reorder = __syncthreads_or(ended) || n_admit > 0 || n_live > kThreads;
+    reorder = __syncthreads_or(ended) || n_admit > 0 || n_live > kLanes;
   }
   TT_PROBE(probe.write();)
 }
 
 // Calls f(std::integral_constant<int, OPT>{}) for the instance of the
-// option set `options`; false if it has none.
-template <class F>
+// option set `options` in scalar T; false if it has none.  double has the
+// default set only (the others: ROADMAP Queue 1 #9c).
+template <class T, class F>
 inline bool rk45_dispatch(int32_t options, F&& f) {
-  switch (options) {
-    case 0: f(std::integral_constant<int, 0>{}); return true;
-    case kFsal: f(std::integral_constant<int, kFsal>{}); return true;
-    case kComp: f(std::integral_constant<int, kComp>{}); return true;
-    case kPi: f(std::integral_constant<int, kPi>{}); return true;
-    case kFsal | kPi: f(std::integral_constant<int, kFsal | kPi>{}); return true;
-    case kComp | kPi: f(std::integral_constant<int, kComp | kPi>{}); return true;
-    default: return false;
+  if constexpr (std::is_same<T, double>::value) {
+    if (options != 0) return false;
+    f(std::integral_constant<int, 0>{});
+    return true;
+  } else {
+    switch (options) {
+      case 0: f(std::integral_constant<int, 0>{}); return true;
+      case kFsal: f(std::integral_constant<int, kFsal>{}); return true;
+      case kComp: f(std::integral_constant<int, kComp>{}); return true;
+      case kPi: f(std::integral_constant<int, kPi>{}); return true;
+      case kFsal | kPi: f(std::integral_constant<int, kFsal | kPi>{}); return true;
+      case kComp | kPi: f(std::integral_constant<int, kComp | kPi>{}); return true;
+      default: return false;
+    }
   }
 }
 
@@ -695,46 +751,82 @@ inline bool rk45_dispatch(int32_t options, F&& f) {
 
 // ---- launch ----
 
-extern "C" int tt_rk45_args_size() { return (int)sizeof(tt::Rk45Args); }
+namespace tt {
 
 // The launch geometry of n_sys systems on the current device for the
-// instance of `options`: one block per SM, fewer where a block's share
+// instance of (T, options): one block per SM, fewer where a block's share
 // would fall under a warp of systems.
-extern "C" int tt_rk45_geometry(int64_t n_sys, int32_t options, int32_t* out) {
+template <class T>
+int rk45_geometry(int64_t n_sys, int32_t options, int32_t* out) {
   size_t pool_bytes = 0;
-  if (!tt::rk45_dispatch(options, [&](auto opt) { pool_bytes = tt::Pool<decltype(opt)::value>::kBytes; }))
-    return tt::kNoInstance;
+  if (!rk45_dispatch<T>(options, [&](auto opt) { pool_bytes = Pool<T, decltype(opt)::value>::kBytes; }))
+    return kNoInstance;
   int dev = 0, sms = 0;
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (rc != cudaSuccess) return (int)rc;
   const int64_t want = n_sys / 32;
   out[0] = (int32_t)(want < 1 ? 1 : (want > sms ? sms : want));  // blocks
-  out[1] = tt::kThreads;
-  out[2] = tt::kPool;
-  out[3] = tt::kSlice;
+  out[1] = kThreads<T>;
+  out[2] = kPool;
+  out[3] = kSlice;
   out[4] = (int32_t)pool_bytes;  // dynamic shared memory a block
   return 0;
 }
 
-// Enqueues the instance of args->options on `stream`; returns the CUDA
-// error code (0 on success; kNoInstance for a set without one).
-extern "C" int tt_rk45_launch(const tt::Rk45Args* args, void* stream) {
+template <class T>
+int rk45_launch(const Rk45Args<T>* args, void* stream) {
   if (args->n_sys <= 0) return 0;
   int32_t geo[5];
-  int rc = tt_rk45_geometry(args->n_sys, args->options, geo);
+  int rc = rk45_geometry<T>(args->n_sys, args->options, geo);
   if (rc != 0) return rc;
-  tt::rk45_dispatch(args->options, [&](auto opt) {
+  rk45_dispatch<T>(args->options, [&](auto opt) {
     constexpr int OPT = decltype(opt)::value;
-    constexpr size_t bytes = tt::Pool<OPT>::kBytes;
-    rc = (int)cudaFuncSetAttribute(tt::rk45_kernel<OPT>,
+    constexpr size_t bytes = Pool<T, OPT>::kBytes;
+    rc = (int)cudaFuncSetAttribute(rk45_kernel<T, OPT>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (rc == 0)
-      tt::rk45_kernel<OPT><<<(unsigned)geo[0], tt::kThreads, bytes, (cudaStream_t)stream>>>(*args);
+      rk45_kernel<T, OPT><<<(unsigned)geo[0], kThreads<T>, bytes, (cudaStream_t)stream>>>(*args);
   });
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
+
+// The double instances' host side, defined in the -DTT_DOUBLE_INSTANCES
+// build of this file and called by the entry points of the other.
+int rk45_geometry_f64(int64_t n_sys, int32_t options, int32_t* out);
+int rk45_launch_f64(const void* args, void* stream);
+
+#ifdef TT_DOUBLE_INSTANCES
+int rk45_geometry_f64(int64_t n_sys, int32_t options, int32_t* out) {
+  return rk45_geometry<double>(n_sys, options, out);
+}
+int rk45_launch_f64(const void* args, void* stream) {
+  return rk45_launch(static_cast<const Rk45Args<double>*>(args), stream);
+}
+#endif
+
+}  // namespace tt
+
+#ifndef TT_DOUBLE_INSTANCES
+// In each entry point f64 picks the scalar: 0 float (Rk45Args<float>), 1
+// double (Rk45Args<double>).
+extern "C" int tt_rk45_args_size(int32_t f64) {
+  return f64 ? (int)sizeof(tt::Rk45Args<double>) : (int)sizeof(tt::Rk45Args<float>);
+}
+
+extern "C" int tt_rk45_geometry(int64_t n_sys, int32_t options, int32_t f64, int32_t* out) {
+  return f64 ? tt::rk45_geometry_f64(n_sys, options, out)
+             : tt::rk45_geometry<float>(n_sys, options, out);
+}
+
+// Enqueues the instance of (f64, args->options) on `stream`; returns the CUDA
+// error code (0 on success; kNoInstance for a set without one).
+extern "C" int tt_rk45_launch(const void* args, int32_t f64, void* stream) {
+  return f64 ? tt::rk45_launch_f64(args, stream)
+             : tt::rk45_launch(static_cast<const tt::Rk45Args<float>*>(args), stream);
+}
+#endif
 
 #ifdef TT_RK45_PHASES
 // Copies the first n_warps warps' probe records into `out` (each launch

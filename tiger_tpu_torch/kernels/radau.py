@@ -4,8 +4,10 @@
 method -- the work of the TPU kernel ``tiger_tpu/kernels/radau_pallas.py``
 (``_make_kernel``'s ``kernel``, reached through ``pl.pallas_call`` at
 l.987).  A CUDA tensor goes to the hand-written kernel ``csrc/radau.cu`` (or
-the call raises); a CPU tensor goes to ``radau_plain``.  ``radau_launches``
-counts the kernel's launches by instance.
+the call raises): its float instances for float32, its double instance of
+the default options (embedded3, no predictor) for float64.  A CPU tensor
+goes to ``radau_plain``.  ``radau_launches`` counts the kernel's launches by
+instance.
 """
 
 from __future__ import annotations
@@ -17,10 +19,9 @@ import torch
 
 from tiger_tpu_torch.forcing import ZOH_SNAP, ForcingSet, gather_forcings_column, zoh_step_cap
 from tiger_tpu_torch.kernels._common import (
+    C_REAL,
+    FORCING_META,
     N_EQ,
-    ForcingMetaC,
-    c_float,
-    c_floats,
     c_i32,
     c_i64,
     c_ptr,
@@ -30,6 +31,7 @@ from tiger_tpu_torch.kernels._common import (
     finish,
     forcing_meta_c,
     kernel_inputs,
+    c_reals,
     launch,
     plain_params,
 )
@@ -43,30 +45,39 @@ _F32_EPS = float(np.finfo(np.float32).eps)
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 
-class RadauArgsC(ctypes.Structure):
-    """Mirror of ``tt::RadauArgs`` (csrc/radau.cu)."""
+def _args_type(dtype):
+    real = C_REAL[dtype]
 
-    _fields_ = [
-        ("y0", c_ptr), ("h0", c_ptr), ("params", c_ptr), ("forc", c_ptr), ("qt", c_ptr),
-        ("y_final", c_ptr), ("dense", c_ptr), ("failed", c_ptr), ("stats", c_ptr),
-        ("n_sys", c_i64), ("n_q", c_i32), ("safe_pow", c_i32),
-        ("t0", c_float), ("tf", c_float),
-        ("rtol", c_float), ("atol", c_float), ("safety", c_float),
-        ("min_scale", c_float), ("max_scale", c_float), ("expo", c_float),
-        ("nan_shrink", c_float), ("h_freeze_hi", c_float),
-        ("newton_tol", c_float), ("kappa", c_float), ("tol_eps", c_float),
-        ("fd_eps", c_float),
-        ("max_steps", c_i32), ("max_rejects", c_i32), ("newton_max_iter", c_i32),
-        ("reject_unconverged", c_i32), ("fill_t0_queries", c_i32),
-        ("err_mode", c_i32), ("predictor", c_i32), ("safety_newton", c_float),
-        ("forcing", ForcingMetaC),
-        ("ra", (c_float * 3) * 3), ("rc", c_float * 3), ("rb", c_float * 3),
-        ("re", c_float * 3), ("rw", (c_float * 3) * 3), ("ea", c_float * 3),
-        ("inv_a", (c_float * 3) * 3),
-        ("gam", c_float), ("alp", c_float), ("bet", c_float),
-        ("v1", c_float * 3), ("v2r", c_float * 3), ("v2i", c_float * 3),
-        ("p1", c_float * 3), ("p2r", c_float * 3), ("p2i", c_float * 3),
-    ]
+    class RadauArgsC(ctypes.Structure):
+        """Mirror of ``tt::RadauArgs<T>`` (csrc/radau.cu)."""
+
+        _fields_ = [
+            ("y0", c_ptr), ("h0", c_ptr), ("params", c_ptr), ("forc", c_ptr), ("qt", c_ptr),
+            ("y_final", c_ptr), ("dense", c_ptr), ("failed", c_ptr), ("stats", c_ptr),
+            ("n_sys", c_i64), ("n_q", c_i32), ("safe_pow", c_i32),
+            ("t0", real), ("tf", real),
+            ("rtol", real), ("atol", real), ("safety", real),
+            ("min_scale", real), ("max_scale", real), ("expo", real),
+            ("nan_shrink", real), ("h_freeze_hi", real),
+            ("newton_tol", real), ("kappa", real), ("tol_eps", real),
+            ("fd_eps", real),
+            ("max_steps", c_i32), ("max_rejects", c_i32), ("newton_max_iter", c_i32),
+            ("reject_unconverged", c_i32), ("fill_t0_queries", c_i32),
+            ("err_mode", c_i32), ("predictor", c_i32), ("safety_newton", real),
+            ("forcing", FORCING_META[dtype]),
+            ("ra", (real * 3) * 3), ("rc", real * 3), ("rb", real * 3),
+            ("re", real * 3), ("rw", (real * 3) * 3), ("ea", real * 3),
+            ("inv_a", (real * 3) * 3),
+            ("gam", real), ("alp", real), ("bet", real),
+            ("v1", real * 3), ("v2r", real * 3), ("v2i", real * 3),
+            ("p1", real * 3), ("p2r", real * 3), ("p2i", real * 3),
+        ]
+
+    return RadauArgsC
+
+
+#: ``tt::RadauArgs<T>`` by solve dtype.
+ARGS = {dtype: _args_type(dtype) for dtype in C_REAL}
 
 
 def _kappa(cfg: SolverConfig) -> float:
@@ -78,19 +89,27 @@ def _kappa(cfg: SolverConfig) -> float:
 #: l.157-162, 439-490): its code in ``RadauArgs.err_mode`` and the step
 #: controller's exponent.
 ERR_MODES = {"embedded3": (0, 1.0 / 3.0), "reference": (1, 0.2), "radau5": (2, 0.25)}
-#: The option sets B2 has an instance for: each error mode, with and
+#: The option sets B2 has a float instance for: each error mode, with and
 #: without the predictor.
 INSTANCES = tuple((mode, pred) for mode in ERR_MODES for pred in (False, True))
+#: The option sets B2 has a double instance for: embedded3 without the
+#: predictor (the others are ROADMAP Queue 1 #9c).
+F64_INSTANCES = (("embedded3", False),)
 
 
-def instance_name(config: SolverConfig) -> str:
-    """B2's instance for ``config``: the error mode, '+predictor' with it."""
-    return config.radau_error_mode + ("+predictor" if config.radau_predictor else "")
+def instance_name(config: SolverConfig, dtype: torch.dtype = torch.float32) -> str:
+    """B2's instance for ``config`` in ``dtype``: the error mode,
+    '+predictor' with it, '/f64' for the double instance."""
+    return (config.radau_error_mode + ("+predictor" if config.radau_predictor else "")
+            + ("/f64" if dtype == torch.float64 else ""))
 
 
 #: Kernel launches by instance (``instance_name``) since import (or since a
 #: caller set them to 0: ``kernels.reset_launch_counts``).
-radau_launches = {mode + suffix: 0 for mode in ERR_MODES for suffix in ("", "+predictor")}
+radau_launches = {
+    **{mode + suffix: 0 for mode in ERR_MODES for suffix in ("", "+predictor")},
+    **{mode + ("+predictor" if pred else "") + "/f64": 0 for mode, pred in F64_INSTANCES},
+}
 
 
 def newton_safety(cfg: SolverConfig) -> float:
@@ -136,8 +155,8 @@ def radau(
     """B2 over ``y0[n, N]`` from t0 to tf; ``query_times`` sorted and unique.
 
     CPU tensors run ``radau_plain``; CUDA tensors launch the kernel on the
-    current stream without synchronising (float32 Model 204 only; any other
-    input raises).  ``t_shift`` as in ``kernels.rk45.rk45``.
+    current stream without synchronising (Model 204 in float32, or in
+    float64 with the default options; any other input raises).  ``t_shift`` as in ``kernels.rk45.rk45``.
     """
     if y0.device.type == "cpu":
         return radau_plain(model, y0, h0, t0, tf, query_times, params, forcings, config, t_shift)
@@ -151,15 +170,20 @@ def _radau_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -
     if not (cfg.rtol >= 0.0 and cfg.atol >= 0.0):
         raise ValueError(f"radau: the CUDA kernel needs rtol, atol >= 0, got {cfg.rtol}, {cfg.atol}")
     y0_soa, p_block = kernel_inputs("radau", model, y0, h0, params, forcings, qt, t_shift)
-    s_count, dev = y0.shape[0], y0.device
+    s_count, dev, dtype = y0.shape[0], y0.device, y0.dtype
+    f64, real = dtype == torch.float64, C_REAL[dtype]
     q_total = 0 if qt is None else qt.shape[0]
-    y_final = torch.empty((N_EQ, s_count), dtype=torch.float32, device=dev)
-    dense = torch.empty((q_total, N_EQ, s_count), dtype=torch.float32, device=dev)
+    y_final = torch.empty((N_EQ, s_count), dtype=dtype, device=dev)
+    dense = torch.empty((q_total, N_EQ, s_count), dtype=dtype, device=dev)
     failed = torch.empty((s_count,), dtype=torch.int32, device=dev)
     stats = torch.empty((5, s_count), dtype=torch.int32, device=dev)
     gam, alp, bet, v1, v2r, v2i, p1, p2r, p2i = _eig_constants()
     err_mode, expo = ERR_MODES[cfg.radau_error_mode]
-    a = RadauArgsC(
+
+    def reals(x):
+        return c_reals(x, real)
+
+    a = ARGS[dtype](
         y0=y0_soa.data_ptr(), h0=h0.data_ptr(), params=p_block.data_ptr(),
         forc=data_ptr(None if forcings is None else forcings.data), qt=data_ptr(qt),
         y_final=y_final.data_ptr(), dense=dense.data_ptr(), failed=failed.data_ptr(),
@@ -169,23 +193,23 @@ def _radau_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -
         min_scale=cfg.min_scale, max_scale=cfg.max_scale, expo=expo,
         nan_shrink=cfg.nan_shrink, h_freeze_hi=cfg.radau_h_freeze_hi,
         newton_tol=cfg.newton_tol, kappa=_kappa(cfg), tol_eps=8.0 * _F32_EPS,
-        fd_eps=float(np.sqrt(np.finfo(np.float32).eps)),
+        fd_eps=float(np.sqrt(np.finfo(_NP_DTYPE[dtype]).eps)),
         max_steps=cfg.max_steps, max_rejects=cfg.radau_max_rejects,
         newton_max_iter=cfg.newton_max_iter,
         reject_unconverged=int(cfg.newton_reject_unconverged),
         fill_t0_queries=int(cfg.fill_t0_queries), err_mode=err_mode,
         predictor=int(cfg.radau_predictor), safety_newton=newton_safety(cfg),
-        forcing=forcing_meta_c(forcings, cfg),
-        ra=c_floats(tableau.RADAU_A), rc=c_floats(tableau.RADAU_C),
-        rb=c_floats(tableau.RADAU_B), re=c_floats(_embedded_weights(cfg)),
-        rw=c_floats(tableau.RADAU_DENSE), ea=c_floats(tableau.RADAU_ERR_EA),
-        inv_a=c_floats(tableau.RADAU_A_INV),
-        gam=gam, alp=alp, bet=bet, v1=c_floats(v1), v2r=c_floats(v2r),
-        v2i=c_floats(v2i), p1=c_floats(p1), p2r=c_floats(p2r), p2i=c_floats(p2i),
+        forcing=forcing_meta_c(forcings, cfg, dtype),
+        ra=reals(tableau.RADAU_A), rc=reals(tableau.RADAU_C),
+        rb=reals(tableau.RADAU_B), re=reals(_embedded_weights(cfg)),
+        rw=reals(tableau.RADAU_DENSE), ea=reals(tableau.RADAU_ERR_EA),
+        inv_a=reals(tableau.RADAU_A_INV),
+        gam=gam, alp=alp, bet=bet, v1=reals(v1), v2r=reals(v2r),
+        v2i=reals(v2i), p1=reals(p1), p2r=reals(p2r), p2i=reals(p2i),
     )
-    launch("tt_radau_launch", "tt_radau_args_size", a, dev,
+    launch("tt_radau_launch", "tt_radau_args_size", a, f64, dev,
            f"radau_error_mode={cfg.radau_error_mode!r}, radau_predictor={cfg.radau_predictor}")
-    radau_launches[instance_name(cfg)] += 1
+    radau_launches[instance_name(cfg, dtype)] += 1
     return RadauResult(
         y_final=y_final.t().contiguous(),
         dense=dense.permute(2, 0, 1).contiguous(),

@@ -4,10 +4,12 @@
 ZOH forcing, the stiffness criteria and dense output -- the work of the TPU
 kernel ``tiger_tpu/kernels/rk45_pallas.py`` (``_make_kernel``'s ``kernel``,
 reached through ``pl.pallas_call`` at l.1051).  A CUDA tensor goes to the
-hand-written kernel ``csrc/rk45.cu`` (or the call raises); a CPU tensor goes
-to ``rk45_plain``, the same per-system semantics as a batched, masked
-while-loop in torch.  ``rk45_launches`` counts the kernel's launches by
-instance; ``rk45_options`` picks the kernel's instance for a ``SolverConfig``,
+hand-written kernel ``csrc/rk45.cu`` (or the call raises): its float
+instances for float32, its double instance of the default option set for
+float64.  A CPU tensor goes to ``rk45_plain``, the same per-system semantics
+as a batched, masked while-loop in torch.  ``rk45_launches`` counts the
+kernel's launches by instance; ``rk45_options`` picks the kernel's instance
+for a ``SolverConfig``,
 ``rk45_geometry`` says how a launch is laid out on the card,
 ``rk45_mismatch`` counts where two results differ bit for bit, and
 ``read_probes`` reads the per-warp counters of the ``PROBE_FLAGS`` build.
@@ -28,9 +30,9 @@ from tiger_tpu_torch.forcing import (
 )
 from tiger_tpu_torch.kernels import _build
 from tiger_tpu_torch.kernels._common import (
+    C_REAL,
+    FORCING_META,
     N_EQ,
-    ForcingMetaC,
-    c_float,
     c_i32,
     c_i64,
     c_ptr,
@@ -48,35 +50,47 @@ from tiger_tpu_torch.solver.config import SolverConfig
 from tiger_tpu_torch.solver.rk45 import RK45Result, RKStats
 
 
-class Rk45ArgsC(ctypes.Structure):
-    """Mirror of ``tt::Rk45Args`` (csrc/rk45.cu)."""
+def _args_type(dtype):
+    real = C_REAL[dtype]
 
-    _fields_ = [
-        ("y0", c_ptr), ("h0", c_ptr), ("params", c_ptr), ("forc", c_ptr), ("qt", c_ptr),
-        ("y_final", c_ptr), ("dense", c_ptr), ("stiff", c_ptr), ("failed", c_ptr),
-        ("stats", c_ptr),
-        ("n_sys", c_i64), ("n_q", c_i32), ("safe_pow", c_i32),
-        ("t0", c_float), ("tf", c_float), ("h_floor", c_float),
-        ("rtol", c_float), ("atol", c_float), ("safety", c_float),
-        ("min_scale", c_float), ("max_scale", c_float), ("expo", c_float),
-        ("slope_jump_thresh", c_float), ("min_step_fraction", c_float),
-        ("nan_shrink", c_float), ("stiff_hlamb", c_float), ("pi_beta", c_float),
-        ("max_rejects", c_i32), ("max_steps", c_i32), ("stiff_detect", c_i32),
-        ("stiff_streak", c_i32), ("stiff_forgive", c_i32),
-        ("stiff_test_every", c_i32), ("stiff_floor_streak", c_i32),
-        ("fill_t0_queries", c_i32), ("options", c_i32),
-        ("forcing", ForcingMetaC),
-    ]
+    class Rk45ArgsC(ctypes.Structure):
+        """Mirror of ``tt::Rk45Args<T>`` (csrc/rk45.cu)."""
 
+        _fields_ = [
+            ("y0", c_ptr), ("h0", c_ptr), ("params", c_ptr), ("forc", c_ptr), ("qt", c_ptr),
+            ("y_final", c_ptr), ("dense", c_ptr), ("stiff", c_ptr), ("failed", c_ptr),
+            ("stats", c_ptr),
+            ("n_sys", c_i64), ("n_q", c_i32), ("safe_pow", c_i32),
+            ("t0", real), ("tf", real), ("h_floor", real),
+            ("rtol", real), ("atol", real), ("safety", real),
+            ("min_scale", real), ("max_scale", real), ("expo", real),
+            ("slope_jump_thresh", real), ("min_step_fraction", real),
+            ("nan_shrink", real), ("stiff_hlamb", real), ("pi_beta", real),
+            ("max_rejects", c_i32), ("max_steps", c_i32), ("stiff_detect", c_i32),
+            ("stiff_streak", c_i32), ("stiff_forgive", c_i32),
+            ("stiff_test_every", c_i32), ("stiff_floor_streak", c_i32),
+            ("fill_t0_queries", c_i32), ("options", c_i32),
+            ("forcing", FORCING_META[dtype]),
+        ]
+
+    return Rk45ArgsC
+
+
+#: ``tt::Rk45Args<T>`` by solve dtype.
+ARGS = {dtype: _args_type(dtype) for dtype in C_REAL}
 
 #: Option bits of ``Rk45Args.options`` (csrc/rk45.cu ``Rk45Option``).
 FSAL, COMPENSATED, PI = 1, 2, 4
-#: The option sets B1 has an instance for: {I, PI} x {plain, FSAL, compensated}.
+#: The option sets B1 has a float instance for: {I, PI} x {plain, FSAL,
+#: compensated}.
 INSTANCES = {0: "default", FSAL: "fsal", COMPENSATED: "compensated", PI: "pi",
              FSAL | PI: "fsal+pi", COMPENSATED | PI: "compensated+pi"}
+#: The option sets B1 has a double instance for: the default set (the
+#: others are ROADMAP Queue 1 #9c).
+F64_INSTANCES = {0: "default/f64"}
 #: Kernel launches by instance since import (or since a caller set them to
 #: 0: ``kernels.reset_launch_counts``).
-rk45_launches = dict.fromkeys(INSTANCES.values(), 0)
+rk45_launches = dict.fromkeys([*INSTANCES.values(), *F64_INSTANCES.values()], 0)
 
 
 def rk45_options(config: SolverConfig) -> int:
@@ -91,12 +105,12 @@ def controller_exponent(config: SolverConfig) -> float:
     return 0.2 - config.pi_beta * 0.75 if config.controller == "pi" else 0.2
 
 
-def rk45_geometry(n_sys: int, options: int = 0) -> dict:
-    """How the instance of ``options`` lays ``n_sys`` systems out on the
-    current CUDA device: blocks, threads a block, pool slots and dynamic
-    shared memory a block, attempts a time slice (csrc/rk45.cu)."""
+def rk45_geometry(n_sys: int, options: int = 0, dtype: torch.dtype = torch.float32) -> dict:
+    """How the instance of (``options``, ``dtype``) lays ``n_sys`` systems
+    out on the current CUDA device: blocks, threads a block, pool slots and
+    dynamic shared memory a block, attempts a time slice (csrc/rk45.cu)."""
     out = (c_i32 * 5)()
-    rc = _build.load().tt_rk45_geometry(n_sys, options, out)
+    rc = _build.load().tt_rk45_geometry(n_sys, options, int(dtype == torch.float64), out)
     if rc != 0:
         raise RuntimeError(f"tt_rk45_geometry: CUDA error {rc}")
     keys = ("blocks", "threads", "pool_slots", "slice_attempts", "shared_bytes")
@@ -118,8 +132,8 @@ def rk45(
     """B1 over ``y0[S, N]`` from t0 to tf; ``query_times`` sorted and unique.
 
     CPU tensors run ``rk45_plain``; CUDA tensors launch the kernel on the
-    current stream without synchronising (float32 Model 204 only; any other
-    input raises).  ``t_shift`` [min] is added to the time the model's rhs
+    current stream without synchronising (Model 204 in float32, or in
+    float64 with the default options; any other input raises).  ``t_shift`` [min] is added to the time the model's rhs
     sees (forcing gathers stay unshifted).
     """
     if y0.device.type == "cpu":
@@ -132,13 +146,14 @@ def rk45(
 def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -> RK45Result:
     options = rk45_options(cfg)
     y0_soa, p_block = kernel_inputs("rk45", model, y0, h0, params, forcings, qt, t_shift)
-    s_count, dev = y0.shape[0], y0.device
+    s_count, dev, dtype = y0.shape[0], y0.device, y0.dtype
+    f64 = dtype == torch.float64
     q_total = 0 if qt is None else qt.shape[0]
-    y_final = torch.empty((N_EQ, s_count), dtype=torch.float32, device=dev)
-    dense = torch.empty((q_total, N_EQ, s_count), dtype=torch.float32, device=dev)
+    y_final = torch.empty((N_EQ, s_count), dtype=dtype, device=dev)
+    dense = torch.empty((q_total, N_EQ, s_count), dtype=dtype, device=dev)
     flags = torch.empty((2, s_count), dtype=torch.int32, device=dev)  # stiff, failed
     stats = torch.empty((3, s_count), dtype=torch.int32, device=dev)
-    a = Rk45ArgsC(
+    a = ARGS[dtype](
         y0=y0_soa.data_ptr(), h0=h0.data_ptr(), params=p_block.data_ptr(),
         forc=data_ptr(None if forcings is None else forcings.data), qt=data_ptr(qt),
         y_final=y_final.data_ptr(), dense=dense.data_ptr(),
@@ -155,11 +170,11 @@ def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) ->
         stiff_test_every=cfg.stiff_test_every,
         stiff_floor_streak=cfg.stiff_floor_streak,
         fill_t0_queries=int(cfg.fill_t0_queries), options=options,
-        forcing=forcing_meta_c(forcings, cfg),
+        forcing=forcing_meta_c(forcings, cfg, dtype),
     )
-    launch("tt_rk45_launch", "tt_rk45_args_size", a, dev,
+    launch("tt_rk45_launch", "tt_rk45_args_size", a, f64, dev,
            f"fsal={cfg.fsal}, compensated={cfg.compensated}, controller={cfg.controller!r}")
-    rk45_launches[INSTANCES[options]] += 1
+    rk45_launches[(F64_INSTANCES if f64 else INSTANCES)[options]] += 1
     return RK45Result(
         y_final=y_final.t().contiguous(),
         dense=dense.permute(2, 0, 1).contiguous(),

@@ -20,6 +20,16 @@ kernels' ``-fmad=false`` build costs.
 
 One line per measurement; the last line is a JSON summary.  ``--trace``
 writes the profiler's Chrome trace into DIR.
+
+    python -m tiger_tpu_torch.profile_solve --f64-pow [--systems 131072] [--days 2]
+
+measures instead what the double instances' call to ``pow_contracted``
+(csrc/contracted.cu) costs: B1 and B2 in float64 at the reference's rtol
+1e-6 / atol 1e-9 (B2 on the systems B1 flags), with the package's build and
+with ``-DTT_POW_INLINE`` (libdevice's pow inlined under ``-fmad=false``,
+which rounds an ulp away from torch's pow now and then), in the order
+package, inline, inline, package; each build's registers and spills of the
+double kernels, and how many systems' results differ between the two.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from tiger_tpu_torch.solver.controller import initial_step
 
 RTOL, ATOL = 1e-3, 1e-6
 BUILDS = {"package": _build.NVCC_FLAGS, "contracted": _build.FMAD_FLAGS}
+POW_BUILDS = {"package": _build.NVCC_FLAGS, "pow_inline": _build.NVCC_FLAGS + ("-DTT_POW_INLINE",)}
 
 
 def timed(fn, reps):
@@ -94,12 +105,53 @@ def profile(run) -> dict:
             "busy_us": busy_us(spans), "peak_bytes": torch.cuda.max_memory_allocated()}
 
 
+def pow_call_cost(args, smi: str) -> None:
+    """--f64-pow: the double instances with pow called and pow inlined."""
+    for name, flags in POW_BUILDS.items():
+        _, seconds, log = _build.build(flags)
+        lines = log.splitlines()
+        regs = [f"{lines[i].split()[-3]} | {lines[i + 1].strip()} | {lines[i + 2].strip()}"
+                for i, ln in enumerate(lines[:-2]) if "Compiling entry" in ln and "IdLi0" in ln]
+        print(f"build {name}: {seconds:.1f} s; double kernels {regs}", flush=True)
+    dev, f64 = torch.device("cuda", 0), torch.float64
+    model, cfg, tf = Model204(), SolverConfig(), args.days * 1440.0
+    y0, params, forc = scenario(args.systems, args.days, 0.001, device=dev, dtype=f64)
+    qt = torch.arange(0.0, tf + 1e-9, 60.0, dtype=f64, device=dev)
+    h0 = initial_step(model, y0, 0.0, params, forc, cfg)
+    rows = torch.nonzero(k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, cfg).stiff).squeeze(1)
+    sub = (y0[rows].contiguous(), h0[rows].contiguous())
+    sp = {k: v[rows].contiguous() for k, v in params.items()}
+    sf = forc.take_systems(rows)
+    times, results = {name: [] for name in POW_BUILDS}, {}
+    for name in ("package", "pow_inline", "pow_inline", "package"):
+        with _build.flags_in_use(POW_BUILDS[name]):
+            rk, b1 = timed(lambda: k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, cfg),
+                           args.reps)
+            rd, b2 = timed(lambda: k_radau.radau(model, *sub, 0.0, tf, qt, sp, sf, cfg), args.reps)
+        times[name].append({"b1_ms": b1, "b2_ms": b2})
+        results[name] = (rk, rd)
+        print(f"float64 times {name}: B1 {b1:.3f} ms ({args.systems} systems), B2 {b2:.3f} ms "
+              f"({rows.numel()} systems, {args.days:g} days) | {smi}", flush=True)
+    (rk_p, rd_p), (rk_i, rd_i) = results["package"], results["pow_inline"]
+    differ = {"b1_systems": int((torch.nan_to_num(rk_p.y_final) != torch.nan_to_num(rk_i.y_final))
+                                .any(dim=1).sum()),
+              "b1_equal_attempts": int((rk_p.stats.n_attempts == rk_i.stats.n_attempts).sum()),
+              "b2_systems": int((torch.nan_to_num(rd_p.y_final) != torch.nan_to_num(rd_i.y_final))
+                                .any(dim=1).sum()),
+              "b2_equal_attempts": int((rd_p.stats.n_attempts == rd_i.stats.n_attempts).sum())}
+    print(f"pow inline vs package: {differ}", flush=True)
+    print(json.dumps({"card": smi, "systems": args.systems, "days": args.days,
+                      "n_stiff_rows": rows.numel(), "times": times, "pow_inline_vs_package": differ}))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--systems", type=int, default=131_072)
     ap.add_argument("--days", type=float, default=2.0)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--trace", default=None, help="directory for the Chrome trace")
+    ap.add_argument("--f64-pow", action="store_true",
+                    help="time the double instances with pow called and inlined instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_solve: needs a CUDA card")
@@ -109,6 +161,9 @@ def main(argv=None) -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
+    if args.f64_pow:
+        pow_call_cost(args, smi)
+        return
     for name, flags in BUILDS.items():
         path, seconds, log = _build.build(flags)
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]

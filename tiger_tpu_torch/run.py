@@ -15,10 +15,13 @@ window by window (``_run_chunked``): forcings read per window, outputs
 written per window, checkpoints every ``output.checkpoint_interval``, and
 ``initial.resume`` continues an interrupted run into its own files.
 
-What the port does not carry yet raises NotImplementedError naming its
-ROADMAP item (``_refuse_unported``): several processes and float64 on the
-card.  ``solver.precision: f32c`` (compensated float32, the tight-tolerance
-path) and ``solver.controller: pi`` run on the card and on the CPU.
+Every ``solver.precision`` runs on the card and on the CPU: ``f64``, the
+default, through the kernels' double instances, ``f32`` and ``f32c``
+(compensated float32) through their float ones.  What the port does not
+carry yet raises NotImplementedError naming its ROADMAP item
+(``_refuse_unported``), before any file is read: several processes, and
+float64 on the card with ``solver.controller: pi`` (the double instances
+run the default options only).
 """
 
 from __future__ import annotations
@@ -51,13 +54,18 @@ def _world_size() -> int:
 def _refuse_unported(cfg, device: torch.device) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for every part of
     the JAX package's run that this port does not carry yet."""
+    from tiger_tpu_torch.solver.config import float64_unported
+
+    f64_unported = (float64_unported(cfg.solver_config())
+                    if device.type == "cuda" and cfg.solver.precision == "f64" else [])
     refusals = (
         (_world_size() > 1,
          "more than one process, and routed_exchange across ranks, wait for dist.py, "
          "ROADMAP Queue 1 #16"),
-        (device.type == "cuda" and cfg.solver.precision == "f64",
-         "solver.precision f64 on the card waits for float64 kernels, ROADMAP Queue 1 #9 "
-         "(the kernels take float32 only; device='cpu' runs f64)"),
+        (bool(f64_unported),
+         f"solver.precision f64 on the card runs the kernels' default options only; "
+         f"{', '.join(f64_unported)} in float64 waits for ROADMAP Queue 1 #9c (f32 and f32c "
+         "run it on the card; device='cpu' runs it in f64)"),
     )
     for refused, why in refusals:
         if refused:

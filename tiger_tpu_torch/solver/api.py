@@ -52,10 +52,13 @@ def solve(
     reads t must see the absolute one.  Forcing gathers are not shifted.
     The kernels take Model 204, whose rhs does not read t.
 
-    Runs on ``y0``'s device; every input tensor must be on it (CUDA runs
-    the kernels in float32; CPU runs their plain versions in y0's dtype).
-    The inputs are checked once, here (``solver.rk45.check_inputs``), and
-    the two phases call the kernels' wrappers directly.
+    Runs on ``y0``'s device, in ``y0``'s dtype; every input tensor must be
+    on that device.  CUDA runs the kernels: float32 with every option set,
+    float64 with the default options (any other float64 option set is
+    refused here, before any launch).  CPU runs their plain versions, in
+    float32 or float64 with every option set.  The inputs are checked once,
+    here (``solver.rk45.check_inputs``), and the two phases call the
+    kernels' wrappers directly.
 
     Stiff systems (flagged by the RK45 phase, including those that hit
     ``max_steps``) are re-integrated from t0 by Radau at their RK45 initial
@@ -68,8 +71,8 @@ def solve(
     from tiger_tpu_torch.kernels.radau import radau
     from tiger_tpu_torch.kernels.rk45 import rk45
 
-    require_supported(config, "rk45")
-    require_supported(config, "radau")
+    require_supported(config, "rk45", y0)
+    require_supported(config, "radau", y0)
     check_inputs(model, y0, t0, tf, query_times, params, forcings)
     # As tiger_tpu's solve (api.py:248-251); the single-phase solvers
     # accept such queries and leave their rows unfilled.
