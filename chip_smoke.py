@@ -58,10 +58,12 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
      the PI controller at the main path's rtol 1e-5 / atol 1e-8, each one
      warm-up and 3 timed runs; one solve() with each other instance (B1's
      fail no system; B2's option instances report the stiff systems their
-     float32 estimates fail over the 2 days, as data); each instance's own
-     time at the main path's shapes; B1 compensated at rtol 1e-6 against
-     rk45_plain over the 131,072 systems and B2 against radau_plain on the
-     systems it flagged, the full 2 days, with phases 3-4's exact check;
+     float32 estimates fail over the 2 days, as data, before and after the
+     float64 retry); each instance's own time at the main path's shapes;
+     B1 compensated at rtol 1e-6 against rk45_plain over the 131,072
+     systems and 2 days, with phases 3-4's exact check (B2 against
+     radau_plain on the systems it flagged runs at the end, over the
+     leading span of plain_span_checks);
      and (accuracy) compensated and plain float32 at rtol 1e-6 against
      rk45_plain in float64 on the first 4,096 systems, beside a second
      float64 run from an h0 2^-20 apart, with the tail's systems listed
@@ -80,13 +82,32 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
      routed_discharge() bit for bit; (e) the same basin in 2 one-day windows
      with a daily checkpoint: its files equal the windows run by hand bit
      for bit.  Then (a) B1's double instance against rk45_plain in float64
-     over the 131,072 systems and 2 days, and (b) B2's against radau_plain
-     in float64 on every system (a) flagged, with phases 3-4's exact check;
-     the plain Radau pays its ~30-45 ms of launches an attempt whatever the
-     rows, so (b) runs the longest leading span (2 days down to 45 minutes)
-     whose worst system's attempts, at PLAIN_RADAU_MS an attempt or the ms
-     measured on the shortest span if more, keep the whole script inside
-     F64_BUDGET_S.
+     over the 131,072 systems and 2 days, and B2's time on every system (a)
+     flagged (its check against radau_plain, (b), runs at the end).
+     (f) the other option sets' double instances (doubles_phase): solve()
+     in float64 at full width with each, the counters set to 0 just before
+     (B1's fail no system; B2's report theirs as data); each one's time at
+     the main path's shapes; each against its float64 plain version with
+     phases 3-4's exact check at phase 9a's shapes and rules.  (g) the CLI
+     at 131,072 links with solver.controller pi and no solver.precision
+     (f64): its files equal the direct path bit for bit.
+ 11. the float64 retry of the systems B2 fails (retry_phase): for each B2
+     option set whose float32 Radau fails systems in 9b, solve() at
+     131,072 systems, 2 days, 49 queries, float32 at rtol 1e-5 / atol 1e-8,
+     the counters set to 0 just before and read just after: its stiff and
+     failed counts before and after the retry, the rows the double B1
+     resolved and those the double B2 took, its wall with and without the
+     retry.  Check 1: the result equals the chain run by hand through the
+     kernels (B1 and B2 float, B1 double on B2's failures, B2 double on
+     those still stiff) bit for bit.  Check 3: a system left failed is one
+     B2's double instance fails.  Check 2 runs at the end with 9b's and
+     10b's Radau checks (plain_span_checks): radau5 with the predictor's
+     retried rows against rk45_plain and radau_plain in float64, B2
+     embedded3 at rtol 1e-6 and embedded3/f64 against radau_plain, each
+     first over 45 minutes, then over one leading span: the longest (2
+     days down to 45 minutes) whose worst systems' attempts, at
+     PLAIN_RADAU_MS an attempt or the ms measured over 45 minutes if more,
+     keep the whole script inside F64_BUDGET_S.
 Each kernel must equal its plain version exactly: max_abs_err 0, NaN in the
 same places, every flag and every counter of every system equal.  The line
 before the last is the kernels' JSON record; the last line is
@@ -796,11 +817,11 @@ def options_phase(smi: str) -> dict:
     results = {}
     for name in B1_OPTIONS:
         cfg = b1_cfg(name)
-        ker = k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, cfg)
-        start = time.perf_counter()
-        ref = k_rk45.rk45_plain(model, y0, h0, 0.0, tf, qt, params, forc, cfg)
-        torch.cuda.synchronize()
-        b1[name]["check_plain_s"] = time.perf_counter() - start
+        ker, b1[name]["check_ms"] = timed(
+            lambda: k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, cfg), reps=3)
+        ref, b1[name]["plain_ms"] = timed(
+            lambda: k_rk45.rk45_plain(model, y0, h0, 0.0, tf, qt, params, forc, cfg))
+        b1[name]["library_ms"] = None
         b1[name]["max_abs_err"] = check_rk45(
             f"phase 9a B1 {name} vs rk45_plain ({OPTION_SYSTEMS} systems, {OPTION_DAYS:g} day)",
             ker, ref, hu_rows)
@@ -818,11 +839,11 @@ def options_phase(smi: str) -> dict:
     for name in B2_OPTIONS:
         cfg = b2_cfg(name, **(REFERENCE_CHECK if name.startswith("reference") else {}))
         sh0 = initial_step(model, sy0, 0.0, sp, sf, cfg)
-        ker = k_radau.radau(model, sy0, sh0, 0.0, RADAU_CHECK_SPAN, qt_r, sp, sf, cfg)
-        start = time.perf_counter()
-        ref = k_radau.radau_plain(model, sy0, sh0, 0.0, RADAU_CHECK_SPAN, qt_r, sp, sf, cfg)
-        torch.cuda.synchronize()
-        b2[name]["check_plain_s"] = time.perf_counter() - start
+        ker, b2[name]["check_ms"] = timed(
+            lambda: k_radau.radau(model, sy0, sh0, 0.0, RADAU_CHECK_SPAN, qt_r, sp, sf, cfg), reps=3)
+        ref, b2[name]["plain_ms"] = timed(
+            lambda: k_radau.radau_plain(model, sy0, sh0, 0.0, RADAU_CHECK_SPAN, qt_r, sp, sf, cfg))
+        b2[name]["library_ms"] = None
         b2[name]["max_abs_err"] = check_radau(
             f"phase 9a B2 {name} vs radau_plain ({rows.numel()} systems, first "
             f"{RADAU_CHECK_SPAN:g} min)", ker, ref, may_fail=name in B2_MAY_FAIL)
@@ -872,15 +893,25 @@ def options_phase(smi: str) -> dict:
         others[f"B1 {name}"] = (r.n_stiff, int(r.failed.sum()))
     for name in B2_OPTIONS:
         if name != "embedded3":
-            r = solve(model, y0, 0.0, tf, qt, params, forc, b2_cfg(name))
-            others[f"B2 {name}"] = (r.n_stiff, int(r.failed.sum()))
-            b2[name]["main_path_failed"] = others[f"B2 {name}"][1]
+            cfg = b2_cfg(name)
+            r = solve(model, y0, 0.0, tf, qt, params, forc, cfg)
+            # The float32 rung alone: B2 on the rows solve() flagged, from
+            # the same initial steps (solve() then retries its failures).
+            rows = torch.nonzero(r.stiff).squeeze(1)
+            h0 = initial_step(model, y0, 0.0, params, forc, cfg)
+            rd = k_radau.radau(model, y0[rows], h0[rows], 0.0, tf, qt,
+                               {k: v[rows] for k, v in params.items()}, forc.take_systems(rows), cfg)
+            others[f"B2 {name}"] = (r.n_stiff, int(rd.failed.sum()), int(r.failed.sum()))
+            b2[name].update(main_path_failed_f32=others[f"B2 {name}"][1],
+                            main_path_failed=others[f"B2 {name}"][2])
     torch.cuda.synchronize()
-    phase(f"phase 9b one solve() with each other instance, (n_stiff, n_failed): {others}")
+    phase(f"phase 9b one solve() with each other instance, (n_stiff, n_failed) for B1's, "
+          f"(n_stiff, n_failed by the float32 Radau, n_failed after the float64 retry) for B2's: "
+          f"{others}")
     # B2's option instances may fail stiff systems over the 2 days: they
     # are the Radau error estimates and Newton starts as the JAX package
     # runs them in float32 (9a holds each to its plain version); B1's may not.
-    check(all(nf == 0 for key, (_, nf) in others.items() if key.startswith("B1")),
+    check(all(v[1] == 0 for key, v in others.items() if key.startswith("B1")),
           f"phase 9b: a B1 instance failed systems: {others}")
 
     with tempfile.TemporaryDirectory(prefix="tiger_f32c_") as tmp:
@@ -947,10 +978,18 @@ def options_phase(smi: str) -> dict:
     cy0, cp = y0[rows_c].contiguous(), {k: v[rows_c].contiguous() for k, v in params.items()}
     cf, ch0 = forc.take_systems(rows_c), h0_t[rows_c].contiguous()
     rker_c, ms_c2 = timed(lambda: k_radau.radau(model, cy0, ch0, 0.0, tf, qt, cp, cf, f32c), reps=3)
-    rref_c, plain_c2 = timed(lambda: k_radau.radau_plain(model, cy0, ch0, 0.0, tf, qt, cp, cf, f32c))
-    b2["embedded3"].update(f32c_ms=ms_c2, f32c_plain_ms=plain_c2, f32c_max_abs_err=check_radau(
-        f"phase 9b B2 embedded3 vs radau_plain at rtol 1e-6 / atol 1e-9 ({rows_c.numel()} "
-        f"systems, {DAYS:g} days)", rker_c, rref_c))
+
+    def f32c_span_run(span, plain=False):
+        sq = qt[qt <= span + 1e-9]
+        fn = k_radau.radau_plain if plain else k_radau.radau
+        return timed(lambda: fn(model, cy0, ch0, 0.0, span, sq, cp, cf, f32c))
+
+    # Its check against radau_plain runs at the end (plain_span_checks).
+    b2["embedded3"].update(f32c_ms=ms_c2)
+    check_c = dict(label=f"phase 9b B2 embedded3 vs radau_plain at rtol 1e-6 / atol 1e-9 "
+                         f"({rows_c.numel()} systems", run=f32c_span_run, record=b2["embedded3"],
+                   prefix="f32c_", total=int(rker_c.stats.n_attempts.max()),
+                   worst={span: int(f32c_span_run(span)[0].stats.n_attempts.max()) for span in F64_SPANS})
     sy0, sp = y0[rows].contiguous(), {k: v[rows].contiguous() for k, v in params.items()}
     sf, sh0 = forc.take_systems(rows), h0[rows].contiguous()
     for name in B2_OPTIONS:
@@ -970,11 +1009,12 @@ def options_phase(smi: str) -> dict:
 
     accuracy(model, y0[:ACCURACY_SYSTEMS], params, forc, tf, qt, h0_t, f32c, hu_rows)
     phase(f"phase 9 took {time.perf_counter() - phase_start:.1f} s")
-    return {"rk45": b1, "radau": b2, "walls": {"f32c": walls_c, "pi": walls_p}}
+    return {"rk45": b1, "radau": b2, "walls": {"f32c": walls_c, "pi": walls_p}}, check_c
 
 
-# Phase 10: float64.  The whole script's aim, in seconds from its start:
-# (b)'s span is the longest of F64_SPANS (minutes) that keeps it inside.
+# The whole script's aim, in seconds from its start: the plain Radau checks
+# of phases 9b, 10b and 11 run over the longest of F64_SPANS (minutes) that
+# keeps it inside (plain_span_checks).
 F64_BUDGET_S = 1050.0
 F64_SPANS = (2880.0, 1440.0, 720.0, 360.0, 180.0, 90.0, 45.0)
 F64_MARGIN = 1.15  # on the predicted seconds of a plain Radau span
@@ -993,8 +1033,9 @@ def _read_files(folder: str, names) -> dict:
             for key, var in names}
 
 
-def float64_phase(smi: str) -> dict:
-    """Phase 10: the double instances; returns their instance records."""
+def float64_phase(smi: str) -> tuple:
+    """Phase 10: the default set's double instances; returns their instance
+    records and what 10b's plain Radau check needs (plain_span_checks)."""
     import copy
     import os
     import tempfile
@@ -1141,8 +1182,8 @@ def float64_phase(smi: str) -> dict:
               pool_bytes=geo["shared_bytes"], threads=geo["threads"], library_ms=None)
 
     # (b) B2's double instance on every system (a) flagged: its time over
-    # the 2 days, then the plain Radau over the longest leading span the
-    # budget allows.
+    # the 2 days and its worst system's attempts over each leading span;
+    # the plain Radau runs at the end (plain_span_checks).
     rows = torch.nonzero(ker.stiff).squeeze(1)
     sy0, sp_ = y0[rows].contiguous(), {k: v[rows].contiguous() for k, v in params.items()}
     sf, sh0 = forc.take_systems(rows), h0[rows].contiguous()
@@ -1158,41 +1199,412 @@ def float64_phase(smi: str) -> dict:
         return timed(lambda: fn(model, sy0, sh0, 0.0, span, sq, sp_, sf, cfg))
 
     worst = {span: int(span_run(span)[0].stats.n_attempts.max()) for span in F64_SPANS}
-    short = F64_SPANS[-1]
-    s_ref, s_plain_ms = span_run(short, plain=True)
-    s_ker, s_ms = span_run(short)
-    check_radau(f"phase 10b B2 embedded3/f64 vs radau_plain float64 ({rows.numel()} systems, "
-                f"first {short:g} min)", s_ker, s_ref)
-    per_attempt_ms = s_plain_ms / max(worst[short], 1)
-    predict_ms = max(per_attempt_ms, PLAIN_RADAU_MS)
-    left_s = F64_BUDGET_S - (time.perf_counter() - _T0)
-    span = next((x for x in F64_SPANS
-                 if x == short or worst[x] * predict_ms * 1e-3 * F64_MARGIN <= left_s), short)
-    phase(f"phase 10b span: radau_plain {per_attempt_ms:.3f} ms an attempt of the worst system "
-          f"(first {short:g} min), worst system's attempts by leading span (min) {worst}, "
-          f"{left_s:.1f} s left of F64_BUDGET_S {F64_BUDGET_S:g}: the check runs the first "
-          f"{span:g} min (predicted {worst[span] * predict_ms * 1e-3:.1f} s at {predict_ms:.3f} "
-          f"ms an attempt)")
-    if span != short:
-        s_ref, s_plain_ms = span_run(span, plain=True)
-        s_ker, s_ms = span_run(span)
-    r_err = check_radau(f"phase 10b B2 embedded3/f64 vs radau_plain float64 ({rows.numel()} "
-                        f"systems, first {span:g} of {tf:g} min, worst system "
-                        f"{int(s_ker.stats.n_attempts.max())} of its {r_worst} attempts)", s_ker, s_ref)
-    b2.update(ms=r_ms, max_abs_err=r_err, bound_ms=r_bnd[0], bound_by=r_bnd[1], attempts=r_att,
+    b2.update(ms=r_ms, bound_ms=r_bnd[0], bound_by=r_bnd[1], attempts=r_att,
               worst_system_attempts=r_worst, sweeps_per_attempt=r_swp / r_att, systems=rows.numel(),
-              check_span_min=span, check_span_ms=s_ms, plain_ms=s_plain_ms,
-              plain_ms_per_attempt=per_attempt_ms, worst_by_span=worst,
-              us_per_attempt=1e3 * r_ms / r_worst, library_ms=None)
+              worst_by_span=worst, us_per_attempt=1e3 * r_ms / r_worst, library_ms=None)
     phase(f"phase 10 kernel times (float64, rtol 1e-6 / atol 1e-9): B1 default/f64 {ms:.3f} ms vs "
           f"rk45_plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {F64_PEAK / 1e12:g} "
           f"TFLOP/s), {att} attempts, worst system {b1['worst_system_attempts']}, geometry {geo}; "
           f"B2 embedded3/f64 {r_ms:.3f} ms on {rows.numel()} systems over {DAYS:g} days, bound "
           f"{r_bnd[0]:.4f} ms ({r_bnd[1]}), {r_att} attempts, worst system {r_worst} "
-          f"({1e3 * r_ms / r_worst:.3f} us an attempt), {r_swp / r_att:.4f} sweeps an attempt; over "
-          f"the first {span:g} min B2 {s_ms:.3f} ms vs radau_plain {s_plain_ms:.3f} ms | {smi}")
-    phase(f"phase 10 took {time.perf_counter() - phase_start:.1f} s")
-    return {"rk45": b1, "radau": b2}
+          f"({1e3 * r_ms / r_worst:.3f} us an attempt), {r_swp / r_att:.4f} sweeps an attempt, "
+          f"worst system's attempts by leading span (min) {worst} | {smi}")
+    phase(f"phase 10 took {time.perf_counter() - phase_start:.1f} s (the plain Radau check at the end)")
+    check_b = dict(label=f"phase 10b B2 embedded3/f64 vs radau_plain float64 ({rows.numel()} systems",
+                   worst=worst, run=span_run, record=b2, prefix="", total=r_worst)
+    return {"rk45": b1, "radau": b2}, check_b
+
+
+def doubles_phase(smi: str) -> dict:
+    """Phase 10f: the double instances of the other option sets; returns
+    their records by instance name.
+
+    (main path) solve() in float64 at full width with each option set
+    (phase 9's tolerances), the launch counters set to 0 just before and
+    read just after; each instance's time at the main path's shapes; then
+    each against its float64 plain version bit for bit at phase 9a's
+    shapes and rules (B1 1,024 systems over 1 day, FSAL also against its
+    twin; B2 on the systems the default B1 flags there over the first 10
+    minutes, 'reference' at max_steps 300 and rtol 1e-3)."""
+    import dataclasses
+
+    from tiger_tpu_torch import Model204, SolverConfig, solve
+    from tiger_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tiger_tpu_torch.kernels import radau as k_radau
+    from tiger_tpu_torch.kernels import rk45 as k_rk45
+    from tiger_tpu_torch.scenario import STIFF_HU, scenario
+    from tiger_tpu_torch.solver.controller import initial_step
+
+    phase_start = time.perf_counter()
+    f64, dev, model = torch.float64, torch.device("cuda", 0), Model204()
+    base = SolverConfig(rtol=1e-5, atol=1e-8, max_steps=100_000)
+    b1_names = [n for n in B1_OPTIONS if n != "default"]
+    b2_names = [n for n in B2_OPTIONS if n != "embedded3"]
+    recs = {f"{n}/f64": {"library_ms": None} for n in b1_names + b2_names}
+
+    def cfg_of(name, **extra):
+        return dataclasses.replace(base, **{**B1_OPTIONS, **B2_OPTIONS}[name], **extra)
+
+    # The main path, at full width.
+    tf = DAYS * 1440.0
+    y0, params, forc = scenario(MAIN_SYSTEMS, DAYS, STIFF_FRAC, device=dev, dtype=f64)
+    qt = torch.arange(0.0, tf + 1e-9, 60.0, dtype=f64, device=dev)
+    hu_rows = params["Hu"] < STIFF_HU * 10
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    runs = {}
+    for name in b1_names + b2_names:
+        r = solve(model, y0, 0.0, tf, qt, params, forc, cfg_of(name))
+        runs[name] = (r.n_stiff, int(r.failed.sum()))
+        recs[f"{name}/f64"]["main_path_failed"] = runs[name][1]
+        if name in b1_names:
+            check(runs[name][1] == 0 and bool(torch.isfinite(r.y_final).all()),
+                  f"phase 10f: solve() float64 {name} failed {runs[name][1]} systems")
+        check(bool(r.stiff[hu_rows].all()), f"phase 10f {name}: a Hu=1e-6 row was not flagged stiff")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    counts = {**launches["rk45"], **launches["radau"]}
+    for inst in recs:
+        recs[inst]["launches"] = counts[inst]
+    phase(f"phase 10f solve() float64 with each other option set ({MAIN_SYSTEMS} systems, {DAYS:g} "
+          f"days, rtol 1e-5 / atol 1e-8; B2's report as data), (n_stiff, n_failed): {runs}; "
+          f"launches {launches} | {smi}")
+    check(all(recs[i]["launches"] > 0 for i in recs), f"phase 10f: a double instance was not launched: {counts}")
+
+    # Each instance's time at the main path's shapes (launches made to measure).
+    n_rows, n_q, n_q_after = forc.data.shape[0], qt.numel(), int((qt > 0.0).sum())
+    h0 = initial_step(model, y0, 0.0, params, forc, base)
+    for name in b1_names:
+        cfg = cfg_of(name)
+        ker, ms = timed(lambda: k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, cfg), reps=3)
+        att, options = int(ker.stats.n_attempts.sum()), k_rk45.rk45_options(cfg)
+        bnd = bound(b1_ops(att, int((~ker.stiff).sum()) * n_q_after, options),
+                    io_bytes(MAIN_SYSTEMS, n_rows, n_q, 5, real=8), F64_PEAK)
+        geo = k_rk45.rk45_geometry(MAIN_SYSTEMS, options, f64)
+        recs[f"{name}/f64"].update(ms=ms, bound_ms=bnd[0], bound_by=bnd[1], attempts=att,
+                                   worst_system_attempts=int(ker.stats.n_attempts.max()),
+                                   pool_bytes=geo["shared_bytes"], threads=geo["threads"])
+    rows = torch.nonzero(k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, base).stiff).squeeze(1)
+    sy0, sp = y0[rows].contiguous(), {k: v[rows].contiguous() for k, v in params.items()}
+    sf, sh0 = forc.take_systems(rows), h0[rows].contiguous()
+    for name in b2_names:
+        cfg = cfg_of(name)
+        ker, ms = timed(lambda: k_radau.radau(model, sy0, sh0, 0.0, tf, qt, sp, sf, cfg), reps=3)
+        att, swp = int(ker.stats.n_attempts.sum()), int(ker.stats.n_newton.sum())
+        extra = (B2_RADAU5_OPS if cfg.radau_error_mode == "radau5" else 0) + (
+            B2_PREDICTOR_OPS if cfg.radau_predictor else 0)
+        ops = att * (B2_ATTEMPT_OPS + extra) + swp * B2_SWEEP_OPS + rows.numel() * n_q_after * B2_QUERY_OPS
+        bnd = bound(ops, io_bytes(rows.numel(), n_rows, n_q, 6, real=8), F64_PEAK)
+        worst = int(ker.stats.n_attempts.max())
+        recs[f"{name}/f64"].update(ms=ms, bound_ms=bnd[0], bound_by=bnd[1], attempts=att,
+                                   worst_system_attempts=worst, us_per_attempt=1e3 * ms / worst,
+                                   failed=int(ker.failed.sum()), systems=rows.numel())
+    del y0, params, forc, qt, h0, sy0, sp, sf, sh0
+
+    # Each against its float64 plain version at phase 9a's shapes.
+    tf = OPTION_DAYS * 1440.0
+    y0, params, forc = scenario(OPTION_SYSTEMS, OPTION_DAYS, OPTION_STIFF, device=dev, dtype=f64)
+    qt = torch.arange(0.0, tf + 1e-9, 60.0, dtype=f64, device=dev)
+    h0 = initial_step(model, y0, 0.0, params, forc, base)
+    hu_rows = params["Hu"] < STIFF_HU * 10
+    n_rows, n_q, n_q_after = forc.data.shape[0], qt.numel(), int((qt > 0.0).sum())
+    results = {"default": k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, base)}
+    for name in b1_names:
+        cfg = cfg_of(name)
+        ker, ms = timed(lambda: k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, cfg), reps=3)
+        ref, plain_ms = timed(lambda: k_rk45.rk45_plain(model, y0, h0, 0.0, tf, qt, params, forc, cfg))
+        err = check_rk45(f"phase 10f B1 {name}/f64 vs rk45_plain float64 ({OPTION_SYSTEMS} systems, "
+                         f"{OPTION_DAYS:g} day)", ker, ref, hu_rows)
+        att = int(ker.stats.n_attempts.sum())
+        bnd = bound(b1_ops(att, int((~ker.stiff).sum()) * n_q_after, k_rk45.rk45_options(cfg)),
+                    io_bytes(OPTION_SYSTEMS, n_rows, n_q, 5, real=8), F64_PEAK)
+        recs[f"{name}/f64"].update(check_ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                                   check_bound_ms=bnd[0])
+        results[name] = ker
+        if cfg.fsal:
+            twin = "pi" if cfg.controller == "pi" else "default"
+            if twin not in results:
+                results[twin] = k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, cfg_of(twin))
+            diff = k_rk45.rk45_mismatch(ker, results[twin])
+            check(not any(diff.values()), f"phase 10f: FSAL/f64 differs from the {twin}/f64 instance: {diff}")
+    rows = torch.nonzero(results["default"].stiff).squeeze(1)
+    check(rows.numel() > 0, "phase 10f flagged no system")
+    sy0, sp = y0[rows].contiguous(), {k: v[rows].contiguous() for k, v in params.items()}
+    sf = forc.take_systems(rows)
+    qt_r = torch.arange(0.0, RADAU_CHECK_SPAN + 1e-9, 5.0, dtype=f64, device=dev)
+    n_q_r = int((qt_r > 0.0).sum())
+    for name in b2_names:
+        cfg = cfg_of(name, **(REFERENCE_CHECK if name.startswith("reference") else {}))
+        sh0 = initial_step(model, sy0, 0.0, sp, sf, cfg)
+        ker, ms = timed(lambda: k_radau.radau(model, sy0, sh0, 0.0, RADAU_CHECK_SPAN, qt_r, sp, sf, cfg),
+                        reps=3)
+        ref, plain_ms = timed(lambda: k_radau.radau_plain(model, sy0, sh0, 0.0, RADAU_CHECK_SPAN, qt_r,
+                                                          sp, sf, cfg))
+        err = check_radau(f"phase 10f B2 {name}/f64 vs radau_plain float64 ({rows.numel()} systems, "
+                          f"first {RADAU_CHECK_SPAN:g} min)", ker, ref, may_fail=name in B2_MAY_FAIL)
+        att, swp = int(ker.stats.n_attempts.sum()), int(ker.stats.n_newton.sum())
+        extra = (B2_RADAU5_OPS if cfg.radau_error_mode == "radau5" else 0) + (
+            B2_PREDICTOR_OPS if cfg.radau_predictor else 0)
+        bnd = bound(att * (B2_ATTEMPT_OPS + extra) + swp * B2_SWEEP_OPS + rows.numel() * n_q_r * B2_QUERY_OPS,
+                    io_bytes(rows.numel(), n_rows, qt_r.numel(), 6, real=8), F64_PEAK)
+        recs[f"{name}/f64"].update(check_ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                                   check_bound_ms=bnd[0])
+    phase(f"phase 10f the double instances (main path: {MAIN_SYSTEMS} systems for B1, the default "
+          f"B1's stiff ones for B2, {DAYS:g} days, rtol 1e-5 / atol 1e-8: ms, bound_ms; against the "
+          f"plain versions: B1 {OPTION_SYSTEMS} systems over {OPTION_DAYS:g} day, B2 {rows.numel()} "
+          f"systems over {RADAU_CHECK_SPAN:g} min: check_ms, plain_ms, check_bound_ms): {recs} | {smi}")
+    phase(f"phase 10f took {time.perf_counter() - phase_start:.1f} s")
+    return recs
+
+
+def cli_pi_phase(smi: str) -> dict:
+    """Phase 10g: the CLI at full width with solver.controller pi and no
+    solver.precision (so f64); returns its launches by instance."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from tiger_tpu_torch import routing
+    from tiger_tpu_torch.config import config_from_dict
+    from tiger_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tiger_tpu_torch.profiling import Metrics
+    from tiger_tpu_torch.run import run
+    from tiger_tpu_torch.scenario import solve_written_basin, write_basin
+
+    outputs = (("final", "outputs"), ("dense", "outputs"), ("discharge", "discharge"),
+               ("state", "outputs"))
+    with tempfile.TemporaryDirectory(prefix="tiger_f64_pi_") as tmp:
+        doc = write_basin(os.path.join(tmp, "basin"), MAIN_SYSTEMS, DAYS, STIFF_FRAC)
+        doc["solver"] = {"method": "RK45", "controller": "pi"}
+        cfg = config_from_dict(doc)
+        check(cfg.solver.precision == "f64" and cfg.solver_config().controller == "pi",
+              "phase 10g: the config is not f64 with the PI controller")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        run(cfg, metrics=Metrics())  # warm-up
+        metrics = Metrics()
+        start = time.perf_counter()
+        out = run(cfg, metrics=metrics)
+        wall = time.perf_counter() - start
+        launches = launch_counts()
+        direct, cli_params, sp = solve_written_basin(cfg, "cuda")
+        topo = routing.build_topology(sp["stream"], sp["next_stream"])
+        y_direct = direct.y_final.cpu().numpy()
+        want = {"dense": direct.dense.cpu().numpy(), "final": y_direct, "state": y_direct,
+                "discharge": routing.routed_discharge(direct.dense, cli_params, topo).cpu().numpy()}
+        got = _read_files(cfg.output.path, outputs)
+        same = {k: bool(got[k].dtype == np.float64 and np.array_equal(got[k], want[k])) for k in want}
+    phase(f"phase 10g CLI with solver.controller pi and no solver.precision ({MAIN_SYSTEMS} links, "
+          f"{DAYS:g} days, f64 at rtol 1e-6 / atol 1e-9): wall {wall:.6f} s, phases_s "
+          f"{ {k: round(v, 6) for k, v in metrics.phases.items()} }, n_stiff {out['n_stiff']}, "
+          f"n_failed {out['n_failed']}, launches {launches}; float64 files equal solve() and "
+          f"routed_discharge() bit for bit {same} | {smi}")
+    check(out["n_failed"] == 0, f"phase 10g: {out['n_failed']} links failed")
+    check(launches["rk45"]["pi/f64"] > 0 and launches["radau"]["embedded3/f64"] > 0,
+          f"phase 10g: the PI double instance was not launched: {launches}")
+    check(all(same.values()), f"phase 10g: the run's files differ from the direct path: {same}")
+    return launches
+
+
+def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, a NaN equal to a NaN in the same place."""
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+def retry_phase(smi: str, failing: list) -> tuple:
+    """Phase 11: solve()'s float64 retry of the systems B2 fails, at full
+    width, for each B2 option set in ``failing``; returns its records and
+    what check 2's plain runs need (plain_span_checks)."""
+    import dataclasses
+
+    from tiger_tpu_torch import Model204, SolverConfig, solve
+    from tiger_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tiger_tpu_torch.kernels import radau as k_radau
+    from tiger_tpu_torch.kernels import rk45 as k_rk45
+    from tiger_tpu_torch.scenario import scenario
+    from tiger_tpu_torch.solver import api
+    from tiger_tpu_torch.solver.controller import initial_step
+
+    phase_start = time.perf_counter()
+    dev, model, f64 = torch.device("cuda", 0), Model204(), torch.float64
+    base = SolverConfig(rtol=1e-5, atol=1e-8, max_steps=100_000)
+    tf = DAYS * 1440.0
+    y0, params, forc = scenario(MAIN_SYSTEMS, DAYS, STIFF_FRAC, device=dev)
+    qt = torch.arange(0.0, tf + 1e-9, 60.0, dtype=torch.float32, device=dev)
+    qt64 = qt.double()
+    records, check_2 = {}, None
+
+    def walls(cfg, retry: bool) -> list:
+        real = api.retries_in_f64
+        if not retry:
+            api.retries_in_f64 = lambda y: False
+        try:
+            out = []
+            for i in range(1, 4):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                solve(model, y0 + i * 1e-7, 0.0, tf, qt, params, forc, cfg)
+                torch.cuda.synchronize()
+                out.append(time.perf_counter() - start)
+            return out
+        finally:
+            api.retries_in_f64 = real
+
+    for name in failing:
+        cfg = dataclasses.replace(base, **B2_OPTIONS[name])
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        res = solve(model, y0, 0.0, tf, qt, params, forc, cfg)
+        torch.cuda.synchronize()
+        launches = {k: {i: n for i, n in c.items() if n} for k, c in launch_counts().items()}
+
+        # Check 1: the chain by hand through the kernels.
+        h0 = initial_step(model, y0, 0.0, params, forc, cfg)
+        rk = k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, cfg)
+        rows = torch.nonzero(rk.stiff).squeeze(1)
+        rd = k_radau.radau(model, y0[rows], h0[rows], 0.0, tf, qt,
+                           {k: v[rows] for k, v in params.items()}, forc.take_systems(rows), cfg)
+        lost = rows[rd.failed]
+        y64, h64 = y0[lost].double(), h0[lost].double()
+        p64, f_l = {k: v[lost].double() for k, v in params.items()}, forc.take_systems(lost)
+        rk2 = k_rk45.rk45(model, y64, h64, 0.0, tf, qt64, p64, f_l, cfg)
+        done_rel = torch.nonzero(~rk2.stiff).squeeze(1)
+        still_rel = torch.nonzero(rk2.stiff).squeeze(1)
+        done, still = lost[done_rel], lost[still_rel]
+        rd2 = k_radau.radau(model, y64[still_rel], h64[still_rel], 0.0, tf, qt64,
+                            {k: v[still_rel] for k, v in p64.items()}, f_l.take_systems(still_rel), cfg)
+        want_y, want_d, want_f = rk.y_final.clone(), rk.dense.clone(), rk.failed.clone()
+        ok = ~rd.failed
+        want_y[rows[ok]], want_d[rows[ok]] = rd.y_final[ok], rd.dense[ok]
+        want_f[rows] = rd.failed
+        want_y[done], want_d[done], want_f[done] = (rk2.y_final[done_rel].float(),
+                                                   rk2.dense[done_rel].float(), rk2.failed[done_rel])
+        want_y[still], want_d[still], want_f[still] = rd2.y_final.float(), rd2.dense.float(), rd2.failed
+        same = {"y_final": _bit_equal(res.y_final, want_y), "dense": _bit_equal(res.dense, want_d),
+                "failed": bool(torch.equal(res.failed, want_f)),
+                "stiff": bool(torch.equal(res.stiff, rk.stiff))}
+        # Check 3: a system the retry leaves failed is one B2's double
+        # instance fails on its own.
+        left = set(torch.nonzero(res.failed).squeeze(1).tolist())
+        b2_lost = set(still[rd2.failed].tolist())
+
+        solve(model, y0, 0.0, tf, qt, params, forc, cfg)  # warm-up of the walls
+        w_retry, w_plain = walls(cfg, True), walls(cfg, False)
+        rec = dict(n_stiff=res.n_stiff, failed_f32=lost.numel(), resolved_by_b1_f64=done.numel(),
+                   taken_by_b2_f64=still.numel(), n_failed=len(left), failed_by_b2_f64=len(b2_lost),
+                   launches=launches, wall_s=sorted(w_retry)[1], wall_min_max_s=(min(w_retry), max(w_retry)),
+                   wall_without_retry_s=sorted(w_plain)[1],
+                   wall_without_retry_min_max_s=(min(w_plain), max(w_plain)))
+        records[name] = rec
+        phase(f"phase 11 solve() float32 {name} with the float64 retry ({MAIN_SYSTEMS} systems, "
+              f"{DAYS:g} days, {qt.numel()} queries, rtol 1e-5 / atol 1e-8): {rec}; equal bit for "
+              f"bit to the chain by hand through the kernels {same} | {smi}")
+        check(all(same.values()), f"phase 11 {name}: solve() differs from the chain by hand: {same}")
+        check(left == b2_lost, f"phase 11 {name}: failed after the retry {sorted(left)} but B2's "
+                               f"double instance fails {sorted(b2_lost)}")
+        check(lost.numel() > 0, f"phase 11 {name}: the float32 Radau failed no system")
+        check(launches["rk45"].get("default/f64", 0) == 1
+              and launches["radau"].get(k_radau.instance_name(cfg, f64), 0) == (1 if still.numel() else 0),
+              f"phase 11 {name}: launches {launches}")
+        if name == "radau5+predictor":
+            check_2 = dict(cfg=cfg, lost=lost, y0=y0, h0=h0, params=params, forc=forc, qt64=qt64,
+                           record=rec)
+    del y0, params, forc
+    phase(f"phase 11 took {time.perf_counter() - phase_start:.1f} s (check 2's plain runs at the end)")
+    return records, check_2
+
+
+def plain_span_checks(smi: str, radau_checks: dict, check_2: dict | None) -> None:
+    """The plain Radau checks that would take minutes over the full 2 days,
+    all over one leading span: the longest of F64_SPANS whose predicted
+    time keeps the script inside F64_BUDGET_S.  ``radau_checks`` holds
+    phase 9b's (B2 embedded3 at rtol 1e-6 on the systems compensated B1
+    flags) and phase 10b's (B2 embedded3/f64 on the systems 10a flags):
+    each kernel against radau_plain; ``check_2`` phase 11's, the retried
+    rows of radau5 with the predictor against the retry's chain through
+    rk45_plain and radau_plain in float64."""
+    from tiger_tpu_torch import Model204
+    from tiger_tpu_torch.kernels import radau as k_radau
+    from tiger_tpu_torch.kernels import rk45 as k_rk45
+    from tiger_tpu_torch.solver import api
+
+    model, short = Model204(), F64_SPANS[-1]
+
+    def retry_run(span, plain=False):
+        c = check_2
+        sq = c["qt64"][c["qt64"] <= span + 1e-9]
+        if not plain:
+            return timed(lambda: api.retry_failed_f64(model, c["y0"], c["h0"], 0.0, span, sq,
+                                                      c["params"], c["forc"], c["cfg"], 0.0, c["lost"]))
+        # The retry's chain through the plain versions.
+        lost, cfg = c["lost"], c["cfg"]
+        y, h = c["y0"][lost].double(), c["h0"][lost].double()
+        p, f = {k: v[lost].double() for k, v in c["params"].items()}, c["forc"].take_systems(lost)
+
+        def chain():
+            rk = k_rk45.rk45_plain(model, y, h, 0.0, span, sq, p, f, cfg)
+            done, st = torch.nonzero(~rk.stiff).squeeze(1), torch.nonzero(rk.stiff).squeeze(1)
+            rd = k_radau.radau_plain(model, y[st], h[st], 0.0, span, sq, {k: v[st] for k, v in p.items()},
+                                     f.take_systems(st), cfg)
+            return api.Retry(torch.cat([lost[done], lost[st]]), torch.cat([rk.y_final[done], rd.y_final]),
+                             torch.cat([rk.dense[done], rd.dense]), torch.cat([rk.failed[done], rd.failed]),
+                             lost[st], rd.stats)
+        return timed(chain)
+
+    def worst_of(out) -> int:
+        return 0 if out.radau_stats is None else int(out.radau_stats.n_attempts.max())
+
+    checks = {key: dict(c) for key, c in radau_checks.items()}
+    if check_2 is not None:
+        checks["11"] = dict(run=retry_run, record=check_2["record"], prefix="",
+                            worst={span: worst_of(retry_run(span)[0]) for span in F64_SPANS})
+    per_ms, done = {}, {}
+    for key, c in checks.items():  # each check over the shortest span first
+        (ref, plain_ms), (ker, ms) = c["run"](short, plain=True), c["run"](short)
+        done[key] = (ref, plain_ms), (ker, ms), _check_span(key, short, ker, ref, c)
+        per_ms[key] = max(plain_ms / max(c["worst"][short], 1), PLAIN_RADAU_MS)
+    left_s = F64_BUDGET_S - (time.perf_counter() - _T0)
+    predict = {span: sum(c["worst"][span] * per_ms[k] for k, c in checks.items()) * 1e-3
+               for span in F64_SPANS}
+    span = next((x for x in F64_SPANS if x == short or predict[x] * F64_MARGIN <= left_s), short)
+    phase(f"phase 9b/10b/11 span: plain Radau ms an attempt of the worst system (first {short:g} "
+          f"min, at least PLAIN_RADAU_MS) {per_ms}, worst system's attempts by leading span (min) "
+          f"{ {k: c['worst'] for k, c in checks.items()} }, {left_s:.1f} s left of F64_BUDGET_S "
+          f"{F64_BUDGET_S:g}: the checks run the first {span:g} min (predicted {predict[span]:.1f} s)")
+    for key, c in checks.items():
+        if span == short:
+            (ref, plain_ms), (ker, ms), err = done[key]
+        else:
+            (ref, plain_ms), (ker, ms) = c["run"](span, plain=True), c["run"](span)
+            err = _check_span(key, span, ker, ref, c)
+        c["record"].update({c["prefix"] + k: v for k, v in dict(
+            check_span_min=span, check_span_ms=ms, plain_ms=plain_ms, max_abs_err=err,
+            plain_ms_per_attempt=per_ms[key]).items()})
+        phase(f"phase {key} over the first {span:g} of {DAYS * 1440.0:g} min: kernels {ms:.3f} ms vs "
+              f"plain {plain_ms:.3f} ms, max_abs_err {err:.3e} | {smi}")
+
+
+def _check_span(key, span, ker, ref, c) -> float:
+    """One of plain_span_checks' checks over one leading span."""
+    if key != "11":
+        return check_radau(f"{c['label']}, first {span:g} min, worst system "
+                           f"{int(ker.stats.n_attempts.max())} of its {c['total']} attempts)", ker, ref)
+    label = f"phase 11 check 2: the retry of radau5+predictor vs the plain chain float64, first {span:g} min"
+    check(ker.radau_rows is not None and ref.radau_rows is not None, f"{label}: no row reached B2")
+    same = {"rows": bool(torch.equal(ker.rows, ref.rows)),
+            "radau_rows": bool(torch.equal(ker.radau_rows, ref.radau_rows)),
+            "y_final": _bit_equal(ker.y_final, ref.y_final), "dense": _bit_equal(ker.dense, ref.dense),
+            "failed": bool(torch.equal(ker.failed, ref.failed)),
+            "radau_stats": all(bool(torch.equal(a, b)) for a, b in zip(ker.radau_stats, ref.radau_stats))}
+    err = max(max_abs(torch.nan_to_num(ker.y_final), torch.nan_to_num(ref.y_final)),
+              max_abs(torch.nan_to_num(ker.dense), torch.nan_to_num(ref.dense)))
+    phase(f"{label}: {ker.rows.numel()} rows, {ker.radau_rows.numel()} through B2, failed "
+          f"{int(ker.failed.sum())}, worst system {int(ker.radau_stats.n_attempts.max())} attempts, "
+          f"max_abs_err {err:.3e}, equal {same}")
+    check(all(same.values()) and err == 0.0, f"{label}: differs: {same}")
+    return err
 
 
 def main() -> None:
@@ -1355,12 +1767,23 @@ def main() -> None:
     windowed_launches = windowed_phase(smi)
 
     # 9. the solver options (their own launch counts)
-    instances = options_phase(smi)
+    instances, check_c = options_phase(smi)
 
-    # 10. float64 (its own launch counts)
-    doubles = float64_phase(smi)
+    # 10. float64 (its own launch counts): the default set's double
+    # instances, then (f) the other sets', and (g) the CLI with PI in f64
+    doubles, check_b = float64_phase(smi)
     instances["rk45"]["default/f64"] = doubles["rk45"]
     instances["radau"]["embedded3/f64"] = doubles["radau"]
+    for inst, rec in doubles_phase(smi).items():
+        instances["rk45" if inst.split("/")[0] in B1_OPTIONS else "radau"][inst] = rec
+    cli_pi_launches = cli_pi_phase(smi)
+
+    # 11. the float64 retry of B2's failures (its own launch counts), then
+    # the plain Radau checks of phases 10b and 11 over one leading span
+    failing = [n for n, r in instances["radau"].items() if r.get("main_path_failed_f32")]
+    retry, check_2 = retry_phase(smi, failing)
+    check(check_2 is not None, f"phase 11: radau5+predictor failed no system in float32 ({failing})")
+    plain_span_checks(smi, {"9b": check_c, "10b": check_b}, check_2)
 
     say(json.dumps({"kernels": [
         {"name": "rk45", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/rk45.cu",
@@ -1369,13 +1792,15 @@ def main() -> None:
          "bound_by": bound_b1[1], "library_ms": None, "worst_system_attempts": worst_b1,
          "tail_systems": TAIL_SYSTEMS, "tail_ms": tail_b1, "lane_efficiency": lane_eff,
          "geometry": geo, "cli_launches": cli_launches["rk45"],
-         "windowed_launches": windowed_launches["rk45"], "instances": instances["rk45"]},
+         "windowed_launches": windowed_launches["rk45"], "cli_pi_launches": cli_pi_launches["rk45"],
+         "instances": instances["rk45"]},
         {"name": "radau", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/radau.cu",
          "replaces": "tiger_tpu/kernels/radau_pallas.py:987", "launches": launches["radau"],
          "max_abs_err": err_b2, "ms": ms_b2, "plain_ms": plain_b2, "bound_ms": bound_b2[0],
          "bound_by": bound_b2[1], "library_ms": None, "worst_system_attempts": worst_b2,
          "sweeps_per_attempt": swp_b2 / att_b2, "cli_launches": cli_launches["radau"],
-         "windowed_launches": windowed_launches["radau"], "instances": instances["radau"]},
+         "windowed_launches": windowed_launches["radau"], "instances": instances["radau"],
+         "retry": retry},
     ]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -206,16 +206,12 @@ def test_states_subset_and_csv_format(scenario, tmp_path):
     assert a.shape == (49, 1 + 2 * scenario["n_sys"])
 
 
-def _refused(scenario, tmp_path, device="cpu", **changes):
+def _refused(scenario, tmp_path, **changes):
     _, cfg = _configs(scenario, tmp_path, **changes)
-    return lambda: run(cfg, device=device)
+    return lambda: run(cfg, device="cpu")
 
 
 REFUSED = {
-    # float64 on the card runs the default options only (the double
-    # instances); the PI controller there waits for #9c.
-    "f64_pi_on_the_card": (dict(solver__precision="f64", solver__controller="pi",
-                                device="cuda"), "#9c"),
     "model_200": (dict(model__uid=200), "#10"),
 }
 
@@ -263,24 +259,29 @@ def test_unported_options_raise(scenario, tmp_path, case):
     assert not (tmp_path / "torch").exists()  # refused before any output
 
 
-@pytest.mark.parametrize("precision", ["f64", "default"])
-def test_f64_on_the_card_is_not_refused(scenario, tmp_path, precision):
-    """solver.precision f64, the default, passes the port's refusals on the
-    card (``_refuse_unported`` sees the device; no card is needed)."""
-    import torch
+# Configs that run float64 on the card, each option set through a double
+# instance of the kernels.
+F64_ON_THE_CARD = {
+    "f64": dict(solver__precision="f64"),
+    "default": {},
+    "f64_pi": dict(solver__precision="f64", solver__controller="pi"),
+}
 
+
+@pytest.mark.parametrize("case", sorted(F64_ON_THE_CARD))
+def test_f64_on_the_card_is_not_refused(scenario, tmp_path, case):
+    """solver.precision f64, the default, passes the port's refusals with
+    either controller, as float32 does (``_refuse_unported`` refuses
+    nothing by device: the card runs every option set in float64 as the CPU
+    does)."""
     from tiger_tpu_torch.run import _refuse_unported
 
-    changes = {} if precision == "default" else {"solver__precision": precision}
-    _, cfg = _configs(scenario, tmp_path, **changes)
+    _, cfg = _configs(scenario, tmp_path, **F64_ON_THE_CARD[case])
     assert cfg.solver.precision == "f64"
-    _refuse_unported(cfg, torch.device("cuda"))
-    cfg.solver.controller = "pi"
-    with pytest.raises(NotImplementedError, match=r"controller='pi'.*ROADMAP Queue 1 #9c"):
-        _refuse_unported(cfg, torch.device("cuda"))
-    _refuse_unported(cfg, torch.device("cpu"))  # the CPU runs every option in float64
+    assert cfg.solver_config().controller == ("pi" if case == "f64_pi" else "i")
+    _refuse_unported(cfg)
     cfg.solver.precision = "f32"
-    _refuse_unported(cfg, torch.device("cuda"))  # and the card in float32
+    _refuse_unported(cfg)
 
 
 def test_several_processes_raise(scenario, tmp_path, monkeypatch):

@@ -30,7 +30,7 @@ from tiger_tpu.solver.controller import initial_step as j_initial_step
 from tiger_tpu_torch import convert
 from tiger_tpu_torch.forcing import ZOH_SNAP, ForcingSet, gather_forcings_column, zoh_step_cap
 from tiger_tpu_torch.kernels import _common as k_common
-from tiger_tpu_torch.kernels import launch_totals, reset_launch_counts
+from tiger_tpu_torch.kernels import launch_counts, launch_totals, reset_launch_counts
 from tiger_tpu_torch.kernels import radau as k_radau
 from tiger_tpu_torch.kernels import rk45 as k_rk45
 from tiger_tpu_torch.models import PARAM_FIELDS, Y0_COMMON, Model204
@@ -372,32 +372,34 @@ def test_kernel_inputs_refuse_mixed_dtypes(case):
 
 
 F64_OPTION_SETS = {
-    "default": ({}, []),
-    "fsal": (dict(fsal=True), ["fsal=True"]),
-    "compensated": (dict(compensated=True), ["compensated=True"]),
-    "pi": (dict(controller="pi"), ["controller='pi'"]),
-    "predictor": (dict(radau_predictor=True), ["radau_predictor=True"]),
-    "radau5": (dict(radau_error_mode="radau5"), ["radau_error_mode='radau5'"]),
-    "reference": (dict(radau_error_mode="reference"), ["radau_error_mode='reference'"]),
-    "fsal_pi_predictor": (dict(fsal=True, controller="pi", radau_predictor=True),
-                          ["fsal=True", "controller='pi'", "radau_predictor=True"]),
+    "default": {},
+    "fsal": dict(fsal=True),
+    "compensated": dict(compensated=True),
+    "pi": dict(controller="pi"),
+    "predictor": dict(radau_predictor=True),
+    "radau5": dict(radau_error_mode="radau5"),
+    "reference": dict(radau_error_mode="reference"),
+    "fsal_pi_predictor": dict(fsal=True, controller="pi", radau_predictor=True),
 }
 
 
 @pytest.mark.parametrize("case", sorted(F64_OPTION_SETS))
-def test_float64_unported_names_the_sets_without_a_double_instance(case):
-    """The kernels' double instances run the default option set; every
-    other option is named (solve() and run() refuse it on the card in
-    float64, ROADMAP Queue 1 #9c), each under the kernel it belongs to."""
-    from tiger_tpu_torch.solver.config import float64_unported, require_supported
+def test_float64_runs_every_option_set(case):
+    """Each kernel has a double instance of every option set, so float64
+    takes each of them on the card as float32 does: the solvers accept it,
+    and each wrapper counts it under the float instance's name with
+    '/f64'."""
+    from tiger_tpu_torch.solver.config import require_supported
 
-    options, want = F64_OPTION_SETS[case]
-    cfg = SolverConfig(**options)
-    assert float64_unported(cfg) == want
-    assert float64_unported(cfg, ("rk45",)) + float64_unported(cfg, ("radau",)) == want
-    # CPU tensors run every option set in float64: nothing refuses them.
+    cfg = SolverConfig(**F64_OPTION_SETS[case])
     for solver in ("rk45", "radau"):
-        require_supported(cfg, solver, torch.ones((2, 5), dtype=torch.float64))
+        require_supported(cfg, solver)
+    counts = launch_counts()
+    b1 = k_rk45.INSTANCES[k_rk45.rk45_options(cfg)]
+    assert k_rk45.F64_INSTANCES[k_rk45.rk45_options(cfg)] == b1 + "/f64"
+    b2 = k_radau.instance_name(cfg, torch.float64)
+    assert b2 == k_radau.instance_name(cfg) + "/f64"
+    assert b1 + "/f64" in counts["rk45"] and b2 in counts["radau"]
 
 
 @pytest.mark.parametrize(
@@ -488,7 +490,7 @@ def test_model_registry_matches_jax():
 def test_every_legal_option_set_has_a_kernel_instance():
     """Every SolverConfig that validation accepts picks a float instance of
     B1 and of B2, and together they reach all twelve; the launch counters
-    hold those and the double instances of the default set."""
+    hold those and their double twins, and nothing else."""
     import itertools
 
     from tiger_tpu_torch.kernels import radau as k_radau
@@ -509,5 +511,5 @@ def test_every_legal_option_set_has_a_kernel_instance():
         b2.add(k_radau.instance_name(cfg))
     assert b1 == set(k_rk45.INSTANCES.values()) and len(b1) == 6
     assert len(b2) == 6
-    assert set(k_rk45.rk45_launches) == b1 | {"default/f64"}
-    assert set(k_radau.radau_launches) == b2 | {"embedded3/f64"}
+    assert set(k_rk45.rk45_launches) == b1 | {name + "/f64" for name in b1}
+    assert set(k_radau.radau_launches) == b2 | {name + "/f64" for name in b2}

@@ -490,7 +490,7 @@ def test_f32c_run_equals_a_direct_solve(tmp_path):
         assert np.array_equal(got, want.cpu().numpy()), name
 
 
-# ---- float64: the double instances of the default option set ---------------
+# ---- float64: the double instances -----------------------------------------
 
 
 def _double(y0, p, f, qt):
@@ -587,33 +587,71 @@ def test_radau_f64_keeps_a_nan_in_the_warp_maxima(stiff_case):
     assert int(ker.stats.n_accepted[0]) == 0
 
 
-# Option sets with no double instance (ROADMAP Queue 1 #9c), per kernel.
-NO_F64_INSTANCE = {
-    "rk45_fsal": ("rk45", dict(fsal=True)),
-    "rk45_pi": ("rk45", dict(controller="pi")),
-    "rk45_compensated": ("rk45", dict(compensated=True)),
-    "radau_predictor": ("radau", dict(radau_predictor=True)),
-    "radau_radau5": ("radau", dict(radau_error_mode="radau5")),
-    "radau_reference": ("radau", dict(radau_error_mode="reference")),
-}
-
-
-@pytest.mark.parametrize("name", sorted(NO_F64_INSTANCE))
-def test_f64_option_set_without_an_instance_raises(case64, name):
-    """In float64 the C dispatcher refuses a set without a double instance
-    and the wrapper raises naming #9c, launching nothing; solve() refuses
-    it before any launch.  Nothing falls back to the plain version."""
+@pytest.mark.parametrize("name", sorted(RK45_INSTANCES))
+def test_rk45_f64_option_instance_equals_plain(case64, name):
+    """Each option instance's double twin equals rk45_plain in float64 bit
+    for bit (512 systems: a pool's share passes through its slots), and
+    FSAL's the default double instance; each is counted under its name."""
     y0, p, f, qt = case64
-    kernel, options = NO_F64_INSTANCE[name]
-    cfg = dataclasses.replace(CFG, **options)
-    h0 = initial_step(Model204(), y0, 0.0, p, f, CFG)
-    wrapper = k_rk45.rk45 if kernel == "rk45" else k_radau.radau
-    before = launch_totals()
-    with pytest.raises(NotImplementedError, match="#9c"):
-        wrapper(Model204(), y0, h0, 0.0, TF, qt, p, f, cfg)
-    with pytest.raises(NotImplementedError, match="#9c"):
-        solve(Model204(), y0, 0.0, TF, qt, p, f, cfg)
-    assert launch_totals() == before
+    cfg = dataclasses.replace(CFG, **RK45_INSTANCES[name])
+    h0 = initial_step(Model204(), y0, 0.0, p, f, cfg)
+    instance = k_rk45.F64_INSTANCES[k_rk45.rk45_options(cfg)]
+    before = k_rk45.rk45_launches[instance]
+    ker = k_rk45.rk45(Model204(), y0, h0, 0.0, TF, qt, p, f, cfg)
+    ref = k_rk45.rk45_plain(Model204(), y0, h0, 0.0, TF, qt, p, f, cfg)
+    torch.cuda.synchronize()
+    assert k_rk45.rk45_launches[instance] == before + 1
+    assert ker.y_final.dtype == torch.float64
+    _assert_rk45_equal(ker, ref)
+    assert bool(ker.stiff[p["Hu"] < 1e-5].all())
+    if cfg.fsal:
+        without = k_rk45.rk45(Model204(), y0, h0, 0.0, TF, qt, p, f, dataclasses.replace(cfg, fsal=False))
+        torch.cuda.synchronize()
+        _assert_rk45_equal(ker, without)
+
+
+@pytest.mark.parametrize("name", sorted(RADAU_INSTANCES))
+def test_radau_f64_option_instance_equals_plain(stiff_case, name):
+    """Each option instance's double twin equals radau_plain in float64 bit
+    for bit on 33 stiff systems over the first half hour, counted under its
+    name."""
+    y0, p, f, qt = _double(*_first(stiff_case, 33))
+    cfg = dataclasses.replace(CFG, **RADAU_INSTANCES[name])
+    h0 = initial_step(Model204(), y0, 0.0, p, f, cfg)
+    instance = k_radau.instance_name(cfg, torch.float64)
+    before = k_radau.radau_launches[instance]
+    ker = _radau_pair(Model204(), y0, h0, qt, p, f, cfg)
+    assert k_radau.radau_launches[instance] == before + 1
+    assert ker.y_final.dtype == torch.float64
+
+
+def test_solve_f32_retries_radau_failures_in_f64(stiff_case):
+    """A float32 solve() on the card retries the systems B2 fails through
+    the double instances of the same config (radau5 with the predictor and
+    radau_max_rejects 2 fail stiff systems in float32): each retried row
+    equals the chain run by hand through the kernels, cast to float32."""
+    y0, p, f, qt = _first(stiff_case, 33)
+    cfg = dataclasses.replace(CFG, radau_error_mode="radau5", radau_predictor=True,
+                              radau_max_rejects=2)
+    reset_launch_counts()
+    res = solve(Model204(), y0, 0.0, SPAN, qt, p, f, cfg)
+    h0 = initial_step(Model204(), y0, 0.0, p, f, cfg)
+    rk = k_rk45.rk45(Model204(), y0, h0, 0.0, SPAN, qt, p, f, cfg)
+    rows = torch.nonzero(rk.stiff).squeeze(1)
+    rd = k_radau.radau(Model204(), y0[rows], h0[rows], 0.0, SPAN, qt,
+                       {k: v[rows] for k, v in p.items()}, f.take_systems(rows), cfg)
+    lost = rows[rd.failed]
+    assert lost.numel() > 0, "no system failed in float32: nothing to retry"
+    from tiger_tpu_torch.solver.api import retry_failed_f64
+
+    retry = retry_failed_f64(Model204(), y0, h0, 0.0, SPAN, qt.double(), p, f, cfg, 0.0, lost)
+    assert retry.radau_rows is not None  # B1 flags the stiff systems again
+    assert k_rk45.rk45_launches["default/f64"] == k_radau.radau_launches["radau5+predictor/f64"] == 2
+    assert torch.equal(res.failed[retry.rows], retry.failed)
+    for got, want in ((res.y_final, retry.y_final), (res.dense, retry.dense)):
+        got, want = got[retry.rows], want.float()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
 
 
 def test_solve_f64_on_card(case64):

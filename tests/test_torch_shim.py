@@ -128,19 +128,22 @@ def test_schedule_changes_no_result(shim_lib, monkeypatch, n_sys, name, dtype):
         assert bool(alone.stiff[p["Hu"] < 1e-5].all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("name", sorted(RK45_INSTANCES))
-def test_option_instance_schedule_changes_no_result(shim_lib, monkeypatch, name):
-    """Each option instance (its pool rows k0, y_c and facold stored and
-    loaded between slices) gives every system the result it gets alone,
-    and the FSAL instances give the default instances' results: bit for
-    bit, 100 systems over 6 hours with stiff rows and hourly rain."""
+def test_option_instance_schedule_changes_no_result(shim_lib, monkeypatch, name, dtype):
+    """Each option instance, float and double (its pool rows k0, y_c and
+    facold stored and loaded between slices), gives every system the result
+    it gets alone, and the FSAL instances give the default instances'
+    results: bit for bit, 100 systems over 6 hours with stiff rows and
+    hourly rain."""
     cfg = dataclasses.replace(CFG, **RK45_INSTANCES[name])
     model = Model204()
-    y0, p, f = scenario(100, TF / 1440.0, 0.05, device="cpu")
-    qt = torch.arange(0.0, TF + 1e-9, 60.0)
+    y0, p, f = scenario(100, TF / 1440.0, 0.05, device="cpu", dtype=dtype)
+    qt = torch.arange(0.0, TF + 1e-9, 60.0, dtype=dtype)
     h0 = initial_step(model, y0, 0.0, p, f, cfg)
     pooled = _run(shim_lib, monkeypatch, "tt_rk45_launch", model, y0, h0, qt, p, f, cfg)
     alone = _run(shim_lib, monkeypatch, "tt_rk45_serial", model, y0, h0, qt, p, f, cfg)
+    assert pooled.y_final.dtype == dtype
     diff = k_rk45.rk45_mismatch(pooled, alone)
     assert not any(diff.values()), diff
     assert bool(alone.stiff[p["Hu"] < 1e-5].all())

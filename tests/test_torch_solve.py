@@ -111,8 +111,9 @@ def test_radau_resolves_flagged_rows_float64():
 
 
 def test_radau_failure_is_reported_failed():
-    """No float64 retry in the port: a system Radau fails must come out
-    failed, though RK45 left a criteria-stiff system with failed=False."""
+    """On the CPU no float64 retry runs (as in the JAX package there): a
+    system Radau fails must come out failed, though RK45 left a
+    criteria-stiff system with failed=False."""
     y0, params = _mix()
     cfg = SolverConfig(rtol=1e-5, atol=1e-8, newton_max_iter=1, radau_max_rejects=1)
     res = solve(StiffMix(), y0, 0.0, 50.0, None, params, config=cfg)

@@ -19,8 +19,9 @@
 
 namespace tt {
 // Large enough for every instance's pool.
-unsigned long long smem[(std::max({Pool<float, 0>::kBytes, Pool<float, kFsal | kPi>::kBytes,
-                                   Pool<float, kComp | kPi>::kBytes, Pool<double, 0>::kBytes}) +
+unsigned long long smem[(std::max({Pool<float, kFsal | kPi>::kBytes, Pool<float, kComp | kPi>::kBytes,
+                                   Pool<double, kFsal | kPi>::kBytes,
+                                   Pool<double, kComp | kPi>::kBytes}) +
                          7) / 8];
 
 template <class T>

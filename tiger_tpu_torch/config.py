@@ -129,7 +129,7 @@ class SolverInfo:
     max_scale: float = 10.0
     initial_step: Optional[float] = None
     # 'f64' matches the reference (double everywhere; on the card the
-    # kernels' double instances, which run the default solver options);
+    # kernels' double instances, one for every option set);
     # 'f32' is the kernels' float precision (pair it with rtol >= ~1e-5:
     # tolerances below f32 rounding accumulate past them); 'f32c' is f32
     # with compensated (Kahan) state accumulation (SolverConfig.compensated):

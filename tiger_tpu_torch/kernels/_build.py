@@ -5,7 +5,7 @@ with a plain C interface, which is loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds).  The kernels are built without FMA
 contraction.  Each kernel source is compiled twice: as it stands, for its
 float instances and the C entry points, and with ``-DTT_DOUBLE_INSTANCES``
-as relocatable device code, for its double instance, which is device-linked
+as relocatable device code, for its double instances, which are device-linked
 with ``csrc/contracted.cu`` (the double pow, built with contraction so that
 it rounds as torch's CUDA pow does).  The float instances' build is the one
 they always had.  The library lands in
@@ -15,7 +15,7 @@ reused.  Nothing but the repository's own sources is compiled, beside one
 header that is written here: the Dormand-Prince tableau of
 ``solver/tableau.py`` as constexpr initialisers (``rk45_tableau.cuh``), one
 rounded to float32 for the float instances and one with its exact float64
-values for the double instance, so B1 can fold its tests for zero entries
+values for the double instances, so B1 can fold its tests for zero entries
 at compile time without the tableau ever being retyped by hand.  Every
 instance, float and double, is in the one library of one build.
 """

@@ -161,10 +161,6 @@ def launch(fn_name: str, size_name: str, args: ctypes.Structure, f64: bool, devi
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn_name)(ctypes.addressof(args), int(f64), stream)
     if rc == _NO_INSTANCE:
-        if f64:
-            raise NotImplementedError(
-                f"{fn_name}: the kernel has no float64 instance for {options}: float64 runs "
-                "the default option set only; the others wait for ROADMAP Queue 1 #9c")
         raise NotImplementedError(f"{fn_name}: the kernel has no instance for {options}")
     if rc != 0:
         raise RuntimeError(f"{fn_name} ({options}): CUDA error {rc}")

@@ -61,15 +61,16 @@
 // radau_plain bit for bit.  The tableau and eigen-constants come from the
 // kernel's parameter space (passed from tableau.py, never retyped here).
 //
-// The scalar is a template parameter as well: six float instances, and a
-// double instance of the default set (embedded3, no predictor), which
-// repeats the float code in double (the TPU kernel is float32 only and
-// runs float64 through the vmap path, tiger_tpu/solver/radau.py
-// radau_step; radau_dispatch).  A double warp maximum reduces the high
+// The scalar is a template parameter as well: six float instances and the
+// same six in double, which repeat the float code in double (the TPU
+// kernel is float32 only and runs float64 through the vmap path,
+// tiger_tpu/solver/radau.py radau_step; radau_dispatch).  The option sets
+// call no libm function the default set does not, and double pow is
+// contracted.cu's in all six.  A double warp maximum reduces the high
 // words of the bit patterns, then the low words of the lanes that hold the
 // highest high word (warp_jmax).  The file is compiled twice, as rk45.cu is:
 // as it stands for the float instances and the entry points, and with
-// -DTT_DOUBLE_INSTANCES, as relocatable device code, for the double one.
+// -DTT_DOUBLE_INSTANCES, as relocatable device code, for the double ones.
 
 #include <type_traits>
 
@@ -580,29 +581,22 @@ __global__ void __launch_bounds__(kWarp) radau_kernel(const RadauArgs<T> a) {
 
 // Calls f(std::integral_constant<int, ERR>{}, std::bool_constant<PRED>{})
 // for the instance of (err_mode, predictor) in scalar T; false if it has
-// none.  double has embedded3 without the predictor only (the others:
-// ROADMAP Queue 1 #9c).
+// none.  Both scalars have the same six sets.
 template <class T, class F>
 inline bool radau_dispatch(int32_t err_mode, int32_t predictor, F&& f) {
   if (predictor != 0 && predictor != 1) return false;
-  if constexpr (std::is_same<T, double>::value) {
-    if (err_mode != kEmbedded3 || predictor) return false;
-    f(std::integral_constant<int, kEmbedded3>{}, std::false_type{});
-    return true;
-  } else {
-    const auto with_pred = [&](auto err) {
-      if (predictor) {
-        f(err, std::true_type{});
-      } else {
-        f(err, std::false_type{});
-      }
-    };
-    switch (err_mode) {
-      case kEmbedded3: with_pred(std::integral_constant<int, kEmbedded3>{}); return true;
-      case kReference: with_pred(std::integral_constant<int, kReference>{}); return true;
-      case kRadau5: with_pred(std::integral_constant<int, kRadau5>{}); return true;
-      default: return false;
+  const auto with_pred = [&](auto err) {
+    if (predictor) {
+      f(err, std::true_type{});
+    } else {
+      f(err, std::false_type{});
     }
+  };
+  switch (err_mode) {
+    case kEmbedded3: with_pred(std::integral_constant<int, kEmbedded3>{}); return true;
+    case kReference: with_pred(std::integral_constant<int, kReference>{}); return true;
+    case kRadau5: with_pred(std::integral_constant<int, kRadau5>{}); return true;
+    default: return false;
   }
 }
 
@@ -623,7 +617,7 @@ int radau_launch(const RadauArgs<T>* args, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// The double instance's host side, defined in the -DTT_DOUBLE_INSTANCES
+// The double instances' host side, defined in the -DTT_DOUBLE_INSTANCES
 // build of this file and called by the entry point of the other.
 int radau_launch_f64(const void* args, void* stream);
 

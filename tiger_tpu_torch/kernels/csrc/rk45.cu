@@ -24,15 +24,15 @@
 //     advance, the plain factor on a rejection, facold carried.
 // Each option state is one more row of the pool in the instances that use
 // it (k0[5], y_c[5], facold).  The scalar is a template parameter too: six
-// float instances, and a double instance of the default option set (the TPU
-// kernel is float32 only and runs float64 through the vmap path,
-// tiger_tpu/solver/rk45.py _rk45_system; rk45_dispatch).  A double system
+// float instances and the same six in double (the TPU kernel is float32
+// only and runs float64 through the vmap path, tiger_tpu/solver/rk45.py
+// _rk45_system; rk45_dispatch).  A double system
 // needs twice the registers of a float one (~180 against ~120), so a double
 // block has TT_RK45_THREADS_F64 lanes (256: at most 255 registers a thread)
 // and its pool rows of state are 8 bytes a slot.  The file is compiled twice
 // (_build.py): as it stands, for the float instances and the entry points,
 // and with -DTT_DOUBLE_INSTANCES, as relocatable device code, for the double
-// instance, whose pow is contracted.cu's (common.cuh pow_t).  So the float
+// instances, whose pow is contracted.cu's (common.cuh pow_t).  So the float
 // instances keep the code and the build they had.
 //
 // What bounds it on the H100: neither rate of the card.  An attempt is a
@@ -726,24 +726,18 @@ __global__ void __launch_bounds__(kThreads<T>, 1) rk45_kernel(const Rk45Args<T> 
 }
 
 // Calls f(std::integral_constant<int, OPT>{}) for the instance of the
-// option set `options` in scalar T; false if it has none.  double has the
-// default set only (the others: ROADMAP Queue 1 #9c).
+// option set `options` in scalar T; false if it has none.  Both scalars
+// have the same six sets.
 template <class T, class F>
 inline bool rk45_dispatch(int32_t options, F&& f) {
-  if constexpr (std::is_same<T, double>::value) {
-    if (options != 0) return false;
-    f(std::integral_constant<int, 0>{});
-    return true;
-  } else {
-    switch (options) {
-      case 0: f(std::integral_constant<int, 0>{}); return true;
-      case kFsal: f(std::integral_constant<int, kFsal>{}); return true;
-      case kComp: f(std::integral_constant<int, kComp>{}); return true;
-      case kPi: f(std::integral_constant<int, kPi>{}); return true;
-      case kFsal | kPi: f(std::integral_constant<int, kFsal | kPi>{}); return true;
-      case kComp | kPi: f(std::integral_constant<int, kComp | kPi>{}); return true;
-      default: return false;
-    }
+  switch (options) {
+    case 0: f(std::integral_constant<int, 0>{}); return true;
+    case kFsal: f(std::integral_constant<int, kFsal>{}); return true;
+    case kComp: f(std::integral_constant<int, kComp>{}); return true;
+    case kPi: f(std::integral_constant<int, kPi>{}); return true;
+    case kFsal | kPi: f(std::integral_constant<int, kFsal | kPi>{}); return true;
+    case kComp | kPi: f(std::integral_constant<int, kComp | kPi>{}); return true;
+    default: return false;
   }
 }
 

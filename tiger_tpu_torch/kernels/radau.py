@@ -4,9 +4,9 @@
 method -- the work of the TPU kernel ``tiger_tpu/kernels/radau_pallas.py``
 (``_make_kernel``'s ``kernel``, reached through ``pl.pallas_call`` at
 l.987).  A CUDA tensor goes to the hand-written kernel ``csrc/radau.cu`` (or
-the call raises): its float instances for float32, its double instance of
-the default options (embedded3, no predictor) for float64.  A CPU tensor
-goes to ``radau_plain``.  ``radau_launches`` counts the kernel's launches by
+the call raises): its float instances for float32, its double instances
+for float64, one of each for every option set.  A CPU tensor goes to
+``radau_plain``.  ``radau_launches`` counts the kernel's launches by
 instance.
 """
 
@@ -89,12 +89,9 @@ def _kappa(cfg: SolverConfig) -> float:
 #: l.157-162, 439-490): its code in ``RadauArgs.err_mode`` and the step
 #: controller's exponent.
 ERR_MODES = {"embedded3": (0, 1.0 / 3.0), "reference": (1, 0.2), "radau5": (2, 0.25)}
-#: The option sets B2 has a float instance for: each error mode, with and
-#: without the predictor.
+#: The option sets B2 has an instance for, float and double: each error
+#: mode, with and without the predictor.
 INSTANCES = tuple((mode, pred) for mode in ERR_MODES for pred in (False, True))
-#: The option sets B2 has a double instance for: embedded3 without the
-#: predictor (the others are ROADMAP Queue 1 #9c).
-F64_INSTANCES = (("embedded3", False),)
 
 
 def instance_name(config: SolverConfig, dtype: torch.dtype = torch.float32) -> str:
@@ -107,8 +104,8 @@ def instance_name(config: SolverConfig, dtype: torch.dtype = torch.float32) -> s
 #: Kernel launches by instance (``instance_name``) since import (or since a
 #: caller set them to 0: ``kernels.reset_launch_counts``).
 radau_launches = {
-    **{mode + suffix: 0 for mode in ERR_MODES for suffix in ("", "+predictor")},
-    **{mode + ("+predictor" if pred else "") + "/f64": 0 for mode, pred in F64_INSTANCES},
+    mode + ("+predictor" if pred else "") + suffix: 0
+    for suffix in ("", "/f64") for mode, pred in INSTANCES
 }
 
 
@@ -155,8 +152,8 @@ def radau(
     """B2 over ``y0[n, N]`` from t0 to tf; ``query_times`` sorted and unique.
 
     CPU tensors run ``radau_plain``; CUDA tensors launch the kernel on the
-    current stream without synchronising (Model 204 in float32, or in
-    float64 with the default options; any other input raises).  ``t_shift`` as in ``kernels.rk45.rk45``.
+    current stream without synchronising (Model 204 in float32 or float64;
+    any other input raises).  ``t_shift`` as in ``kernels.rk45.rk45``.
     """
     if y0.device.type == "cpu":
         return radau_plain(model, y0, h0, t0, tf, query_times, params, forcings, config, t_shift)

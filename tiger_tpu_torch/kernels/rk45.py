@@ -5,9 +5,9 @@ ZOH forcing, the stiffness criteria and dense output -- the work of the TPU
 kernel ``tiger_tpu/kernels/rk45_pallas.py`` (``_make_kernel``'s ``kernel``,
 reached through ``pl.pallas_call`` at l.1051).  A CUDA tensor goes to the
 hand-written kernel ``csrc/rk45.cu`` (or the call raises): its float
-instances for float32, its double instance of the default option set for
-float64.  A CPU tensor goes to ``rk45_plain``, the same per-system semantics
-as a batched, masked while-loop in torch.  ``rk45_launches`` counts the
+instances for float32, its double instances for float64, one of each for
+every option set.  A CPU tensor goes to ``rk45_plain``, the same
+per-system semantics as a batched, masked while-loop in torch.  ``rk45_launches`` counts the
 kernel's launches by instance; ``rk45_options`` picks the kernel's instance
 for a ``SolverConfig``,
 ``rk45_geometry`` says how a launch is laid out on the card,
@@ -85,9 +85,8 @@ FSAL, COMPENSATED, PI = 1, 2, 4
 #: compensated}.
 INSTANCES = {0: "default", FSAL: "fsal", COMPENSATED: "compensated", PI: "pi",
              FSAL | PI: "fsal+pi", COMPENSATED | PI: "compensated+pi"}
-#: The option sets B1 has a double instance for: the default set (the
-#: others are ROADMAP Queue 1 #9c).
-F64_INSTANCES = {0: "default/f64"}
+#: The same option sets' double instances.
+F64_INSTANCES = {bits: name + "/f64" for bits, name in INSTANCES.items()}
 #: Kernel launches by instance since import (or since a caller set them to
 #: 0: ``kernels.reset_launch_counts``).
 rk45_launches = dict.fromkeys([*INSTANCES.values(), *F64_INSTANCES.values()], 0)
@@ -132,9 +131,9 @@ def rk45(
     """B1 over ``y0[S, N]`` from t0 to tf; ``query_times`` sorted and unique.
 
     CPU tensors run ``rk45_plain``; CUDA tensors launch the kernel on the
-    current stream without synchronising (Model 204 in float32, or in
-    float64 with the default options; any other input raises).  ``t_shift`` [min] is added to the time the model's rhs
-    sees (forcing gathers stay unshifted).
+    current stream without synchronising (Model 204 in float32 or float64;
+    any other input raises).  ``t_shift`` [min] is added to the time the
+    model's rhs sees (forcing gathers stay unshifted).
     """
     if y0.device.type == "cpu":
         return rk45_plain(model, y0, h0, t0, tf, query_times, params, forcings, config, t_shift)

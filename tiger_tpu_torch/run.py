@@ -15,13 +15,13 @@ window by window (``_run_chunked``): forcings read per window, outputs
 written per window, checkpoints every ``output.checkpoint_interval``, and
 ``initial.resume`` continues an interrupted run into its own files.
 
-Every ``solver.precision`` runs on the card and on the CPU: ``f64``, the
-default, through the kernels' double instances, ``f32`` and ``f32c``
-(compensated float32) through their float ones.  What the port does not
-carry yet raises NotImplementedError naming its ROADMAP item
-(``_refuse_unported``), before any file is read: several processes, and
-float64 on the card with ``solver.controller: pi`` (the double instances
-run the default options only).
+Every ``solver.precision`` runs on the card and on the CPU, with every
+solver option: ``f64``, the default, through the kernels' double
+instances, ``f32`` and ``f32c`` (compensated float32) through their float
+ones, and on the card a float32 run retries the systems its Radau phase
+fails in float64 (``solver.api.solve``).  What the port does not carry yet
+raises NotImplementedError naming its ROADMAP item (``_refuse_unported``),
+before any file is read: several processes.
 """
 
 from __future__ import annotations
@@ -51,25 +51,15 @@ def _world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
-def _refuse_unported(cfg, device: torch.device) -> None:
+def _refuse_unported(cfg) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for every part of
-    the JAX package's run that this port does not carry yet."""
-    from tiger_tpu_torch.solver.config import float64_unported
-
-    f64_unported = (float64_unported(cfg.solver_config())
-                    if device.type == "cuda" and cfg.solver.precision == "f64" else [])
-    refusals = (
-        (_world_size() > 1,
-         "more than one process, and routed_exchange across ranks, wait for dist.py, "
-         "ROADMAP Queue 1 #16"),
-        (bool(f64_unported),
-         f"solver.precision f64 on the card runs the kernels' default options only; "
-         f"{', '.join(f64_unported)} in float64 waits for ROADMAP Queue 1 #9c (f32 and f32c "
-         "run it on the card; device='cpu' runs it in f64)"),
-    )
-    for refused, why in refusals:
-        if refused:
-            raise NotImplementedError(why)
+    the JAX package's run that this port does not carry yet (none depends
+    on the device: every solver option runs on the card and on the CPU, in
+    every precision)."""
+    if _world_size() > 1:
+        raise NotImplementedError(
+            "more than one process, and routed_exchange across ranks, wait for dist.py, "
+            "ROADMAP Queue 1 #16")
 
 
 def _forcing_specs(cfg):
@@ -121,7 +111,7 @@ def run(cfg, device=None, metrics=None) -> dict:
     from tiger_tpu_torch.solver import solve
 
     device = torch.device("cuda" if device is None else device)
-    _refuse_unported(cfg, device)
+    _refuse_unported(cfg)
     dtype = torch.float64 if cfg.solver.precision == "f64" else torch.float32
 
     metrics = metrics or Metrics()

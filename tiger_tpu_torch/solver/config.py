@@ -3,16 +3,13 @@
 The same frozen dataclass as ``tiger_tpu/solver/config.py`` (same fields,
 defaults and validation), copied so the port imports no jax; the JAX
 module's comments explain each field.  ``require_supported`` lists the
-non-default options this package does not implement, and those that the
-kernels run in float32 only: every solver entry point calls it, so such a
-value raises instead of being ignored.
+non-default options this package does not implement: every solver entry
+point calls it, so such a value raises instead of being ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
-
-import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,38 +149,15 @@ _UNSUPPORTED = {
 }
 
 
-#: Non-default values the kernels have no double instance for, per solver:
-#: float64 on the card runs the default option set (ROADMAP Queue 1 #9c).
-_NO_F64_INSTANCE = {
-    "rk45": (
-        ("fsal", True),
-        ("compensated", True),
-        ("controller", "pi"),
-    ),
-    "radau": (
-        ("radau_predictor", True),
-        ("radau_error_mode", "reference"),
-        ("radau_error_mode", "radau5"),
-    ),
-}
-
-
-def float64_unported(config: SolverConfig, solvers=("rk45", "radau")) -> list:
-    """The options of ``config`` that no double instance of the kernels of
-    ``solvers`` runs, as 'name=value' strings (empty: it runs in float64 on
-    the card)."""
-    return [f"{name}={value!r}" for solver in solvers
-            for name, value in _NO_F64_INSTANCE[solver] if getattr(config, name) == value]
-
-
-def require_supported(config: SolverConfig, solver: str, y0: torch.Tensor | None = None) -> None:
+def require_supported(config: SolverConfig, solver: str) -> None:
     """Raise NotImplementedError for an option ``solver`` does not implement
-    (``solver`` is 'rk45' or 'radau'), and, for a float64 ``y0`` on the card,
-    for an option its kernel has no double instance of (before any launch).
+    (``solver`` is 'rk45' or 'radau').
 
-    Every other field acts as in the JAX package: ``fsal``,
-    ``compensated``, ``controller='pi'`` with its ``pi_beta`` (RK45), and
-    ``radau_predictor`` and every ``radau_error_mode`` (Radau).  Some fields
+    Every other field acts as in the JAX package, in float32 and float64
+    alike (each kernel has a float and a double instance of every option
+    set): ``fsal``, ``compensated``, ``controller='pi'`` with its
+    ``pi_beta`` (RK45), and ``radau_predictor`` and every
+    ``radau_error_mode`` (Radau).  Some fields
     are accepted and have no effect here, because nothing they steer exists
     in this package: ``dense_chunk`` (the JAX vmap path's dense-fill width;
     it changes no result there either), and ``radau_reuse_lo``/
@@ -195,12 +169,4 @@ def require_supported(config: SolverConfig, solver: str, y0: torch.Tensor | None
             raise NotImplementedError(
                 f"SolverConfig.{name}={value!r} is not implemented by the "
                 f"tiger_tpu_torch {solver} solver"
-            )
-    if y0 is not None and y0.device.type == "cuda" and y0.dtype == torch.float64:
-        missing = float64_unported(config, (solver,))
-        if missing:
-            raise NotImplementedError(
-                f"SolverConfig {', '.join(missing)}: the {solver} kernel runs float64 with the "
-                "default options only; the others wait for ROADMAP Queue 1 #9c (float32 runs "
-                "them on the card, and float64 on the CPU)"
             )

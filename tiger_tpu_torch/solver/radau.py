@@ -48,7 +48,7 @@ def radau_solve(
     ``y0``'s device (arguments as ``rk45_solve``)."""
     from tiger_tpu_torch.kernels.radau import radau
 
-    require_supported(config, "radau", y0)
+    require_supported(config, "radau")
     check_inputs(model, y0, t0, tf, query_times, params, forcings)
     qt, inverse = dedup_queries(query_times, y0.dtype)
     h0 = start_steps(model, y0, t0, params, forcings, h0, config)
