@@ -97,12 +97,14 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
      the counters set to 0 just before and read just after: its stiff and
      failed counts before and after the retry, the rows the double B1
      resolved and those the double B2 took, its wall with and without the
-     retry.  Check 1: the result equals the chain run by hand through the
-     kernels (B1 and B2 float, B1 double on B2's failures, B2 double on
-     those still stiff) bit for bit.  Check 3: a system left failed is one
-     B2's double instance fails.  Check 2 runs at the end with 9b's and
-     10b's Radau checks (plain_span_checks): radau5 with the predictor's
-     retried rows against rk45_plain and radau_plain in float64, B2
+     retry (WALL_PAIRS timed runs of each, taken in turn).  Check 1: the
+     result equals the chain run by hand through the kernels (B1 and B2
+     float, B1 double on B2's failures, B2 double on those still stiff) bit
+     for bit.  Check 3: a system left failed is one B2's double instance
+     fails.  Check 2 runs at the end with 9b's and 10b's Radau checks
+     (plain_span_checks): the retried rows of radau5 and of radau5 with
+     the predictor (CHECK_2_SETS) against the same chain through
+     rk45_plain and radau_plain in float64, B2
      embedded3 at rtol 1e-6 and embedded3/f64 against radau_plain, each
      first over 45 minutes, then over one leading span: the longest (2
      days down to 45 minutes) whose worst systems' attempts, at
@@ -116,9 +118,12 @@ before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import statistics
 import subprocess
 import time
+from collections.abc import Callable
 
 import torch
 
@@ -706,8 +711,6 @@ def accuracy(model, y0, params, forc, tf, qt, h0, f32c, hu_rows) -> dict:
     tail's systems are listed with their attempts and the advances that
     ended inside a forcing boundary's snap window.
     """
-    import dataclasses
-
     from tiger_tpu_torch.forcing import ForcingSet
     from tiger_tpu_torch.kernels import rk45 as k_rk45
 
@@ -778,7 +781,6 @@ def accuracy(model, y0, params, forc, tf, qt, h0, f32c, hu_rows) -> dict:
 
 def options_phase(smi: str) -> dict:
     """Phase 9: the solver options; returns each kernel's instance records."""
-    import dataclasses
     import os
     import tempfile
 
@@ -986,10 +988,11 @@ def options_phase(smi: str) -> dict:
 
     # Its check against radau_plain runs at the end (plain_span_checks).
     b2["embedded3"].update(f32c_ms=ms_c2)
-    check_c = dict(label=f"phase 9b B2 embedded3 vs radau_plain at rtol 1e-6 / atol 1e-9 "
-                         f"({rows_c.numel()} systems", run=f32c_span_run, record=b2["embedded3"],
-                   prefix="f32c_", total=int(rker_c.stats.n_attempts.max()),
-                   worst={span: int(f32c_span_run(span)[0].stats.n_attempts.max()) for span in F64_SPANS})
+    check_c = SpanCheck(
+        run=f32c_span_run, record=b2["embedded3"], prefix="f32c_",
+        compare=radau_compare(f"phase 9b B2 embedded3 vs radau_plain at rtol 1e-6 / atol 1e-9 "
+                              f"({rows_c.numel()} systems", int(rker_c.stats.n_attempts.max())),
+        worst={span: int(f32c_span_run(span)[0].stats.n_attempts.max()) for span in F64_SPANS})
     sy0, sp = y0[rows].contiguous(), {k: v[rows].contiguous() for k, v in params.items()}
     sf, sh0 = forc.take_systems(rows), h0[rows].contiguous()
     for name in B2_OPTIONS:
@@ -1022,6 +1025,30 @@ F64_MARGIN = 1.15  # on the predicted seconds of a plain Radau span
 # (31.5-37.5 ms measured, PERF.md §6); over the first minutes, where no
 # query falls and the systems sweep alike, it takes a third of that.
 PLAIN_RADAU_MS = 40.0
+
+
+@dataclasses.dataclass
+class SpanCheck:
+    """One of plain_span_checks' checks.  ``run(span, plain=False)`` gives
+    (result, ms) over the first ``span`` minutes through the kernels or
+    their plain versions; ``compare(span, ker, ref)`` holds the two results
+    and gives their max_abs_err; the numbers go into ``record``, each name
+    after ``prefix``; ``worst`` is the worst system's attempts by span."""
+
+    run: Callable
+    compare: Callable
+    record: dict
+    worst: dict
+    prefix: str = ""
+
+
+def radau_compare(label: str, total: int) -> Callable:
+    """SpanCheck.compare for B2 against radau_plain; ``total`` is the worst
+    system's attempts over the full span."""
+    def compare(span, ker, ref) -> float:
+        return check_radau(f"{label}, first {span:g} min, worst system "
+                           f"{int(ker.stats.n_attempts.max())} of its {total} attempts)", ker, ref)
+    return compare
 
 
 def _read_files(folder: str, names) -> dict:
@@ -1210,8 +1237,8 @@ def float64_phase(smi: str) -> tuple:
           f"({1e3 * r_ms / r_worst:.3f} us an attempt), {r_swp / r_att:.4f} sweeps an attempt, "
           f"worst system's attempts by leading span (min) {worst} | {smi}")
     phase(f"phase 10 took {time.perf_counter() - phase_start:.1f} s (the plain Radau check at the end)")
-    check_b = dict(label=f"phase 10b B2 embedded3/f64 vs radau_plain float64 ({rows.numel()} systems",
-                   worst=worst, run=span_run, record=b2, prefix="", total=r_worst)
+    check_b = SpanCheck(run=span_run, record=b2, worst=worst, compare=radau_compare(
+        f"phase 10b B2 embedded3/f64 vs radau_plain float64 ({rows.numel()} systems", r_worst))
     return {"rk45": b1, "radau": b2}, check_b
 
 
@@ -1226,8 +1253,6 @@ def doubles_phase(smi: str) -> dict:
     shapes and rules (B1 1,024 systems over 1 day, FSAL also against its
     twin; B2 on the systems the default B1 flags there over the first 10
     minutes, 'reference' at max_steps 300 and rtol 1e-3)."""
-    import dataclasses
-
     from tiger_tpu_torch import Model204, SolverConfig, solve
     from tiger_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tiger_tpu_torch.kernels import radau as k_radau
@@ -1413,12 +1438,75 @@ def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
                 and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
 
 
+def retry_chain(rk45_fn, radau_fn, model, y0, h0, params, forc, tf, qt64, cfg, lost):
+    """solve()'s float64 retry of the rows ``lost`` written out by hand:
+    ``rk45_fn`` on them widened to float64, then ``radau_fn`` on the rows
+    it flags stiff; as retry_failed_f64's Retry."""
+    from tiger_tpu_torch.solver.api import Retry
+
+    y, h = y0[lost].double(), h0[lost].double()
+    p, f = {k: v[lost].double() for k, v in params.items()}, forc.take_systems(lost)
+    rk = rk45_fn(model, y, h, 0.0, tf, qt64, p, f, cfg)
+    done, st = torch.nonzero(~rk.stiff).squeeze(1), torch.nonzero(rk.stiff).squeeze(1)
+    if not st.numel():
+        return Retry(lost[done], rk.y_final[done], rk.dense[done], rk.failed[done], None, None)
+    rd = radau_fn(model, y[st], h[st], 0.0, tf, qt64, {k: v[st] for k, v in p.items()},
+                  f.take_systems(st), cfg)
+    return Retry(torch.cat([lost[done], lost[st]]), torch.cat([rk.y_final[done], rd.y_final]),
+                 torch.cat([rk.dense[done], rd.dense]), torch.cat([rk.failed[done], rd.failed]),
+                 lost[st], rd.stats)
+
+
+def retry_span_check(name: str, model, cfg, lost, y0, h0, params, forc, qt64, record) -> SpanCheck:
+    """Phase 11's check 2 for the B2 option set ``name``: solve()'s retry of
+    the rows ``lost`` (retry_failed_f64, through the kernels) against the
+    same chain through rk45_plain and radau_plain in float64."""
+    from tiger_tpu_torch.kernels import radau as k_radau
+    from tiger_tpu_torch.kernels import rk45 as k_rk45
+    from tiger_tpu_torch.solver import api
+
+    def run(span, plain=False):
+        sq = qt64[qt64 <= span + 1e-9]
+        if plain:
+            return timed(lambda: retry_chain(k_rk45.rk45_plain, k_radau.radau_plain, model, y0, h0,
+                                             params, forc, span, sq, cfg, lost))
+        return timed(lambda: api.retry_failed_f64(model, y0, h0, 0.0, span, sq, params, forc, cfg,
+                                                  0.0, lost))
+
+    def compare(span, ker, ref) -> float:
+        label = f"phase 11 check 2: the retry of {name} vs the plain chain float64, first {span:g} min"
+        check(ker.radau_rows is not None and ref.radau_rows is not None, f"{label}: no row reached B2")
+        same = {"rows": bool(torch.equal(ker.rows, ref.rows)),
+                "radau_rows": bool(torch.equal(ker.radau_rows, ref.radau_rows)),
+                "y_final": _bit_equal(ker.y_final, ref.y_final), "dense": _bit_equal(ker.dense, ref.dense),
+                "failed": bool(torch.equal(ker.failed, ref.failed)),
+                "radau_stats": all(bool(torch.equal(a, b)) for a, b in zip(ker.radau_stats, ref.radau_stats))}
+        err = max(max_abs(torch.nan_to_num(ker.y_final), torch.nan_to_num(ref.y_final)),
+                  max_abs(torch.nan_to_num(ker.dense), torch.nan_to_num(ref.dense)))
+        phase(f"{label}: {ker.rows.numel()} rows, {ker.radau_rows.numel()} through B2, failed "
+              f"{int(ker.failed.sum())}, worst system {int(ker.radau_stats.n_attempts.max())} attempts, "
+              f"max_abs_err {err:.3e}, equal {same}")
+        check(all(same.values()) and err == 0.0, f"{label}: differs: {same}")
+        return err
+
+    def worst(span) -> int:
+        out = run(span)[0]
+        return 0 if out.radau_stats is None else int(out.radau_stats.n_attempts.max())
+
+    return SpanCheck(run=run, compare=compare, record=record, worst={x: worst(x) for x in F64_SPANS})
+
+
+# Phase 11's check 2 holds these B2 option sets' retries to the plain
+# versions: the two whose float32 Radau fails systems that the retry
+# then solves (56 and 131 of the 131 stiff ones, PERF.md §6).
+CHECK_2_SETS = ("radau5", "radau5+predictor")
+WALL_PAIRS = 7  # phase 11's timed solve()s with and without the retry, taken in turn
+
+
 def retry_phase(smi: str, failing: list) -> tuple:
     """Phase 11: solve()'s float64 retry of the systems B2 fails, at full
     width, for each B2 option set in ``failing``; returns its records and
-    what check 2's plain runs need (plain_span_checks)."""
-    import dataclasses
-
+    check 2's SpanChecks by option set (run at the end, plain_span_checks)."""
     from tiger_tpu_torch import Model204, SolverConfig, solve
     from tiger_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tiger_tpu_torch.kernels import radau as k_radau
@@ -1434,20 +1522,20 @@ def retry_phase(smi: str, failing: list) -> tuple:
     y0, params, forc = scenario(MAIN_SYSTEMS, DAYS, STIFF_FRAC, device=dev)
     qt = torch.arange(0.0, tf + 1e-9, 60.0, dtype=torch.float32, device=dev)
     qt64 = qt.double()
-    records, check_2 = {}, None
+    records, checks_2 = {}, {}
 
-    def walls(cfg, retry: bool) -> list:
-        real = api.retries_in_f64
-        if not retry:
-            api.retries_in_f64 = lambda y: False
+    def walls(cfg) -> tuple:
+        """WALL_PAIRS timed solve()s with the retry and as many without
+        (retries_in_f64 patched to say no), taken in turn."""
+        real, out = api.retries_in_f64, ([], [])
         try:
-            out = []
-            for i in range(1, 4):
+            for i in range(1, 2 * WALL_PAIRS + 1):
+                api.retries_in_f64 = real if i % 2 else (lambda y: False)
                 torch.cuda.synchronize()
                 start = time.perf_counter()
                 solve(model, y0 + i * 1e-7, 0.0, tf, qt, params, forc, cfg)
                 torch.cuda.synchronize()
-                out.append(time.perf_counter() - start)
+                out[i % 2 == 0].append(time.perf_counter() - start)
             return out
         finally:
             api.retries_in_f64 = real
@@ -1467,36 +1555,31 @@ def retry_phase(smi: str, failing: list) -> tuple:
         rd = k_radau.radau(model, y0[rows], h0[rows], 0.0, tf, qt,
                            {k: v[rows] for k, v in params.items()}, forc.take_systems(rows), cfg)
         lost = rows[rd.failed]
-        y64, h64 = y0[lost].double(), h0[lost].double()
-        p64, f_l = {k: v[lost].double() for k, v in params.items()}, forc.take_systems(lost)
-        rk2 = k_rk45.rk45(model, y64, h64, 0.0, tf, qt64, p64, f_l, cfg)
-        done_rel = torch.nonzero(~rk2.stiff).squeeze(1)
-        still_rel = torch.nonzero(rk2.stiff).squeeze(1)
-        done, still = lost[done_rel], lost[still_rel]
-        rd2 = k_radau.radau(model, y64[still_rel], h64[still_rel], 0.0, tf, qt64,
-                            {k: v[still_rel] for k, v in p64.items()}, f_l.take_systems(still_rel), cfg)
+        rt = retry_chain(k_rk45.rk45, k_radau.radau, model, y0, h0, params, forc, tf, qt64, cfg, lost)
+        n_still = 0 if rt.radau_rows is None else rt.radau_rows.numel()
+        n_done = rt.rows.numel() - n_still
         want_y, want_d, want_f = rk.y_final.clone(), rk.dense.clone(), rk.failed.clone()
         ok = ~rd.failed
         want_y[rows[ok]], want_d[rows[ok]] = rd.y_final[ok], rd.dense[ok]
         want_f[rows] = rd.failed
-        want_y[done], want_d[done], want_f[done] = (rk2.y_final[done_rel].float(),
-                                                   rk2.dense[done_rel].float(), rk2.failed[done_rel])
-        want_y[still], want_d[still], want_f[still] = rd2.y_final.float(), rd2.dense.float(), rd2.failed
+        want_y[rt.rows], want_d[rt.rows], want_f[rt.rows] = rt.y_final.float(), rt.dense.float(), rt.failed
         same = {"y_final": _bit_equal(res.y_final, want_y), "dense": _bit_equal(res.dense, want_d),
                 "failed": bool(torch.equal(res.failed, want_f)),
                 "stiff": bool(torch.equal(res.stiff, rk.stiff))}
         # Check 3: a system the retry leaves failed is one B2's double
         # instance fails on its own.
         left = set(torch.nonzero(res.failed).squeeze(1).tolist())
-        b2_lost = set(still[rd2.failed].tolist())
+        b2_lost = set(rt.rows[n_done:][rt.failed[n_done:]].tolist())
 
         solve(model, y0, 0.0, tf, qt, params, forc, cfg)  # warm-up of the walls
-        w_retry, w_plain = walls(cfg, True), walls(cfg, False)
-        rec = dict(n_stiff=res.n_stiff, failed_f32=lost.numel(), resolved_by_b1_f64=done.numel(),
-                   taken_by_b2_f64=still.numel(), n_failed=len(left), failed_by_b2_f64=len(b2_lost),
-                   launches=launches, wall_s=sorted(w_retry)[1], wall_min_max_s=(min(w_retry), max(w_retry)),
-                   wall_without_retry_s=sorted(w_plain)[1],
-                   wall_without_retry_min_max_s=(min(w_plain), max(w_plain)))
+        w_retry, w_plain = walls(cfg)
+        rec = dict(n_stiff=res.n_stiff, failed_f32=lost.numel(), resolved_by_b1_f64=n_done,
+                   taken_by_b2_f64=n_still, n_failed=len(left), failed_by_b2_f64=len(b2_lost),
+                   launches=launches, wall_runs=WALL_PAIRS, wall_s=statistics.median(w_retry),
+                   wall_min_max_s=(min(w_retry), max(w_retry)),
+                   wall_without_retry_s=statistics.median(w_plain),
+                   wall_without_retry_min_max_s=(min(w_plain), max(w_plain)),
+                   walls_separate=min(w_retry) > max(w_plain))
         records[name] = rec
         phase(f"phase 11 solve() float32 {name} with the float64 retry ({MAIN_SYSTEMS} systems, "
               f"{DAYS:g} days, {qt.numel()} queries, rtol 1e-5 / atol 1e-8): {rec}; equal bit for "
@@ -1506,105 +1589,51 @@ def retry_phase(smi: str, failing: list) -> tuple:
                                f"double instance fails {sorted(b2_lost)}")
         check(lost.numel() > 0, f"phase 11 {name}: the float32 Radau failed no system")
         check(launches["rk45"].get("default/f64", 0) == 1
-              and launches["radau"].get(k_radau.instance_name(cfg, f64), 0) == (1 if still.numel() else 0),
+              and launches["radau"].get(k_radau.instance_name(cfg, f64), 0) == (1 if n_still else 0),
               f"phase 11 {name}: launches {launches}")
-        if name == "radau5+predictor":
-            check_2 = dict(cfg=cfg, lost=lost, y0=y0, h0=h0, params=params, forc=forc, qt64=qt64,
-                           record=rec)
+        if name in CHECK_2_SETS:
+            checks_2[name] = retry_span_check(name, model, cfg, lost, y0, h0, params, forc, qt64, rec)
     del y0, params, forc
     phase(f"phase 11 took {time.perf_counter() - phase_start:.1f} s (check 2's plain runs at the end)")
-    return records, check_2
+    return records, checks_2
 
 
-def plain_span_checks(smi: str, radau_checks: dict, check_2: dict | None) -> None:
+def plain_span_checks(smi: str, checks: dict) -> None:
     """The plain Radau checks that would take minutes over the full 2 days,
     all over one leading span: the longest of F64_SPANS whose predicted
-    time keeps the script inside F64_BUDGET_S.  ``radau_checks`` holds
-    phase 9b's (B2 embedded3 at rtol 1e-6 on the systems compensated B1
-    flags) and phase 10b's (B2 embedded3/f64 on the systems 10a flags):
-    each kernel against radau_plain; ``check_2`` phase 11's, the retried
-    rows of radau5 with the predictor against the retry's chain through
-    rk45_plain and radau_plain in float64."""
-    from tiger_tpu_torch import Model204
-    from tiger_tpu_torch.kernels import radau as k_radau
-    from tiger_tpu_torch.kernels import rk45 as k_rk45
-    from tiger_tpu_torch.solver import api
-
-    model, short = Model204(), F64_SPANS[-1]
-
-    def retry_run(span, plain=False):
-        c = check_2
-        sq = c["qt64"][c["qt64"] <= span + 1e-9]
-        if not plain:
-            return timed(lambda: api.retry_failed_f64(model, c["y0"], c["h0"], 0.0, span, sq,
-                                                      c["params"], c["forc"], c["cfg"], 0.0, c["lost"]))
-        # The retry's chain through the plain versions.
-        lost, cfg = c["lost"], c["cfg"]
-        y, h = c["y0"][lost].double(), c["h0"][lost].double()
-        p, f = {k: v[lost].double() for k, v in c["params"].items()}, c["forc"].take_systems(lost)
-
-        def chain():
-            rk = k_rk45.rk45_plain(model, y, h, 0.0, span, sq, p, f, cfg)
-            done, st = torch.nonzero(~rk.stiff).squeeze(1), torch.nonzero(rk.stiff).squeeze(1)
-            rd = k_radau.radau_plain(model, y[st], h[st], 0.0, span, sq, {k: v[st] for k, v in p.items()},
-                                     f.take_systems(st), cfg)
-            return api.Retry(torch.cat([lost[done], lost[st]]), torch.cat([rk.y_final[done], rd.y_final]),
-                             torch.cat([rk.dense[done], rd.dense]), torch.cat([rk.failed[done], rd.failed]),
-                             lost[st], rd.stats)
-        return timed(chain)
-
-    def worst_of(out) -> int:
-        return 0 if out.radau_stats is None else int(out.radau_stats.n_attempts.max())
-
-    checks = {key: dict(c) for key, c in radau_checks.items()}
-    if check_2 is not None:
-        checks["11"] = dict(run=retry_run, record=check_2["record"], prefix="",
-                            worst={span: worst_of(retry_run(span)[0]) for span in F64_SPANS})
+    time keeps the script inside F64_BUDGET_S.  ``checks`` holds SpanChecks
+    by name: phase 9b's (B2 embedded3 at rtol 1e-6 on the systems
+    compensated B1 flags) and phase 10b's (B2 embedded3/f64 on the systems
+    10a flags), each kernel against radau_plain, and phase 11's check 2 for
+    each option set of CHECK_2_SETS.  The prediction takes the plain ms an
+    attempt measured over the shortest span, or PLAIN_RADAU_MS if more."""
+    short = F64_SPANS[-1]
     per_ms, done = {}, {}
     for key, c in checks.items():  # each check over the shortest span first
-        (ref, plain_ms), (ker, ms) = c["run"](short, plain=True), c["run"](short)
-        done[key] = (ref, plain_ms), (ker, ms), _check_span(key, short, ker, ref, c)
-        per_ms[key] = max(plain_ms / max(c["worst"][short], 1), PLAIN_RADAU_MS)
+        (ref, plain_ms), (ker, ms) = c.run(short, plain=True), c.run(short)
+        done[key] = (ref, plain_ms), (ker, ms), c.compare(short, ker, ref)
+        per_ms[key] = plain_ms / max(c.worst[short], 1)
     left_s = F64_BUDGET_S - (time.perf_counter() - _T0)
-    predict = {span: sum(c["worst"][span] * per_ms[k] for k, c in checks.items()) * 1e-3
+    predict = {span: sum(c.worst[span] * max(per_ms[k], PLAIN_RADAU_MS) for k, c in checks.items()) * 1e-3
                for span in F64_SPANS}
     span = next((x for x in F64_SPANS if x == short or predict[x] * F64_MARGIN <= left_s), short)
-    phase(f"phase 9b/10b/11 span: plain Radau ms an attempt of the worst system (first {short:g} "
-          f"min, at least PLAIN_RADAU_MS) {per_ms}, worst system's attempts by leading span (min) "
-          f"{ {k: c['worst'] for k, c in checks.items()} }, {left_s:.1f} s left of F64_BUDGET_S "
-          f"{F64_BUDGET_S:g}: the checks run the first {span:g} min (predicted {predict[span]:.1f} s)")
+    phase(f"phase 9b/10b/11 span: plain Radau ms an attempt of the worst system (measured over the "
+          f"first {short:g} min) {per_ms}, predicted at PLAIN_RADAU_MS {PLAIN_RADAU_MS:g} if more; "
+          f"worst system's attempts by leading span (min) { {k: c.worst for k, c in checks.items()} }, "
+          f"{left_s:.1f} s left of F64_BUDGET_S {F64_BUDGET_S:g}: the checks run the first {span:g} min "
+          f"(predicted {predict[span]:.1f} s)")
     for key, c in checks.items():
         if span == short:
             (ref, plain_ms), (ker, ms), err = done[key]
         else:
-            (ref, plain_ms), (ker, ms) = c["run"](span, plain=True), c["run"](span)
-            err = _check_span(key, span, ker, ref, c)
-        c["record"].update({c["prefix"] + k: v for k, v in dict(
+            (ref, plain_ms), (ker, ms) = c.run(span, plain=True), c.run(span)
+            err = c.compare(span, ker, ref)
+        c.record.update({c.prefix + k: v for k, v in dict(
             check_span_min=span, check_span_ms=ms, plain_ms=plain_ms, max_abs_err=err,
-            plain_ms_per_attempt=per_ms[key]).items()})
+            plain_ms_per_attempt=per_ms[key],
+            predict_ms_per_attempt=max(per_ms[key], PLAIN_RADAU_MS)).items()})
         phase(f"phase {key} over the first {span:g} of {DAYS * 1440.0:g} min: kernels {ms:.3f} ms vs "
               f"plain {plain_ms:.3f} ms, max_abs_err {err:.3e} | {smi}")
-
-
-def _check_span(key, span, ker, ref, c) -> float:
-    """One of plain_span_checks' checks over one leading span."""
-    if key != "11":
-        return check_radau(f"{c['label']}, first {span:g} min, worst system "
-                           f"{int(ker.stats.n_attempts.max())} of its {c['total']} attempts)", ker, ref)
-    label = f"phase 11 check 2: the retry of radau5+predictor vs the plain chain float64, first {span:g} min"
-    check(ker.radau_rows is not None and ref.radau_rows is not None, f"{label}: no row reached B2")
-    same = {"rows": bool(torch.equal(ker.rows, ref.rows)),
-            "radau_rows": bool(torch.equal(ker.radau_rows, ref.radau_rows)),
-            "y_final": _bit_equal(ker.y_final, ref.y_final), "dense": _bit_equal(ker.dense, ref.dense),
-            "failed": bool(torch.equal(ker.failed, ref.failed)),
-            "radau_stats": all(bool(torch.equal(a, b)) for a, b in zip(ker.radau_stats, ref.radau_stats))}
-    err = max(max_abs(torch.nan_to_num(ker.y_final), torch.nan_to_num(ref.y_final)),
-              max_abs(torch.nan_to_num(ker.dense), torch.nan_to_num(ref.dense)))
-    phase(f"{label}: {ker.rows.numel()} rows, {ker.radau_rows.numel()} through B2, failed "
-          f"{int(ker.failed.sum())}, worst system {int(ker.radau_stats.n_attempts.max())} attempts, "
-          f"max_abs_err {err:.3e}, equal {same}")
-    check(all(same.values()) and err == 0.0, f"{label}: differs: {same}")
-    return err
 
 
 def main() -> None:
@@ -1781,9 +1810,11 @@ def main() -> None:
     # 11. the float64 retry of B2's failures (its own launch counts), then
     # the plain Radau checks of phases 10b and 11 over one leading span
     failing = [n for n, r in instances["radau"].items() if r.get("main_path_failed_f32")]
-    retry, check_2 = retry_phase(smi, failing)
-    check(check_2 is not None, f"phase 11: radau5+predictor failed no system in float32 ({failing})")
-    plain_span_checks(smi, {"9b": check_c, "10b": check_b}, check_2)
+    retry, checks_2 = retry_phase(smi, failing)
+    check(set(checks_2) == set(CHECK_2_SETS),
+          f"phase 11: of {CHECK_2_SETS} only {sorted(checks_2)} failed systems in float32 ({failing})")
+    plain_span_checks(smi, {"9b": check_c, "10b": check_b,
+                            **{f"11 {name}": c for name, c in checks_2.items()}})
 
     say(json.dumps({"kernels": [
         {"name": "rk45", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/rk45.cu",

@@ -51,6 +51,17 @@ def retries_in_f64(y0: torch.Tensor) -> bool:
     return y0.device.type == "cuda" and y0.dtype == torch.float32
 
 
+def _take(rows, y0, h0, params, forcings, dtype=None) -> tuple:
+    """The systems ``rows`` of a solve's y0, h0, params and forcings; y0, h0
+    and params cast to ``dtype`` when given, the forcing data as it is."""
+
+    def take(v):
+        return v[rows] if dtype is None else v[rows].to(dtype)
+
+    return (take(y0), take(h0), None if params is None else {k: take(v) for k, v in params.items()},
+            None if forcings is None else forcings.take_systems(rows))
+
+
 def retry_failed_f64(model, y0, h0, t0, tf, qt64, params, forcings, config, t_shift,
                      rows) -> Retry:
     """Re-integrate the systems ``rows`` of the solve in float64 from t0.
@@ -66,19 +77,15 @@ def retry_failed_f64(model, y0, h0, t0, tf, qt64, params, forcings, config, t_sh
     from tiger_tpu_torch.kernels.radau import radau
     from tiger_tpu_torch.kernels.rk45 import rk45
 
-    f64 = torch.float64
-    sub_y0, sub_h0 = y0[rows].to(f64), h0[rows].to(f64)
-    sub_params = None if params is None else {k: v[rows].to(f64) for k, v in params.items()}
-    sub_forc = None if forcings is None else forcings.take_systems(rows)
-    rk = rk45(model, sub_y0, sub_h0, t0, tf, qt64, sub_params, sub_forc, config, t_shift)
+    sub = _take(rows, y0, h0, params, forcings, torch.float64)
+    rk = rk45(model, *sub[:2], t0, tf, qt64, *sub[2:], config, t_shift)
     stiff = rk.stiff.cpu()  # the retry's own host sync
     still, done = (torch.nonzero(m).squeeze(1).to(rows.device) for m in (stiff, ~stiff))
     parts = [(rows[done], rk.y_final[done], rk.dense[done], rk.failed[done])]
     radau_rows = radau_stats = None
     if still.numel():
-        rd = radau(model, sub_y0[still], sub_h0[still], t0, tf, qt64,
-                   None if sub_params is None else {k: v[still] for k, v in sub_params.items()},
-                   None if sub_forc is None else sub_forc.take_systems(still), config, t_shift)
+        s_y0, s_h0, s_params, s_forc = _take(still, *sub)
+        rd = radau(model, s_y0, s_h0, t0, tf, qt64, s_params, s_forc, config, t_shift)
         radau_rows, radau_stats = rows[still], rd.stats
         parts.append((radau_rows, rd.y_final, rd.dense, rd.failed))
     return Retry(*(torch.cat(x) for x in zip(*parts)), radau_rows, radau_stats)
@@ -163,10 +170,8 @@ def solve(
     n_stiff = int(rows.shape[0])
     radau_stats = None
     if n_stiff:
-        sub_forc = None if forcings is None else forcings.take_systems(rows)
-        sub_params = None if params is None else {k: v[rows] for k, v in params.items()}
-        rd = radau(model, y0[rows], rk.h0[rows], t0, tf, qt, sub_params, sub_forc, config,
-                   t_shift)
+        s_y0, s_h0, s_params, s_forc = _take(rows, y0, rk.h0, params, forcings)
+        rd = radau(model, s_y0, s_h0, t0, tf, qt, s_params, s_forc, config, t_shift)
         # In-place merge into the RK45 phase's own output tensors.
         ok = ~rd.failed
         y_final[rows] = torch.where(ok[:, None], rd.y_final.to(y_final.dtype), y_final[rows])
