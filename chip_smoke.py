@@ -14,8 +14,10 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
      rtol 1e-5 / atol 1e-8, 0.1% stiff systems -- one warm-up and 3 timed
      runs, with the launch counters set to 0 just before;
   6. each kernel against its plain version at the main-path shapes: B1 over
-     the 131,072 systems, B2 over the systems B1 flagged, the full span; the
-     times side by side, and phases 3-4's checks on the results.  Then B1
+     the 131,072 systems and the full span, B2 over the systems B1 flagged
+     (its plain version over the shared leading span of plain_span_checks,
+     at the end); the times side by side, and phases 3-4's checks on the
+     results.  Then B1
      alone on the 32 systems that took it the most attempts (its tail), B1's
      lane efficiency counted by the probed build (attempts over 32 x warp
      trips through the attempt loop), and each kernel's bound: the least time
@@ -46,9 +48,9 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
   9. the solver options (each kernel's option instances; options_phase).
      (a) every instance against its plain version: B1's six (the I and PI
      controllers, each plain, with FSAL and compensated) on 1,024 systems
-     over 1 day, FSAL also against the default instance; B2's six (the
+     over 12 hours, FSAL also against the default instance; B2's six (the
      three error modes, each with and without the predictor) on the
-     systems the default B1 flagged there (4), over the first 10 minutes
+     systems the default B1 flagged there (4), over the first 5 minutes
      only, since the plain Radau pays ~45 ms of launches an attempt;
      'reference' ends every stiff system at max_steps (its estimate caps h
      near the tolerance), so it runs with max_steps 300 at rtol 1e-3.  (b)
@@ -65,7 +67,8 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
      radau_plain on the systems it flagged runs at the end, over the
      leading span of plain_span_checks);
      and (accuracy) compensated and plain float32 at rtol 1e-6 against
-     rk45_plain in float64 on the first 4,096 systems, beside a second
+     rk45_plain in float64 on the first 4,096 systems over the first day
+     (ACCURACY_SPAN), beside a second
      float64 run from an h0 2^-20 apart, with the tail's systems listed
      (their attempts and the steps that ended in a forcing boundary's snap
      window): compensated the closer in the median system.  (c) the CLI at
@@ -101,15 +104,38 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
      result equals the chain run by hand through the kernels (B1 and B2
      float, B1 double on B2's failures, B2 double on those still stiff) bit
      for bit.  Check 3: a system left failed is one B2's double instance
-     fails.  Check 2 runs at the end with 9b's and 10b's Radau checks
-     (plain_span_checks): the retried rows of radau5 and of radau5 with
-     the predictor (CHECK_2_SETS) against the same chain through
-     rk45_plain and radau_plain in float64, B2
-     embedded3 at rtol 1e-6 and embedded3/f64 against radau_plain, each
-     first over 45 minutes, then over one leading span: the longest (2
-     days down to 45 minutes) whose worst systems' attempts, at
-     PLAIN_RADAU_MS an attempt or the ms measured over 45 minutes if more,
-     keep the whole script inside F64_BUDGET_S.
+     fails.  Check 2 runs at the end with the plain Radau checks of 6,
+     9b, 10b and 12d (plain_span_checks): the retried rows of radau5 and
+     of radau5 with the predictor (CHECK_2_SETS) against the same chain
+     through rk45_plain and radau_plain in float64, B2 on the main path's
+     stiff systems, embedded3 at rtol 1e-6 and embedded3/f64 against
+     radau_plain, all over one leading span: the longest (2 days down to
+     45 minutes) whose worst systems' attempts, at PLAIN_RADAU_MS an
+     attempt, keep the whole script inside F64_BUDGET_S.
+ 12. Model 200 (model200_phase): Hamon PET and the ET ramp in both kernels,
+     on scenario()'s basin with the latitude over 25-50 degrees, doy0 182,
+     float32 at rtol 1e-5 / atol 1e-8.  (a) each libm call of its rhs
+     (exp, sin, cos, tan, atan, asin, acos; float and double) on 16M
+     inputs and the edge values, as the instances call it (libm_check.cu),
+     against torch's CUDA function element by element: 0 may differ.
+     (c) the slice's path at full width, with the counters set to 0 just
+     before: solve() in float32, then float64 at SolverConfig()'s
+     defaults, one warm-up and 3 timed runs each (stiff count as data, 0
+     failed), and one solve() with each other option set's B1 instance.
+     (f) the CLI at 131,072 links with model.uid 200 from 2000-07-01
+     (doy0 183): its files equal a direct solve() bit for bit; then 2
+     one-day windows (t_shift 1440 in the second) equal the windows by
+     hand.  (b) B1 m200/default against rk45_plain at full width, again
+     with t_shift 1440 on the first 4,096 systems, and m200/default/f64 at
+     rtol 1e-6 / atol 1e-9 on 4,096 systems, each with phases 3-4's exact
+     check.  (d) B2 m200/embedded3 on all 131,072 systems from bench.py
+     --solver radau's h0 (1e-3), one warm-up and 3 timed, 0 failed; its
+     check against radau_plain on its 32 systems with the most attempts
+     and 96 others joins plain_span_checks as "12".  (e) every other Model
+     200 instance against its plain version exactly: B1 on 256 systems
+     over 3 hours (FSAL against the default as data), B2 on (d)'s 4
+     costliest systems over 20 minutes, each B2 instance once with the
+     counters set to 0 just before.
 Each kernel must equal its plain version exactly: max_abs_err 0, NaN in the
 same places, every flag and every counter of every system equal.  The line
 before the last is the kernels' JSON record; the last line is
@@ -200,7 +226,7 @@ def io_bytes(s_count: int, n_rows: int, n_q: int, out_words: int, real: int = 4)
             + 4 * s_count * (n_rows + out_words))
 
 
-def b1_ops(attempts: int, queries: int, options: int = 0) -> int:
+def b1_ops(attempts: int, queries: int, options: int = 0, rhs_ops: int = RHS_OPS) -> int:
     """B1's operations (rk45.cu): per attempt, seven right-hand sides, the
     stage, update and error sums (11 per nonzero tableau entry), the error norm
     (40), the slope-jump test (15), the controller, stiffness tests and Kahan t
@@ -208,16 +234,17 @@ def b1_ops(attempts: int, queries: int, options: int = 0) -> int:
     DP_P, at most once a query) and the polynomial (58).  The option
     instances: FSAL takes k1 from its carry (one right-hand side less); the
     compensated commit adds y + dy and a TwoSum per component (25); PI adds
-    facold^beta, its product and facold's update (3)."""
+    facold^beta, its product and facold's update (3).  ``rhs_ops``: the
+    model's right-hand side (Model 200: RHS_OPS_M200)."""
     from tiger_tpu_torch.kernels.rk45 import COMPENSATED, FSAL, PI
     from tiger_tpu_torch.solver import tableau
 
     def nnz(x) -> int:
         return int((x != 0).sum())
 
-    per_attempt = (7 * RHS_OPS + 11 * (nnz(tableau.DP_A) + nnz(tableau.DP_B) + nnz(tableau.DP_E))
+    per_attempt = (7 * rhs_ops + 11 * (nnz(tableau.DP_A) + nnz(tableau.DP_B) + nnz(tableau.DP_E))
                    + 40 + 15 + 57 + STEP_OPS)
-    per_attempt += (-RHS_OPS if options & FSAL else 0) + (25 if options & COMPENSATED else 0)
+    per_attempt += (-rhs_ops if options & FSAL else 0) + (25 if options & COMPENSATED else 0)
     per_attempt += 3 if options & PI else 0
     return attempts * per_attempt + queries * (10 * nnz(tableau.DP_P) + 58)
 
@@ -666,11 +693,14 @@ B2_OPTIONS = {
 # Instances that fail stiff systems in 9a's span: 'reference' caps h near
 # the tolerance until max_steps (in the JAX package too).
 B2_MAY_FAIL = ("reference", "reference+predictor")
-OPTION_SYSTEMS, OPTION_DAYS, OPTION_STIFF = 1024, 1.0, 1 / 256
-RADAU_CHECK_SPAN = 10.0  # minutes: the plain Radau pays ~45 ms of launches an attempt
+# 9a's and 10f's checks; cut from 1 day and 10 minutes so that phase 12
+# fits the time limit (PERF.md §4).
+OPTION_SYSTEMS, OPTION_DAYS, OPTION_STIFF = 1024, 0.5, 1 / 256
+RADAU_CHECK_SPAN = 5.0  # minutes: the plain Radau pays ~45 ms of launches an attempt
 REFERENCE_CHECK = dict(rtol=1e-3, atol=1e-6, max_steps=300)
 TIGHT = dict(rtol=1e-6, atol=1e-9)  # the reference's tolerances (SolverConfig defaults)
 ACCURACY_SYSTEMS = 4096
+ACCURACY_SPAN = 1440.0  # minutes; the 2 days until phase 12 needed the time (PERF.md §4)
 SLIVER_MIN = 1e-3  # minutes: 4 ulps of float32 time at 2,880 min
 
 
@@ -944,8 +974,9 @@ def options_phase(smi: str) -> dict:
         check(out["n_failed"] == 0, f"phase 9c: {out['n_failed']} links failed")
         check(same_dense and same_q, "phase 9c: the f32c run's files differ from the direct path")
     phase(f"phase 9b-c launches by instance (the main path's): {launches}, in all {total}")
-    for kernel, counts in launches.items():  # the float instances (phase 10 has the double ones)
-        check(all(n > 0 for name, n in counts.items() if not name.endswith("/f64")),
+    for kernel, counts in launches.items():  # Model 204's float instances (phases 10 and 12 the rest)
+        check(all(n > 0 for name, n in counts.items()
+                  if not name.endswith("/f64") and not name.startswith("m200/")),
               f"phase 9: a {kernel} instance was not launched: {counts}")
     for name in B1_OPTIONS:
         b1[name]["launches"] = launches["rk45"][name]
@@ -1010,20 +1041,21 @@ def options_phase(smi: str) -> dict:
           f"its {rows.numel()} stiff ones for B2, {DAYS:g} days, rtol 1e-5 / atol 1e-8; f32c_* at "
           f"rtol 1e-6 / atol 1e-9, B2 on its {rows_c.numel()} stiff systems): B1 {b1} | B2 {b2} | {smi}")
 
-    accuracy(model, y0[:ACCURACY_SYSTEMS], params, forc, tf, qt, h0_t, f32c, hu_rows)
+    accuracy(model, y0[:ACCURACY_SYSTEMS], params, forc, ACCURACY_SPAN,
+             qt[qt <= ACCURACY_SPAN + 1e-9], h0_t, f32c, hu_rows)
     phase(f"phase 9 took {time.perf_counter() - phase_start:.1f} s")
     return {"rk45": b1, "radau": b2, "walls": {"f32c": walls_c, "pi": walls_p}}, check_c
 
 
 # The whole script's aim, in seconds from its start: the plain Radau checks
-# of phases 9b, 10b and 11 run over the longest of F64_SPANS (minutes) that
-# keeps it inside (plain_span_checks).
+# of phases 6, 9b, 10b, 11 and 12d run over the longest of F64_SPANS
+# (minutes) that keeps it inside (plain_span_checks).
 F64_BUDGET_S = 1050.0
 F64_SPANS = (2880.0, 1440.0, 720.0, 360.0, 180.0, 90.0, 45.0)
 F64_MARGIN = 1.15  # on the predicted seconds of a plain Radau span
-# ms an attempt of the worst system that radau_plain takes over the 2 days
-# (31.5-37.5 ms measured, PERF.md §6); over the first minutes, where no
-# query falls and the systems sweep alike, it takes a third of that.
+# ms an attempt of the worst system that radau_plain takes, for the span's
+# prediction: 31.5-37.5 ms measured over the 2 days, 17-44 ms over the first
+# 45 min to 6 hours (PERF.md §6).
 PLAIN_RADAU_MS = 40.0
 
 
@@ -1250,8 +1282,8 @@ def doubles_phase(smi: str) -> dict:
     (phase 9's tolerances), the launch counters set to 0 just before and
     read just after; each instance's time at the main path's shapes; then
     each against its float64 plain version bit for bit at phase 9a's
-    shapes and rules (B1 1,024 systems over 1 day, FSAL also against its
-    twin; B2 on the systems the default B1 flags there over the first 10
+    shapes and rules (B1 1,024 systems over 12 hours, FSAL also against its
+    twin; B2 on the systems the default B1 flags there over the first 5
     minutes, 'reference' at max_steps 300 and rtol 1e-3)."""
     from tiger_tpu_torch import Model204, SolverConfig, solve
     from tiger_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1598,42 +1630,491 @@ def retry_phase(smi: str, failing: list) -> tuple:
     return records, checks_2
 
 
+# Phase 12: Model 200 (Hamon PET and the ET ramp) in both kernels.
+M200_DOY0 = 182.0  # early July: the ET term is active
+M200_LAT = (25.0, 50.0)  # degrees, one a system from a seeded rng
+M200_SHIFT, M200_SHIFT_SYSTEMS = 1440.0, 4096  # 12b: t_shift on the first systems
+M200_F64_SYSTEMS = 4096  # 12b: the float64 check's width (rk45_plain pays its launches an iteration)
+M200_B1_CHECK = (256, 180.0)  # 12e: B1's other instances, systems and minutes
+M200_B2_CHECK = (4, 20.0)  # 12e: B2's other instances
+M200_B2_H0 = 1e-3  # 12d: bench.py --solver radau's h0
+M200_B2_TOP, M200_B2_OTHERS = 32, 96  # 12d: the systems its plain check runs
+# Model200::rhs against Model204::rhs: its ET term (the day of year 2, Hamon
+# 44 with its six libm calls, the ramp 10) for the stub's 3.
+RHS_OPS_M200 = RHS_OPS - 3 + 2 + 44 + 10
+LIBM_N = 1 << 24  # 12a: inputs a function
+# 12a: half of each function's inputs are uniform over +-this (the domain
+# its calls in Model200::rhs reach: exp's argument within +-1 for the
+# basin's temperatures, tan's 0.0086 (doy - 186) within +-1.6, atan's
+# 0.967 tan(.) unbounded, |cos| and |sin| arguments within pi, asin's within
+# 0.4, acos's beyond 1 at the poles), a quarter over ten times as wide, a
+# quarter random bit patterns; and the edge values.
+LIBM_DOMAINS = {"exp": 5.0, "sin": 3.2, "cos": 3.2, "tan": 1.6, "atan": 60.0, "asin": 1.0,
+                "acos": 1.5}
+
+
+def m200_inputs(s_count: int, dtype=torch.float32):
+    """Model 200 on scenario()'s basin: (model, y0, params, forcings), the
+    latitude one a system, uniform over M200_LAT from a seeded rng."""
+    import numpy as np
+
+    from tiger_tpu_torch.models import Model200
+    from tiger_tpu_torch.scenario import scenario
+
+    dev = torch.device("cuda", 0)
+    y0, params, forc = scenario(s_count, DAYS, STIFF_FRAC, device=dev, dtype=dtype)
+    lat = np.random.default_rng(200).uniform(*M200_LAT, s_count)
+    params["lat"] = torch.as_tensor(lat, device=dev).to(dtype)
+    return Model200(doy0=M200_DOY0), y0, params, forc
+
+
+def libm_inputs(name: str, dtype, gen: torch.Generator) -> torch.Tensor:
+    """LIBM_N inputs of function ``name`` (LIBM_DOMAINS) and its edge values:
+    0, -0, +-1 and 8 ulps on either side of each, +-inf, NaN."""
+    dev = torch.device("cuda", 0)
+    half, q = LIBM_DOMAINS[name], LIBM_N // 4
+
+    def uniform(n, width):
+        return (torch.rand(n, generator=gen, dtype=dtype, device=dev) * 2.0 - 1.0) * width
+
+    if dtype == torch.float64:
+        bits = torch.randint(-2**63, 2**63 - 1, (q,), generator=gen, dtype=torch.int64, device=dev)
+    else:
+        bits = torch.randint(-2**31, 2**31 - 1, (q,), generator=gen, dtype=torch.int64,
+                             device=dev).to(torch.int32)
+    edges = [0.0, -0.0, float("inf"), float("-inf"), float("nan")]
+    one = torch.ones((), dtype=dtype)
+    for sign in (1.0, -1.0):
+        x = sign * one
+        for toward in (2.0, 0.0):
+            y = x
+            for _ in range(8):
+                y = torch.nextafter(y, sign * toward * one)
+                edges.append(float(y))
+        edges.append(float(x))
+    return torch.cat([uniform(2 * q, half), uniform(q, 10.0 * half), bits.view(dtype),
+                      torch.tensor(edges, dtype=dtype, device=dev)])
+
+
+def libm_phase(smi: str) -> dict:
+    """Phase 12a: each of Model 200's libm calls, float and double, as the
+    instances call it, against torch's CUDA function on the same tensor,
+    element by element."""
+    from tiger_tpu_torch.kernels import libm
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        for name in libm.FUNCTIONS:
+            x = libm_inputs(name, dtype, gen)
+            key = name + ("/f64" if dtype == torch.float64 else "")
+            out[key] = libm.mismatch(libm.libm_eval(name, x), getattr(torch, name)(x))
+    torch.cuda.synchronize()
+    phase(f"phase 12a libm against torch's CUDA functions, elements that differ bit for bit "
+          f"({x.numel()} inputs each: LIBM_N and the edge values): {out} | {smi}")
+    check(not any(out.values()), f"phase 12a: a libm call of the Model 200 instances differs from torch's: {out}")
+    return out
+
+
+def model200_phase(smi: str) -> tuple:
+    """Phase 12: Model 200 in both kernels.  Returns each kernel's Model 200
+    instance records and 12d's plain Radau check (plain_span_checks)."""
+    import copy
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from tiger_tpu_torch import SolverConfig, chunked, routing, solve
+    from tiger_tpu_torch.checkpoint import cold_state
+    from tiger_tpu_torch.config import config_from_dict
+    from tiger_tpu_torch.forcing import ForcingSpec
+    from tiger_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tiger_tpu_torch.kernels import radau as k_radau
+    from tiger_tpu_torch.kernels import rk45 as k_rk45
+    from tiger_tpu_torch.models import Model200
+    from tiger_tpu_torch.params import model_params
+    from tiger_tpu_torch.profiling import Metrics
+    from tiger_tpu_torch.run import COLD_STATE_DEFAULTS, run
+    from tiger_tpu_torch.scenario import solve_written_basin, write_basin
+    from tiger_tpu_torch.solver.controller import initial_step
+
+    phase_start = time.perf_counter()
+    f64 = torch.float64
+    base = SolverConfig(rtol=1e-5, atol=1e-8, max_steps=100_000)
+    b1 = {f"m200/{name}{sfx}": {} for sfx in ("", "/f64") for name in B1_OPTIONS}
+    b2 = {f"m200/{name}{sfx}": {} for sfx in ("", "/f64") for name in B2_OPTIONS}
+    libm_counts = libm_phase(smi)
+    tf = DAYS * 1440.0
+
+    def queries(span, dtype=torch.float32):
+        return torch.arange(0.0, span + 1e-9, 60.0, dtype=dtype, device="cuda")
+
+    def subset(rows, y0, params, forc):
+        return (y0[rows].contiguous(), {k: v[rows].contiguous() for k, v in params.items()},
+                forc.take_systems(rows))
+
+    # (c) the slice's path at full width: solve() in float32, then in
+    # float64 at SolverConfig()'s defaults, each with the counters set to 0
+    # just before and read just after.
+    walls = {}
+    for label, dtype, cfg in (("f32", torch.float32, base), ("f64", f64, SolverConfig())):
+        model, y0, params, forc = m200_inputs(MAIN_SYSTEMS, dtype)
+        qt = queries(tf, dtype)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        res = solve(model, y0, 0.0, tf, qt, params, forc, cfg)  # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for i in range(1, 4):
+            start = time.perf_counter()
+            res = solve(model, y0 + i * 1e-7, 0.0, tf, qt, params, forc, cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+        launches = launch_counts()
+        wall = sorted(times)[1]
+        rk_att = int(res.rk_stats.n_attempts.sum())
+        rd_att = 0 if res.radau_stats is None else int(res.radau_stats.n_attempts.sum())
+        n_failed = int(res.failed.sum())
+        walls[label] = dict(wall_s=wall, walls_s=times, system_steps_per_s=(rk_att + rd_att) / wall,
+                            n_stiff=res.n_stiff, n_failed=n_failed, rk_attempts=rk_att,
+                            radau_attempts=rd_att)
+        phase(f"phase 12c solve() Model 200 {label} ({MAIN_SYSTEMS} systems, {DAYS:g} days, "
+              f"{qt.numel()} queries, rtol {cfg.rtol:g} / atol {cfg.atol:g}, doy0 {M200_DOY0:g}): "
+              f"{(rk_att + rd_att) / wall:.6e} system-steps/s, wall median {wall:.6f} s (min "
+              f"{min(times):.6f}, max {max(times):.6f}), n_stiff {res.n_stiff}, rk attempts "
+              f"{rk_att}, radau attempts {rd_att}, n_failed {n_failed}, launches "
+              f"{ {k: {i: n for i, n in v.items() if n} for k, v in launches.items()} } | {smi}")
+        name = "m200/default" + ("/f64" if dtype == f64 else "")
+        check(launches["rk45"][name] > 0, f"phase 12c {label}: B1 {name} was not launched: {launches}")
+        check(sum(launches["rk45"].values()) == launches["rk45"][name],
+              f"phase 12c {label}: an instance of another model or set ran: {launches}")
+        check(n_failed == 0, f"phase 12c {label}: {n_failed} systems failed")
+        check(bool(torch.isfinite(res.y_final).all()), f"phase 12c {label}: non-finite y_final")
+        check(tuple(res.dense.shape) == (MAIN_SYSTEMS, qt.numel(), 5),
+              f"phase 12c {label}: dense shape {tuple(res.dense.shape)}")
+        b1[name]["launches"] = launches["rk45"][name]
+        if dtype == f64:  # float32's flags no system, so its B2 runs in (d)
+            b2["m200/embedded3/f64"]["launches"] = launches["radau"]["m200/embedded3/f64"]
+        # Each other option set's B1 instance: one solve() at full width with
+        # the counters set to 0 just before; and every instance's own time.
+        n_rows, n_q_after = forc.data.shape[0], int((qt > 0.0).sum())
+        real = 8 if dtype == f64 else 4
+        peak = F64_PEAK if dtype == f64 else F32_PEAK
+        for opt, changes in B1_OPTIONS.items():
+            name = f"m200/{opt}" + ("/f64" if dtype == f64 else "")
+            o_cfg = dataclasses.replace(cfg, **changes)
+            if opt != "default":
+                reset_launch_counts()
+                o_res = solve(model, y0, 0.0, tf, qt, params, forc, o_cfg)
+                o_launches = launch_counts()["rk45"]
+                o_failed = int(o_res.failed.sum())
+                check(o_launches[name] > 0 and o_failed == 0,
+                      f"phase 12c {name}: launches {o_launches}, {o_failed} failed")
+                b1[name].update(launches=o_launches[name], n_stiff=o_res.n_stiff, n_failed=o_failed)
+            h0 = initial_step(model, y0, 0.0, params, forc, o_cfg)
+            ker, o_ms = timed(lambda: k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, o_cfg),
+                              reps=3)
+            att = int(ker.stats.n_attempts.sum())
+            bnd = bound(b1_ops(att, int((~ker.stiff).sum()) * n_q_after,
+                               k_rk45.rk45_options(o_cfg), rhs_ops=RHS_OPS_M200),
+                        io_bytes(MAIN_SYSTEMS, n_rows, qt.numel(), 5, real=real), peak)
+            b1[name].update(ms=o_ms, bound_ms=bnd[0], bound_by=bnd[1], attempts=att,
+                            worst_system_attempts=int(ker.stats.n_attempts.max()), library_ms=None,
+                            geometry=k_rk45.rk45_geometry(MAIN_SYSTEMS, k_rk45.rk45_options(o_cfg),
+                                                          dtype, model))
+        if dtype == f64 and res.n_stiff:
+            # B2's double instance on the systems the solve flagged, its time.
+            rows = torch.nonzero(res.stiff).squeeze(1)
+            h0 = initial_step(model, y0, 0.0, params, forc, cfg)
+            sy0, sp_, sf = subset(rows, y0, params, forc)
+            sh0 = h0[rows].contiguous()
+            rk, r_ms = timed(lambda: k_radau.radau(model, sy0, sh0, 0.0, tf, qt, sp_, sf, cfg), reps=3)
+            r_att, r_swp = int(rk.stats.n_attempts.sum()), int(rk.stats.n_newton.sum())
+            r_bnd = bound(r_att * (B2_ATTEMPT_OPS + 6 * (RHS_OPS_M200 - RHS_OPS))
+                          + r_swp * (B2_SWEEP_OPS + 3 * (RHS_OPS_M200 - RHS_OPS))
+                          + rows.numel() * n_q_after * B2_QUERY_OPS,
+                          io_bytes(rows.numel(), n_rows, qt.numel(), 6, real=8), F64_PEAK)
+            b2["m200/embedded3/f64"].update(
+                ms=r_ms, bound_ms=r_bnd[0], bound_by=r_bnd[1], systems=rows.numel(), attempts=r_att,
+                worst_system_attempts=int(rk.stats.n_attempts.max()), failed=int(rk.failed.sum()),
+                library_ms=None)
+        phase(f"phase 12c each B1 instance's time ({label}, {MAIN_SYSTEMS} systems), n_stiff and "
+              f"attempts of its solve(): { {k: (v.get('ms'), v.get('n_stiff'), v.get('attempts')) for k, v in b1.items() if 'ms' in v and k.endswith('/f64') == (dtype == f64)} }"
+              f"{'; B2 m200/embedded3/f64 on the stiff systems ' + str(b2['m200/embedded3/f64']) if dtype == f64 else ''} | {smi}")
+
+    # (f) the CLI at full width, then 2 one-day windows: t_shift = 1440
+    # reaches both kernels through run().  Their own launch counts.
+    outputs = (("final", "outputs"), ("dense", "outputs"), ("discharge", "discharge"),
+               ("state", "outputs"))
+    with tempfile.TemporaryDirectory(prefix="tiger_m200_") as tmp:
+        doc = write_basin(os.path.join(tmp, "basin"), MAIN_SYSTEMS, DAYS, STIFF_FRAC)
+        doc["model"] = {"uid": 200, "name": "Model200"}
+        doc["time"] = {"start": "2000-07-01T00:00:00", "end": "2000-07-03T00:00:00"}
+        doc["output"]["path"] = os.path.join(tmp, "cli")
+        cli_cfg = config_from_dict(doc)
+        reset_launch_counts()
+        start = time.perf_counter()
+        out = run(cli_cfg, metrics=Metrics())
+        cli_wall = time.perf_counter() - start
+        cli_launches = launch_counts()
+        direct, cli_params, sp = solve_written_basin(cli_cfg, "cuda")
+        check(direct.y_final.dtype == torch.float32, "phase 12f: the config is not float32")
+        topo = routing.build_topology(sp["stream"], sp["next_stream"])
+        y_direct = direct.y_final.cpu().numpy()
+        want = {"dense": direct.dense.cpu().numpy(), "final": y_direct, "state": y_direct,
+                "discharge": routing.routed_discharge(direct.dense, cli_params, topo).cpu().numpy()}
+        got = _read_files(cli_cfg.output.path, outputs)
+        same_f = {k: bool(np.array_equal(got[k], want[k])) for k in want}
+        phase(f"phase 12f CLI model.uid 200 ({MAIN_SYSTEMS} links, {DAYS:g} days from "
+              f"2000-07-01, doy0 183, f32): wall {cli_wall:.6f} s (no warm-up), n_stiff "
+              f"{out['n_stiff']}, n_failed {out['n_failed']}, launches "
+              f"{ {k: {i: n for i, n in v.items() if n} for k, v in cli_launches.items()} }; files "
+              f"equal solve() and routed_discharge() bit for bit {same_f} | {smi}")
+        check(out["n_failed"] == 0, f"phase 12f: {out['n_failed']} links failed")
+        check(cli_launches["rk45"]["m200/default"] > 0, f"phase 12f: B1 m200 did not run: {cli_launches}")
+        check(all(same_f.values()), f"phase 12f: the run's files differ from the direct path: {same_f}")
+
+        win = copy.deepcopy(doc)
+        win["time"]["chunk_days"] = 1.0
+        win["output"].update(path=os.path.join(tmp, "win"), checkpoint_interval="1d")
+        win_cfg = config_from_dict(win)
+        reset_launch_counts()
+        start = time.perf_counter()
+        win_out = run(win_cfg, metrics=Metrics())
+        win_wall = time.perf_counter() - start
+        win_launches = launch_counts()
+        model = Model200(doy0=183.0)  # 2000-07-01
+        p32 = {k: torch.as_tensor(v, device="cuda").to(torch.float32) for k, v in model_params(sp).items()}
+        specs = [ForcingSpec(os.path.join(win_cfg.forcings.path, f["file"]), f["var"],
+                             float(f["dt_hours"])) for f in win_cfg.forcings.files]
+        loader = chunked.netcdf_window_loader(specs, sp["stream"], win_cfg.forcings.lookup, "cuda")
+        cold = COLD_STATE_DEFAULTS.get(200, (0.0,) * model.N_EQ)  # run()'s: all stores empty
+        y = torch.as_tensor(cold_state(cold, MAIN_SYSTEMS), device="cuda").to(torch.float32)
+        dense, discharge, shifts = [], [], []
+        for w in range(int(DAYS)):
+            w0 = 1440.0 * w
+            wq = torch.as_tensor(np.arange(0 if w == 0 else 1, 25) * 60.0, device="cuda").to(torch.float32)
+            r = solve(model, y, 0.0, 1440.0, wq, p32, loader(w0, w0 + 1440.0),
+                      win_cfg.solver_config(), t_shift=w0)
+            y = torch.where(torch.isnan(r.y_final), y, r.y_final)
+            dense.append(r.dense.cpu().numpy())
+            discharge.append(routing.routed_discharge(r.dense, p32, topo).cpu().numpy())
+            shifts.append(w0)
+        want = {"dense": np.concatenate(dense, axis=1), "final": y.cpu().numpy(),
+                "state": y.cpu().numpy(), "discharge": np.concatenate(discharge, axis=1)}
+        got = _read_files(win_cfg.output.path, outputs)
+        same_w = {k: bool(got[k].shape == want[k].shape and np.array_equal(got[k], want[k]))
+                  for k in want}
+        phase(f"phase 12f windowed model.uid 200 ({MAIN_SYSTEMS} links, {int(DAYS)} one-day "
+              f"windows, t_shift {shifts}, a daily checkpoint): wall {win_wall:.6f} s, n_windows "
+              f"{win_out['n_windows']}, n_failed {win_out['n_failed']}, launches "
+              f"{ {k: {i: n for i, n in v.items() if n} for k, v in win_launches.items()} }; files "
+              f"equal the windows by hand bit for bit {same_w} | {smi}")
+        check(win_out["n_failed"] == 0 and win_out["n_windows"] == int(DAYS),
+              f"phase 12f: {win_out['n_failed']} failed, {win_out['n_windows']} windows")
+        check(all(same_w.values()), f"phase 12f: the windowed files differ from the windows by hand: {same_w}")
+    b1["m200/default"]["cli_launches"] = cli_launches["rk45"]["m200/default"]
+    b1["m200/default"]["windowed_launches"] = win_launches["rk45"]["m200/default"]
+
+    # (b) B1 m200/default against rk45_plain at full width, then with
+    # t_shift = 1440 on the first systems, then m200/default/f64 at rtol
+    # 1e-6 / atol 1e-9 (launches made to check and to time).
+    model, y0, params, forc = m200_inputs(MAIN_SYSTEMS)
+    qt = queries(tf)
+    h0 = initial_step(model, y0, 0.0, params, forc, base)
+    none = torch.zeros(MAIN_SYSTEMS, dtype=torch.bool, device="cuda")
+    ker, ms = timed(lambda: k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, base), reps=3)
+    ref, plain_ms = timed(lambda: k_rk45.rk45_plain(model, y0, h0, 0.0, tf, qt, params, forc, base))
+    err = check_rk45(f"phase 12b B1 m200/default vs rk45_plain ({MAIN_SYSTEMS} systems, "
+                     f"{DAYS:g} days)", ker, ref, none)
+    n_rows, n_q, n_q_after = forc.data.shape[0], qt.numel(), int((qt > 0.0).sum())
+    att, worst = int(ker.stats.n_attempts.sum()), int(ker.stats.n_attempts.max())
+    bnd = bound(b1_ops(att, int((~ker.stiff).sum()) * n_q_after, rhs_ops=RHS_OPS_M200),
+                io_bytes(MAIN_SYSTEMS, n_rows, n_q, 5))
+    geo = k_rk45.rk45_geometry(MAIN_SYSTEMS, 0, torch.float32, model)
+    b1["m200/default"].update(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bnd[0],
+                              solve=walls["f32"],
+                              bound_by=bnd[1], attempts=att, worst_system_attempts=worst,
+                              geometry=geo, library_ms=None)
+    rows = torch.arange(M200_SHIFT_SYSTEMS, device="cuda")
+    sy0, sp_, sf = subset(rows, y0, params, forc)
+    sh0 = initial_step(model, sy0, 0.0, sp_, sf, base, M200_SHIFT)
+    ker_s, ms_s = timed(lambda: k_rk45.rk45(model, sy0, sh0, 0.0, tf, qt, sp_, sf, base, M200_SHIFT))
+    ref_s, plain_s = timed(lambda: k_rk45.rk45_plain(model, sy0, sh0, 0.0, tf, qt, sp_, sf, base, M200_SHIFT))
+    err_s = check_rk45(f"phase 12b B1 m200/default with t_shift {M200_SHIFT:g} vs rk45_plain "
+                       f"({M200_SHIFT_SYSTEMS} systems)", ker_s, ref_s, none[:M200_SHIFT_SYSTEMS])
+    moved = int((ker_s.y_final != ker.y_final[:M200_SHIFT_SYSTEMS]).any(dim=1).sum())
+    check(moved > 0, "phase 12b: t_shift changed no system's result")
+    b1["m200/default"].update(shift_check=dict(systems=M200_SHIFT_SYSTEMS, t_shift=M200_SHIFT,
+                                               ms=ms_s, plain_ms=plain_s, max_abs_err=err_s,
+                                               systems_moved_by_the_shift=moved))
+    phase(f"phase 12b B1 m200/default: {ms:.3f} ms vs rk45_plain {plain_ms:.3f} ms, bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}, RHS_OPS_M200 {RHS_OPS_M200}), {att} attempts, worst "
+          f"system {worst}, geometry {geo}; with t_shift {M200_SHIFT:g} on {M200_SHIFT_SYSTEMS} "
+          f"systems {ms_s:.3f} ms vs {plain_s:.3f} ms, {moved} systems moved by the shift | {smi}")
+
+    model64, y64, p64, forc64 = m200_inputs(M200_F64_SYSTEMS, f64)
+    cfg64 = SolverConfig()
+    qt64 = queries(tf, f64)
+    h64 = initial_step(model64, y64, 0.0, p64, forc64, cfg64)
+    ker, ms64 = timed(lambda: k_rk45.rk45(model64, y64, h64, 0.0, tf, qt64, p64, forc64, cfg64), reps=3)
+    ref, plain64 = timed(lambda: k_rk45.rk45_plain(model64, y64, h64, 0.0, tf, qt64, p64, forc64, cfg64))
+    err64 = check_rk45(f"phase 12b B1 m200/default/f64 vs rk45_plain float64 ({M200_F64_SYSTEMS} "
+                       f"systems, {DAYS:g} days, rtol 1e-6 / atol 1e-9)", ker, ref, none[:M200_F64_SYSTEMS])
+    att64 = int(ker.stats.n_attempts.sum())
+    bnd64 = bound(b1_ops(att64, int((~ker.stiff).sum()) * n_q_after, rhs_ops=RHS_OPS_M200),
+                  io_bytes(M200_F64_SYSTEMS, n_rows, n_q, 5, real=8), F64_PEAK)
+    b1["m200/default/f64"].update(check_ms=ms64, plain_ms=plain64, max_abs_err=err64,
+                                  check_bound_ms=bnd64[0], check_bound_by=bnd64[1],
+                                  check_attempts=att64, check_systems=M200_F64_SYSTEMS,
+                                  solve=walls["f64"],
+                                  check_worst_system_attempts=int(ker.stats.n_attempts.max()))
+    del y64, p64, forc64, ker, ref
+
+    # (d) B2 on every system, from bench.py --solver radau's h0.
+    h0r = torch.full((MAIN_SYSTEMS,), M200_B2_H0, dtype=torch.float32, device="cuda")
+    reset_launch_counts()
+    k_radau.radau(model, y0, h0r, 0.0, tf, qt, params, forc, base)  # warm-up
+    rker, r_ms = timed(lambda: k_radau.radau(model, y0, h0r, 0.0, tf, qt, params, forc, base), reps=3)
+    b2["m200/embedded3"]["launches"] = launch_counts()["radau"]["m200/embedded3"]
+    r_att, r_swp = int(rker.stats.n_attempts.sum()), int(rker.stats.n_newton.sum())
+    r_worst, r_failed = int(rker.stats.n_attempts.max()), int(rker.failed.sum())
+    sweep_m200 = B2_SWEEP_OPS + 3 * (RHS_OPS_M200 - RHS_OPS)
+    r_bnd = bound(r_att * (B2_ATTEMPT_OPS + 6 * (RHS_OPS_M200 - RHS_OPS)) + r_swp * sweep_m200
+                  + MAIN_SYSTEMS * n_q_after * B2_QUERY_OPS, io_bytes(MAIN_SYSTEMS, n_rows, n_q, 6))
+    phase(f"phase 12d B2 m200/embedded3 on every system ({MAIN_SYSTEMS}, {DAYS:g} days, h0 "
+          f"{M200_B2_H0:g}): {r_ms:.3f} ms (median of 3 after a warm-up), bound {r_bnd[0]:.4f} ms "
+          f"({r_bnd[1]}), {r_att} attempts, worst system {r_worst} ({1e3 * r_ms / r_worst:.3f} us "
+          f"an attempt), {r_swp / r_att:.4f} sweeps an attempt, failed {r_failed} | {smi}")
+    check(r_failed == 0, f"phase 12d: {r_failed} systems failed")
+    check(bool(torch.isfinite(rker.y_final).all()), "phase 12d: non-finite y_final")
+    top = torch.topk(rker.stats.n_attempts, M200_B2_TOP).indices
+    rest = torch.ones(MAIN_SYSTEMS, dtype=torch.bool, device="cuda")
+    rest[top] = False
+    others = torch.nonzero(rest).squeeze(1)
+    others = others[torch.linspace(0, others.numel() - 1, M200_B2_OTHERS, device="cuda").long()]
+    rows = torch.sort(torch.cat([top, others])).values
+    cy0, cp, cf = subset(rows, y0, params, forc)
+    ch0 = h0r[rows].contiguous()
+
+    def span_run(span, plain=False):
+        sq = qt[qt <= span + 1e-9]
+        fn = k_radau.radau_plain if plain else k_radau.radau
+        return timed(lambda: fn(model, cy0, ch0, 0.0, span, sq, cp, cf, base))
+
+    worst_by_span = {span: int(span_run(span)[0].stats.n_attempts.max()) for span in F64_SPANS}
+    b2["m200/embedded3"].update(ms=r_ms, bound_ms=r_bnd[0], bound_by=r_bnd[1], attempts=r_att,
+                                worst_system_attempts=r_worst, sweeps_per_attempt=r_swp / r_att,
+                                systems=MAIN_SYSTEMS, failed=r_failed, library_ms=None,
+                                us_per_attempt=1e3 * r_ms / r_worst, check_systems=rows.numel(),
+                                worst_by_span=worst_by_span)
+    check_12 = SpanCheck(run=span_run, record=b2["m200/embedded3"], worst=worst_by_span,
+                         compare=radau_compare(f"phase 12d B2 m200/embedded3 vs radau_plain "
+                                               f"({rows.numel()} systems", r_worst))
+
+    # (e) every other Model 200 instance against its plain version.
+    n_b1, span_b1 = M200_B1_CHECK
+    qt_b1 = queries(span_b1)
+    for dtype in (torch.float32, f64):
+        model, y0, params, forc = m200_inputs(n_b1, dtype)
+        qt_e = qt_b1.to(dtype)
+        h0 = initial_step(model, y0, 0.0, params, forc, base)
+        results = {}
+        for opt, changes in B1_OPTIONS.items():
+            name = f"m200/{opt}" + ("/f64" if dtype == f64 else "")
+            cfg = dataclasses.replace(base, **changes)
+            ker, c_ms = timed(lambda: k_rk45.rk45(model, y0, h0, 0.0, span_b1, qt_e, params, forc, cfg), reps=3)
+            results[opt] = ker
+            if opt == "default":
+                continue  # held in (b)
+            ref, p_ms = timed(lambda: k_rk45.rk45_plain(model, y0, h0, 0.0, span_b1, qt_e, params, forc, cfg))
+            e = check_rk45(f"phase 12e B1 {name} vs rk45_plain ({n_b1} systems, {span_b1:g} min)",
+                           ker, ref, none[:n_b1])
+            b1[name].update(max_abs_err=e, check_ms=c_ms, plain_ms=p_ms, check_systems=n_b1,
+                            check_span_min=span_b1)
+            if cfg.fsal:
+                # FSAL's k1 is k7, evaluated at t + h; the default's k1 at the
+                # Kahan-compensated t1: equal for Model 204, whose rhs does
+                # not read t, not bit for bit for Model 200 (rk45_pallas.py
+                # l.726-777 alike).
+                twin = "pi" if cfg.controller == "pi" else "default"
+                diff = k_rk45.rk45_mismatch(ker, results[twin])
+                b1[name]["differs_from_" + twin] = diff
+                phase(f"phase 12e B1 {name} vs the {twin} instance (for information): entries "
+                      f"that differ {diff}")
+    n_b2, span_b2 = M200_B2_CHECK
+    top4 = torch.topk(rker.stats.n_attempts, n_b2).indices
+    for dtype in (torch.float32, f64):
+        model, y0, params, forc = m200_inputs(MAIN_SYSTEMS, dtype)
+        sy0, sp_, sf = subset(top4, y0, params, forc)
+        qt_r = torch.arange(0.0, span_b2 + 1e-9, 5.0, dtype=dtype, device="cuda")
+        for opt, changes in B2_OPTIONS.items():
+            name = f"m200/{opt}" + ("/f64" if dtype == f64 else "")
+            if name == "m200/embedded3":
+                continue  # held over the shared span with (d)'s systems
+            cfg = dataclasses.replace(base, **changes,
+                                      **(REFERENCE_CHECK if opt.startswith("reference") else {}))
+            sh0 = initial_step(model, sy0, 0.0, sp_, sf, cfg)
+            # The instance's run, with the counters set to 0 just before;
+            # then its time and its plain version.
+            reset_launch_counts()
+            k_radau.radau(model, sy0, sh0, 0.0, span_b2, qt_r, sp_, sf, cfg)
+            n_launch = launch_counts()["radau"][name]
+            check(n_launch == 1, f"phase 12e: B2 {name} was not launched")
+            ker, c_ms = timed(lambda: k_radau.radau(model, sy0, sh0, 0.0, span_b2, qt_r, sp_, sf, cfg), reps=3)
+            ref, p_ms = timed(lambda: k_radau.radau_plain(model, sy0, sh0, 0.0, span_b2, qt_r, sp_, sf, cfg))
+            e = check_radau(f"phase 12e B2 {name} vs radau_plain ({n_b2} systems, first "
+                            f"{span_b2:g} min)", ker, ref, may_fail=opt in B2_MAY_FAIL)
+            r_att, r_swp = int(ker.stats.n_attempts.sum()), int(ker.stats.n_newton.sum())
+            extra = (B2_RADAU5_OPS if cfg.radau_error_mode == "radau5" else 0) + (
+                B2_PREDICTOR_OPS if cfg.radau_predictor else 0)
+            e_bnd = bound(r_att * (B2_ATTEMPT_OPS + 6 * (RHS_OPS_M200 - RHS_OPS) + extra)
+                          + r_swp * sweep_m200 + n_b2 * int((qt_r > 0).sum()) * B2_QUERY_OPS,
+                          io_bytes(n_b2, forc.data.shape[0], qt_r.numel(), 6,
+                                   real=8 if dtype == f64 else 4),
+                          F64_PEAK if dtype == f64 else F32_PEAK)
+            rec = b2[name]
+            rec.update(max_abs_err=e, plain_ms=p_ms, check_ms=c_ms, check_systems=n_b2,
+                       check_span_min=span_b2, check_attempts=r_att, library_ms=None)
+            # The time at the main path's shapes where (c) took one.
+            for key, value in dict(ms=c_ms, launches=n_launch, bound_ms=e_bnd[0], bound_by=e_bnd[1],
+                                   systems=n_b2, attempts=r_att, failed=int(ker.failed.sum()),
+                                   worst_system_attempts=int(ker.stats.n_attempts.max())).items():
+                rec.setdefault(key, value)
+    phase(f"phase 12 took {time.perf_counter() - phase_start:.1f} s (12d's plain Radau check at "
+          f"the end)")
+    return {"rk45": b1, "radau": b2, "solve": walls, "libm": libm_counts}, check_12
+
+
 def plain_span_checks(smi: str, checks: dict) -> None:
     """The plain Radau checks that would take minutes over the full 2 days,
     all over one leading span: the longest of F64_SPANS whose predicted
     time keeps the script inside F64_BUDGET_S.  ``checks`` holds SpanChecks
-    by name: phase 9b's (B2 embedded3 at rtol 1e-6 on the systems
-    compensated B1 flags) and phase 10b's (B2 embedded3/f64 on the systems
-    10a flags), each kernel against radau_plain, and phase 11's check 2 for
-    each option set of CHECK_2_SETS.  The prediction takes the plain ms an
-    attempt measured over the shortest span, or PLAIN_RADAU_MS if more."""
-    short = F64_SPANS[-1]
-    per_ms, done = {}, {}
-    for key, c in checks.items():  # each check over the shortest span first
-        (ref, plain_ms), (ker, ms) = c.run(short, plain=True), c.run(short)
-        done[key] = (ref, plain_ms), (ker, ms), c.compare(short, ker, ref)
-        per_ms[key] = plain_ms / max(c.worst[short], 1)
+    by name: phase 6's (B2 on the main path's stiff systems), 9b's (B2
+    embedded3 at rtol 1e-6 on the systems compensated B1 flags), 10b's (B2
+    embedded3/f64 on the systems 10a flags), each kernel against
+    radau_plain, phase 11's check 2 for each option set of CHECK_2_SETS,
+    and 12d's (B2 m200/embedded3 on 128 of its systems).  The prediction
+    takes PLAIN_RADAU_MS an attempt of each check's worst system; each
+    check records the plain ms an attempt it measured over the span."""
     left_s = F64_BUDGET_S - (time.perf_counter() - _T0)
-    predict = {span: sum(c.worst[span] * max(per_ms[k], PLAIN_RADAU_MS) for k, c in checks.items()) * 1e-3
+    predict = {span: sum(c.worst[span] for c in checks.values()) * PLAIN_RADAU_MS * 1e-3
                for span in F64_SPANS}
-    span = next((x for x in F64_SPANS if x == short or predict[x] * F64_MARGIN <= left_s), short)
-    phase(f"phase 9b/10b/11 span: plain Radau ms an attempt of the worst system (measured over the "
-          f"first {short:g} min) {per_ms}, predicted at PLAIN_RADAU_MS {PLAIN_RADAU_MS:g} if more; "
-          f"worst system's attempts by leading span (min) { {k: c.worst for k, c in checks.items()} }, "
-          f"{left_s:.1f} s left of F64_BUDGET_S {F64_BUDGET_S:g}: the checks run the first {span:g} min "
-          f"(predicted {predict[span]:.1f} s)")
+    span = next((x for x in F64_SPANS if x == F64_SPANS[-1] or predict[x] * F64_MARGIN <= left_s))
+    phase(f"phase 6/9b/10b/11/12 span: worst system's attempts by leading span (min) "
+          f"{ {k: c.worst for k, c in checks.items()} }, {left_s:.1f} s left of F64_BUDGET_S "
+          f"{F64_BUDGET_S:g}: the checks run the first {span:g} min (predicted {predict[span]:.1f} s "
+          f"at PLAIN_RADAU_MS {PLAIN_RADAU_MS:g})")
     for key, c in checks.items():
-        if span == short:
-            (ref, plain_ms), (ker, ms), err = done[key]
-        else:
-            (ref, plain_ms), (ker, ms) = c.run(span, plain=True), c.run(span)
-            err = c.compare(span, ker, ref)
+        (ref, plain_ms), (ker, ms) = c.run(span, plain=True), c.run(span)
+        err = c.compare(span, ker, ref)
         c.record.update({c.prefix + k: v for k, v in dict(
             check_span_min=span, check_span_ms=ms, plain_ms=plain_ms, max_abs_err=err,
-            plain_ms_per_attempt=per_ms[key],
-            predict_ms_per_attempt=max(per_ms[key], PLAIN_RADAU_MS)).items()})
+            plain_ms_per_attempt=plain_ms / max(c.worst[span], 1)).items()})
         phase(f"phase {key} over the first {span:g} of {DAYS * 1440.0:g} min: kernels {ms:.3f} ms vs "
-              f"plain {plain_ms:.3f} ms, max_abs_err {err:.3e} | {smi}")
+              f"plain {plain_ms:.3f} ms ({plain_ms / max(c.worst[span], 1):.2f} ms an attempt of the "
+              f"worst system), max_abs_err {err:.3e} | {smi}")
 
 
 def main() -> None:
@@ -1755,9 +2236,20 @@ def main() -> None:
     rows = torch.nonzero(ker.stiff).squeeze(1)  # the warm-up solve's stiff subset
     sy0, sp, sf, sh0 = subset(rows, y0, params, forc, h0)
     rker, ms_b2 = timed(lambda: k_radau.radau(model, sy0, sh0, 0.0, tf, qt, sp, sf, cfg), reps=3)
-    rref, plain_b2 = timed(lambda: k_radau.radau_plain(model, sy0, sh0, 0.0, tf, qt, sp, sf, cfg))
-    err_b2 = check_radau(f"phase 6 B2 vs radau_plain ({rows.numel()} systems, {DAYS:g} days)",
-                         rker, rref)
+
+    # B2's check against radau_plain runs at the end, over the shared leading
+    # span (plain_span_checks): over the 2 days it took 145 s.
+    def b2_span_run(span, plain=False):
+        sq = qt[qt <= span + 1e-9]
+        fn = k_radau.radau_plain if plain else k_radau.radau
+        return timed(lambda: fn(model, sy0, sh0, 0.0, span, sq, sp, sf, cfg))
+
+    b2_main = {}
+    check_6 = SpanCheck(
+        run=b2_span_run, record=b2_main,
+        worst={span: int(b2_span_run(span)[0].stats.n_attempts.max()) for span in F64_SPANS},
+        compare=radau_compare(f"phase 6 B2 vs radau_plain ({rows.numel()} systems",
+                              int(rker.stats.n_attempts.max())))
     # B1's tail: the systems that took it the most attempts, alone.
     top = torch.topk(ker.stats.n_attempts, TAIL_SYSTEMS).indices
     ty0, tp, tforc, th0 = subset(top, y0, params, forc, h0)
@@ -1784,7 +2276,7 @@ def main() -> None:
     phase(f"phase 6 times: B1 {ms_b1:.3f} ms vs rk45_plain {plain_b1:.3f} ms, bound "
           f"{bound_b1[0]:.4f} ms ({bound_b1[1]}), worst system {worst_b1} attempts "
           f"({MAIN_SYSTEMS} systems, {DAYS:g} days), lane efficiency {lane_eff:.4f}, geometry {geo}; "
-          f"B1 on its {TAIL_SYSTEMS} slowest systems {tail_b1:.3f} ms; B2 {ms_b2:.3f} ms vs radau_plain {plain_b2:.3f} ms, bound "
+          f"B1 on its {TAIL_SYSTEMS} slowest systems {tail_b1:.3f} ms; B2 {ms_b2:.3f} ms (radau_plain at the end), bound "
           f"{bound_b2[0]:.4f} ms ({bound_b2[1]}), worst system {worst_b2} attempts, "
           f"{1e3 * ms_b2 / worst_b2:.3f} us per attempt of the worst system, "
           f"{swp_b2 / att_b2:.4f} sweeps per attempt ({rows.numel()} systems, {DAYS:g} days) | {smi}")
@@ -1813,8 +2305,14 @@ def main() -> None:
     retry, checks_2 = retry_phase(smi, failing)
     check(set(checks_2) == set(CHECK_2_SETS),
           f"phase 11: of {CHECK_2_SETS} only {sorted(checks_2)} failed systems in float32 ({failing})")
-    plain_span_checks(smi, {"9b": check_c, "10b": check_b,
-                            **{f"11 {name}": c for name, c in checks_2.items()}})
+
+    # 12. Model 200 in both kernels (its own launch counts), then the plain
+    # Radau checks of phases 9b, 10b, 11 and 12d over one leading span
+    m200, check_12 = model200_phase(smi)
+    for kernel in ("rk45", "radau"):
+        instances[kernel].update(m200[kernel])
+    plain_span_checks(smi, {"6": check_6, "9b": check_c, "10b": check_b,
+                            **{f"11 {name}": c for name, c in checks_2.items()}, "12": check_12})
 
     say(json.dumps({"kernels": [
         {"name": "rk45", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/rk45.cu",
@@ -1827,11 +2325,12 @@ def main() -> None:
          "instances": instances["rk45"]},
         {"name": "radau", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/radau.cu",
          "replaces": "tiger_tpu/kernels/radau_pallas.py:987", "launches": launches["radau"],
-         "max_abs_err": err_b2, "ms": ms_b2, "plain_ms": plain_b2, "bound_ms": bound_b2[0],
+         "max_abs_err": b2_main["max_abs_err"], "ms": ms_b2, "plain_ms": b2_main["plain_ms"],
+         "plain_span_min": b2_main["check_span_min"], "bound_ms": bound_b2[0],
          "bound_by": bound_b2[1], "library_ms": None, "worst_system_attempts": worst_b2,
          "sweeps_per_attempt": swp_b2 / att_b2, "cli_launches": cli_launches["radau"],
          "windowed_launches": windowed_launches["radau"], "instances": instances["radau"],
-         "retry": retry},
+         "retry": retry, "model200_solve": m200["solve"], "model200_libm": m200["libm"]},
     ]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -238,7 +238,6 @@ class TimeProbe:
 
     N_EQ = 1
     UID = 901
-    reads_time = True
 
     def rhs_tuple(self, t, y, params, forcings=None):
         return tuple(torch.cos(2.0 * torch.pi * t / 1440.0) + 0.0 * yi for yi in y)
@@ -278,24 +277,31 @@ def test_solve_t_shift_equals_absolute_time():
     np.testing.assert_allclose(rb.y_final.numpy(), ra.y_final.numpy(), rtol=1e-9)
 
 
-def test_kernels_refuse_a_time_shift_for_a_model_that_reads_t():
-    """The CUDA kernels drop t_shift, so their input check refuses it for a
-    model that reads t (and takes it for Model 204, which does not)."""
-    import dataclasses
-
-    from tiger_tpu_torch.kernels._common import kernel_inputs
+@pytest.mark.parametrize("model", ["Model204", "Model200", "TimeProbe", "DummyModel"])
+def test_kernel_inputs_take_a_shift_for_the_models_the_kernels_carry(model):
+    """The CUDA kernels carry Model 204 and Model 200 and pass t_shift to
+    either's rhs, so their input check takes a shift for both; a model
+    without a device twin (TimeProbe, DummyModel) is refused, with or
+    without a shift, naming the ROADMAP item."""
+    from tiger_tpu_torch.kernels._common import kernel_inputs, kernel_model
+    from tiger_tpu_torch.models import Model200
     from tiger_tpu_torch.scenario import scenario
-
-    @dataclasses.dataclass(frozen=True)
-    class TimedModel204(Model204):
-        reads_time = True
 
     y0, params, forc = scenario(8, days=1.0, device="cpu")
     h0 = torch.ones(8)
-    kernel_inputs("rk45", Model204(), y0, h0, params, forc, None, t_shift=60.0)
-    kernel_inputs("rk45", TimedModel204(), y0, h0, params, forc, None)
-    with pytest.raises(NotImplementedError, match="t_shift"):
-        kernel_inputs("radau", TimedModel204(), y0, h0, params, forc, None, t_shift=60.0)
+    m = {"Model204": Model204(), "Model200": Model200(doy0=183.0), "TimeProbe": TimeProbe(),
+         "DummyModel": DummyModel()}[model]
+    if model in ("Model204", "Model200"):
+        for shift in (0.0, 60.0, 1440.0):
+            y_soa, p_block = kernel_inputs("rk45", m, y0, h0, params, forc, None, t_shift=shift)
+            assert y_soa.shape == (5, 8) and p_block.shape == (15, 8)
+        assert kernel_model("radau", m)[0] == (0 if model == "Model204" else 1)
+        with pytest.raises(ValueError, match="finite"):
+            kernel_inputs("radau", m, y0, h0, params, forc, None, t_shift=float("nan"))
+    else:
+        for shift in (0.0, 60.0):
+            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #18"):
+                kernel_inputs("radau", m, y0, h0, params, forc, None, t_shift=shift)
 
 
 # --- stiff rows -----------------------------------------------------------

@@ -211,10 +211,6 @@ def _refused(scenario, tmp_path, **changes):
     return lambda: run(cfg, device="cpu")
 
 
-REFUSED = {
-    "model_200": (dict(model__uid=200), "#10"),
-}
-
 # The solver options the port runs (they were refused before it had them):
 # compensated float32 at the reference's tolerances, and the PI controller.
 SOLVER_OPTIONS = {
@@ -249,14 +245,6 @@ def test_solver_option_run_matches_jax(scenario, tmp_path, case):
             assert a.shape[1] == 49
             a, b = np.delete(a, 24, axis=1), np.delete(b, 24, axis=1)
         _assert_close(a, b, "f32")
-
-
-@pytest.mark.parametrize("case", sorted(REFUSED))
-def test_unported_options_raise(scenario, tmp_path, case):
-    changes, item = REFUSED[case]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        _refused(scenario, tmp_path, **changes)()
-    assert not (tmp_path / "torch").exists()  # refused before any output
 
 
 # Configs that run float64 on the card, each option set through a double

@@ -33,7 +33,7 @@ from tiger_tpu_torch.kernels import _common as k_common
 from tiger_tpu_torch.kernels import launch_counts, launch_totals, reset_launch_counts
 from tiger_tpu_torch.kernels import radau as k_radau
 from tiger_tpu_torch.kernels import rk45 as k_rk45
-from tiger_tpu_torch.models import PARAM_FIELDS, Y0_COMMON, Model204
+from tiger_tpu_torch.models import PARAM_FIELDS, Y0_COMMON, Model200, Model204
 from tiger_tpu_torch.scenario import scenario, scenario_arrays
 from tiger_tpu_torch.solver import tableau
 from tiger_tpu_torch.solver.config import SolverConfig
@@ -111,7 +111,9 @@ def test_import_without_jax():
         import tiger_tpu_torch.io.output, tiger_tpu_torch.forcing, tiger_tpu_torch.models
         import tiger_tpu_torch.routing, tiger_tpu_torch.checkpoint, tiger_tpu_torch.profiling
         import tiger_tpu_torch.run, tiger_tpu_torch.chunked, tiger_tpu_torch.streams
-        import tiger_tpu_torch.diagnostics
+        import tiger_tpu_torch.diagnostics, tiger_tpu_torch.models.et
+        import tiger_tpu_torch.models.soiltemp, tiger_tpu_torch.models.model200
+        import tiger_tpu_torch.kernels.libm
         loaded = [m for m in sys.modules if sys.modules[m] is not None]
         assert not any(m == "jax" or m.startswith(("jax.", "tiger_tpu.")) for m in loaded)
         # Reading a config document and the files needs neither PyYAML nor h5py.
@@ -477,12 +479,12 @@ def test_model_registry_matches_jax():
     from tiger_tpu.models import get_model as j_get_model
     from tiger_tpu_torch.models import get_model
 
-    for uid in (1, 204):
+    for uid in (1, 200, 204):
         ours, ref = get_model(uid, doy0=182.0), j_get_model(uid, doy0=182.0)
         assert (ours.UID, ours.N_EQ) == (ref.UID, ref.N_EQ)
+        assert getattr(ours, "doy0", None) == getattr(ref, "doy0", None)
     assert get_model(204, safe_pow=False) == Model204(safe_pow=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #10"):
-        get_model(200)
+    assert get_model(200) == Model200() and Model200().doy0 == j_get_model(200).doy0 == 1.0
     with pytest.raises(KeyError, match="known"):
         get_model(999)
 
@@ -490,7 +492,8 @@ def test_model_registry_matches_jax():
 def test_every_legal_option_set_has_a_kernel_instance():
     """Every SolverConfig that validation accepts picks a float instance of
     B1 and of B2, and together they reach all twelve; the launch counters
-    hold those and their double twins, and nothing else."""
+    hold those and their double twins, for Model 204 and (prefixed 'm200/')
+    for Model 200, and nothing else."""
     import itertools
 
     from tiger_tpu_torch.kernels import radau as k_radau
@@ -511,5 +514,7 @@ def test_every_legal_option_set_has_a_kernel_instance():
         b2.add(k_radau.instance_name(cfg))
     assert b1 == set(k_rk45.INSTANCES.values()) and len(b1) == 6
     assert len(b2) == 6
-    assert set(k_rk45.rk45_launches) == b1 | {name + "/f64" for name in b1}
-    assert set(k_radau.radau_launches) == b2 | {name + "/f64" for name in b2}
+    for counts, names in ((k_rk45.rk45_launches, b1), (k_radau.radau_launches, b2)):
+        per_model = names | {name + "/f64" for name in names}
+        assert set(counts) == per_model | {"m200/" + name for name in per_model}
+        assert len(counts) == 24

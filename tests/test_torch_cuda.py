@@ -779,3 +779,154 @@ def test_f64_chunked_run_equals_the_windows_and_a_resume(tmp_path, monkeypatch):
     again = files("crashed")
     for name in ref:
         assert again[name].dtype == ref[name].dtype and np.array_equal(again[name], ref[name]), name
+
+
+# --- Model 200 (Hamon PET and the ET ramp): every instance of both kernels,
+# float and double, with and without a time shift, against its plain version.
+
+M200_B1 = {"default": {}, "fsal": dict(fsal=True), "compensated": dict(compensated=True),
+           "pi": dict(controller="pi"), "fsal+pi": dict(fsal=True, controller="pi"),
+           "compensated+pi": dict(compensated=True, controller="pi")}
+M200_B2 = {"embedded3": {}, "embedded3+predictor": dict(radau_predictor=True),
+           "reference": RADAU_INSTANCES["reference"],
+           "reference+predictor": RADAU_INSTANCES["reference_predictor"],
+           "radau5": dict(radau_error_mode="radau5"),
+           "radau5+predictor": dict(radau_error_mode="radau5", radau_predictor=True)}
+M200_SHIFTS = [pytest.param(0.0, id="unshifted"), pytest.param(1440.0, id="shift_1440")]
+M200_DTYPES = [pytest.param(torch.float32, id="f32"), pytest.param(torch.float64, id="f64")]
+
+
+def _m200_inputs(n_sys, dtype, span=TF):
+    """Model 200 on scenario()'s basin from early July, the latitude over
+    25-50 degrees, on the card."""
+    from tiger_tpu_torch.models import Model200
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    y0, p, f = scenario(n_sys, span / 1440.0, 0.0, device=dev, dtype=dtype)
+    p["lat"] = torch.linspace(25.0, 50.0, n_sys, dtype=dtype, device=dev)
+    return Model200(doy0=182.0), y0, p, f
+
+
+@pytest.mark.parametrize("shift", M200_SHIFTS)
+@pytest.mark.parametrize("dtype", M200_DTYPES)
+@pytest.mark.parametrize("name", sorted(M200_B1))
+def test_model200_rk45_instance_equals_plain(name, dtype, shift):
+    model, y0, p, f = _m200_inputs(512, dtype)
+    cfg = dataclasses.replace(CFG, **M200_B1[name])
+    qt = torch.arange(0.0, TF + 1e-9, 60.0, dtype=dtype, device=y0.device)
+    h0 = initial_step(model, y0, 0.0, p, f, cfg, shift)
+    instance = "m200/" + name + ("/f64" if dtype == torch.float64 else "")
+    before = k_rk45.rk45_launches[instance]
+    ker = k_rk45.rk45(model, y0, h0, 0.0, TF, qt, p, f, cfg, shift)
+    ref = k_rk45.rk45_plain(model, y0, h0, 0.0, TF, qt, p, f, cfg, shift)
+    torch.cuda.synchronize()
+    assert k_rk45.rk45_launches[instance] == before + 1
+    _assert_rk45_equal(ker, ref)
+    assert not bool(ker.stiff.any())
+
+
+@pytest.mark.parametrize("shift", M200_SHIFTS)
+@pytest.mark.parametrize("dtype", M200_DTYPES)
+@pytest.mark.parametrize("name", sorted(M200_B2))
+def test_model200_radau_instance_equals_plain(name, dtype, shift):
+    model, y0, p, f = _m200_inputs(4, dtype)
+    cfg = dataclasses.replace(CFG, **M200_B2[name])
+    qt = torch.arange(0.0, SPAN + 1e-9, 5.0, dtype=dtype, device=y0.device)
+    h0 = torch.full((4,), 1e-3, dtype=dtype, device=y0.device)
+    instance = "m200/" + name + ("/f64" if dtype == torch.float64 else "")
+    before = k_radau.radau_launches[instance]
+    ker = k_radau.radau(model, y0, h0, 0.0, SPAN, qt, p, f, cfg, shift)
+    ref = k_radau.radau_plain(model, y0, h0, 0.0, SPAN, qt, p, f, cfg, shift)
+    torch.cuda.synchronize()
+    assert k_radau.radau_launches[instance] == before + 1
+    assert torch.equal(ker.failed, ref.failed)
+    for a, b in zip(ker.stats, ref.stats):
+        assert torch.equal(a, b)
+    for a, b in ((ker.y_final, ref.y_final), (ker.dense, ref.dense)):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+@pytest.mark.parametrize("dtype", M200_DTYPES)
+def test_model200_two_launches_give_the_same_bytes(dtype):
+    model, y0, p, f = _m200_inputs(4097, dtype)
+    qt = torch.arange(0.0, TF + 1e-9, 60.0, dtype=dtype, device=y0.device)
+    h0 = initial_step(model, y0, 0.0, p, f, CFG, 1440.0)
+    one = k_rk45.rk45(model, y0, h0, 0.0, TF, qt, p, f, CFG, 1440.0)
+    two = k_rk45.rk45(model, y0, h0, 0.0, TF, qt, p, f, CFG, 1440.0)
+    rows = torch.arange(64, device=y0.device)
+    sub = (y0[rows], h0[rows], 0.0, SPAN, qt[qt <= SPAN], {k: v[rows] for k, v in p.items()},
+           f.take_systems(rows), CFG, 1440.0)
+    r_one, r_two = k_radau.radau(model, *sub), k_radau.radau(model, *sub)
+    torch.cuda.synchronize()
+    for a, b in zip((one.y_final, one.dense, one.stiff, *one.stats, r_one.y_final, r_one.dense,
+                     *r_one.stats),
+                    (two.y_final, two.dense, two.stiff, *two.stats, r_two.y_final, r_two.dense,
+                     *r_two.stats)):
+        assert torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def test_model200_run_and_windows_equal_a_direct_solve(tmp_path):
+    """model.uid 200 from 2000-07-01 (doy0 183) on the card, float32: the
+    run's files equal a direct solve() bit for bit, and a run in 2 one-day
+    windows (the second with t_shift 1440) equals the windows by hand."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tiger_tpu_torch import chunked, routing
+    from tiger_tpu_torch.checkpoint import cold_state
+    from tiger_tpu_torch.config import config_from_dict
+    from tiger_tpu_torch.forcing import ForcingSpec
+    from tiger_tpu_torch.io.netcdf import read_netcdf
+    from tiger_tpu_torch.models import Model200
+    from tiger_tpu_torch.params import model_params
+    from tiger_tpu_torch.run import COLD_STATE_DEFAULTS, run
+    from tiger_tpu_torch.scenario import solve_written_basin, write_basin
+
+    doc = write_basin(str(tmp_path / "basin"), 384, days=2.0)
+    doc["model"] = {"uid": 200}
+    doc["time"] = {"start": "2000-07-01T00:00:00", "end": "2000-07-03T00:00:00"}
+
+    def files(cfg):
+        return {name: read_netcdf(os.path.join(cfg.output.path, f"{name}_basin_rank_0.nc"),
+                                  (var,))[0][var]
+                for name, var in (("final", "outputs"), ("dense", "outputs"),
+                                  ("discharge", "discharge"), ("state", "outputs"))}
+
+    doc["output"]["path"] = str(tmp_path / "cli")
+    cfg = config_from_dict(doc)
+    reset_launch_counts()
+    out = run(cfg)
+    assert k_rk45.rk45_launches["m200/default"] == 1 and out["n_failed"] == 0
+    res, params, sp = solve_written_basin(cfg, "cuda")
+    got = files(cfg)
+    topo = routing.build_topology(sp["stream"], sp["next_stream"])
+    assert np.array_equal(got["dense"], res.dense.cpu().numpy())
+    assert np.array_equal(got["final"], res.y_final.cpu().numpy())
+    assert np.array_equal(got["state"], res.y_final.cpu().numpy())
+    assert np.array_equal(got["discharge"], routing.routed_discharge(res.dense, params, topo).cpu().numpy())
+
+    doc["time"]["chunk_days"] = 1.0
+    doc["output"].update(path=str(tmp_path / "win"), checkpoint_interval="1d")
+    wcfg = config_from_dict(doc)
+    reset_launch_counts()
+    out = run(wcfg)
+    assert k_rk45.rk45_launches["m200/default"] == 2 and out["n_windows"] == 2
+    specs = [ForcingSpec(os.path.join(wcfg.forcings.path, x["file"]), x["var"], float(x["dt_hours"]))
+             for x in wcfg.forcings.files]
+    loader = chunked.netcdf_window_loader(specs, sp["stream"], wcfg.forcings.lookup, "cuda")
+    p32 = {k: torch.as_tensor(v, device="cuda").to(torch.float32) for k, v in model_params(sp).items()}
+    y = torch.as_tensor(cold_state(COLD_STATE_DEFAULTS.get(200, (0.0,) * 5), 384),
+                        device="cuda").to(torch.float32)
+    dense = []
+    for w in range(2):
+        w0 = 1440.0 * w
+        qt = torch.as_tensor(np.arange(0 if w == 0 else 1, 25) * 60.0, device="cuda").to(torch.float32)
+        r = solve(Model200(doy0=183.0), y, 0.0, 1440.0, qt, p32, loader(w0, w0 + 1440.0),
+                  wcfg.solver_config(), t_shift=w0)
+        y = torch.where(torch.isnan(r.y_final), y, r.y_final)
+        dense.append(r.dense.cpu().numpy())
+    got = files(wcfg)
+    assert np.array_equal(got["dense"], np.concatenate(dense, axis=1))
+    assert np.array_equal(got["final"], y.cpu().numpy())

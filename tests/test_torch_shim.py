@@ -32,7 +32,7 @@ import pytest
 import torch
 
 from tests.test_torch_cuda import OPTIONS, RK45_INSTANCES
-from tiger_tpu_torch import Model204, SolverConfig
+from tiger_tpu_torch import Model200, Model204, SolverConfig
 from tiger_tpu_torch.kernels import _build
 from tiger_tpu_torch.kernels import radau as k_radau
 from tiger_tpu_torch.kernels import rk45 as k_rk45
@@ -43,7 +43,8 @@ from tiger_tpu_torch.solver.controller import initial_step
 SHIM = Path(__file__).resolve().with_name("torch_shim")
 CFG = SolverConfig(rtol=1e-5, atol=1e-8, max_steps=100_000)
 TF = 360.0
-SHAPE = ("-DTT_RK45_THREADS=8", "-DTT_RK45_THREADS_F64=8", "-DTT_RK45_POOL=16",
+SHAPE = ("-DTT_RK45_THREADS=8", "-DTT_RK45_THREADS_F64=8", "-DTT_RK45_THREADS_M200=8",
+         "-DTT_RK45_POOL=16",
          "-DTT_RK45_SLICE=4", "-DTT_SHIM_BLOCKS=2")
 F64 = {torch.float32: 0, torch.float64: 1}
 
@@ -65,6 +66,10 @@ def _gxx(work, body: str, source: str, lib_name: str, *defines) -> ctypes.CDLL:
         if hasattr(lib, name):
             getattr(lib, name).argtypes = [ctypes.c_int32]
             getattr(lib, name).restype = ctypes.c_int
+    for name in ("tt_rk45_args_offsets", "tt_radau_args_offsets"):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = [ctypes.c_int32, ctypes.c_void_p]
+            getattr(lib, name).restype = None
     return lib
 
 
@@ -88,7 +93,7 @@ def radau_sizes_lib(tmp_path_factory):
                 "libradau_sizes.so")
 
 
-def _run(lib, monkeypatch, entry, model, y0, h0, qt, p, f, cfg):
+def _run(lib, monkeypatch, entry, model, y0, h0, qt, p, f, cfg, t_shift=0.0):
     """The wrapper's CUDA path on CPU tensors, its launch sent to ``entry``
     of the shim library."""
 
@@ -98,7 +103,7 @@ def _run(lib, monkeypatch, entry, model, y0, h0, qt, p, f, cfg):
         assert getattr(lib, entry)(ctypes.addressof(args), int(f64), None) == 0
 
     monkeypatch.setattr(k_rk45, "launch", launch)
-    return k_rk45._rk45_cuda(model, y0, h0, 0.0, TF, qt, p, f, cfg)
+    return k_rk45._rk45_cuda(model, y0, h0, 0.0, TF, qt, p, f, cfg, t_shift)
 
 
 # Every option case in float32, and again in float64 (the double instance:
@@ -154,17 +159,58 @@ def test_option_instance_schedule_changes_no_result(shim_lib, monkeypatch, name,
         assert not any(diff.values()), diff
 
 
+@pytest.mark.parametrize("name,dtype", [
+    pytest.param("defaults", torch.float32, id="defaults-f32"),
+    pytest.param("defaults", torch.float64, id="defaults-f64"),
+    pytest.param("fsal_pi", torch.float32, id="fsal_pi-f32"),
+    pytest.param("compensated", torch.float64, id="compensated-f64")])
+def test_model200_schedule_changes_no_result_with_a_shift(shim_lib, monkeypatch, name, dtype):
+    """Model 200's instances (its rhs reads t + t_shift) give every system
+    the result it gets alone, bit for bit, in float32 and float64, with a
+    one-day shift: 100 systems over 6 hours with hourly rain.  The shift
+    reaches the rhs: the results move with it."""
+    cfg = dataclasses.replace(CFG, **RK45_INSTANCES.get(name, {}))
+    model = Model200(doy0=182.0)
+    y0, p, f = scenario(100, TF / 1440.0, 0.0, device="cpu", dtype=dtype)
+    p["lat"] = torch.linspace(25.0, 50.0, 100, dtype=dtype)
+    qt = torch.arange(0.0, TF + 1e-9, 60.0, dtype=dtype)
+    h0 = initial_step(model, y0, 0.0, p, f, cfg, 1440.0)
+    pooled = _run(shim_lib, monkeypatch, "tt_rk45_launch", model, y0, h0, qt, p, f, cfg, 1440.0)
+    alone = _run(shim_lib, monkeypatch, "tt_rk45_serial", model, y0, h0, qt, p, f, cfg, 1440.0)
+    diff = k_rk45.rk45_mismatch(pooled, alone)
+    assert not any(diff.values()), diff
+    assert int(alone.stats.n_attempts.min()) > 0 and not alone.stiff.any()
+    unshifted = _run(shim_lib, monkeypatch, "tt_rk45_launch", model, y0, h0, qt, p, f, cfg)
+    assert not torch.equal(unshifted.y_final, pooled.y_final)
+    # Against the plain version: the g++ build's libm (glibc's) rounds
+    # otherwise than torch's CPU functions here and there (on the card the
+    # two agree bit for bit; tests/test_torch_cuda.py).
+    ref = k_rk45.rk45_plain(model, y0, h0, 0.0, TF, qt, p, f, cfg, 1440.0)
+    rtol = 1e-9 if dtype == torch.float64 else 5e-4
+    torch.testing.assert_close(pooled.y_final, ref.y_final, rtol=rtol, atol=5e-5)
+
+
+#: The argument-struct fields whose offsets the shims report, in order.
+OFFSET_FIELDS = ("options", "model", "t_shift", "doy0", "forcing")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("kernel", ["rk45", "radau"])
 def test_args_mirrors_match_the_kernel_structs(shim_lib, radau_sizes_lib, kernel, dtype):
     """Each ctypes mirror (kernels.rk45.ARGS, kernels.radau.ARGS) has the
     size of the C++ struct it mirrors, as g++ lays it out: the float
-    struct and the double one (whose scalars and ForcingMeta are double)."""
+    struct and the double one (whose scalars and ForcingMeta are double);
+    and the model, the shift, doy0 and what surrounds them lie at the C++
+    struct's offsets."""
     lib, args = ((shim_lib, k_rk45.ARGS) if kernel == "rk45" else (radau_sizes_lib, k_radau.ARGS))
     size = getattr(lib, f"tt_{kernel}_args_size")(F64[dtype])
     assert size == ctypes.sizeof(args[dtype])
     if dtype == torch.float64:
         assert size > ctypes.sizeof(args[torch.float32])
+    out = (ctypes.c_int64 * len(OFFSET_FIELDS))()
+    getattr(lib, f"tt_{kernel}_args_offsets")(F64[dtype], out)
+    fields = OFFSET_FIELDS if kernel == "rk45" else ("err_mode",) + OFFSET_FIELDS[1:]
+    assert list(out) == [getattr(args[dtype], f).offset for f in fields]
 
 
 def test_tableau_header_holds_the_float64_tableau():

@@ -13,7 +13,28 @@ int __all_sync(unsigned mask, int pred);
 
 #include "radau_body.h"
 
+#include <cstddef>
+
 // As in the kernel library, f64 picks the scalar: 0 float, 1 double.
 extern "C" int tt_radau_args_size(int32_t f64) {
   return f64 ? (int)sizeof(tt::RadauArgs<double>) : (int)sizeof(tt::RadauArgs<float>);
+}
+
+// The offsets of the fields err_mode, model, t_shift, doy0 and forcing, in
+// that order, for the mirror test.
+template <class A>
+static void offsets_of(int64_t* out) {
+  out[0] = offsetof(A, err_mode);
+  out[1] = offsetof(A, model);
+  out[2] = offsetof(A, t_shift);
+  out[3] = offsetof(A, doy0);
+  out[4] = offsetof(A, forcing);
+}
+
+extern "C" void tt_radau_args_offsets(int32_t f64, int64_t* out) {
+  if (f64) {
+    offsets_of<tt::RadauArgs<double>>(out);
+  } else {
+    offsets_of<tt::RadauArgs<float>>(out);
+  }
 }

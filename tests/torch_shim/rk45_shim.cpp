@@ -6,10 +6,11 @@
 // kThreads std::threads each, one block after another; tt_rk45_serial runs
 // each system alone from its start to its end through the same admit,
 // attempt and finish functions, which is what the schedule must not change.
-// Both run the instance of (f64, args->options), as the kernel library's
-// launcher does.
+// Both run the instance of (args->model, f64, args->options), as the kernel
+// library's launcher does; here every instance is in one translation unit.
 #include "rk45_body.h"
 
+#include <cstddef>
 #include <thread>
 #include <vector>
 
@@ -24,21 +25,22 @@ unsigned long long smem[(std::max({Pool<float, kFsal | kPi>::kBytes, Pool<float,
                                    Pool<double, kComp | kPi>::kBytes}) +
                          7) / 8];
 
-template <class T>
-int launch_as(const Rk45Args<T>& a) {
+template <class T, class M>
+int launch_model(const Rk45Args<T>& a) {
+  constexpr int kLanes = kThreads<T, M>;
   shim::grid_dim.x = TT_SHIM_BLOCKS;
-  shim::block_dim.x = kThreads<T>;
+  shim::block_dim.x = kLanes;
   const bool known = rk45_dispatch<T>(a.options, [&](auto opt) {
     constexpr int OPT = decltype(opt)::value;
     for (unsigned b = 0; b < TT_SHIM_BLOCKS; ++b) {
-      std::barrier<> barrier(kThreads<T>);
+      std::barrier<> barrier(kLanes);
       shim::block_barrier = &barrier;
       std::vector<std::thread> threads;
-      for (unsigned t = 0; t < (unsigned)kThreads<T>; ++t)
+      for (unsigned t = 0; t < (unsigned)kLanes; ++t)
         threads.emplace_back([=, &a] {
           shim::thread_idx.x = t;
           shim::block_idx.x = b;
-          rk45_kernel<T, OPT>(a);
+          rk45_kernel<T, M, OPT>(a);
         });
       for (auto& th : threads) th.join();
     }
@@ -46,21 +48,39 @@ int launch_as(const Rk45Args<T>& a) {
   return known ? 0 : kNoInstance;
 }
 
-template <class T>
-int serial_as(const Rk45Args<T>& a) {
+template <class T, class M>
+int serial_model(const Rk45Args<T>& a) {
   const bool known = rk45_dispatch<T>(a.options, [&](auto opt) {
     constexpr int OPT = decltype(opt)::value;
     for (int64_t s = 0; s < a.n_sys; ++s) {
       Rk45State<T> st;
-      Model204<T> model;
+      M model;
       T h0;
-      rk45_admit<T, OPT>(a, s, st, h0);
-      model.load(a.params, a.n_sys, s, a.safe_pow);
-      while (rk45_live(a, st)) rk45_attempt<T, OPT>(a, model, h0, s, st);
+      rk45_admit<T, M, OPT>(a, s, st, h0);
+      model.load(a.params, a.n_sys, s, a.safe_pow, a.doy0);
+      while (rk45_live(a, st)) rk45_attempt<T, M, OPT>(a, model, h0, s, st);
       rk45_finish(a, s, st);
     }
   });
   return known ? 0 : 1;
+}
+
+template <class T>
+int launch_as(const Rk45Args<T>& a) {
+  switch (a.model) {
+    case kModel204: return launch_model<T, Model204<T>>(a);
+    case kModel200: return launch_model<T, Model200<T>>(a);
+    default: return kNoInstance;
+  }
+}
+
+template <class T>
+int serial_as(const Rk45Args<T>& a) {
+  switch (a.model) {
+    case kModel204: return serial_model<T, Model204<T>>(a);
+    case kModel200: return serial_model<T, Model200<T>>(a);
+    default: return kNoInstance;
+  }
 }
 }  // namespace tt
 
@@ -77,4 +97,23 @@ extern "C" int tt_rk45_launch(const void* args, int32_t f64, void*) {
 extern "C" int tt_rk45_serial(const void* args, int32_t f64, void*) {
   return f64 ? tt::serial_as(*static_cast<const tt::Rk45Args<double>*>(args))
              : tt::serial_as(*static_cast<const tt::Rk45Args<float>*>(args));
+}
+
+// The offsets of the fields options, model, t_shift, doy0 and forcing, in
+// that order, for the mirror test.
+template <class A>
+static void offsets_of(int64_t* out) {
+  out[0] = offsetof(A, options);
+  out[1] = offsetof(A, model);
+  out[2] = offsetof(A, t_shift);
+  out[3] = offsetof(A, doy0);
+  out[4] = offsetof(A, forcing);
+}
+
+extern "C" void tt_rk45_args_offsets(int32_t f64, int64_t* out) {
+  if (f64) {
+    offsets_of<tt::Rk45Args<double>>(out);
+  } else {
+    offsets_of<tt::Rk45Args<float>>(out);
+  }
 }

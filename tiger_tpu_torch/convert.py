@@ -3,7 +3,8 @@
 The JAX package's solver inputs -- the per-system ``params`` dict, the
 packed forcing ``ForcingSet.data`` with its ``meta``, ``y0`` and the query
 times -- are handed over as numpy arrays (``np.asarray`` of the JAX arrays)
-and become the port's tensors on a given device, bit for bit.  Nothing here
+and become the port's tensors on a given device, bit for bit; its model
+dataclasses become the port's of the same uid (``model``).  Nothing here
 imports jax: ``meta`` may be the JAX package's ForcingMeta or any
 (offsets, n_steps, dt_min) triple.
 """
@@ -12,10 +13,29 @@ from __future__ import annotations
 
 from typing import Mapping, Sequence
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from tiger_tpu_torch.forcing import ForcingMeta, ForcingSet
+
+
+def model(jax_model):
+    """The JAX package's model dataclass (Model200, Model204, DummyModel)
+    -> the port's of the same uid, its fields carried by name.  The port
+    has exact trig only, so ``approx_trig=True`` is refused."""
+    from tiger_tpu_torch.models import get_model
+
+    fields = {f.name: getattr(jax_model, f.name) for f in dataclasses.fields(jax_model)
+              if f.name not in ("N_EQ", "UID")}
+    if fields.pop("approx_trig", False):
+        raise ValueError("convert.model: the port has no approx_trig (its Hamon PET uses exact trig)")
+    ours = get_model(jax_model.UID)
+    unknown = set(fields) - {f.name for f in dataclasses.fields(ours)}
+    if unknown:
+        raise ValueError(f"convert.model: {type(ours).__name__} has no fields {sorted(unknown)}")
+    return dataclasses.replace(ours, **fields)
 
 
 def tensor(a, *, device: torch.device | str, dtype: torch.dtype | None = None) -> torch.Tensor:

@@ -3,12 +3,16 @@
 ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
 with a plain C interface, which is loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds).  The kernels are built without FMA
-contraction.  Each kernel source is compiled twice: as it stands, for its
-float instances and the C entry points, and with ``-DTT_DOUBLE_INSTANCES``
-as relocatable device code, for its double instances, which are device-linked
-with ``csrc/contracted.cu`` (the double pow, built with contraction so that
-it rounds as torch's CUDA pow does).  The float instances' build is the one
-they always had.  The library lands in
+contraction.  Each kernel source is compiled four times, all at once: as it
+stands, for Model 204's float instances and the C entry points; and as
+relocatable device code with ``-DTT_DOUBLE_INSTANCES`` (Model 204's double
+instances), ``-DTT_MODEL_200`` (Model 200's float instances) and both (its
+double ones).  The relocatable objects are device-linked with
+``csrc/contracted.cu`` (the double pow, built with contraction so that it
+rounds as torch's CUDA pow does) and ``csrc/libm_check.cu`` (Model 200's
+libm calls, one an element, built with the Model 200 instances' flags for
+chip_smoke phase 12a).  Model 204's float instances keep the build they
+always had.  The library lands in
 ``build/tiger_tpu_torch/`` at the repository root, named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused.  Nothing but the repository's own sources is compiled, beside one
@@ -50,6 +54,12 @@ NVCC_FLAGS = (
 )
 #: Built apart from the kernels, with nvcc's default FMA contraction.
 CONTRACTED = "contracted.cu"
+#: Built once, as relocatable code under the kernels' flags.
+LIBM_CHECK = "libm_check.cu"
+#: The relocatable builds of each kernel source beside the one as it
+#: stands: Model 204 in double, Model 200 in float and in double.
+INSTANCE_DEFINES = {"f64": ("-DTT_DOUBLE_INSTANCES",), "m200": ("-DTT_MODEL_200",),
+                    "m200_f64": ("-DTT_MODEL_200", "-DTT_DOUBLE_INSTANCES")}
 #: The same build with nvcc's default FMA contraction, to measure what
 #: ``-fmad=false`` costs (``python -m tiger_tpu_torch.profile_solve``).
 FMAD_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
@@ -121,22 +131,23 @@ def build(flags: tuple[str, ...] = NVCC_FLAGS) -> tuple[Path, float, str]:
     os.close(fd)
     nvcc, compile_flags = _nvcc(), [f for f in flags if f != "-shared"]
     arch = [f for f in flags if f.startswith(("-gencode", "arch="))] + ["-Xcompiler", "-fPIC"]
-    kernels = [p for p in sorted(CSRC.glob("*.cu")) if p.name != CONTRACTED]
+    kernels = [p for p in sorted(CSRC.glob("*.cu")) if p.name not in (CONTRACTED, LIBM_CHECK)]
     objects = {p.stem: include / f"{p.stem}.o" for p in kernels}
-    rdc = {CONTRACTED: include / "contracted.o",
-           **{p.name: include / f"{p.stem}_f64.o" for p in kernels}}
-    dlink = include / "dlink.o"
+    common = [nvcc, *compile_flags, "-I", str(include), "-c"]
     # Every compile at once, then the device link of the relocatable code,
     # then the library.
-    compiles = [[nvcc, *(f for f in compile_flags if f != "-fmad=false"), "-rdc=true", "-c",
-                 "-o", str(rdc[CONTRACTED]), str(CSRC / CONTRACTED)]]
+    rdc = {include / "contracted.o": [nvcc, *(f for f in compile_flags if f != "-fmad=false"),
+                                      "-rdc=true", "-c", str(CSRC / CONTRACTED)],
+           include / "libm_check.o": [*common, "-rdc=true", str(CSRC / LIBM_CHECK)]}
     for p in kernels:
-        common = [nvcc, *compile_flags, "-I", str(include), "-c"]
-        compiles.append([*common, "-rdc=true", "-DTT_DOUBLE_INSTANCES", "-o", str(rdc[p.name]), str(p)])
-        compiles.append([*common, "-o", str(objects[p.stem]), str(p)])
+        for suffix, defines in INSTANCE_DEFINES.items():
+            rdc[include / f"{p.stem}_{suffix}.o"] = [*common, "-rdc=true", *defines, str(p)]
+    dlink = include / "dlink.o"
+    compiles = [[*cmd, "-o", str(obj)] for obj, cmd in rdc.items()]
+    compiles += [[*common, "-o", str(objects[p.stem]), str(p)] for p in kernels]
     links = (
-        [nvcc, *arch, "-dlink", "-o", str(dlink), *map(str, rdc.values())],
-        [nvcc, *flags, "-o", tmp, *map(str, objects.values()), *map(str, rdc.values()), str(dlink)],
+        [nvcc, *arch, "-dlink", "-o", str(dlink), *map(str, rdc)],
+        [nvcc, *flags, "-o", tmp, *map(str, objects.values()), *map(str, rdc), str(dlink)],
     )
     start = time.perf_counter()
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -170,12 +181,15 @@ def load() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.tt_rk45_geometry.argtypes = [ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-                                         ctypes.c_void_p]
+                                         ctypes.c_int32, ctypes.c_void_p]
         lib.tt_rk45_geometry.restype = ctypes.c_int
         for name in ("tt_rk45_args_size", "tt_radau_args_size"):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_int32]
             fn.restype = ctypes.c_int
+        lib.tt_libm_eval.argtypes = [ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+                                     ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+        lib.tt_libm_eval.restype = ctypes.c_int
         _libs[_flags_in_use] = lib
     return lib
 

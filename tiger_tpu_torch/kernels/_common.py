@@ -8,12 +8,14 @@ parameter and dense-output helpers.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
 
 from tiger_tpu_torch.forcing import ZOH_SNAP, ForcingSet
 from tiger_tpu_torch.kernels import _build
+from tiger_tpu_torch.models.model200 import Model200
 from tiger_tpu_torch.models.model204 import PARAM_FIELDS, Model204
 from tiger_tpu_torch.solver.config import SolverConfig
 
@@ -90,26 +92,37 @@ def forcing_meta_c(forcings: ForcingSet | None, config: SolverConfig,
     return m
 
 
+#: The models the kernels carry, by class: each one's id in the argument
+#: structs (csrc/common.cuh KernelModel) and the prefix of its instances'
+#: names in the launch counters (none for Model 204's).
+KERNEL_MODELS = {Model204: (0, ""), Model200: (1, "m200/")}
+
+
+def kernel_model(name: str, model) -> tuple[int, str]:
+    """(kernel model id, instance-name prefix) of ``model``; raises for a
+    model the kernels do not carry (no fallback for a CUDA tensor)."""
+    try:
+        return KERNEL_MODELS[type(model)]
+    except KeyError:
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel carries Model 204 and Model 200 only, got "
+            f"{type(model).__name__} (further models wait for ROADMAP Queue 1 #18)"
+        ) from None
+
+
 def kernel_inputs(name, model, y0, h0, params, forcings, query_times, t_shift=0.0):
     """Validate a CUDA launch's inputs; returns (y0 [5,S], params [15,S]).
 
-    The kernels take Model 204 in float32 or float64 (y0's dtype), with
-    h0, every param and the query times in y0's dtype, the forcing data in
-    float32, and every tensor on y0's device: anything else raises (there
-    is no fallback for a CUDA tensor).  They take no ``t_shift``: Model
-    204's rhs does not read t, and a model that does (``reads_time``) is
-    refused with a shift rather than run without.
+    The kernels take the models of ``KERNEL_MODELS`` in float32 or float64
+    (y0's dtype), with h0, every param and the query times in y0's dtype,
+    the forcing data in float32, and every tensor on y0's device: anything
+    else raises (there is no fallback for a CUDA tensor).  A finite time
+    shift reaches the rhs of either model (the argument structs'
+    ``t_shift``).
     """
-    if not isinstance(model, Model204):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel implements Model204 only, got {type(model).__name__}"
-        )
-    if t_shift and getattr(model, "reads_time", True):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel does not pass t_shift={t_shift} to the rhs of "
-            f"{type(model).__name__}, which reads t (time-dependent models wait for "
-            "ROADMAP Queue 1 #10)"
-        )
+    kernel_model(name, model)
+    if not math.isfinite(t_shift):
+        raise ValueError(f"{name}: t_shift must be finite, got {t_shift}")
     dev, s_count = y0.device, y0.shape[0]
     if y0.dtype not in C_REAL:
         raise TypeError(f"{name}: y0 must be float32 or float64, got {y0.dtype}")

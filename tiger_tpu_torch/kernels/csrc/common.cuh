@@ -4,8 +4,12 @@
 // scalar per-thread code: the zero-order-hold forcing gather and the step cap at
 // the next forcing-sample boundary (tiger_tpu/kernels/rk45_pallas.py,
 // _gather_forcings l.185-211 and _zoh_step_cap l.214-225), NaN-propagating
-// min/max with jnp.maximum/minimum semantics, and the Model-204 right-hand
-// side (tiger_tpu/models/model204.py, rhs_tuple over derived_params).
+// min/max with jnp.maximum/minimum semantics, and the right-hand sides of the
+// models the kernels carry: Model 204 (tiger_tpu/models/model204.py) and
+// Model 200 (model200.py, with Hamon PET and the ET ramp of et.py), each
+// rhs_tuple over derived_params.  A kernel is a template over its model, and
+// the model's rhs takes the time of the evaluation with the window's shift
+// already added (rk45_pallas.py:273-277); Model 204 ignores it.
 // Each is a template over the scalar T of the solve, float or double: the
 // double instances repeat the float ones' operations in double, as the plain
 // versions do for a float64 tensor (constants written T(x) are the plain
@@ -22,9 +26,14 @@
 
 namespace tt {
 
-constexpr int kNEq = 5;          // Model 204 state size
+constexpr int kNEq = 5;          // state size of both models
 constexpr int kMaxForcings = 4;  // forcing blocks a launch may carry
 constexpr int kNoInstance = -1;  // a launcher's code for an option set without an instance
+
+// The models the kernels carry (Rk45Args/RadauArgs.model;
+// kernels._common.KERNEL_MODELS).  Each model's instances are built in
+// translation units of their own (_build.py).
+enum KernelModel : int32_t { kModel204 = 0, kModel200 = 1 };
 
 // Rows of the [15, S] parameter block, in tiger_tpu_torch.models.PARAM_FIELDS
 // order (the wrappers stack the params dict in that order).
@@ -81,6 +90,26 @@ __device__ __forceinline__ double pow_t(double x, double y) {
   return pow(x, y);
 #endif
 }
+
+// Model 200's libm calls, in float and double: libdevice's functions,
+// inlined under the kernels' -fmad=false.  Unlike double pow (above), each
+// rounds as torch's CUDA function of the same name does: chip_smoke phase
+// 12a holds every one against torch's element by element (16M inputs a
+// function, built with the Model 200 instances' flags).
+__device__ __forceinline__ float exp_t(float x) { return expf(x); }
+__device__ __forceinline__ double exp_t(double x) { return exp(x); }
+__device__ __forceinline__ float sin_t(float x) { return sinf(x); }
+__device__ __forceinline__ double sin_t(double x) { return sin(x); }
+__device__ __forceinline__ float cos_t(float x) { return cosf(x); }
+__device__ __forceinline__ double cos_t(double x) { return cos(x); }
+__device__ __forceinline__ float tan_t(float x) { return tanf(x); }
+__device__ __forceinline__ double tan_t(double x) { return tan(x); }
+__device__ __forceinline__ float atan_t(float x) { return atanf(x); }
+__device__ __forceinline__ double atan_t(double x) { return atan(x); }
+__device__ __forceinline__ float asin_t(float x) { return asinf(x); }
+__device__ __forceinline__ double asin_t(double x) { return asin(x); }
+__device__ __forceinline__ float acos_t(float x) { return acosf(x); }
+__device__ __forceinline__ double acos_t(double x) { return acos(x); }
 
 // jnp.maximum / jnp.minimum: NaN in either operand gives NaN (fmaxf and
 // fminf would drop it, and a NaN error norm must reject, not accept).  On
@@ -157,14 +186,16 @@ __device__ __forceinline__ T zoh_step_cap(const ForcingMeta<T>& m, T t, T h) {
   return h;
 }
 
-// Model 204 over derived parameters (model204.py derived_params/rhs_tuple).
+// Model 204's stores over derived parameters (model204.py derived_params
+// and rhs_tuple): snow, static, surface (Manning), gravitational and aquifer.
+// The static store's ET is the model's own: `et(temperature, h_static)`.
 template <class T>
-struct Model204 {
+struct Stores {
   T temp_thr, melt_f, hu, inv_hu, infil, manning_c, perco, inv_a3, inv_a4;
   int32_t safe_pow;
 
-  __device__ __forceinline__ void load(const T* __restrict__ p,
-                                       int64_t n_sys, int64_t s, int32_t safe) {
+  __device__ __forceinline__ void load_stores(const T* __restrict__ p, int64_t n_sys, int64_t s,
+                                              int32_t safe) {
     auto at = [&](int k) { return __ldg(p + (int64_t)k * n_sys + s); };
     temp_thr = at(kTempThr);
     melt_f = at(kMeltF);
@@ -179,9 +210,9 @@ struct Model204 {
     safe_pow = safe;
   }
 
-  __device__ __forceinline__ void rhs(const T (&y)[kNEq],
-                                      const T (&f)[kMaxForcings],
-                                      int32_t n_forc, T (&dy)[kNEq]) const {
+  template <class Et>
+  __device__ __forceinline__ void stores_rhs(const T (&y)[kNEq], const T (&f)[kMaxForcings],
+                                             int32_t n_forc, T (&dy)[kNEq], Et&& et) const {
     const T two_thirds = T(2.0 / 3.0);
     const T rain = n_forc > 0 ? f[0] : T(0);
     const T temp = n_forc > 1 ? f[1] : T(0);
@@ -192,8 +223,7 @@ struct Model204 {
     // 2) Static store
     const T x2 = jmax(T(0), x1 + y[1] - hu);
     const T d1 = x1 - x2;
-    const T e_max = jmin(T(0.1) * temp, y[1]);
-    dy[1] = d1 - (y[1] * inv_hu) * e_max;
+    dy[1] = d1 - et(temp, y[1]);
     // 3) Surface store (Manning); _pow23 is exp2/log2, not pow
     const T x3 = jmin(x2, infil);
     const T d2 = x2 - x3;
@@ -207,6 +237,78 @@ struct Model204 {
     const T d3 = x3 - x4;
     dy[3] = d3 - y[3] * inv_a3;
     dy[4] = x4 - y[4] * inv_a4;
+  }
+};
+
+// Model 204: the linear ET stub s * min(0.1 T, h_static); t is not read.
+template <class T>
+struct Model204 : Stores<T> {
+  static constexpr int32_t kId = kModel204;
+
+  __device__ __forceinline__ void load(const T* __restrict__ p, int64_t n_sys, int64_t s,
+                                       int32_t safe, T /*doy0*/) {
+    this->load_stores(p, n_sys, s, safe);
+  }
+
+  __device__ __forceinline__ void rhs(T /*t*/, const T (&y)[kNEq], const T (&f)[kMaxForcings],
+                                      int32_t n_forc, T (&dy)[kNEq]) const {
+    this->stores_rhs(y, f, n_forc, dy, [&](T temp, T h_stat) {
+      const T e_max = jmin(T(0.1) * temp, h_stat);
+      return (h_stat * this->inv_hu) * e_max;
+    });
+  }
+};
+
+// Hamon potential ET [m/min] (et.py hamon_pet, exact trig; the Python
+// numbers of tiger_tpu_torch/models/et.py, each rounded to T, in its order):
+// temperature in degC, the latitude in degrees with its sine and cosine, and
+// the day of year.
+template <class T>
+__device__ __forceinline__ T hamon_pet(T temp, T lat, T sin_lat, T cos_lat, T doy) {
+  const T esat = T(6.108) * exp_t((T(17.26939) * temp) / (temp + T(237.3)));
+  const T wt = T(216.7) * esat / (temp + T(273.3));
+  const T theta = T(0.2163108) + T(2) * atan_t(T(0.9671396) * tan_t(T(0.00860) * (doy - T(186))));
+  const T phi = asin_t(T(0.39795) * cos_t(theta));
+  const T num = sin_lat * sin_t(phi) + T(0x1.dc8e2d2968a47p-7);  // et.SIN_REFRACTION
+  const T den = cos_lat * cos_t(phi);
+  const T arg = num / den;
+  T d = (T(24) - T(24.0 / 3.141592653589793) * acos_t(arg)) * T(1.0 / 12.0);
+  // acos out of [-1, 1]: polar day or night (et.py:58-65).
+  const bool polar_day = (phi > T(0) && lat > T(0)) || (phi < T(0) && lat < T(0));
+  if (fabs_t(arg) > T(1)) d = polar_day ? T(2) : T(0);
+  const T pet = T(1.6169e-6) * d * d * wt * T(60) * T(1.0 / 1000.0);
+  return temp > T(0) ? pet : T(0);
+}
+
+// Model 200 (model200.py): Hamon PET at doy = doy0 + t/1440 and the actual-ET
+// ramp between sw and ss on s = h_static / Hu (et.py et_actual).
+template <class T>
+struct Model200 : Stores<T> {
+  static constexpr int32_t kId = kModel200;
+  T lat, sin_lat, cos_lat, sw, ss, doy0;
+
+  __device__ __forceinline__ void load(const T* __restrict__ p, int64_t n_sys, int64_t s,
+                                       int32_t safe, T day0) {
+    this->load_stores(p, n_sys, s, safe);
+    auto at = [&](int k) { return __ldg(p + (int64_t)k * n_sys + s); };
+    lat = at(kLat);
+    sw = at(kSw);
+    ss = at(kSs);
+    sin_lat = sin_t(lat * T(3.141592653589793 / 180.0));
+    cos_lat = cos_t(lat * T(3.141592653589793 / 180.0));
+    doy0 = day0;
+  }
+
+  __device__ __forceinline__ void rhs(T t, const T (&y)[kNEq], const T (&f)[kMaxForcings],
+                                      int32_t n_forc, T (&dy)[kNEq]) const {
+    const T doy = t * T(1.0 / 1440.0) + doy0;
+    this->stores_rhs(y, f, n_forc, dy, [&](T temp, T h_stat) {
+      const T pet = hamon_pet(temp, lat, sin_lat, cos_lat, doy);
+      const T e_max = jmin(pet, h_stat);
+      const T s = h_stat * this->inv_hu;
+      const T ramp = e_max * (s - sw) / (ss - sw);
+      return s > ss ? e_max : (s > sw ? ramp : T(0));
+    });
   }
 };
 

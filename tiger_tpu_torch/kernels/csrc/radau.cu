@@ -71,13 +71,20 @@
 // highest high word (warp_jmax).  The file is compiled twice, as rk45.cu is:
 // as it stands for the float instances and the entry points, and with
 // -DTT_DOUBLE_INSTANCES, as relocatable device code, for the double ones.
+//
+// The model is a template parameter too (common.cuh Model204, Model200).
+// Each right-hand side sees its time with the window's shift added
+// (radau_pallas.py:194-195): the Jacobian's f and columns at t, the stage
+// residuals at t + c_s h, radau5's second estimate at t.  Model 200's
+// instances are built in translation units of their own: the file compiled
+// again with -DTT_MODEL_200, in float and in double, as relocatable code.
 
 #include <type_traits>
 
 #include "common.cuh"
 
-#ifdef TT_DOUBLE_INSTANCES
-#undef TT_RADAU_PHASES  // the probes time the float instances
+#if defined(TT_DOUBLE_INSTANCES) || defined(TT_MODEL_200)
+#undef TT_RADAU_PHASES  // the probes time Model 204's float instances
 #endif
 
 namespace tt {
@@ -115,6 +122,11 @@ struct RadauArgs {
   T gam, alp, bet;                            // eigenvalues of A^-1
   T v1[3], v2r[3], v2i[3];                    // eigenvector columns
   T p1[3], p2r[3], p2i[3];                    // rows of Lambda V^-1
+  // Last, so the fields above keep their offsets (and Model 204's
+  // instances their code).
+  int32_t model;  // KernelModel
+  T t_shift;      // added to the time the rhs sees (not the forcing gather's)
+  T doy0;         // Model 200: the day of year at t = 0
 };
 
 // The two factors of (I - h A (x) J) in the eigenbasis of A^-1, in each
@@ -235,12 +247,12 @@ __device__ __forceinline__ double warp_jmax(double v) {
 enum RadauErrMode : int32_t { kEmbedded3 = 0, kReference = 1, kRadau5 = 2 };
 
 // One system on the block's 32 lanes; every lane runs every loop trip.
-template <class T, int ERR, bool PRED>
+template <class T, class M, int ERR, bool PRED>
 __device__ __forceinline__ void radau_system(const RadauArgs<T>& a, int64_t s, Shared<T>& sh) {
   const int lane = threadIdx.x;
   const int64_t S = a.n_sys;
-  Model204<T> model;
-  model.load(a.params, S, s, a.safe_pow);
+  M model;
+  model.load(a.params, S, s, a.safe_pow, a.doy0);
   T y[kNEq];
 #pragma unroll
   for (int i = 0; i < kNEq; ++i) y[i] = __ldg(a.y0 + i * S + s);
@@ -300,7 +312,7 @@ __device__ __forceinline__ void radau_system(const RadauArgs<T>& a, int64_t s, S
       T yp[kNEq], fp[kNEq];
 #pragma unroll
       for (int i = 0; i < kNEq; ++i) yp[i] = i == j ? y[i] + h_eps : y[i];
-      model.rhs(yp, f, n_forc, fp);
+      model.rhs(t + a.t_shift, yp, f, n_forc, fp);
       if (lane <= kNEq) {
 #pragma unroll
         for (int i = 0; i < kNEq; ++i) sh.jf[jc][i] = fp[i];
@@ -413,7 +425,7 @@ __device__ __forceinline__ void radau_system(const RadauArgs<T>& a, int64_t s, S
 #pragma unroll
           for (int i = 0; i < kNEq; ++i) ys[i] = ys[i] + hw * sh.z[j][i];
         }
-        model.rhs(ys, f, n_forc, fs);
+        model.rhs((t + a.rc[st] * h_eff) + a.t_shift, ys, f, n_forc, fs);
         if (lane < 3) {
 #pragma unroll
           for (int i = 0; i < kNEq; ++i) sh.b[st][i] = fs[i] - sh.z[st][i];
@@ -481,7 +493,7 @@ __device__ __forceinline__ void radau_system(const RadauArgs<T>& a, int64_t s, S
         T yp[kNEq], fp[kNEq];
 #pragma unroll
         for (int i = 0; i < kNEq; ++i) yp[i] = y[i] + e[i];
-        model.rhs(yp, f, n_forc, fp);
+        model.rhs(t + a.t_shift, yp, f, n_forc, fp);
 #pragma unroll
         for (int i = 0; i < kNEq; ++i) e[i] = fp[i] + defect[i] - sh.jf[0][i];
         fa.real_solve(e);
@@ -573,15 +585,15 @@ __device__ __forceinline__ void radau_system(const RadauArgs<T>& a, int64_t s, S
 }
 
 // One block, one warp, per system.
-template <class T, int ERR, bool PRED>
+template <class T, class M, int ERR, bool PRED>
 __global__ void __launch_bounds__(kWarp) radau_kernel(const RadauArgs<T> a) {
   __shared__ Shared<T> sh;
-  radau_system<T, ERR, PRED>(a, blockIdx.x, sh);
+  radau_system<T, M, ERR, PRED>(a, blockIdx.x, sh);
 }
 
 // Calls f(std::integral_constant<int, ERR>{}, std::bool_constant<PRED>{})
 // for the instance of (err_mode, predictor) in scalar T; false if it has
-// none.  Both scalars have the same six sets.
+// none.  Both scalars and both models have the same six sets.
 template <class T, class F>
 inline bool radau_dispatch(int32_t err_mode, int32_t predictor, F&& f) {
   if (predictor != 0 && predictor != 1) return false;
@@ -606,41 +618,71 @@ inline bool radau_dispatch(int32_t err_mode, int32_t predictor, F&& f) {
 
 namespace tt {
 
-template <class T>
+template <class T, class M>
 int radau_launch(const RadauArgs<T>* args, void* stream) {
   if (args->n_sys <= 0) return 0;
   const bool known = radau_dispatch<T>(args->err_mode, args->predictor, [&](auto err, auto pred) {
-    radau_kernel<T, decltype(err)::value, decltype(pred)::value>
+    radau_kernel<T, M, decltype(err)::value, decltype(pred)::value>
         <<<(unsigned)args->n_sys, kWarp, 0, (cudaStream_t)stream>>>(*args);
   });
   if (!known) return kNoInstance;
   return (int)cudaGetLastError();
 }
 
-// The double instances' host side, defined in the -DTT_DOUBLE_INSTANCES
-// build of this file and called by the entry point of the other.
+// The host side of the instances built in this file's other translation
+// units (-DTT_DOUBLE_INSTANCES, -DTT_MODEL_200, both), called by the entry
+// point of the first: Model 204 in double, Model 200 in float and double.
 int radau_launch_f64(const void* args, void* stream);
+int radau_launch_m200(const void* args, void* stream);
+int radau_launch_m200_f64(const void* args, void* stream);
 
+#if defined(TT_DOUBLE_INSTANCES) || defined(TT_MODEL_200)
 #ifdef TT_DOUBLE_INSTANCES
-int radau_launch_f64(const void* args, void* stream) {
-  return radau_launch(static_cast<const RadauArgs<double>*>(args), stream);
+using TuReal = double;
+#else
+using TuReal = float;
+#endif
+#ifdef TT_MODEL_200
+using TuModel = Model200<TuReal>;
+#else
+using TuModel = Model204<TuReal>;
+#endif
+#if defined(TT_MODEL_200) && defined(TT_DOUBLE_INSTANCES)
+#define TT_TU(fn) fn##_m200_f64
+#elif defined(TT_MODEL_200)
+#define TT_TU(fn) fn##_m200
+#else
+#define TT_TU(fn) fn##_f64
+#endif
+int TT_TU(radau_launch)(const void* args, void* stream) {
+  return radau_launch<TuReal, TuModel>(static_cast<const RadauArgs<TuReal>*>(args), stream);
 }
 #endif
 
 }  // namespace tt
 
-#ifndef TT_DOUBLE_INSTANCES
+#if !defined(TT_DOUBLE_INSTANCES) && !defined(TT_MODEL_200)
 // In each entry point f64 picks the scalar: 0 float (RadauArgs<float>), 1
-// double (RadauArgs<double>).
+// double (RadauArgs<double>); the model is RadauArgs.model.
 extern "C" int tt_radau_args_size(int32_t f64) {
   return f64 ? (int)sizeof(tt::RadauArgs<double>) : (int)sizeof(tt::RadauArgs<float>);
 }
 
-// Enqueues the instance of (f64, err_mode, predictor) on `stream`; returns
-// cudaGetLastError() (0 on success; kNoInstance for a set without one).
+// Enqueues the instance of (model, f64, err_mode, predictor) on `stream`;
+// returns cudaGetLastError() (0 on success; kNoInstance for a set without one).
 extern "C" int tt_radau_launch(const void* args, int32_t f64, void* stream) {
-  return f64 ? tt::radau_launch_f64(args, stream)
-             : tt::radau_launch(static_cast<const tt::RadauArgs<float>*>(args), stream);
+  const int32_t model = f64 ? static_cast<const tt::RadauArgs<double>*>(args)->model
+                            : static_cast<const tt::RadauArgs<float>*>(args)->model;
+  switch (model) {
+    case tt::kModel204:
+      return f64 ? tt::radau_launch_f64(args, stream)
+                 : tt::radau_launch<float, tt::Model204<float>>(
+                       static_cast<const tt::RadauArgs<float>*>(args), stream);
+    case tt::kModel200:
+      return f64 ? tt::radau_launch_m200_f64(args, stream) : tt::radau_launch_m200(args, stream);
+    default:
+      return tt::kNoInstance;
+  }
 }
 #endif
 

@@ -35,6 +35,18 @@
 // instances, whose pow is contracted.cu's (common.cuh pow_t).  So the float
 // instances keep the code and the build they had.
 //
+// The model is a template parameter too (common.cuh Model204, Model200),
+// and every stage passes its time to the rhs with the window's shift added,
+// t + c_i h + t_shift (rk45_pallas.py:273-277): Model 200's Hamon PET reads
+// the day of year.  The forcing gather stays unshifted.  Each model's
+// instances are built in translation units of their own: the file is
+// compiled again with -DTT_MODEL_200, in float and with
+// -DTT_DOUBLE_INSTANCES in double, as relocatable code (_build.py), so
+// Model 204's build is the one it had.  Model 200's float system needs more
+// than the 128 registers a thread of a 512-lane block may have (its rhs
+// calls exp, tan, atan, cos, asin, acos and sin), so its block has
+// TT_RK45_THREADS_M200 lanes (256), as a double block has.
+//
 // What bounds it on the H100: neither rate of the card.  An attempt is a
 // dependent chain of seven right-hand sides, ~700 operations against ~20
 // bytes, and the systems need very different numbers of attempts (a few
@@ -89,8 +101,8 @@
 #include "common.cuh"
 #include "rk45_tableau.cuh"  // TT_DP_TABLEAU, written by _build.py
 
-#ifdef TT_DOUBLE_INSTANCES
-#undef TT_RK45_PHASES  // the probes count the float instances' warps
+#if defined(TT_DOUBLE_INSTANCES) || defined(TT_MODEL_200)
+#undef TT_RK45_PHASES  // the probes count Model 204's float instances' warps
 #endif
 
 #ifndef TT_RK45_THREADS
@@ -98,6 +110,9 @@
 #endif
 #ifndef TT_RK45_THREADS_F64
 #define TT_RK45_THREADS_F64 256
+#endif
+#ifndef TT_RK45_THREADS_M200
+#define TT_RK45_THREADS_M200 256
 #endif
 #ifndef TT_RK45_POOL
 #define TT_RK45_POOL 1024
@@ -108,14 +123,17 @@
 
 namespace tt {
 
-// Lanes a block, by scalar.
-template <class T>
-constexpr int kThreads = std::is_same<T, double>::value ? TT_RK45_THREADS_F64 : TT_RK45_THREADS;
+// Lanes a block, by scalar and model.
+template <class T, class M>
+constexpr int kThreads = std::is_same<T, double>::value ? TT_RK45_THREADS_F64
+                         : M::kId == kModel200       ? TT_RK45_THREADS_M200
+                                                     : TT_RK45_THREADS;
 constexpr int kPool = TT_RK45_POOL;
 constexpr int kSlice = TT_RK45_SLICE;
 static_assert(kPool > 0 && (kPool & (kPool - 1)) == 0, "the bitonic sort needs a power of two");
-static_assert((kThreads<float> % 32 == 0 || kThreads<float> < 32) &&
-                  (kThreads<double> % 32 == 0 || kThreads<double> < 32),
+static_assert((TT_RK45_THREADS % 32 == 0 || TT_RK45_THREADS < 32) &&
+                  (TT_RK45_THREADS_F64 % 32 == 0 || TT_RK45_THREADS_F64 < 32) &&
+                  (TT_RK45_THREADS_M200 % 32 == 0 || TT_RK45_THREADS_M200 < 32),
               "whole warps, or (in a CPU rehearsal) a part of one");
 
 template <class T>
@@ -159,6 +177,11 @@ struct Rk45Args {
   int32_t stiff_test_every, stiff_floor_streak, fill_t0_queries;
   int32_t options;  // Rk45Option bits: which instance the launcher starts
   ForcingMeta<T> forcing;
+  // Last, so the fields above keep their offsets (and Model 204's
+  // instances their code).
+  int32_t model;  // KernelModel
+  T t_shift;      // added to the time the rhs sees (not the forcing gather's)
+  T doy0;         // Model 200: the day of year at t = 0
 };
 
 // The TPU kernel's options (SolverConfig.fsal, .compensated, .controller).
@@ -210,7 +233,7 @@ __device__ __forceinline__ bool forcing_sample_changed(const ForcingMeta<T>& m, 
 // Start of system s: state from y0 and h0, and the dense rows with
 // qt <= t0 as y0 (fill_t0_queries), the rest as 0.  FSAL's first k1 is
 // f(t0, y0) on the forcing at t0.
-template <class T, int OPT>
+template <class T, class M, int OPT>
 __device__ __forceinline__ void rk45_admit(const Rk45Args<T>& a, int64_t s, Rk45State<T>& st,
                                            T& h0) {
   using O = Rk45Opt<OPT>;
@@ -233,11 +256,11 @@ __device__ __forceinline__ void rk45_admit(const Rk45Args<T>& a, int64_t s, Rk45
   st.n_acc = st.n_rej = st.n_att = 0;
   st.stiff = 0;
   if constexpr (O::fsal) {
-    Model204<T> model;
-    model.load(a.params, S, s, a.safe_pow);
+    M model;
+    model.load(a.params, S, s, a.safe_pow, a.doy0);
     T f[kMaxForcings];
     gather_forcings(a.forc, S, s, a.forcing, st.t, f);
-    model.rhs(st.y, f, a.forcing.n_forc, st.k0);
+    model.rhs(st.t + a.t_shift, st.y, f, a.forcing.n_forc, st.k0);
   }
   if constexpr (O::comp) {
 #pragma unroll
@@ -247,8 +270,8 @@ __device__ __forceinline__ void rk45_admit(const Rk45Args<T>& a, int64_t s, Rk45
 }
 
 // One attempt of system s.  Returns whether it filled dense rows.
-template <class T, int OPT>
-__device__ __forceinline__ bool rk45_attempt(const Rk45Args<T>& a, const Model204<T>& model,
+template <class T, class M, int OPT>
+__device__ __forceinline__ bool rk45_attempt(const Rk45Args<T>& a, const M& model,
                                              const T h0, const int64_t s, Rk45State<T>& st) {
   using O = Rk45Opt<OPT>;
   constexpr DpTableau<T> tb = dp_tableau<T>();
@@ -262,15 +285,15 @@ __device__ __forceinline__ bool rk45_attempt(const Rk45Args<T>& a, const Model20
   T f[kMaxForcings];
   gather_forcings(a.forc, S, s, a.forcing, t, f);
 
-  // Seven stages; forcing frozen at step start for all of them.  FSAL
-  // takes k1 from the carry: the last advance's k7, or for a rejected
-  // system the same (t, y)'s.
+  // Seven stages at t + c_i h (plus the shift); forcing frozen at step
+  // start for all of them.  FSAL takes k1 from the carry: the last
+  // advance's k7, or for a rejected system the same (t, y)'s.
   T k[7][kNEq], g6[kNEq];
   if constexpr (O::fsal) {
 #pragma unroll
     for (int i = 0; i < kNEq; ++i) k[0][i] = st.k0[i];
   } else {
-    model.rhs(y, f, a.forcing.n_forc, k[0]);
+    model.rhs(t + a.t_shift, y, f, a.forcing.n_forc, k[0]);
   }
 #pragma unroll
   for (int sg = 1; sg < 7; ++sg) {
@@ -289,7 +312,7 @@ __device__ __forceinline__ bool rk45_attempt(const Rk45Args<T>& a, const Model20
 #pragma unroll
       for (int i = 0; i < kNEq; ++i) g6[i] = acc[i];
     }
-    model.rhs(acc, f, a.forcing.n_forc, k[sg]);
+    model.rhs((t + tb.c[sg] * h_eff) + a.t_shift, acc, f, a.forcing.n_forc, k[sg]);
   }
 
   // 5th-order update and embedded error, in the TPU kernel's order: y_out
@@ -443,7 +466,7 @@ __device__ __forceinline__ bool rk45_attempt(const Rk45Args<T>& a, const Model20
       if (forcing_sample_changed(a.forcing, t, t1)) {
         T f1[kMaxForcings];
         gather_forcings(a.forc, S, s, a.forcing, t1, f1);
-        model.rhs(y, f1, a.forcing.n_forc, st.k0);
+        model.rhs(t1 + a.t_shift, y, f1, a.forcing.n_forc, st.k0);
       } else {
 #pragma unroll
         for (int i = 0; i < kNEq; ++i) st.k0[i] = k[6][i];
@@ -641,9 +664,9 @@ struct WarpProbe {
 #define TT_PROBE(x)
 #endif
 
-template <class T, int OPT>
-__global__ void __launch_bounds__(kThreads<T>, 1) rk45_kernel(const Rk45Args<T> a) {
-  constexpr int kLanes = kThreads<T>;
+template <class T, class M, int OPT>
+__global__ void __launch_bounds__(kThreads<T, M>, 1) rk45_kernel(const Rk45Args<T> a) {
+  constexpr int kLanes = kThreads<T, M>;
   extern __shared__ unsigned long long smem[];
   Pool<T, OPT> pool;
   pool.key = smem;
@@ -684,7 +707,7 @@ __global__ void __launch_bounds__(kThreads<T>, 1) rk45_kernel(const Rk45Args<T> 
       const int slot = (int)(unsigned)pool.key[n_live + j];
       Rk45State<T> st;
       T h0;
-      rk45_admit<T, OPT>(a, next + j, st, h0);
+      rk45_admit<T, M, OPT>(a, next + j, st, h0);
       pool.store(slot, st);
       pool.f[pH0 * kPool + slot] = h0;
       pool.i[pSys * kPool + slot] = (int32_t)(next + j - lo);
@@ -701,12 +724,12 @@ __global__ void __launch_bounds__(kThreads<T>, 1) rk45_kernel(const Rk45Args<T> 
       const int64_t s = lo + pool.i[pSys * kPool + slot];
       const T h0 = pool.f[pH0 * kPool + slot];
       Rk45State<T> st;
-      Model204<T> model;
+      M model;
       pool.load(slot, st);
-      model.load(a.params, a.n_sys, s, a.safe_pow);
+      model.load(a.params, a.n_sys, s, a.safe_pow, a.doy0);
       bool live = rk45_live(a, st);
       for (int k = 0; k < kSlice && live; ++k) {
-        const bool filled = rk45_attempt<T, OPT>(a, model, h0, s, st);
+        const bool filled = rk45_attempt<T, M, OPT>(a, model, h0, s, st);
         (void)filled;
         TT_PROBE(probe.count(filled);)
         live = rk45_live(a, st);
@@ -727,7 +750,7 @@ __global__ void __launch_bounds__(kThreads<T>, 1) rk45_kernel(const Rk45Args<T> 
 
 // Calls f(std::integral_constant<int, OPT>{}) for the instance of the
 // option set `options` in scalar T; false if it has none.  Both scalars
-// have the same six sets.
+// and both models have the same six sets.
 template <class T, class F>
 inline bool rk45_dispatch(int32_t options, F&& f) {
   switch (options) {
@@ -748,9 +771,9 @@ inline bool rk45_dispatch(int32_t options, F&& f) {
 namespace tt {
 
 // The launch geometry of n_sys systems on the current device for the
-// instance of (T, options): one block per SM, fewer where a block's share
-// would fall under a warp of systems.
-template <class T>
+// instance of (T, M, options): one block per SM, fewer where a block's
+// share would fall under a warp of systems.
+template <class T, class M>
 int rk45_geometry(int64_t n_sys, int32_t options, int32_t* out) {
   size_t pool_bytes = 0;
   if (!rk45_dispatch<T>(options, [&](auto opt) { pool_bytes = Pool<T, decltype(opt)::value>::kBytes; }))
@@ -761,64 +784,105 @@ int rk45_geometry(int64_t n_sys, int32_t options, int32_t* out) {
   if (rc != cudaSuccess) return (int)rc;
   const int64_t want = n_sys / 32;
   out[0] = (int32_t)(want < 1 ? 1 : (want > sms ? sms : want));  // blocks
-  out[1] = kThreads<T>;
+  out[1] = kThreads<T, M>;
   out[2] = kPool;
   out[3] = kSlice;
   out[4] = (int32_t)pool_bytes;  // dynamic shared memory a block
   return 0;
 }
 
-template <class T>
+template <class T, class M>
 int rk45_launch(const Rk45Args<T>* args, void* stream) {
   if (args->n_sys <= 0) return 0;
   int32_t geo[5];
-  int rc = rk45_geometry<T>(args->n_sys, args->options, geo);
+  int rc = rk45_geometry<T, M>(args->n_sys, args->options, geo);
   if (rc != 0) return rc;
   rk45_dispatch<T>(args->options, [&](auto opt) {
     constexpr int OPT = decltype(opt)::value;
     constexpr size_t bytes = Pool<T, OPT>::kBytes;
-    rc = (int)cudaFuncSetAttribute(rk45_kernel<T, OPT>,
+    rc = (int)cudaFuncSetAttribute(rk45_kernel<T, M, OPT>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (rc == 0)
-      rk45_kernel<T, OPT><<<(unsigned)geo[0], kThreads<T>, bytes, (cudaStream_t)stream>>>(*args);
+      rk45_kernel<T, M, OPT><<<(unsigned)geo[0], kThreads<T, M>, bytes, (cudaStream_t)stream>>>(*args);
   });
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 
-// The double instances' host side, defined in the -DTT_DOUBLE_INSTANCES
-// build of this file and called by the entry points of the other.
+// The host side of the instances built in this file's other translation
+// units (-DTT_DOUBLE_INSTANCES, -DTT_MODEL_200, both), called by the entry
+// points of the first: Model 204 in double, Model 200 in float and double.
 int rk45_geometry_f64(int64_t n_sys, int32_t options, int32_t* out);
 int rk45_launch_f64(const void* args, void* stream);
+int rk45_geometry_m200(int64_t n_sys, int32_t options, int32_t* out);
+int rk45_launch_m200(const void* args, void* stream);
+int rk45_geometry_m200_f64(int64_t n_sys, int32_t options, int32_t* out);
+int rk45_launch_m200_f64(const void* args, void* stream);
 
+#if defined(TT_DOUBLE_INSTANCES) || defined(TT_MODEL_200)
 #ifdef TT_DOUBLE_INSTANCES
-int rk45_geometry_f64(int64_t n_sys, int32_t options, int32_t* out) {
-  return rk45_geometry<double>(n_sys, options, out);
+using TuReal = double;
+#else
+using TuReal = float;
+#endif
+#ifdef TT_MODEL_200
+using TuModel = Model200<TuReal>;
+#else
+using TuModel = Model204<TuReal>;
+#endif
+#if defined(TT_MODEL_200) && defined(TT_DOUBLE_INSTANCES)
+#define TT_TU(fn) fn##_m200_f64
+#elif defined(TT_MODEL_200)
+#define TT_TU(fn) fn##_m200
+#else
+#define TT_TU(fn) fn##_f64
+#endif
+int TT_TU(rk45_geometry)(int64_t n_sys, int32_t options, int32_t* out) {
+  return rk45_geometry<TuReal, TuModel>(n_sys, options, out);
 }
-int rk45_launch_f64(const void* args, void* stream) {
-  return rk45_launch(static_cast<const Rk45Args<double>*>(args), stream);
+int TT_TU(rk45_launch)(const void* args, void* stream) {
+  return rk45_launch<TuReal, TuModel>(static_cast<const Rk45Args<TuReal>*>(args), stream);
 }
 #endif
 
 }  // namespace tt
 
-#ifndef TT_DOUBLE_INSTANCES
+#if !defined(TT_DOUBLE_INSTANCES) && !defined(TT_MODEL_200)
 // In each entry point f64 picks the scalar: 0 float (Rk45Args<float>), 1
-// double (Rk45Args<double>).
+// double (Rk45Args<double>); the model is Rk45Args.model (or `model`).
 extern "C" int tt_rk45_args_size(int32_t f64) {
   return f64 ? (int)sizeof(tt::Rk45Args<double>) : (int)sizeof(tt::Rk45Args<float>);
 }
 
-extern "C" int tt_rk45_geometry(int64_t n_sys, int32_t options, int32_t f64, int32_t* out) {
-  return f64 ? tt::rk45_geometry_f64(n_sys, options, out)
-             : tt::rk45_geometry<float>(n_sys, options, out);
+extern "C" int tt_rk45_geometry(int64_t n_sys, int32_t options, int32_t f64, int32_t model,
+                                int32_t* out) {
+  switch (model) {
+    case tt::kModel204:
+      return f64 ? tt::rk45_geometry_f64(n_sys, options, out)
+                 : tt::rk45_geometry<float, tt::Model204<float>>(n_sys, options, out);
+    case tt::kModel200:
+      return f64 ? tt::rk45_geometry_m200_f64(n_sys, options, out)
+                 : tt::rk45_geometry_m200(n_sys, options, out);
+    default:
+      return tt::kNoInstance;
+  }
 }
 
-// Enqueues the instance of (f64, args->options) on `stream`; returns the CUDA
-// error code (0 on success; kNoInstance for a set without one).
+// Enqueues the instance of (model, f64, options) on `stream`; returns the
+// CUDA error code (0 on success; kNoInstance for a set without one).
 extern "C" int tt_rk45_launch(const void* args, int32_t f64, void* stream) {
-  return f64 ? tt::rk45_launch_f64(args, stream)
-             : tt::rk45_launch(static_cast<const tt::Rk45Args<float>*>(args), stream);
+  const int32_t model = f64 ? static_cast<const tt::Rk45Args<double>*>(args)->model
+                            : static_cast<const tt::Rk45Args<float>*>(args)->model;
+  switch (model) {
+    case tt::kModel204:
+      return f64 ? tt::rk45_launch_f64(args, stream)
+                 : tt::rk45_launch<float, tt::Model204<float>>(
+                       static_cast<const tt::Rk45Args<float>*>(args), stream);
+    case tt::kModel200:
+      return f64 ? tt::rk45_launch_m200_f64(args, stream) : tt::rk45_launch_m200(args, stream);
+    default:
+      return tt::kNoInstance;
+  }
 }
 #endif
 

@@ -30,7 +30,9 @@ from tiger_tpu_torch.kernels._common import (
     fill_dense,
     finish,
     forcing_meta_c,
+    KERNEL_MODELS,
     kernel_inputs,
+    kernel_model,
     c_reals,
     launch,
     plain_params,
@@ -71,6 +73,7 @@ def _args_type(dtype):
             ("gam", real), ("alp", real), ("bet", real),
             ("v1", real * 3), ("v2r", real * 3), ("v2i", real * 3),
             ("p1", real * 3), ("p2r", real * 3), ("p2i", real * 3),
+            ("model", c_i32), ("t_shift", real), ("doy0", real),
         ]
 
     return RadauArgsC
@@ -94,18 +97,20 @@ ERR_MODES = {"embedded3": (0, 1.0 / 3.0), "reference": (1, 0.2), "radau5": (2, 0
 INSTANCES = tuple((mode, pred) for mode in ERR_MODES for pred in (False, True))
 
 
-def instance_name(config: SolverConfig, dtype: torch.dtype = torch.float32) -> str:
-    """B2's instance for ``config`` in ``dtype``: the error mode,
-    '+predictor' with it, '/f64' for the double instance."""
-    return (config.radau_error_mode + ("+predictor" if config.radau_predictor else "")
+def instance_name(config: SolverConfig, dtype: torch.dtype = torch.float32, prefix: str = "") -> str:
+    """B2's instance for ``config`` in ``dtype`` for the model whose
+    ``_common.KERNEL_MODELS`` prefix is ``prefix``: the error mode,
+    '+predictor' with it, '/f64' for the double instance (e.g.
+    'radau5+predictor/f64', 'm200/embedded3')."""
+    return (prefix + config.radau_error_mode + ("+predictor" if config.radau_predictor else "")
             + ("/f64" if dtype == torch.float64 else ""))
 
 
 #: Kernel launches by instance (``instance_name``) since import (or since a
 #: caller set them to 0: ``kernels.reset_launch_counts``).
 radau_launches = {
-    mode + ("+predictor" if pred else "") + suffix: 0
-    for suffix in ("", "/f64") for mode, pred in INSTANCES
+    prefix + mode + ("+predictor" if pred else "") + suffix: 0
+    for _, prefix in KERNEL_MODELS.values() for suffix in ("", "/f64") for mode, pred in INSTANCES
 }
 
 
@@ -152,8 +157,9 @@ def radau(
     """B2 over ``y0[n, N]`` from t0 to tf; ``query_times`` sorted and unique.
 
     CPU tensors run ``radau_plain``; CUDA tensors launch the kernel on the
-    current stream without synchronising (Model 204 in float32 or float64;
-    any other input raises).  ``t_shift`` as in ``kernels.rk45.rk45``.
+    current stream without synchronising (Model 204 or Model 200 in float32
+    or float64; any other input raises).  ``t_shift`` as in
+    ``kernels.rk45.rk45``.
     """
     if y0.device.type == "cpu":
         return radau_plain(model, y0, h0, t0, tf, query_times, params, forcings, config, t_shift)
@@ -167,6 +173,7 @@ def _radau_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -
     if not (cfg.rtol >= 0.0 and cfg.atol >= 0.0):
         raise ValueError(f"radau: the CUDA kernel needs rtol, atol >= 0, got {cfg.rtol}, {cfg.atol}")
     y0_soa, p_block = kernel_inputs("radau", model, y0, h0, params, forcings, qt, t_shift)
+    model_id, prefix = kernel_model("radau", model)
     s_count, dev, dtype = y0.shape[0], y0.device, y0.dtype
     f64, real = dtype == torch.float64, C_REAL[dtype]
     q_total = 0 if qt is None else qt.shape[0]
@@ -195,7 +202,8 @@ def _radau_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -
         newton_max_iter=cfg.newton_max_iter,
         reject_unconverged=int(cfg.newton_reject_unconverged),
         fill_t0_queries=int(cfg.fill_t0_queries), err_mode=err_mode,
-        predictor=int(cfg.radau_predictor), safety_newton=newton_safety(cfg),
+        predictor=int(cfg.radau_predictor), model=model_id, safety_newton=newton_safety(cfg),
+        t_shift=t_shift, doy0=getattr(model, "doy0", 1.0),
         forcing=forcing_meta_c(forcings, cfg, dtype),
         ra=reals(tableau.RADAU_A), rc=reals(tableau.RADAU_C),
         rb=reals(tableau.RADAU_B), re=reals(_embedded_weights(cfg)),
@@ -205,8 +213,9 @@ def _radau_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -
         v2i=reals(v2i), p1=reals(p1), p2r=reals(p2r), p2i=reals(p2i),
     )
     launch("tt_radau_launch", "tt_radau_args_size", a, f64, dev,
-           f"radau_error_mode={cfg.radau_error_mode!r}, radau_predictor={cfg.radau_predictor}")
-    radau_launches[instance_name(cfg, dtype)] += 1
+           f"radau_error_mode={cfg.radau_error_mode!r}, radau_predictor={cfg.radau_predictor} "
+           f"({type(model).__name__})")
+    radau_launches[instance_name(cfg, dtype, prefix)] += 1
     return RadauResult(
         y_final=y_final.t().contiguous(),
         dense=dense.permute(2, 0, 1).contiguous(),

@@ -41,7 +41,9 @@ from tiger_tpu_torch.kernels._common import (
     fill_dense,
     finish,
     forcing_meta_c,
+    KERNEL_MODELS,
     kernel_inputs,
+    kernel_model,
     launch,
     plain_params,
 )
@@ -71,6 +73,7 @@ def _args_type(dtype):
             ("stiff_test_every", c_i32), ("stiff_floor_streak", c_i32),
             ("fill_t0_queries", c_i32), ("options", c_i32),
             ("forcing", FORCING_META[dtype]),
+            ("model", c_i32), ("t_shift", real), ("doy0", real),
         ]
 
     return Rk45ArgsC
@@ -87,9 +90,20 @@ INSTANCES = {0: "default", FSAL: "fsal", COMPENSATED: "compensated", PI: "pi",
              FSAL | PI: "fsal+pi", COMPENSATED | PI: "compensated+pi"}
 #: The same option sets' double instances.
 F64_INSTANCES = {bits: name + "/f64" for bits, name in INSTANCES.items()}
-#: Kernel launches by instance since import (or since a caller set them to
-#: 0: ``kernels.reset_launch_counts``).
-rk45_launches = dict.fromkeys([*INSTANCES.values(), *F64_INSTANCES.values()], 0)
+
+
+def instance_name(options: int, dtype: torch.dtype = torch.float32, prefix: str = "") -> str:
+    """B1's instance of the option bits ``options`` in ``dtype`` for the
+    model whose ``_common.KERNEL_MODELS`` prefix is ``prefix``: e.g.
+    'default', 'pi/f64', 'm200/fsal+pi', 'm200/compensated/f64'."""
+    return prefix + (F64_INSTANCES if dtype == torch.float64 else INSTANCES)[options]
+
+
+#: Kernel launches by instance (``instance_name``) since import (or since a
+#: caller set them to 0: ``kernels.reset_launch_counts``).
+rk45_launches = dict.fromkeys(
+    [instance_name(bits, dtype, prefix) for _, prefix in KERNEL_MODELS.values()
+     for dtype in C_REAL for bits in INSTANCES], 0)
 
 
 def rk45_options(config: SolverConfig) -> int:
@@ -104,12 +118,15 @@ def controller_exponent(config: SolverConfig) -> float:
     return 0.2 - config.pi_beta * 0.75 if config.controller == "pi" else 0.2
 
 
-def rk45_geometry(n_sys: int, options: int = 0, dtype: torch.dtype = torch.float32) -> dict:
-    """How the instance of (``options``, ``dtype``) lays ``n_sys`` systems
-    out on the current CUDA device: blocks, threads a block, pool slots and
-    dynamic shared memory a block, attempts a time slice (csrc/rk45.cu)."""
+def rk45_geometry(n_sys: int, options: int = 0, dtype: torch.dtype = torch.float32,
+                  model=None) -> dict:
+    """How the instance of (``model``, ``options``, ``dtype``) lays
+    ``n_sys`` systems out on the current CUDA device: blocks, threads a
+    block, pool slots, attempts a time slice and dynamic shared memory a
+    block (csrc/rk45.cu).  ``model`` defaults to Model 204."""
+    model_id = 0 if model is None else kernel_model("rk45_geometry", model)[0]
     out = (c_i32 * 5)()
-    rc = _build.load().tt_rk45_geometry(n_sys, options, int(dtype == torch.float64), out)
+    rc = _build.load().tt_rk45_geometry(n_sys, options, int(dtype == torch.float64), model_id, out)
     if rc != 0:
         raise RuntimeError(f"tt_rk45_geometry: CUDA error {rc}")
     keys = ("blocks", "threads", "pool_slots", "slice_attempts", "shared_bytes")
@@ -131,8 +148,8 @@ def rk45(
     """B1 over ``y0[S, N]`` from t0 to tf; ``query_times`` sorted and unique.
 
     CPU tensors run ``rk45_plain``; CUDA tensors launch the kernel on the
-    current stream without synchronising (Model 204 in float32 or float64;
-    any other input raises).  ``t_shift`` [min] is added to the time the
+    current stream without synchronising (Model 204 or Model 200 in float32
+    or float64; any other input raises).  ``t_shift`` [min] is added to the time the
     model's rhs sees (forcing gathers stay unshifted).
     """
     if y0.device.type == "cpu":
@@ -145,6 +162,7 @@ def rk45(
 def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -> RK45Result:
     options = rk45_options(cfg)
     y0_soa, p_block = kernel_inputs("rk45", model, y0, h0, params, forcings, qt, t_shift)
+    model_id, prefix = kernel_model("rk45", model)
     s_count, dev, dtype = y0.shape[0], y0.device, y0.dtype
     f64 = dtype == torch.float64
     q_total = 0 if qt is None else qt.shape[0]
@@ -169,11 +187,13 @@ def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) ->
         stiff_test_every=cfg.stiff_test_every,
         stiff_floor_streak=cfg.stiff_floor_streak,
         fill_t0_queries=int(cfg.fill_t0_queries), options=options,
+        model=model_id, t_shift=t_shift, doy0=getattr(model, "doy0", 1.0),
         forcing=forcing_meta_c(forcings, cfg, dtype),
     )
     launch("tt_rk45_launch", "tt_rk45_args_size", a, f64, dev,
-           f"fsal={cfg.fsal}, compensated={cfg.compensated}, controller={cfg.controller!r}")
-    rk45_launches[(F64_INSTANCES if f64 else INSTANCES)[options]] += 1
+           f"fsal={cfg.fsal}, compensated={cfg.compensated}, controller={cfg.controller!r} "
+           f"({type(model).__name__})")
+    rk45_launches[instance_name(options, dtype, prefix)] += 1
     return RK45Result(
         y_final=y_final.t().contiguous(),
         dense=dense.permute(2, 0, 1).contiguous(),

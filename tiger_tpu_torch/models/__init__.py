@@ -1,4 +1,4 @@
-"""Physics models of the port (DummyModel, Model 204) and the uid registry."""
+"""Physics models of the port (DummyModel, Model 200, Model 204) and the uid registry."""
 
 from __future__ import annotations
 
@@ -6,16 +6,14 @@ import dataclasses
 
 from tiger_tpu_torch.models.base import Model
 from tiger_tpu_torch.models.dummy import DummyModel
+from tiger_tpu_torch.models.model200 import Model200
 from tiger_tpu_torch.models.model204 import PARAM_FIELDS, Y0_COMMON, Model204
 
 _REGISTRY = {
     DummyModel.UID: DummyModel,
+    Model200.UID: Model200,
     Model204.UID: Model204,
 }
-
-#: Models of the JAX package that the port does not carry yet, with the
-#: ROADMAP item that ports them.
-_NOT_PORTED = {200: "Model 200 waits for ROADMAP Queue 1 #10"}
 
 
 def register_model(cls) -> None:
@@ -28,10 +26,9 @@ def get_model(uid: int, **kwargs) -> Model:
 
     ``kwargs`` are passed through when the model's dataclass declares the
     field and dropped otherwise, so ``run`` can offer them uniformly
-    (``doy0``, the start date's day of year, which Model 204 does not use).
+    (``doy0``, the start date's day of year, which Model 200 reads and
+    Model 204 does not).
     """
-    if uid in _NOT_PORTED and uid not in _REGISTRY:
-        raise NotImplementedError(f"model uid {uid}: {_NOT_PORTED[uid]}")
     try:
         cls = _REGISTRY[uid]
     except KeyError:
@@ -43,6 +40,7 @@ def get_model(uid: int, **kwargs) -> Model:
 __all__ = [
     "Model",
     "DummyModel",
+    "Model200",
     "Model204",
     "PARAM_FIELDS",
     "Y0_COMMON",

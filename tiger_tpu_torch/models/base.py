@@ -8,13 +8,12 @@ A model is a frozen dataclass with
     components — ``y`` is an indexable of ``N_EQ`` tensors of one shape
     (one entry per system), ``params`` a dict of such tensors (or None),
     ``forcings`` an indexable of forcing tensors frozen at the step-start
-    time (or None).  It returns a tuple of ``N_EQ`` tensors.
-  - ``reads_time`` (optional class attribute): False when the rhs ignores
-    t.  The kernels take no time shift and refuse one for a model that
-    reads t (or does not say).
+    time (or None).  It returns a tuple of ``N_EQ`` tensors.  ``t`` is the
+    time of the evaluation in minutes, a window's shift included.
 
 The batched plain solvers call ``rhs_tuple`` with [S]-shaped tensors; the
-CUDA kernels carry their own device twin of each model they support.
+CUDA kernels carry their own device twin of each model they support
+(``kernels._common.KERNEL_MODELS``: Model 204 and Model 200).
 """
 
 from __future__ import annotations

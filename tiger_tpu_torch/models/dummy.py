@@ -14,14 +14,12 @@ this model: it runs on the plain (CPU) path only.
 from __future__ import annotations
 
 import dataclasses
-from typing import ClassVar
 
 
 @dataclasses.dataclass(frozen=True)
 class DummyModel:
     N_EQ: int = 5
     UID: int = 1
-    reads_time: ClassVar[bool] = False
 
     def rhs_tuple(self, t, y, params=None, forcings=None) -> tuple:
         H0, H1, H2, H3, H4 = y[0], y[1], y[2], y[3], y[4]

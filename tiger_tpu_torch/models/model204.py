@@ -10,7 +10,6 @@ missing forcings are 0.  The CUDA kernels carry a device twin of
 from __future__ import annotations
 
 import dataclasses
-from typing import ClassVar
 
 import torch
 
@@ -50,8 +49,6 @@ PARAM_FIELDS = (
 class Model204:
     N_EQ: int = 5
     UID: int = 204
-    #: The rhs does not read t, so a time shift cannot change it.
-    reads_time: ClassVar[bool] = False
 
     # True: clamp the Manning base at 0 (no NaN for the negative surface
     # depths that transiently appear in stage evaluations).  False: pow's

@@ -194,7 +194,9 @@ def write_basin(
 
 def solve_written_basin(cfg, device: torch.device | str):
     """The direct path a CLI run of ``write_basin``'s files is held against:
-    the port's loaders and ``solve()``, without ``run``'s glue.
+    the port's loaders and ``solve()`` with the config's model (the start
+    date's day of year as ``doy0``) from ``run``'s cold state, without
+    ``run``'s glue.
 
     Returns (SolveResult, params dict of [S] tensors, the loaded spatial
     parameters).  On the card ``solve()`` is deterministic, so the run's
@@ -202,8 +204,9 @@ def solve_written_basin(cfg, device: torch.device | str):
     """
     from tiger_tpu_torch.checkpoint import cold_state
     from tiger_tpu_torch.forcing import ForcingSpec, load_forcings
-    from tiger_tpu_torch.models import Model204
+    from tiger_tpu_torch.models import get_model
     from tiger_tpu_torch.params import load_spatial_params, model_params
+    from tiger_tpu_torch.run import COLD_STATE_DEFAULTS
     from tiger_tpu_torch.solver import solve
 
     dtype = torch.float64 if cfg.solver.precision == "f64" else torch.float32
@@ -215,7 +218,9 @@ def solve_written_basin(cfg, device: torch.device | str):
     tf = cfg.time.duration_minutes
     forcings = load_forcings(specs, sp["stream"], cfg.forcings.lookup,
                              duration_days=tf / 1440.0, device=device)
-    y0 = torch.as_tensor(cold_state(Y0_COMMON, len(sp["stream"])), device=device).to(dtype)
+    model = get_model(cfg.model.uid, doy0=float(cfg.time.start.timetuple().tm_yday))
+    cold = COLD_STATE_DEFAULTS.get(cfg.model.uid, (0.0,) * model.N_EQ)
+    y0 = torch.as_tensor(cold_state(cold, len(sp["stream"])), device=device).to(dtype)
     qt = torch.as_tensor(np.arange(0.0, tf + 1e-9, 60.0), device=device).to(dtype)
-    res = solve(Model204(), y0, 0.0, tf, qt, params, forcings, cfg.solver_config())
+    res = solve(model, y0, 0.0, tf, qt, params, forcings, cfg.solver_config())
     return res, params, sp
