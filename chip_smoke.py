@@ -6,7 +6,8 @@
 Phases, one line each (any failed check raises, so the exit code is not 0):
   1. device: nvidia-smi's name and power limit; refuses to run without CUDA;
   2. build: both CUDA kernels from tiger_tpu_torch/kernels/csrc with nvcc,
-     and beside it the build with B1's probes (-DTT_RK45_PHASES);
+     and beside it the build with B1's probes (-DTT_RK45_PHASES) and phase
+     12a's libm_check.cu in a library of its own;
   3. B1 (rk45.cu) against rk45_plain on the card: 4,096 systems, 2 days;
   4. B2 (radau.cu) against radau_plain on the systems phase 3 flagged;
   5. solve() on those 4,096 systems against phases 3-4's plain results, then
@@ -14,10 +15,8 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
      rtol 1e-5 / atol 1e-8, 0.1% stiff systems -- one warm-up and 3 timed
      runs, with the launch counters set to 0 just before;
   6. each kernel against its plain version at the main-path shapes: B1 over
-     the 131,072 systems and the full span, B2 over the systems B1 flagged
-     (its plain version over the shared leading span of plain_span_checks,
-     at the end); the times side by side, and phases 3-4's checks on the
-     results.  Then B1
+     the 131,072 systems, B2 over the systems B1 flagged, the full span; the
+     times side by side, and phases 3-4's checks on the results.  Then B1
      alone on the 32 systems that took it the most attempts (its tail), B1's
      lane efficiency counted by the probed build (attempts over 32 x warp
      trips through the attempt loop), and each kernel's bound: the least time
@@ -48,12 +47,12 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
   9. the solver options (each kernel's option instances; options_phase).
      (a) every instance against its plain version: B1's six (the I and PI
      controllers, each plain, with FSAL and compensated) on 1,024 systems
-     over 12 hours, FSAL also against the default instance; B2's six (the
+     over 6 hours, FSAL also against the default instance; B2's six (the
      three error modes, each with and without the predictor) on the
      systems the default B1 flagged there (4), over the first 5 minutes
      only, since the plain Radau pays ~45 ms of launches an attempt;
      'reference' ends every stiff system at max_steps (its estimate caps h
-     near the tolerance), so it runs with max_steps 300 at rtol 1e-3.  (b)
+     near the tolerance), so it runs with max_steps 150 at rtol 1e-3.  (b)
      the slice's path at full width, with the launch counters set to 0
      just before: solve() at 131,072 systems with compensated float32
      (precision f32c) at the reference's rtol 1e-6 / atol 1e-9, and with
@@ -104,12 +103,11 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
      result equals the chain run by hand through the kernels (B1 and B2
      float, B1 double on B2's failures, B2 double on those still stiff) bit
      for bit.  Check 3: a system left failed is one B2's double instance
-     fails.  Check 2 runs at the end with the plain Radau checks of 6,
-     9b, 10b and 12d (plain_span_checks): the retried rows of radau5 and
+     fails.  Check 2 runs at the end with the plain Radau checks of 9b,
+     10b and 12d (plain_span_checks): the retried rows of radau5 and
      of radau5 with the predictor (CHECK_2_SETS) against the same chain
-     through rk45_plain and radau_plain in float64, B2 on the main path's
-     stiff systems, embedded3 at rtol 1e-6 and embedded3/f64 against
-     radau_plain, all over one leading span: the longest (2 days down to
+     through rk45_plain and radau_plain in float64, B2 embedded3 at rtol
+     1e-6 and embedded3/f64 against radau_plain, all over one leading span: the longest (2 days down to
      45 minutes) whose worst systems' attempts, at PLAIN_RADAU_MS an
      attempt, keep the whole script inside F64_BUDGET_S.
  12. Model 200 (model200_phase): Hamon PET and the ET ramp in both kernels,
@@ -126,15 +124,15 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
      (doy0 183): its files equal a direct solve() bit for bit; then 2
      one-day windows (t_shift 1440 in the second) equal the windows by
      hand.  (b) B1 m200/default against rk45_plain at full width, again
-     with t_shift 1440 on the first 4,096 systems, and m200/default/f64 at
-     rtol 1e-6 / atol 1e-9 on 4,096 systems, each with phases 3-4's exact
-     check.  (d) B2 m200/embedded3 on all 131,072 systems from bench.py
+     with t_shift 1440 on the first 4,096 systems over 12 hours, and
+     m200/default/f64 at rtol 1e-6 / atol 1e-9 on 4,096 systems over 12
+     hours, each with phases 3-4's exact check.  (d) B2 m200/embedded3 on all 131,072 systems from bench.py
      --solver radau's h0 (1e-3), one warm-up and 3 timed, 0 failed; its
      check against radau_plain on its 32 systems with the most attempts
      and 96 others joins plain_span_checks as "12".  (e) every other Model
      200 instance against its plain version exactly: B1 on 256 systems
-     over 3 hours (FSAL against the default as data), B2 on (d)'s 4
-     costliest systems over 20 minutes, each B2 instance once with the
+     over 1 hour (FSAL against the default as data), B2 on (d)'s 4
+     costliest systems over 5 minutes, each B2 instance once with the
      counters set to 0 just before.
 Each kernel must equal its plain version exactly: max_abs_err 0, NaN in the
 same places, every flag and every counter of every system equal.  The line
@@ -255,6 +253,18 @@ def b1_ops(attempts: int, queries: int, options: int = 0, rhs_ops: int = RHS_OPS
 # is the theta powers and weights (60) and 15 slopes of 3 x 7 (315).
 B2_RADAU5_OPS = 30 + 45 + 20 - 45 + 2
 B2_PREDICTOR_OPS = 60 + 315
+
+
+def b2_ops(attempts: int, sweeps: int, queries: int, cfg=None, rhs_ops: int = RHS_OPS) -> int:
+    """B2's operations (radau.cu): B2_ATTEMPT_OPS an attempt (six
+    right-hand sides) and B2_SWEEP_OPS a Newton sweep (three), each with the
+    model's right-hand side (``rhs_ops``; Model 200: RHS_OPS_M200);
+    B2_QUERY_OPS a system's dense query; and the option instances' own
+    per attempt (``cfg``'s error mode and predictor)."""
+    extra = 0 if cfg is None else ((B2_RADAU5_OPS if cfg.radau_error_mode == "radau5" else 0)
+                                   + (B2_PREDICTOR_OPS if cfg.radau_predictor else 0))
+    return (attempts * (B2_ATTEMPT_OPS + 6 * (rhs_ops - RHS_OPS) + extra)
+            + sweeps * (B2_SWEEP_OPS + 3 * (rhs_ops - RHS_OPS)) + queries * B2_QUERY_OPS)
 
 
 def timed(fn, reps: int = 1):
@@ -693,11 +703,11 @@ B2_OPTIONS = {
 # Instances that fail stiff systems in 9a's span: 'reference' caps h near
 # the tolerance until max_steps (in the JAX package too).
 B2_MAY_FAIL = ("reference", "reference+predictor")
-# 9a's and 10f's checks; cut from 1 day and 10 minutes so that phase 12
-# fits the time limit (PERF.md §4).
-OPTION_SYSTEMS, OPTION_DAYS, OPTION_STIFF = 1024, 0.5, 1 / 256
+# 9a's and 10f's checks; cut from 1 day, 10 minutes and 300 steps so that
+# phase 12 and phase 6's 2-day plain Radau fit the time limit (PERF.md §4).
+OPTION_SYSTEMS, OPTION_DAYS, OPTION_STIFF = 1024, 0.25, 1 / 256
 RADAU_CHECK_SPAN = 5.0  # minutes: the plain Radau pays ~45 ms of launches an attempt
-REFERENCE_CHECK = dict(rtol=1e-3, atol=1e-6, max_steps=300)
+REFERENCE_CHECK = dict(rtol=1e-3, atol=1e-6, max_steps=150)
 TIGHT = dict(rtol=1e-6, atol=1e-9)  # the reference's tolerances (SolverConfig defaults)
 ACCURACY_SYSTEMS = 4096
 ACCURACY_SPAN = 1440.0  # minutes; the 2 days until phase 12 needed the time (PERF.md §4)
@@ -1030,10 +1040,7 @@ def options_phase(smi: str) -> dict:
         cfg = b2_cfg(name)
         ker, ms = timed(lambda: k_radau.radau(model, sy0, sh0, 0.0, tf, qt, sp, sf, cfg), reps=3)
         att, swp = int(ker.stats.n_attempts.sum()), int(ker.stats.n_newton.sum())
-        extra = (B2_RADAU5_OPS if cfg.radau_error_mode == "radau5" else 0) + (
-            B2_PREDICTOR_OPS if cfg.radau_predictor else 0)
-        ops = att * (B2_ATTEMPT_OPS + extra) + swp * B2_SWEEP_OPS + rows.numel() * n_q_after * B2_QUERY_OPS
-        bnd = bound(ops, io_bytes(rows.numel(), n_rows, n_q, 6))
+        bnd = bound(b2_ops(att, swp, rows.numel() * n_q_after, cfg), io_bytes(rows.numel(), n_rows, n_q, 6))
         b2[name].update(ms=ms, bound_ms=bnd[0], bound_by=bnd[1], attempts=att,
                         worst_system_attempts=int(ker.stats.n_attempts.max()),
                         failed=int(ker.failed.sum()))
@@ -1048,7 +1055,7 @@ def options_phase(smi: str) -> dict:
 
 
 # The whole script's aim, in seconds from its start: the plain Radau checks
-# of phases 6, 9b, 10b, 11 and 12d run over the longest of F64_SPANS
+# of phases 9b, 10b, 11 and 12d run over the longest of F64_SPANS
 # (minutes) that keeps it inside (plain_span_checks).
 F64_BUDGET_S = 1050.0
 F64_SPANS = (2880.0, 1440.0, 720.0, 360.0, 180.0, 90.0, 45.0)
@@ -1248,7 +1255,7 @@ def float64_phase(smi: str) -> tuple:
     sf, sh0 = forc.take_systems(rows), h0[rows].contiguous()
     rker, r_ms = timed(lambda: k_radau.radau(model, sy0, sh0, 0.0, tf, qt, sp_, sf, cfg), reps=3)
     r_att, r_swp = int(rker.stats.n_attempts.sum()), int(rker.stats.n_newton.sum())
-    r_bnd = bound(r_att * B2_ATTEMPT_OPS + r_swp * B2_SWEEP_OPS + rows.numel() * n_q_after * B2_QUERY_OPS,
+    r_bnd = bound(b2_ops(r_att, r_swp, rows.numel() * n_q_after),
                   io_bytes(rows.numel(), n_rows, n_q, 6, real=8), F64_PEAK)
     r_worst = int(rker.stats.n_attempts.max())
 
@@ -1282,9 +1289,9 @@ def doubles_phase(smi: str) -> dict:
     (phase 9's tolerances), the launch counters set to 0 just before and
     read just after; each instance's time at the main path's shapes; then
     each against its float64 plain version bit for bit at phase 9a's
-    shapes and rules (B1 1,024 systems over 12 hours, FSAL also against its
+    shapes and rules (B1 1,024 systems over 6 hours, FSAL also against its
     twin; B2 on the systems the default B1 flags there over the first 5
-    minutes, 'reference' at max_steps 300 and rtol 1e-3)."""
+    minutes, 'reference' at max_steps 150 and rtol 1e-3)."""
     from tiger_tpu_torch import Model204, SolverConfig, solve
     from tiger_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tiger_tpu_torch.kernels import radau as k_radau
@@ -1348,10 +1355,8 @@ def doubles_phase(smi: str) -> dict:
         cfg = cfg_of(name)
         ker, ms = timed(lambda: k_radau.radau(model, sy0, sh0, 0.0, tf, qt, sp, sf, cfg), reps=3)
         att, swp = int(ker.stats.n_attempts.sum()), int(ker.stats.n_newton.sum())
-        extra = (B2_RADAU5_OPS if cfg.radau_error_mode == "radau5" else 0) + (
-            B2_PREDICTOR_OPS if cfg.radau_predictor else 0)
-        ops = att * (B2_ATTEMPT_OPS + extra) + swp * B2_SWEEP_OPS + rows.numel() * n_q_after * B2_QUERY_OPS
-        bnd = bound(ops, io_bytes(rows.numel(), n_rows, n_q, 6, real=8), F64_PEAK)
+        bnd = bound(b2_ops(att, swp, rows.numel() * n_q_after, cfg),
+                    io_bytes(rows.numel(), n_rows, n_q, 6, real=8), F64_PEAK)
         worst = int(ker.stats.n_attempts.max())
         recs[f"{name}/f64"].update(ms=ms, bound_ms=bnd[0], bound_by=bnd[1], attempts=att,
                                    worst_system_attempts=worst, us_per_attempt=1e3 * ms / worst,
@@ -1400,9 +1405,7 @@ def doubles_phase(smi: str) -> dict:
         err = check_radau(f"phase 10f B2 {name}/f64 vs radau_plain float64 ({rows.numel()} systems, "
                           f"first {RADAU_CHECK_SPAN:g} min)", ker, ref, may_fail=name in B2_MAY_FAIL)
         att, swp = int(ker.stats.n_attempts.sum()), int(ker.stats.n_newton.sum())
-        extra = (B2_RADAU5_OPS if cfg.radau_error_mode == "radau5" else 0) + (
-            B2_PREDICTOR_OPS if cfg.radau_predictor else 0)
-        bnd = bound(att * (B2_ATTEMPT_OPS + extra) + swp * B2_SWEEP_OPS + rows.numel() * n_q_r * B2_QUERY_OPS,
+        bnd = bound(b2_ops(att, swp, rows.numel() * n_q_r, cfg),
                     io_bytes(rows.numel(), n_rows, qt_r.numel(), 6, real=8), F64_PEAK)
         recs[f"{name}/f64"].update(check_ms=ms, plain_ms=plain_ms, max_abs_err=err,
                                    check_bound_ms=bnd[0])
@@ -1633,10 +1636,14 @@ def retry_phase(smi: str, failing: list) -> tuple:
 # Phase 12: Model 200 (Hamon PET and the ET ramp) in both kernels.
 M200_DOY0 = 182.0  # early July: the ET term is active
 M200_LAT = (25.0, 50.0)  # degrees, one a system from a seeded rng
-M200_SHIFT, M200_SHIFT_SYSTEMS = 1440.0, 4096  # 12b: t_shift on the first systems
-M200_F64_SYSTEMS = 4096  # 12b: the float64 check's width (rk45_plain pays its launches an iteration)
-M200_B1_CHECK = (256, 180.0)  # 12e: B1's other instances, systems and minutes
-M200_B2_CHECK = (4, 20.0)  # 12e: B2's other instances
+# 12b: t_shift on the first systems over the first minutes, and the float64
+# check's systems and minutes (rk45_plain pays its launches an iteration, so
+# the span sets its time); cut from 2 days, and 12e's from 3 hours and 20
+# minutes, to give phase 6's plain Radau its 2 days back (PERF.md §4).
+M200_SHIFT, M200_SHIFT_SYSTEMS, M200_SHIFT_SPAN = 1440.0, 4096, 720.0
+M200_F64_SYSTEMS, M200_F64_SPAN = 4096, 720.0
+M200_B1_CHECK = (256, 60.0)  # 12e: B1's other instances, systems and minutes
+M200_B2_CHECK = (4, 5.0)  # 12e: B2's other instances
 M200_B2_H0 = 1e-3  # 12d: bench.py --solver radau's h0
 M200_B2_TOP, M200_B2_OTHERS = 32, 96  # 12d: the systems its plain check runs
 # Model200::rhs against Model204::rhs: its ET term (the day of year 2, Hamon
@@ -1831,9 +1838,7 @@ def model200_phase(smi: str) -> tuple:
             sh0 = h0[rows].contiguous()
             rk, r_ms = timed(lambda: k_radau.radau(model, sy0, sh0, 0.0, tf, qt, sp_, sf, cfg), reps=3)
             r_att, r_swp = int(rk.stats.n_attempts.sum()), int(rk.stats.n_newton.sum())
-            r_bnd = bound(r_att * (B2_ATTEMPT_OPS + 6 * (RHS_OPS_M200 - RHS_OPS))
-                          + r_swp * (B2_SWEEP_OPS + 3 * (RHS_OPS_M200 - RHS_OPS))
-                          + rows.numel() * n_q_after * B2_QUERY_OPS,
+            r_bnd = bound(b2_ops(r_att, r_swp, rows.numel() * n_q_after, rhs_ops=RHS_OPS_M200),
                           io_bytes(rows.numel(), n_rows, qt.numel(), 6, real=8), F64_PEAK)
             b2["m200/embedded3/f64"].update(
                 ms=r_ms, bound_ms=r_bnd[0], bound_by=r_bnd[1], systems=rows.numel(), attempts=r_att,
@@ -1939,35 +1944,45 @@ def model200_phase(smi: str) -> tuple:
                               geometry=geo, library_ms=None)
     rows = torch.arange(M200_SHIFT_SYSTEMS, device="cuda")
     sy0, sp_, sf = subset(rows, y0, params, forc)
+    sq = queries(M200_SHIFT_SPAN)
     sh0 = initial_step(model, sy0, 0.0, sp_, sf, base, M200_SHIFT)
-    ker_s, ms_s = timed(lambda: k_rk45.rk45(model, sy0, sh0, 0.0, tf, qt, sp_, sf, base, M200_SHIFT))
-    ref_s, plain_s = timed(lambda: k_rk45.rk45_plain(model, sy0, sh0, 0.0, tf, qt, sp_, sf, base, M200_SHIFT))
+    ker_s, ms_s = timed(lambda: k_rk45.rk45(model, sy0, sh0, 0.0, M200_SHIFT_SPAN, sq, sp_, sf, base,
+                                            M200_SHIFT))
+    ref_s, plain_s = timed(lambda: k_rk45.rk45_plain(model, sy0, sh0, 0.0, M200_SHIFT_SPAN, sq, sp_, sf,
+                                                     base, M200_SHIFT))
     err_s = check_rk45(f"phase 12b B1 m200/default with t_shift {M200_SHIFT:g} vs rk45_plain "
-                       f"({M200_SHIFT_SYSTEMS} systems)", ker_s, ref_s, none[:M200_SHIFT_SYSTEMS])
-    moved = int((ker_s.y_final != ker.y_final[:M200_SHIFT_SYSTEMS]).any(dim=1).sum())
+                       f"({M200_SHIFT_SYSTEMS} systems, first {M200_SHIFT_SPAN:g} min)", ker_s, ref_s,
+                       none[:M200_SHIFT_SYSTEMS])
+    unshifted = k_rk45.rk45(model, sy0, sh0, 0.0, M200_SHIFT_SPAN, sq, sp_, sf, base)
+    moved = int((ker_s.y_final != unshifted.y_final).any(dim=1).sum())
     check(moved > 0, "phase 12b: t_shift changed no system's result")
     b1["m200/default"].update(shift_check=dict(systems=M200_SHIFT_SYSTEMS, t_shift=M200_SHIFT,
-                                               ms=ms_s, plain_ms=plain_s, max_abs_err=err_s,
-                                               systems_moved_by_the_shift=moved))
+                                               span_min=M200_SHIFT_SPAN, ms=ms_s, plain_ms=plain_s,
+                                               max_abs_err=err_s, systems_moved_by_the_shift=moved))
     phase(f"phase 12b B1 m200/default: {ms:.3f} ms vs rk45_plain {plain_ms:.3f} ms, bound "
           f"{bnd[0]:.4f} ms ({bnd[1]}, RHS_OPS_M200 {RHS_OPS_M200}), {att} attempts, worst "
           f"system {worst}, geometry {geo}; with t_shift {M200_SHIFT:g} on {M200_SHIFT_SYSTEMS} "
-          f"systems {ms_s:.3f} ms vs {plain_s:.3f} ms, {moved} systems moved by the shift | {smi}")
+          f"systems over {M200_SHIFT_SPAN:g} min {ms_s:.3f} ms vs {plain_s:.3f} ms, {moved} systems "
+          f"moved by the shift | {smi}")
 
     model64, y64, p64, forc64 = m200_inputs(M200_F64_SYSTEMS, f64)
     cfg64 = SolverConfig()
-    qt64 = queries(tf, f64)
+    qt64 = queries(M200_F64_SPAN, f64)
     h64 = initial_step(model64, y64, 0.0, p64, forc64, cfg64)
-    ker, ms64 = timed(lambda: k_rk45.rk45(model64, y64, h64, 0.0, tf, qt64, p64, forc64, cfg64), reps=3)
-    ref, plain64 = timed(lambda: k_rk45.rk45_plain(model64, y64, h64, 0.0, tf, qt64, p64, forc64, cfg64))
+    ker, ms64 = timed(lambda: k_rk45.rk45(model64, y64, h64, 0.0, M200_F64_SPAN, qt64, p64, forc64, cfg64),
+                      reps=3)
+    ref, plain64 = timed(lambda: k_rk45.rk45_plain(model64, y64, h64, 0.0, M200_F64_SPAN, qt64, p64, forc64,
+                                                   cfg64))
     err64 = check_rk45(f"phase 12b B1 m200/default/f64 vs rk45_plain float64 ({M200_F64_SYSTEMS} "
-                       f"systems, {DAYS:g} days, rtol 1e-6 / atol 1e-9)", ker, ref, none[:M200_F64_SYSTEMS])
+                       f"systems, first {M200_F64_SPAN:g} min, rtol 1e-6 / atol 1e-9)", ker, ref,
+                       none[:M200_F64_SYSTEMS])
     att64 = int(ker.stats.n_attempts.sum())
-    bnd64 = bound(b1_ops(att64, int((~ker.stiff).sum()) * n_q_after, rhs_ops=RHS_OPS_M200),
-                  io_bytes(M200_F64_SYSTEMS, n_rows, n_q, 5, real=8), F64_PEAK)
+    bnd64 = bound(b1_ops(att64, int((~ker.stiff).sum()) * int((qt64 > 0.0).sum()), rhs_ops=RHS_OPS_M200),
+                  io_bytes(M200_F64_SYSTEMS, n_rows, qt64.numel(), 5, real=8), F64_PEAK)
     b1["m200/default/f64"].update(check_ms=ms64, plain_ms=plain64, max_abs_err=err64,
                                   check_bound_ms=bnd64[0], check_bound_by=bnd64[1],
                                   check_attempts=att64, check_systems=M200_F64_SYSTEMS,
+                                  check_span_min=M200_F64_SPAN,
                                   solve=walls["f64"],
                                   check_worst_system_attempts=int(ker.stats.n_attempts.max()))
     del y64, p64, forc64, ker, ref
@@ -1980,9 +1995,8 @@ def model200_phase(smi: str) -> tuple:
     b2["m200/embedded3"]["launches"] = launch_counts()["radau"]["m200/embedded3"]
     r_att, r_swp = int(rker.stats.n_attempts.sum()), int(rker.stats.n_newton.sum())
     r_worst, r_failed = int(rker.stats.n_attempts.max()), int(rker.failed.sum())
-    sweep_m200 = B2_SWEEP_OPS + 3 * (RHS_OPS_M200 - RHS_OPS)
-    r_bnd = bound(r_att * (B2_ATTEMPT_OPS + 6 * (RHS_OPS_M200 - RHS_OPS)) + r_swp * sweep_m200
-                  + MAIN_SYSTEMS * n_q_after * B2_QUERY_OPS, io_bytes(MAIN_SYSTEMS, n_rows, n_q, 6))
+    r_bnd = bound(b2_ops(r_att, r_swp, MAIN_SYSTEMS * n_q_after, rhs_ops=RHS_OPS_M200),
+                  io_bytes(MAIN_SYSTEMS, n_rows, n_q, 6))
     phase(f"phase 12d B2 m200/embedded3 on every system ({MAIN_SYSTEMS}, {DAYS:g} days, h0 "
           f"{M200_B2_H0:g}): {r_ms:.3f} ms (median of 3 after a warm-up), bound {r_bnd[0]:.4f} ms "
           f"({r_bnd[1]}), {r_att} attempts, worst system {r_worst} ({1e3 * r_ms / r_worst:.3f} us "
@@ -2035,9 +2049,10 @@ def model200_phase(smi: str) -> tuple:
                             check_span_min=span_b1)
             if cfg.fsal:
                 # FSAL's k1 is k7, evaluated at t + h; the default's k1 at the
-                # Kahan-compensated t1: equal for Model 204, whose rhs does
-                # not read t, not bit for bit for Model 200 (rk45_pallas.py
-                # l.726-777 alike).
+                # Kahan-compensated t1 (rk45_pallas.py l.726-777 alike).  For
+                # Model 204, whose rhs does not read t, the two instances are
+                # equal; Model 200's reads t, so the two times may round
+                # apart: printed as data (equal in every run so far, PERF.md).
                 twin = "pi" if cfg.controller == "pi" else "default"
                 diff = k_rk45.rk45_mismatch(ker, results[twin])
                 b1[name]["differs_from_" + twin] = diff
@@ -2067,10 +2082,7 @@ def model200_phase(smi: str) -> tuple:
             e = check_radau(f"phase 12e B2 {name} vs radau_plain ({n_b2} systems, first "
                             f"{span_b2:g} min)", ker, ref, may_fail=opt in B2_MAY_FAIL)
             r_att, r_swp = int(ker.stats.n_attempts.sum()), int(ker.stats.n_newton.sum())
-            extra = (B2_RADAU5_OPS if cfg.radau_error_mode == "radau5" else 0) + (
-                B2_PREDICTOR_OPS if cfg.radau_predictor else 0)
-            e_bnd = bound(r_att * (B2_ATTEMPT_OPS + 6 * (RHS_OPS_M200 - RHS_OPS) + extra)
-                          + r_swp * sweep_m200 + n_b2 * int((qt_r > 0).sum()) * B2_QUERY_OPS,
+            e_bnd = bound(b2_ops(r_att, r_swp, n_b2 * int((qt_r > 0).sum()), cfg, RHS_OPS_M200),
                           io_bytes(n_b2, forc.data.shape[0], qt_r.numel(), 6,
                                    real=8 if dtype == f64 else 4),
                           F64_PEAK if dtype == f64 else F32_PEAK)
@@ -2091,8 +2103,8 @@ def plain_span_checks(smi: str, checks: dict) -> None:
     """The plain Radau checks that would take minutes over the full 2 days,
     all over one leading span: the longest of F64_SPANS whose predicted
     time keeps the script inside F64_BUDGET_S.  ``checks`` holds SpanChecks
-    by name: phase 6's (B2 on the main path's stiff systems), 9b's (B2
-    embedded3 at rtol 1e-6 on the systems compensated B1 flags), 10b's (B2
+    by name: phase 9b's (B2 embedded3 at rtol 1e-6 on the systems
+    compensated B1 flags), 10b's (B2
     embedded3/f64 on the systems 10a flags), each kernel against
     radau_plain, phase 11's check 2 for each option set of CHECK_2_SETS,
     and 12d's (B2 m200/embedded3 on 128 of its systems).  The prediction
@@ -2102,7 +2114,7 @@ def plain_span_checks(smi: str, checks: dict) -> None:
     predict = {span: sum(c.worst[span] for c in checks.values()) * PLAIN_RADAU_MS * 1e-3
                for span in F64_SPANS}
     span = next((x for x in F64_SPANS if x == F64_SPANS[-1] or predict[x] * F64_MARGIN <= left_s))
-    phase(f"phase 6/9b/10b/11/12 span: worst system's attempts by leading span (min) "
+    phase(f"phase 9b/10b/11/12 span: worst system's attempts by leading span (min) "
           f"{ {k: c.worst for k, c in checks.items()} }, {left_s:.1f} s left of F64_BUDGET_S "
           f"{F64_BUDGET_S:g}: the checks run the first {span:g} min (predicted {predict[span]:.1f} s "
           f"at PLAIN_RADAU_MS {PLAIN_RADAU_MS:g})")
@@ -2146,13 +2158,14 @@ def main() -> None:
           f"cuda {torch.version.cuda} | devices {torch.cuda.device_count()}")
 
     # 2. build
-    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc each, side by side
+    with ThreadPoolExecutor(max_workers=2) as pool:  # every nvcc at once, side by side
         probed_build = pool.submit(_build.build, k_rk45.PROBE_FLAGS)
+        libm_build = pool.submit(_build.build_libm_check)
         lib_path, build_s, log = _build.build()
-        probed_s = probed_build.result()[1]
+        probed_s, libm_s = probed_build.result()[1], libm_build.result()[1]
     _build.load()
     phase(f"phase 2 build: {build_s:.1f} s nvcc ({'fresh' if build_s else 'cached'}), {lib_path.name}; "
-          f"the probed build {probed_s:.1f} s beside it")
+          f"the probed build {probed_s:.1f} s and phase 12a's libm_check.cu {libm_s:.1f} s beside it")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say(f"  ptxas: {line.strip()}")
@@ -2236,20 +2249,9 @@ def main() -> None:
     rows = torch.nonzero(ker.stiff).squeeze(1)  # the warm-up solve's stiff subset
     sy0, sp, sf, sh0 = subset(rows, y0, params, forc, h0)
     rker, ms_b2 = timed(lambda: k_radau.radau(model, sy0, sh0, 0.0, tf, qt, sp, sf, cfg), reps=3)
-
-    # B2's check against radau_plain runs at the end, over the shared leading
-    # span (plain_span_checks): over the 2 days it took 145 s.
-    def b2_span_run(span, plain=False):
-        sq = qt[qt <= span + 1e-9]
-        fn = k_radau.radau_plain if plain else k_radau.radau
-        return timed(lambda: fn(model, sy0, sh0, 0.0, span, sq, sp, sf, cfg))
-
-    b2_main = {}
-    check_6 = SpanCheck(
-        run=b2_span_run, record=b2_main,
-        worst={span: int(b2_span_run(span)[0].stats.n_attempts.max()) for span in F64_SPANS},
-        compare=radau_compare(f"phase 6 B2 vs radau_plain ({rows.numel()} systems",
-                              int(rker.stats.n_attempts.max())))
+    rref, plain_b2 = timed(lambda: k_radau.radau_plain(model, sy0, sh0, 0.0, tf, qt, sp, sf, cfg))
+    err_b2 = check_radau(f"phase 6 B2 vs radau_plain ({rows.numel()} systems, {DAYS:g} days)",
+                         rker, rref)
     # B1's tail: the systems that took it the most attempts, alone.
     top = torch.topk(ker.stats.n_attempts, TAIL_SYSTEMS).indices
     ty0, tp, tforc, th0 = subset(top, y0, params, forc, h0)
@@ -2270,13 +2272,12 @@ def main() -> None:
     swp_b2 = int(rker.stats.n_newton.sum())
     bound_b1 = bound(b1_ops(att_b1, int((~ker.stiff).sum()) * n_q_after),
                      io_bytes(MAIN_SYSTEMS, n_rows, n_q, 5))
-    bound_b2 = bound(att_b2 * B2_ATTEMPT_OPS + swp_b2 * B2_SWEEP_OPS
-                     + rows.numel() * n_q_after * B2_QUERY_OPS,
+    bound_b2 = bound(b2_ops(att_b2, swp_b2, rows.numel() * n_q_after),
                      io_bytes(rows.numel(), n_rows, n_q, 6))
     phase(f"phase 6 times: B1 {ms_b1:.3f} ms vs rk45_plain {plain_b1:.3f} ms, bound "
           f"{bound_b1[0]:.4f} ms ({bound_b1[1]}), worst system {worst_b1} attempts "
           f"({MAIN_SYSTEMS} systems, {DAYS:g} days), lane efficiency {lane_eff:.4f}, geometry {geo}; "
-          f"B1 on its {TAIL_SYSTEMS} slowest systems {tail_b1:.3f} ms; B2 {ms_b2:.3f} ms (radau_plain at the end), bound "
+          f"B1 on its {TAIL_SYSTEMS} slowest systems {tail_b1:.3f} ms; B2 {ms_b2:.3f} ms vs radau_plain {plain_b2:.3f} ms, bound "
           f"{bound_b2[0]:.4f} ms ({bound_b2[1]}), worst system {worst_b2} attempts, "
           f"{1e3 * ms_b2 / worst_b2:.3f} us per attempt of the worst system, "
           f"{swp_b2 / att_b2:.4f} sweeps per attempt ({rows.numel()} systems, {DAYS:g} days) | {smi}")
@@ -2311,7 +2312,7 @@ def main() -> None:
     m200, check_12 = model200_phase(smi)
     for kernel in ("rk45", "radau"):
         instances[kernel].update(m200[kernel])
-    plain_span_checks(smi, {"6": check_6, "9b": check_c, "10b": check_b,
+    plain_span_checks(smi, {"9b": check_c, "10b": check_b,
                             **{f"11 {name}": c for name, c in checks_2.items()}, "12": check_12})
 
     say(json.dumps({"kernels": [
@@ -2325,8 +2326,7 @@ def main() -> None:
          "instances": instances["rk45"]},
         {"name": "radau", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/radau.cu",
          "replaces": "tiger_tpu/kernels/radau_pallas.py:987", "launches": launches["radau"],
-         "max_abs_err": b2_main["max_abs_err"], "ms": ms_b2, "plain_ms": b2_main["plain_ms"],
-         "plain_span_min": b2_main["check_span_min"], "bound_ms": bound_b2[0],
+         "max_abs_err": err_b2, "ms": ms_b2, "plain_ms": plain_b2, "bound_ms": bound_b2[0],
          "bound_by": bound_b2[1], "library_ms": None, "worst_system_attempts": worst_b2,
          "sweeps_per_attempt": swp_b2 / att_b2, "cli_launches": cli_launches["radau"],
          "windowed_launches": windowed_launches["radau"], "instances": instances["radau"],

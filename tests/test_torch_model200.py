@@ -7,11 +7,17 @@ windowed runs and the CLI, each on numpy-seeded inputs given to both
 packages (the JAX side with exact trig, ``approx_trig=False``).
 
 Tolerances, per element, |ours - ref| <= RTOL * |ref| + ATOL:
-  - One evaluation (the PET, the ramp, the rhs) and the Radau kernel's
-    first 30 minutes: float64 RTOL 1e-9 (ATOL 1e-12, 1e-20 on the PET in
+  - One evaluation (the PET, the ramp, the rhs), and float64 solves short
+    enough that both packages still take the same steps (the Radau
+    kernel's first 30 minutes, B1's first hour, solve()'s and a window's
+    first 30 minutes): float64 RTOL 1e-9 (ATOL 1e-12, 1e-20 on the PET in
     m/min, for values near zero); float32 RTOL 5e-4 and ATOL 5e-4 of each
     state's largest magnitude, the port's float32 bounds
-    (``test_torch_cli.py``'s).
+    (``test_torch_cli.py``'s).  The time shift is held at the first bound:
+    each such test starts near an equinox (EQUINOX), where the day length
+    moves fastest, and checks that the same run with the shift dropped or
+    doubled falls outside it.  The whole-solve bound below is not one a
+    day's shift exceeds.
   - Whole solves (``solve()``, windows, the CLI): float64 RTOL 1e-6 and
     float32 the bound above, each with ATOL SLIVER_M more.  torch's libm
     and XLA's own CPU functions differ in the last bit (over the rhs's
@@ -36,7 +42,7 @@ from test_cli import make_scenario
 from test_torch_radau import _Float64Jnp
 from tiger_tpu import chunked as jchunked
 from tiger_tpu.forcing import ForcingSet as JForcingSet
-from tiger_tpu.kernels import radau_pallas
+from tiger_tpu.kernels import radau_pallas, rk45_pallas
 from tiger_tpu.kernels.rk45_pallas import rk45_solve_pallas
 from tiger_tpu.models import Model200 as JModel200
 from tiger_tpu.models import Model204 as JModel204
@@ -60,6 +66,7 @@ from tiger_tpu_torch.scenario import scenario, scenario_arrays
 from tiger_tpu_torch.solver.controller import initial_step
 
 DOY0 = 182.0  # early July: the ET term is active
+EQUINOX = 80.0  # the day length moves fastest: where a wrong time shift shows most
 F64 = dict(rtol=1e-6, atol=1e-9)
 F32 = dict(rtol=1e-5, atol=1e-8, max_steps=100_000)
 DTYPES = {np.float64: torch.float64, np.float32: torch.float32}
@@ -76,6 +83,13 @@ def _close(ours, ref, np_dtype, atol64=1e-12):
     else:
         atol = 5e-4 * np.abs(ref).max(axis=tuple(range(ref.ndim - 1))) if ref.ndim > 1 else 5e-4 * np.abs(ref).max()
         np.testing.assert_array_less(np.abs(ours - ref), 5e-4 * np.abs(ref) + atol + 1e-30)
+
+
+def _outside_f64(ours, ref) -> bool:
+    """Whether ``ours`` lies outside ``_close``'s float64 bound of ``ref``
+    somewhere: a run with the time shift dropped or doubled must."""
+    ours, ref = np.asarray(ours), np.asarray(ref)
+    return bool((np.abs(ours - ref) > 1e-9 * np.abs(ref) + 1e-12).any())
 
 
 def _close_solve(ours, ref, np_dtype, sliver=SLIVER_M):
@@ -207,29 +221,37 @@ def test_rhs_matches_jax(np_dtype, doy0):
 
 # --- the solvers -------------------------------------------------------------
 
-SOLVE_CASES = {"f64": (np.float64, 0.0), "f32": (np.float32, 0.0), "f64_shift": (np.float64, 1440.0)}
+#: case: (dtype, t_shift, doy0, minutes, query interval).
+SOLVE_CASES = {"f64": (np.float64, 0.0, DOY0, 720.0, 60.0),
+               "f32": (np.float32, 0.0, DOY0, 720.0, 60.0),
+               "f64_shift": (np.float64, 1440.0, EQUINOX, 30.0, 10.0)}
 
 
 @pytest.mark.parametrize("case", sorted(SOLVE_CASES))
 def test_solve_matches_jax(case):
-    """Both packages' two-phase solve() of Model 200 over 12 hours from
-    early July (one case shifted a day later): no system stiff, as in the
-    JAX package's benchmark, and the results within a whole solve's bound."""
-    np_dtype, shift = SOLVE_CASES[case]
-    tf = 720.0
-    qt = np.arange(0.0, tf + 1e-9, 60.0, dtype=np_dtype)
+    """Both packages' two-phase solve() of Model 200: over 12 hours from
+    early July, no system stiff, as in the JAX package's benchmark, within
+    a whole solve's bound; and shifted a day from near the equinox over the
+    first 30 minutes, within 1e-9, where the port's run with the shift
+    dropped or doubled is not."""
+    np_dtype, shift, doy0, tf, dq = SOLVE_CASES[case]
+    qt = np.arange(0.0, tf + 1e-9, dq, dtype=np_dtype)
     (jy, jp, jf, jq), (ty, tp, tf_, tq) = _both(16, 1.0, np_dtype, qt)
     cfg = F64 if np_dtype == np.float64 else F32
-    jm = JModel200(doy0=DOY0)
+    jm = JModel200(doy0=doy0)
     ref = j_solve(jm, jy, 0.0, tf, jq, jp, jf, config=JSolverConfig(**cfg), t_shift=shift)
     ours = solve(convert.model(jm), ty, 0.0, tf, tq, tp, tf_, SolverConfig(**cfg), t_shift=shift)
     assert ours.n_stiff == int(np.asarray(ref.stiff).sum()) == 0
     assert not ours.failed.any()
-    _close_solve(ours.y_final.numpy(), ref.y_final, np_dtype)
-    _close_solve(ours.dense.numpy(), ref.dense, np_dtype)
-    if shift:
-        unshifted = solve(Model200(doy0=DOY0), ty, 0.0, tf, tq, tp, tf_, SolverConfig(**cfg))
-        assert not torch.equal(unshifted.y_final, ours.y_final)  # the shift reached the rhs
+    if not shift:
+        _close_solve(ours.y_final.numpy(), ref.y_final, np_dtype)
+        _close_solve(ours.dense.numpy(), ref.dense, np_dtype)
+        return
+    _close(ours.y_final.numpy(), ref.y_final, np_dtype)
+    _close(ours.dense.numpy(), ref.dense, np_dtype)
+    for wrong in (0.0, 2.0 * shift):
+        other = solve(Model200(doy0=doy0), ty, 0.0, tf, tq, tp, tf_, SolverConfig(**cfg), t_shift=wrong)
+        assert _outside_f64(other.dense.numpy(), ref.dense), wrong
 
 
 def test_rk45_plain_matches_the_pallas_kernel():
@@ -250,6 +272,35 @@ def test_rk45_plain_matches_the_pallas_kernel():
     assert not ours.stiff.any()
     _close(ours.y_final.numpy(), ref.y_final, np.float32)
     _close(ours.dense.numpy(), ref.dense, np.float32)
+
+
+def test_rk45_plain_matches_the_pallas_kernel_f64(monkeypatch):
+    """rk45_plain against the JAX package's B1 (rk45_solve_pallas, interpret
+    mode) run in float64 (its module's jnp patched, as the Radau test below
+    does), 8 systems from near the equinox over the first hour shifted a
+    day: the same step counts and flags, the trajectories within 1e-9; the
+    port's run with the shift dropped or doubled lies outside that bound."""
+    tf, shift = 60.0, 1440.0
+    qt = np.arange(0.0, tf + 1e-9, 30.0)
+    (jy, jp, jf, jq), (ty, tp, tf_, tq) = _both(8, 1.0, np.float64, qt)
+    jcfg, cfg = JSolverConfig(**F64), SolverConfig(**F64)
+    jm = JModel200(doy0=EQUINOX)
+    tm = convert.model(jm)
+    h0 = j_initial_step(jm, jy, 0.0, jp, jf, jcfg)
+    monkeypatch.setattr(rk45_pallas, "jnp", _Float64Jnp("jax.numpy"))
+    ref = rk45_pallas.rk45_solve_pallas(jm, jy, 0.0, tf, jq, jp, jf, h0=h0, config=jcfg,
+                                        interpret=True, t_shift=shift)
+    assert np.asarray(ref.dense).dtype == np.float64
+    th0 = torch.from_numpy(np.array(h0))
+    ours = rk45_plain(tm, ty, th0, 0.0, tf, tq, tp, tf_, cfg, shift)
+    np.testing.assert_array_equal(ours.stiff.numpy(), np.asarray(ref.stiff))
+    for got, want in zip(ours.stats, ref.stats):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    _close(ours.y_final.numpy(), ref.y_final, np.float64)
+    _close(ours.dense.numpy(), ref.dense, np.float64)
+    for wrong in (0.0, 2.0 * shift):
+        other = rk45_plain(tm, ty, th0, 0.0, tf, tq, tp, tf_, cfg, wrong)
+        assert _outside_f64(other.dense.numpy(), ref.dense), wrong
 
 
 def test_radau_plain_matches_the_pallas_kernel_f64(monkeypatch):
@@ -319,6 +370,39 @@ def test_solve_chunked_matches_jax_f64():
     assert ours.n_stiff == ref.n_stiff == 0
     _close_solve(ours.y_final.numpy(), ref.y_final, np.float64)
     _close_solve(ours.dense.numpy(), ref.dense, np.float64)
+
+
+def test_solve_chunked_shift_matches_jax_f64(monkeypatch):
+    """Both packages' solve_chunked of Model 200 in float64 over a window
+    that starts 30 days in (its solve gets t_shift 43200), from near the
+    equinox, its first 30 minutes: within 1e-9; the port's window with
+    solve()'s shift dropped or doubled lies outside that bound."""
+    t0, tf = 43200.0, 43230.0
+    (jy, jp, jf, _), (ty, tp, tf_, _) = _both(4, 31.0, np.float64)
+    data, meta = np.asarray(jf.data), jf.meta
+    pr, t2m = data[:meta.n_steps[0]], data[meta.offsets[1]:]
+
+    def window(make):
+        return lambda a, b: make([pr[int(a // 60): int(np.ceil(b / 60))],
+                                  t2m[int(a // 1440): int(np.ceil(b / 1440))]], [60.0, 1440.0])
+
+    def ours():
+        return chunked.solve_chunked(Model200(doy0=EQUINOX), ty, t0, tf, 1440.0,
+                                     window(lambda s, d: ForcingSet.from_series(s, d, device="cpu")),
+                                     query_interval=10.0, params=tp, config=SolverConfig(**F64))
+
+    ref = jchunked.solve_chunked(JModel200(doy0=EQUINOX), jy, t0, tf, 1440.0,
+                                 window(JForcingSet.from_series), query_interval=10.0, params=jp,
+                                 config=JSolverConfig(**F64), backend="xla")
+    got = ours()
+    assert got.n_stiff == ref.n_stiff == 0
+    _close(got.y_final.numpy(), ref.y_final, np.float64)
+    _close(got.dense.numpy(), ref.dense, np.float64)
+    solve_fn = chunked.solve
+    for factor in (0.0, 2.0):
+        monkeypatch.setattr(chunked, "solve", lambda *a, t_shift=0.0, **k: solve_fn(
+            *a, t_shift=factor * t_shift, **k))
+        assert _outside_f64(ours().dense.numpy(), ref.dense), factor
 
 
 @pytest.mark.parametrize("precision", ["f64", "f32"])

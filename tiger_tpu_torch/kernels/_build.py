@@ -9,10 +9,11 @@ relocatable device code with ``-DTT_DOUBLE_INSTANCES`` (Model 204's double
 instances), ``-DTT_MODEL_200`` (Model 200's float instances) and both (its
 double ones).  The relocatable objects are device-linked with
 ``csrc/contracted.cu`` (the double pow, built with contraction so that it
-rounds as torch's CUDA pow does) and ``csrc/libm_check.cu`` (Model 200's
-libm calls, one an element, built with the Model 200 instances' flags for
-chip_smoke phase 12a).  Model 204's float instances keep the build they
-always had.  The library lands in
+rounds as torch's CUDA pow does).  Model 204's float instances keep the
+build they always had.  ``csrc/libm_check.cu`` (Model 200's libm calls,
+one an element, for chip_smoke phase 12a) is no kernel of the path: it is
+built only on request (``build_libm_check``), into a library of its own,
+under the Model 200 instances' flags.  The library lands in
 ``build/tiger_tpu_torch/`` at the repository root, named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused.  Nothing but the repository's own sources is compiled, beside one
@@ -54,7 +55,7 @@ NVCC_FLAGS = (
 )
 #: Built apart from the kernels, with nvcc's default FMA contraction.
 CONTRACTED = "contracted.cu"
-#: Built once, as relocatable code under the kernels' flags.
+#: Built on request only, into its own library (``build_libm_check``).
 LIBM_CHECK = "libm_check.cu"
 #: The relocatable builds of each kernel source beside the one as it
 #: stands: Model 204 in double, Model 200 in float and in double.
@@ -137,8 +138,7 @@ def build(flags: tuple[str, ...] = NVCC_FLAGS) -> tuple[Path, float, str]:
     # Every compile at once, then the device link of the relocatable code,
     # then the library.
     rdc = {include / "contracted.o": [nvcc, *(f for f in compile_flags if f != "-fmad=false"),
-                                      "-rdc=true", "-c", str(CSRC / CONTRACTED)],
-           include / "libm_check.o": [*common, "-rdc=true", str(CSRC / LIBM_CHECK)]}
+                                      "-rdc=true", "-c", str(CSRC / CONTRACTED)]}
     for p in kernels:
         for suffix, defines in INSTANCE_DEFINES.items():
             rdc[include / f"{p.stem}_{suffix}.o"] = [*common, "-rdc=true", *defines, str(p)]
@@ -149,6 +149,15 @@ def build(flags: tuple[str, ...] = NVCC_FLAGS) -> tuple[Path, float, str]:
         [nvcc, *arch, "-dlink", "-o", str(dlink), *map(str, rdc)],
         [nvcc, *flags, "-o", tmp, *map(str, objects.values()), *map(str, rdc), str(dlink)],
     )
+    seconds, log = _run(compiles, links, tmp)
+    log_path.write_text(log)
+    os.replace(tmp, lib_path)
+    return lib_path, seconds, log
+
+
+def _run(compiles: list, links: tuple, out: str) -> tuple[float, str]:
+    """Every compile at once, then each link in turn; (seconds, log).
+    Removes ``out`` and raises if a command fails."""
     start = time.perf_counter()
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for cmd in compiles]
@@ -158,14 +167,36 @@ def build(flags: tuple[str, ...] = NVCC_FLAGS) -> tuple[Path, float, str]:
             proc = subprocess.run(cmd, capture_output=True, text=True)
             results.append((proc.returncode, proc.stdout + proc.stderr))
     seconds = time.perf_counter() - start
-    log = "".join(out for _, out in results)
+    log = "".join(text for _, text in results)
     failed = [rc for rc, _ in results if rc != 0]
     if failed:
-        os.unlink(tmp)
+        os.unlink(out)
         raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
-    log_path.write_text(log)
+    return seconds, log
+
+
+def build_libm_check(flags: tuple[str, ...] = NVCC_FLAGS) -> tuple[Path, float]:
+    """``csrc/libm_check.cu`` alone, as relocatable code under ``flags``
+    (the Model 200 instances' build), device-linked into a library of its
+    own; reused while the sources and flags stay.  (library path, seconds
+    spent compiling)."""
+    digest = source_hash(flags + (LIBM_CHECK,))
+    lib_path = BUILD_DIR / f"libtiger_libm_check_{digest}.so"
+    if lib_path.exists():
+        return lib_path, 0.0
+    work = BUILD_DIR / f"libm_check_{digest}"
+    work.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    nvcc, obj, dlink = _nvcc(), work / "libm_check.o", work / "dlink.o"
+    arch = [f for f in flags if f.startswith(("-gencode", "arch="))] + ["-Xcompiler", "-fPIC"]
+    compiles = [[nvcc, *(f for f in flags if f != "-shared"), "-rdc=true", "-c", "-o", str(obj),
+                 str(CSRC / LIBM_CHECK)]]
+    links = ([nvcc, *arch, "-dlink", "-o", str(dlink), str(obj)],
+             [nvcc, *flags, "-o", tmp, str(obj), str(dlink)])
+    seconds, _ = _run(compiles, links, tmp)
     os.replace(tmp, lib_path)
-    return lib_path, seconds, log
+    return lib_path, seconds
 
 
 def load() -> ctypes.CDLL:
@@ -187,9 +218,6 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_int32]
             fn.restype = ctypes.c_int
-        lib.tt_libm_eval.argtypes = [ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
-                                     ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
-        lib.tt_libm_eval.restype = ctypes.c_int
         _libs[_flags_in_use] = lib
     return lib
 
