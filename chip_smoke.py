@@ -15,8 +15,10 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
      rtol 1e-5 / atol 1e-8, 0.1% stiff systems -- one warm-up and 3 timed
      runs, with the launch counters set to 0 just before;
   6. each kernel against its plain version at the main-path shapes: B1 over
-     the 131,072 systems, B2 over the systems B1 flagged, the full span; the
-     times side by side, and phases 3-4's checks on the results.  Then B1
+     the 131,072 systems, B2 over the systems B1 flagged, the full span (B2's
+     radau_plain over the full 2 days runs at the end, side by side with the
+     shared span's plain checks); the times, and phases 3-4's checks on the
+     results.  Then B1
      alone on the 32 systems that took it the most attempts (its tail), B1's
      lane efficiency counted by the probed build (attempts over 32 x warp
      trips through the attempt loop), and each kernel's bound: the least time
@@ -110,30 +112,53 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
      1e-6 and embedded3/f64 against radau_plain, all over one leading span: the longest (2 days down to
      45 minutes) whose worst systems' attempts, at PLAIN_RADAU_MS an
      attempt, keep the whole script inside F64_BUDGET_S.
- 12. Model 200 (model200_phase): Hamon PET and the ET ramp in both kernels,
-     on scenario()'s basin with the latitude over 25-50 degrees, doy0 182,
-     float32 at rtol 1e-5 / atol 1e-8.  (a) each libm call of its rhs
-     (exp, sin, cos, tan, atan, asin, acos; float and double) on 16M
-     inputs and the edge values, as the instances call it (libm_check.cu),
-     against torch's CUDA function element by element: 0 may differ.
-     (c) the slice's path at full width, with the counters set to 0 just
-     before: solve() in float32, then float64 at SolverConfig()'s
-     defaults, one warm-up and 3 timed runs each (stiff count as data, 0
-     failed), and one solve() with each other option set's B1 instance.
-     (f) the CLI at 131,072 links with model.uid 200 from 2000-07-01
-     (doy0 183): its files equal a direct solve() bit for bit; then 2
-     one-day windows (t_shift 1440 in the second) equal the windows by
-     hand.  (b) B1 m200/default against rk45_plain at full width, again
+ 12. Model 200 (model_phase with M200; 12a libm_phase first): Hamon PET and
+     the ET ramp in both kernels, on scenario()'s basin with the latitude
+     over 25-50 degrees, doy0 182, float32 at rtol 1e-5 / atol 1e-8.  (a)
+     each libm call of its rhs (exp, sin, cos, tan, atan, asin, acos; float
+     and double) on 16M inputs and the edge values, as the instances call
+     it (libm_check.cu), against torch's CUDA function element by element:
+     0 may differ.  (c) the slice's path at full width, with the counters
+     set to 0 just before: solve() in float32, then float64 at
+     SolverConfig()'s defaults, one warm-up and 3 timed runs each (stiff
+     count as data, 0 failed), and one solve() with each other option set's
+     B1 instance.  (f) the CLI at 131,072 links with model.uid 200 from
+     2000-07-01 (doy0 183): its files equal a direct solve() bit for bit;
+     then 2 one-day windows (t_shift 1440 in the second) equal the windows
+     by hand.  (b) B1 m200/default against rk45_plain at full width, again
      with t_shift 1440 on the first 4,096 systems over 12 hours, and
      m200/default/f64 at rtol 1e-6 / atol 1e-9 on 4,096 systems over 12
-     hours, each with phases 3-4's exact check.  (d) B2 m200/embedded3 on all 131,072 systems from bench.py
-     --solver radau's h0 (1e-3), one warm-up and 3 timed, 0 failed; its
-     check against radau_plain on its 32 systems with the most attempts
-     and 96 others joins plain_span_checks as "12".  (e) every other Model
-     200 instance against its plain version exactly: B1 on 256 systems
-     over 1 hour (FSAL against the default as data), B2 on (d)'s 4
-     costliest systems over 5 minutes, each B2 instance once with the
-     counters set to 0 just before.
+     hours, each with phases 3-4's exact check.  (d) B2 m200/embedded3 on
+     all 131,072 systems from bench.py --solver radau's h0 (1e-3), one
+     warm-up and 3 timed, 0 failed; its check against radau_plain on its 32
+     systems with the most attempts and 96 others joins plain_span_checks
+     as "12".  (e) every other Model 200 instance against its plain
+     version exactly: B1 on 256 systems over 1 hour (FSAL against the
+     default as data), B2 on (d)'s 4 costliest systems over 5 minutes, each
+     B2 instance once with the counters set to 0 just before.
+ 13. DummyModel (model_phase with DUMMY), the reference's 5-state linear
+     test system, through the same functions: full width is 131,072
+     systems from seeded states (uniform 0.5-2.0) over t in [0, 5] with
+     1,000 queries, no parameters, no forcings.  (c) solve() in float32 and
+     float64 as 12c (no system stiff, so no B2 launch), each other B1
+     instance's solve() and every B1 instance's time.  (f) the CLI with
+     model.uid 1 at 131,072 links over 2 days, whole and in 2 one-day
+     windows, against a direct solve() and the windows by hand, bit for
+     bit.  (b) B1 dummy/default against rk45_plain at full width; t_shift
+     1440 on 4,096 systems changes nothing in the kernel or in rk45_plain;
+     dummy/default/f64 at rtol 1e-6 / atol 1e-9 against rk45_plain at full
+     width.  (d) B2 dummy/embedded3 and dummy/embedded3/f64 on all 131,072
+     systems from initial_step's h0, timed; each against radau_plain on its
+     32 costliest systems and 96 others over the whole 5 minutes, with the
+     shared span's checks ("13", "13 f64").  (e) all 24 instances against
+     their plain versions at the reference's golden shapes (4 systems of
+     ones, t in [0, 5], the 10,000-query grid without the t0 fill; float32
+     at rtol 1e-5, float64 at rtol 1e-6 / atol 1e-9), each again with
+     t_shift 1440 (unchanged), FSAL equal to its twin, each B2 instance once
+     with the counters set to 0 just before; and dummy/default/f64 at the
+     golden final state within 5e-6.
+The plain Radau checks of 6 (the full 2 days), 9b, 10b, 11, 12d and 13d run
+last, side by side, each in a Python process of its own (side_by_side).
 Each kernel must equal its plain version exactly: max_abs_err 0, NaN in the
 same places, every flag and every counter of every system equal.  The line
 before the last is the kernels' JSON record; the last line is
@@ -295,22 +320,35 @@ def check_rk45(label, ker, ref, hu_rows) -> float:
     return err
 
 
-def check_radau(label, ker, ref, may_fail: bool = False) -> float:
+def radau_diff(ker, ref) -> dict:
+    """What check_radau holds of B2's result ``ker`` and radau_plain's
+    ``ref``, as numbers (a plain_worker computes it where the two results
+    are too large to pass between processes)."""
+    return dict(
+        max_abs_err=max(max_abs(torch.nan_to_num(ker.y_final), torch.nan_to_num(ref.y_final)),
+                        max_abs(ker.dense, ref.dense)),
+        n_sys=ker.failed.numel(), same=[int((a == b).sum()) for a, b in zip(ker.stats, ref.stats)],
+        failed=(int(ker.failed.sum()), int(ref.failed.sum())),
+        same_failed=bool(torch.equal(ker.failed, ref.failed)),
+        same_nan=bool(torch.equal(torch.isnan(ker.y_final), torch.isnan(ref.y_final))),
+        attempts=(int(ker.stats.n_attempts.sum()), int(ref.stats.n_attempts.sum())),
+        sweeps=int(ker.stats.n_newton.sum()),
+        worst=(int(ker.stats.n_attempts.max()), int(ref.stats.n_attempts.max())))
+
+
+def check_radau(label, ker, ref, may_fail: bool = False, diff: dict | None = None) -> float:
     """Phases 4, 6 and 9: B2 equals radau_plain bit for bit; returns
-    max_abs_err.  Unless ``may_fail``, no system may fail."""
-    err = max(max_abs(torch.nan_to_num(ker.y_final), torch.nan_to_num(ref.y_final)),
-              max_abs(ker.dense, ref.dense))
-    n_sys = ker.failed.numel()
-    same = [int((a == b).sum()) for a, b in zip(ker.stats, ref.stats)]
-    att_k, att_p = int(ker.stats.n_attempts.sum()), int(ref.stats.n_attempts.sum())
-    phase(f"{label}: max_abs_err={err:.3e}, failed {int(ker.failed.sum())}/{int(ref.failed.sum())}, "
+    max_abs_err.  Unless ``may_fail``, no system may fail.  ``diff``:
+    radau_diff of the two, computed elsewhere (``ker`` and ``ref`` unread)."""
+    d = radau_diff(ker, ref) if diff is None else diff
+    err, n_sys, same = d["max_abs_err"], d["n_sys"], d["same"]
+    phase(f"{label}: max_abs_err={err:.3e}, failed {d['failed'][0]}/{d['failed'][1]}, "
           f"systems with equal (accepted, rejected, attempts, sweeps, factorizations) {same} of "
-          f"{n_sys}, attempts {att_k} vs {att_p}, sweeps {int(ker.stats.n_newton.sum())}, worst "
-          f"system {int(ker.stats.n_attempts.max())} vs {int(ref.stats.n_attempts.max())}")
-    check(may_fail or not bool(ker.failed.any() or ref.failed.any()), f"{label}: a Radau solve failed")
-    check(bool(torch.equal(ker.failed, ref.failed)), f"{label}: B2 fails other systems than radau_plain")
-    check(bool(torch.equal(torch.isnan(ker.y_final), torch.isnan(ref.y_final))),
-          f"{label}: B2's NaN differ from radau_plain's")
+          f"{n_sys}, attempts {d['attempts'][0]} vs {d['attempts'][1]}, sweeps {d['sweeps']}, worst "
+          f"system {d['worst'][0]} vs {d['worst'][1]}")
+    check(may_fail or not any(d["failed"]), f"{label}: a Radau solve failed")
+    check(d["same_failed"], f"{label}: B2 fails other systems than radau_plain")
+    check(d["same_nan"], f"{label}: B2's NaN differ from radau_plain's")
     check(err == 0.0, f"{label}: B2 differs from radau_plain by {err:.3e}")
     check(all(n == n_sys for n in same), f"{label}: B2's counters differ from radau_plain's")
     return err
@@ -714,6 +752,241 @@ ACCURACY_SPAN = 1440.0  # minutes; the 2 days until phase 12 needed the time (PE
 SLIVER_MIN = 1e-3  # minutes: 4 ulps of float32 time at 2,880 min
 
 
+@dataclasses.dataclass(frozen=True)
+class ModelCase:
+    """A model the kernels carry, as the per-instance checks and timings
+    (phases 9, 10f, 12 and 13: b1_checks, b2_checks, b1_times, b2_times)
+    and the model phases (model_phase) take it.
+
+    ``tag`` and ``label`` name its phase and the model in the lines;
+    ``prefix`` is its instances' prefix in the launch counters
+    (kernels._common.KERNEL_MODELS), ``rhs_ops`` the operations of its rhs
+    (for the bounds; ``rhs_name`` names the constant), ``reads_t`` whether its rhs reads the time (so FSAL's
+    k1, taken at t + h, may round apart from the default's at the Kahan t,
+    and a shift must move its results, or must not).  The rest serves
+    model_phase: ``inputs(s_count, dtype)`` gives (model, y0, params,
+    forcings) of the main path's systems, ``queries(span, dtype)`` its
+    queries over the first ``span`` of ``tf`` minutes (``span_text`` in the
+    lines, ``note`` after the solve lines' tolerances); ``cli`` the CLI config's changes (``cli_text``); ``shift`` and
+    ``f64_check`` the (systems, minutes) of phase b's shifted and float64
+    checks of B1's default instances; ``b2_dtypes``, ``b2_h0`` (None:
+    initial_step's) and ``b2_spans`` phase d's B2 on every system and the
+    spans its plain check may take; ``check(dtype, kernel, attempts)``
+    phase e's inputs for every instance against its plain version: (model,
+    y0, params, forcings, span, queries, base config, what the lines say of
+    them), ``attempts`` being B2's per system in phase d (the first dtype's);
+    ``skip`` the instances
+    phase e leaves to phases b and d; ``golden`` the final state B1's
+    default float64 instance must reach in phase e (rtol 5e-6); ``wide``:
+    phase e holds every instance to its plain version at the main path's
+    shapes too (a model whose main path is minutes, not days)."""
+
+    tag: str
+    label: str
+    prefix: str
+    rhs_ops: int
+    rhs_name: str
+    reads_t: bool
+    inputs: Callable = None
+    tf: float = DAYS * 1440.0
+    queries: Callable = None
+    span_text: str = f"{DAYS:g} days"
+    note: str = ""
+    cli: dict = None
+    cli_text: str = ""
+    shift: tuple = (0, 0.0)
+    f64_check: tuple = (0, 0.0)
+    b2_dtypes: tuple = (torch.float32,)
+    b2_h0: float | None = None
+    b2_spans: tuple = ()
+    check: Callable = None
+    skip: tuple = ()
+    golden: tuple | None = None
+    wide: bool = False
+
+    def name(self, opt: str, dtype) -> str:
+        """The instance of option set ``opt`` (B1_OPTIONS, B2_OPTIONS) in ``dtype``."""
+        return self.prefix + opt + ("/f64" if dtype == torch.float64 else "")
+
+
+def b1_checks(case: ModelCase, dtype, cfg_of, inputs: tuple, tag: str, where: str, records: dict,
+              names=tuple(B1_OPTIONS), skip=(), shift: float = 0.0) -> dict:
+    """Each B1 instance of the option sets ``names`` in ``dtype`` against
+    rk45_plain bit for bit on ``inputs`` = (model, y0, params, forcings,
+    span, queries, hu_rows), from the initial steps of ``cfg_of('default')``;
+    the instances named in ``skip`` run (their results are FSAL's twins)
+    but are held elsewhere.  FSAL's results against its twin's: a gate
+    where the rhs does not read t, data where it does.  With ``shift``, each instance
+    again with that t_shift: equal to the unshifted run (a model that does
+    not read t).  Fills ``records`` by instance name; returns the default
+    and pi instances' results by option set."""
+    from tiger_tpu_torch.kernels import rk45 as k_rk45
+    from tiger_tpu_torch.solver.controller import initial_step
+
+    model, y0, params, forc, span, qt, hu_rows = inputs
+    h0 = initial_step(model, y0, 0.0, params, forc, cfg_of("default"))
+    real, peak = (8, F64_PEAK) if dtype == torch.float64 else (4, F32_PEAK)
+    n_rows = 0 if forc is None else forc.data.shape[0]
+    results = {}
+    for opt in names:
+        inst, cfg = case.name(opt, dtype), cfg_of(opt)
+        ker, c_ms = timed(lambda: k_rk45.rk45(model, y0, h0, 0.0, span, qt, params, forc, cfg), reps=3)
+        if opt in ("default", "pi"):  # FSAL's twins; the others' dense blocks would only hold memory
+            results[opt] = ker
+        if inst in skip:
+            continue
+        ref, p_ms = timed(lambda: k_rk45.rk45_plain(model, y0, h0, 0.0, span, qt, params, forc, cfg))
+        err = check_rk45(f"phase {tag} B1 {inst} vs rk45_plain{where}", ker, ref, hu_rows)
+        att = int(ker.stats.n_attempts.sum())
+        bnd = bound(b1_ops(att, int((~ker.stiff).sum()) * int((qt > 0.0).sum()),
+                           k_rk45.rk45_options(cfg), case.rhs_ops),
+                    io_bytes(y0.shape[0], n_rows, qt.numel(), 5, real), peak)
+        rec = records.setdefault(inst, {})
+        rec.update(check_ms=c_ms, check_plain_ms=p_ms, max_abs_err=err, check_bound_ms=bnd[0],
+                   check_systems=y0.shape[0], check_span_min=span, check_attempts=att,
+                   library_ms=None)
+        rec.setdefault("plain_ms", p_ms)  # unless a check at the main path's shapes took it
+        if shift:
+            moved = k_rk45.rk45_mismatch(
+                k_rk45.rk45(model, y0, h0, 0.0, span, qt, params, forc, cfg, shift), ker)
+            check(not any(moved.values()), f"phase {tag}: t_shift {shift:g} moved B1 {inst}: {moved}")
+            records[inst]["shift_unchanged"] = shift
+        if cfg.fsal:
+            # FSAL's k1 is k7, evaluated at t + h; the default's k1 at the
+            # Kahan-compensated t1 (rk45_pallas.py l.726-777 alike).  Where
+            # the rhs does not read t the two instances are equal; where it
+            # does the two times may round apart: printed as data (equal in
+            # every run so far, PERF.md).
+            twin = "pi" if cfg.controller == "pi" else "default"
+            if twin not in results:
+                results[twin] = k_rk45.rk45(model, y0, h0, 0.0, span, qt, params, forc, cfg_of(twin))
+            diff = k_rk45.rk45_mismatch(ker, results[twin])
+            records[inst]["differs_from_" + twin] = diff
+            phase(f"phase {tag} B1 {inst} vs the {twin} instance"
+                  f"{' (for information)' if case.reads_t else ''}: entries that differ {diff}")
+            check(case.reads_t or not any(diff.values()),
+                  f"phase {tag}: FSAL {inst} differs from the {twin} instance: {diff}")
+    return results
+
+
+def b2_checks(case: ModelCase, dtype, cfg_of, inputs: tuple, tag: str, where: str, records: dict,
+              names=tuple(B2_OPTIONS), skip=(), counted: bool = False, shift: float = 0.0,
+              main: bool = False) -> None:
+    """Each B2 instance of the option sets ``names`` (but the instances
+    named in ``skip``) in ``dtype`` against radau_plain bit for bit on
+    ``inputs`` = (model, y0, params, forcings, span, queries), each from its
+    own initial steps;
+    'reference' at REFERENCE_CHECK, which may fail systems.  ``counted``:
+    one launch with the counters set to 0 just before, which must count
+    once.  ``shift``: again with that t_shift, equal to the unshifted run.
+    ``main``: these are the instance's only times, so they also fill its
+    main-path keys where no other phase did.  Fills ``records``."""
+    from tiger_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tiger_tpu_torch.kernels import radau as k_radau
+    from tiger_tpu_torch.solver.controller import initial_step
+
+    model, y0, params, forc, span, qt = inputs
+    real, peak = (8, F64_PEAK) if dtype == torch.float64 else (4, F32_PEAK)
+    n_rows = 0 if forc is None else forc.data.shape[0]
+    n_sys = y0.shape[0]
+    for opt in names:
+        inst = case.name(opt, dtype)
+        if inst in skip:
+            continue
+        cfg = cfg_of(opt, **(REFERENCE_CHECK if opt.startswith("reference") else {}))
+        h0 = initial_step(model, y0, 0.0, params, forc, cfg)
+        rec, n_launch = records.setdefault(inst, {}), None
+        if counted:
+            reset_launch_counts()
+            k_radau.radau(model, y0, h0, 0.0, span, qt, params, forc, cfg)
+            n_launch = launch_counts()["radau"][inst]
+            check(n_launch == 1, f"phase {tag}: B2 {inst} was not launched")
+        ker, c_ms = timed(lambda: k_radau.radau(model, y0, h0, 0.0, span, qt, params, forc, cfg), reps=3)
+        ref, p_ms = timed(lambda: k_radau.radau_plain(model, y0, h0, 0.0, span, qt, params, forc, cfg))
+        err = check_radau(f"phase {tag} B2 {inst} vs radau_plain{where}", ker, ref,
+                          may_fail=opt in B2_MAY_FAIL)
+        att, swp = int(ker.stats.n_attempts.sum()), int(ker.stats.n_newton.sum())
+        bnd = bound(b2_ops(att, swp, n_sys * int((qt > 0.0).sum()), cfg, case.rhs_ops),
+                    io_bytes(n_sys, n_rows, qt.numel(), 6, real), peak)
+        rec.update(max_abs_err=err, check_plain_ms=p_ms, check_ms=c_ms, check_systems=n_sys,
+                   check_span_min=span, check_attempts=att, check_bound_ms=bnd[0], library_ms=None)
+        rec.setdefault("plain_ms", p_ms)  # unless a check at the main path's shapes took it
+        if shift:
+            moved = k_radau.radau(model, y0, h0, 0.0, span, qt, params, forc, cfg, shift)
+            same = (_bit_equal(moved.y_final, ker.y_final) and _bit_equal(moved.dense, ker.dense)
+                    and all(bool(torch.equal(a, b)) for a, b in zip(moved.stats, ker.stats)))
+            check(same, f"phase {tag}: t_shift {shift:g} moved B2 {inst}")
+            rec["shift_unchanged"] = shift
+        if main:
+            for key, value in dict(ms=c_ms, launches=n_launch, bound_ms=bnd[0], bound_by=bnd[1],
+                                   systems=n_sys,
+                                   attempts=att, failed=int(ker.failed.sum()),
+                                   worst_system_attempts=int(ker.stats.n_attempts.max())).items():
+                rec.setdefault(key, value)
+
+
+def b1_times(case: ModelCase, dtype, cfg_of, inputs: tuple, records: dict,
+             names=tuple(B1_OPTIONS)) -> dict:
+    """Each B1 instance's time at the main path's shapes, ``inputs`` =
+    (model, y0, params, forcings, tf, queries), from its own initial
+    steps, with its bound and launch geometry (launches made to measure,
+    after the main path's counts were read).  Fills ``records``; returns
+    each instance's stiff flags by option set."""
+    from tiger_tpu_torch.kernels import rk45 as k_rk45
+    from tiger_tpu_torch.solver.controller import initial_step
+
+    model, y0, params, forc, tf, qt = inputs
+    real, peak = (8, F64_PEAK) if dtype == torch.float64 else (4, F32_PEAK)
+    n_rows = 0 if forc is None else forc.data.shape[0]
+    n_sys, n_q_after = y0.shape[0], int((qt > 0.0).sum())
+    results = {}
+    for opt in names:
+        inst, cfg = case.name(opt, dtype), cfg_of(opt)
+        h0 = initial_step(model, y0, 0.0, params, forc, cfg)
+        ker, ms = timed(lambda: k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, cfg), reps=3)
+        options = k_rk45.rk45_options(cfg)
+        att = int(ker.stats.n_attempts.sum())
+        bnd = bound(b1_ops(att, int((~ker.stiff).sum()) * n_q_after, options, case.rhs_ops),
+                    io_bytes(n_sys, n_rows, qt.numel(), 5, real), peak)
+        geo = k_rk45.rk45_geometry(n_sys, options, dtype, model)
+        records.setdefault(inst, {}).update(
+            ms=ms, bound_ms=bnd[0], bound_by=bnd[1], attempts=att,
+            worst_system_attempts=int(ker.stats.n_attempts.max()), pool_bytes=geo["shared_bytes"],
+            threads=geo["threads"], geometry=geo, library_ms=None)
+        results[opt] = ker.stiff
+    return results
+
+
+def b2_times(case: ModelCase, dtype, cfg_of, inputs: tuple, records: dict,
+             names=tuple(B2_OPTIONS)) -> None:
+    """Each B2 instance's time on ``inputs`` = (model, y0, params,
+    forcings, tf, queries, h0): the systems B1 flagged, from phase 1's
+    initial steps, with its bound.  Fills ``records``."""
+    from tiger_tpu_torch.kernels import radau as k_radau
+
+    model, y0, params, forc, tf, qt, h0 = inputs
+    real, peak = (8, F64_PEAK) if dtype == torch.float64 else (4, F32_PEAK)
+    n_rows = 0 if forc is None else forc.data.shape[0]
+    n_sys = y0.shape[0]
+    n_q_after = int((qt > 0.0).sum())
+    for opt in names:
+        cfg = cfg_of(opt)
+        ker, ms = timed(lambda: k_radau.radau(model, y0, h0, 0.0, tf, qt, params, forc, cfg), reps=3)
+        att, swp = int(ker.stats.n_attempts.sum()), int(ker.stats.n_newton.sum())
+        worst = max(int(ker.stats.n_attempts.max()), 1)
+        bnd = bound(b2_ops(att, swp, n_sys * n_q_after, cfg, case.rhs_ops),
+                    io_bytes(n_sys, n_rows, qt.numel(), 6, real), peak)
+        records.setdefault(case.name(opt, dtype), {}).update(
+            ms=ms, bound_ms=bnd[0], bound_by=bnd[1], attempts=att, worst_system_attempts=worst,
+            us_per_attempt=1e3 * ms / worst, sweeps_per_attempt=swp / max(att, 1),
+            failed=int(ker.failed.sum()), systems=n_sys, library_ms=None)
+
+
+#: Model 204 as the option and double phases' checks and timings take it.
+M204 = ModelCase(tag="", label="Model 204", prefix="", rhs_ops=RHS_OPS, rhs_name="RHS_OPS",
+                 reads_t=False)
+
+
 def snapped_landings(steps: tuple, meta) -> dict:
     """{system: [(dt, k, sliver), ...]}: the advances of a run (``rk45_plain``'s
     ``steps``, stacked: t, h, advance, t_new [iterations, S]) that ended
@@ -854,41 +1127,17 @@ def options_phase(smi: str) -> dict:
     tf = OPTION_DAYS * 1440.0
     y0, params, forc = scenario(OPTION_SYSTEMS, OPTION_DAYS, OPTION_STIFF, device=dev)
     qt = torch.arange(0.0, tf + 1e-9, 60.0, dtype=torch.float32, device=dev)
-    h0 = initial_step(model, y0, 0.0, params, forc, base)
     hu_rows = params["Hu"] < STIFF_HU * 10
-    results = {}
-    for name in B1_OPTIONS:
-        cfg = b1_cfg(name)
-        ker, b1[name]["check_ms"] = timed(
-            lambda: k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, cfg), reps=3)
-        ref, b1[name]["plain_ms"] = timed(
-            lambda: k_rk45.rk45_plain(model, y0, h0, 0.0, tf, qt, params, forc, cfg))
-        b1[name]["library_ms"] = None
-        b1[name]["max_abs_err"] = check_rk45(
-            f"phase 9a B1 {name} vs rk45_plain ({OPTION_SYSTEMS} systems, {OPTION_DAYS:g} day)",
-            ker, ref, hu_rows)
-        results[name] = ker
-        if cfg.fsal:
-            twin = "pi" if cfg.controller == "pi" else "default"
-            diff = k_rk45.rk45_mismatch(ker, results[twin])
-            phase(f"phase 9a B1 {name} vs the {twin} instance: entries that differ {diff}")
-            check(not any(diff.values()), f"phase 9a: FSAL differs from the {twin} instance: {diff}")
+    results = b1_checks(M204, torch.float32, b1_cfg, (model, y0, params, forc, tf, qt, hu_rows), "9a",
+                        f" ({OPTION_SYSTEMS} systems, {OPTION_DAYS:g} day)", b1)
     rows = torch.nonzero(results["default"].stiff).squeeze(1)
     check(rows.numel() > 0, "phase 9a flagged no system")
     sy0, sp = y0[rows].contiguous(), {k: v[rows].contiguous() for k, v in params.items()}
     sf = forc.take_systems(rows)
     qt_r = torch.arange(0.0, RADAU_CHECK_SPAN + 1e-9, 5.0, dtype=torch.float32, device=dev)
-    for name in B2_OPTIONS:
-        cfg = b2_cfg(name, **(REFERENCE_CHECK if name.startswith("reference") else {}))
-        sh0 = initial_step(model, sy0, 0.0, sp, sf, cfg)
-        ker, b2[name]["check_ms"] = timed(
-            lambda: k_radau.radau(model, sy0, sh0, 0.0, RADAU_CHECK_SPAN, qt_r, sp, sf, cfg), reps=3)
-        ref, b2[name]["plain_ms"] = timed(
-            lambda: k_radau.radau_plain(model, sy0, sh0, 0.0, RADAU_CHECK_SPAN, qt_r, sp, sf, cfg))
-        b2[name]["library_ms"] = None
-        b2[name]["max_abs_err"] = check_radau(
-            f"phase 9a B2 {name} vs radau_plain ({rows.numel()} systems, first "
-            f"{RADAU_CHECK_SPAN:g} min)", ker, ref, may_fail=name in B2_MAY_FAIL)
+    b2_checks(M204, torch.float32, b2_cfg, (model, sy0, sp, sf, RADAU_CHECK_SPAN, qt_r), "9a",
+              f" ({rows.numel()} systems, first {RADAU_CHECK_SPAN:g} min)", b2)
+    del results
 
     # (b) the slice's path at full width, and (c) the CLI with f32c; the
     # launch counters are set to 0 just before and read just after.
@@ -986,7 +1235,7 @@ def options_phase(smi: str) -> dict:
     phase(f"phase 9b-c launches by instance (the main path's): {launches}, in all {total}")
     for kernel, counts in launches.items():  # Model 204's float instances (phases 10 and 12 the rest)
         check(all(n > 0 for name, n in counts.items()
-                  if not name.endswith("/f64") and not name.startswith("m200/")),
+                  if not name.endswith("/f64") and "/" not in name),  # Model 204's float ones
               f"phase 9: a {kernel} instance was not launched: {counts}")
     for name in B1_OPTIONS:
         b1[name]["launches"] = launches["rk45"][name]
@@ -996,18 +1245,8 @@ def options_phase(smi: str) -> dict:
     # Each instance's time at the main path's shapes (launches made to
     # measure, after the counts were read).
     h0 = initial_step(model, y0, 0.0, params, forc, base)
-    n_rows, n_q, n_q_after = forc.data.shape[0], qt.numel(), int((qt > 0.0).sum())
-    for name in B1_OPTIONS:
-        cfg = b1_cfg(name)
-        ker, ms = timed(lambda: k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, cfg), reps=3)
-        options = k_rk45.rk45_options(cfg)
-        ops = b1_ops(int(ker.stats.n_attempts.sum()), int((~ker.stiff).sum()) * n_q_after, options)
-        bnd = bound(ops, io_bytes(MAIN_SYSTEMS, n_rows, n_q, 5))
-        geo = k_rk45.rk45_geometry(MAIN_SYSTEMS, options)
-        b1[name].update(ms=ms, bound_ms=bnd[0], bound_by=bnd[1], pool_bytes=geo["shared_bytes"],
-                        attempts=int(ker.stats.n_attempts.sum()))
-        if name == "default":
-            rows = torch.nonzero(ker.stiff).squeeze(1)
+    rows = torch.nonzero(b1_times(M204, torch.float32, b1_cfg, (model, y0, params, forc, tf, qt),
+                                  b1)["default"]).squeeze(1)
     # The slice's own instance and tolerances: B1 compensated at rtol 1e-6 /
     # atol 1e-9 on the 131,072 systems, and B2 on the systems it flagged,
     # each against its plain version with phases 3-4's exact check.
@@ -1021,29 +1260,15 @@ def options_phase(smi: str) -> dict:
     cy0, cp = y0[rows_c].contiguous(), {k: v[rows_c].contiguous() for k, v in params.items()}
     cf, ch0 = forc.take_systems(rows_c), h0_t[rows_c].contiguous()
     rker_c, ms_c2 = timed(lambda: k_radau.radau(model, cy0, ch0, 0.0, tf, qt, cp, cf, f32c), reps=3)
-
-    def f32c_span_run(span, plain=False):
-        sq = qt[qt <= span + 1e-9]
-        fn = k_radau.radau_plain if plain else k_radau.radau
-        return timed(lambda: fn(model, cy0, ch0, 0.0, span, sq, cp, cf, f32c))
-
     # Its check against radau_plain runs at the end (plain_span_checks).
     b2["embedded3"].update(f32c_ms=ms_c2)
-    check_c = SpanCheck(
-        run=f32c_span_run, record=b2["embedded3"], prefix="f32c_",
-        compare=radau_compare(f"phase 9b B2 embedded3 vs radau_plain at rtol 1e-6 / atol 1e-9 "
-                              f"({rows_c.numel()} systems", int(rker_c.stats.n_attempts.max())),
-        worst={span: int(f32c_span_run(span)[0].stats.n_attempts.max()) for span in F64_SPANS})
+    check_c = radau_span_check(
+        f"phase 9b B2 embedded3 vs radau_plain at rtol 1e-6 / atol 1e-9 ({rows_c.numel()} systems",
+        int(rker_c.stats.n_attempts.max()), model, cy0, ch0, cp, cf, qt, f32c, b2["embedded3"],
+        prefix="f32c_")
     sy0, sp = y0[rows].contiguous(), {k: v[rows].contiguous() for k, v in params.items()}
     sf, sh0 = forc.take_systems(rows), h0[rows].contiguous()
-    for name in B2_OPTIONS:
-        cfg = b2_cfg(name)
-        ker, ms = timed(lambda: k_radau.radau(model, sy0, sh0, 0.0, tf, qt, sp, sf, cfg), reps=3)
-        att, swp = int(ker.stats.n_attempts.sum()), int(ker.stats.n_newton.sum())
-        bnd = bound(b2_ops(att, swp, rows.numel() * n_q_after, cfg), io_bytes(rows.numel(), n_rows, n_q, 6))
-        b2[name].update(ms=ms, bound_ms=bnd[0], bound_by=bnd[1], attempts=att,
-                        worst_system_attempts=int(ker.stats.n_attempts.max()),
-                        failed=int(ker.failed.sum()))
+    b2_times(M204, torch.float32, b2_cfg, (model, sy0, sp, sf, tf, qt, sh0), b2)
     phase(f"phase 9b instance times at the main path's shapes ({MAIN_SYSTEMS} systems for B1, "
           f"its {rows.numel()} stiff ones for B2, {DAYS:g} days, rtol 1e-5 / atol 1e-8; f32c_* at "
           f"rtol 1e-6 / atol 1e-9, B2 on its {rows_c.numel()} stiff systems): B1 {b1} | B2 {b2} | {smi}")
@@ -1064,30 +1289,64 @@ F64_MARGIN = 1.15  # on the predicted seconds of a plain Radau span
 # prediction: 31.5-37.5 ms measured over the 2 days, 17-44 ms over the first
 # 45 min to 6 hours (PERF.md §6).
 PLAIN_RADAU_MS = 40.0
+# plain_span_checks' processes: how many run at once, how much longer a
+# plain Radau attempt takes there than alone (measured 1.15-1.23 with 4, 1.6-
+# 1.7 with 7), and the seconds a process takes to reach the card (PERF.md §6).
+SIDE_BY_SIDE, SIDE_BY_SIDE_SLOWER, PROCESS_START_S = 4, 1.25, 10.0
 
 
 @dataclasses.dataclass
 class SpanCheck:
-    """One of plain_span_checks' checks.  ``run(span, plain=False)`` gives
-    (result, ms) over the first ``span`` minutes through the kernels or
-    their plain versions; ``compare(span, ker, ref)`` holds the two results
-    and gives their max_abs_err; the numbers go into ``record``, each name
-    after ``prefix``; ``worst`` is the worst system's attempts by span."""
+    """One of plain_span_checks' checks.  ``run(span)`` gives (result, ms)
+    over the first ``span`` minutes through the kernels, ``plain(span)``
+    the job of its plain versions over the same span ("module:function",
+    args[, the kernel whose radau_diff against it the process returns];
+    side_by_side runs it); ``compare(span, ker, ref)`` holds the two
+    results and gives their max_abs_err; the numbers go into ``record``,
+    each name after ``prefix``; ``worst`` is the worst system's attempts by
+    span (each of ``spans``: F64_SPANS for a check of the shared span, or
+    the whole span of a check that always runs all of it)."""
 
     run: Callable
+    plain: Callable
     compare: Callable
     record: dict
     worst: dict
     prefix: str = ""
+    spans: tuple = F64_SPANS  # the spans it may take: the shared ones, or one of its own
 
 
-def radau_compare(label: str, total: int) -> Callable:
-    """SpanCheck.compare for B2 against radau_plain; ``total`` is the worst
-    system's attempts over the full span."""
+def radau_span_check(label: str, total: int, model, y0, h0, params, forc, qt, cfg, record: dict,
+                     spans: tuple = F64_SPANS, prefix: str = "", may_fail: bool = False,
+                     diff_in_worker: bool = False) -> SpanCheck:
+    """The SpanCheck of B2 against radau_plain on these systems; ``total``
+    is the worst system's attempts over the full span (None: over the
+    longest of ``spans``), ``label`` the
+    lines' start.  Runs the kernel over each of ``spans`` for the worst
+    system's attempts.  ``may_fail`` as check_radau's.  ``diff_in_worker``:
+    the plain version's process also runs B2 and returns only their
+    radau_diff (for results of gigabytes, such as a dense block at full
+    width)."""
+    from tiger_tpu_torch.kernels import radau as k_radau
+
+    def run(span):
+        sq = qt[qt <= span + 1e-9]
+        return timed(lambda: k_radau.radau(model, y0, h0, 0.0, span, sq, params, forc, cfg))
+
+    def plain(span):
+        return ("tiger_tpu_torch.kernels.radau:radau_plain",
+                (model, y0, h0, 0.0, span, qt[qt <= span + 1e-9], params, forc, cfg),
+                "tiger_tpu_torch.kernels.radau:radau" if diff_in_worker else None)
+
     def compare(span, ker, ref) -> float:
         return check_radau(f"{label}, first {span:g} min, worst system "
-                           f"{int(ker.stats.n_attempts.max())} of its {total} attempts)", ker, ref)
-    return compare
+                           f"{int(ker.stats.n_attempts.max())} of its {total} attempts)", ker, ref,
+                           may_fail, ref if diff_in_worker else None)
+
+    worst = {x: int(run(x)[0].stats.n_attempts.max()) for x in spans}
+    total = worst[max(spans)] if total is None else total
+    return SpanCheck(run=run, plain=plain, compare=compare, record=record, prefix=prefix, spans=spans,
+                     worst=worst)
 
 
 def _read_files(folder: str, names) -> dict:
@@ -1258,13 +1517,10 @@ def float64_phase(smi: str) -> tuple:
     r_bnd = bound(b2_ops(r_att, r_swp, rows.numel() * n_q_after),
                   io_bytes(rows.numel(), n_rows, n_q, 6, real=8), F64_PEAK)
     r_worst = int(rker.stats.n_attempts.max())
-
-    def span_run(span, plain=False):
-        sq = qt[qt <= span + 1e-9]
-        fn = k_radau.radau_plain if plain else k_radau.radau
-        return timed(lambda: fn(model, sy0, sh0, 0.0, span, sq, sp_, sf, cfg))
-
-    worst = {span: int(span_run(span)[0].stats.n_attempts.max()) for span in F64_SPANS}
+    check_b = radau_span_check(
+        f"phase 10b B2 embedded3/f64 vs radau_plain float64 ({rows.numel()} systems", r_worst, model,
+        sy0, sh0, sp_, sf, qt, cfg, b2)
+    worst = check_b.worst
     b2.update(ms=r_ms, bound_ms=r_bnd[0], bound_by=r_bnd[1], attempts=r_att,
               worst_system_attempts=r_worst, sweeps_per_attempt=r_swp / r_att, systems=rows.numel(),
               worst_by_span=worst, us_per_attempt=1e3 * r_ms / r_worst, library_ms=None)
@@ -1276,8 +1532,6 @@ def float64_phase(smi: str) -> tuple:
           f"({1e3 * r_ms / r_worst:.3f} us an attempt), {r_swp / r_att:.4f} sweeps an attempt, "
           f"worst system's attempts by leading span (min) {worst} | {smi}")
     phase(f"phase 10 took {time.perf_counter() - phase_start:.1f} s (the plain Radau check at the end)")
-    check_b = SpanCheck(run=span_run, record=b2, worst=worst, compare=radau_compare(
-        f"phase 10b B2 embedded3/f64 vs radau_plain float64 ({rows.numel()} systems", r_worst))
     return {"rk45": b1, "radau": b2}, check_b
 
 
@@ -1294,7 +1548,6 @@ def doubles_phase(smi: str) -> dict:
     minutes, 'reference' at max_steps 150 and rtol 1e-3)."""
     from tiger_tpu_torch import Model204, SolverConfig, solve
     from tiger_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from tiger_tpu_torch.kernels import radau as k_radau
     from tiger_tpu_torch.kernels import rk45 as k_rk45
     from tiger_tpu_torch.scenario import STIFF_HU, scenario
     from tiger_tpu_torch.solver.controller import initial_step
@@ -1336,79 +1589,29 @@ def doubles_phase(smi: str) -> dict:
     check(all(recs[i]["launches"] > 0 for i in recs), f"phase 10f: a double instance was not launched: {counts}")
 
     # Each instance's time at the main path's shapes (launches made to measure).
-    n_rows, n_q, n_q_after = forc.data.shape[0], qt.numel(), int((qt > 0.0).sum())
     h0 = initial_step(model, y0, 0.0, params, forc, base)
-    for name in b1_names:
-        cfg = cfg_of(name)
-        ker, ms = timed(lambda: k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, cfg), reps=3)
-        att, options = int(ker.stats.n_attempts.sum()), k_rk45.rk45_options(cfg)
-        bnd = bound(b1_ops(att, int((~ker.stiff).sum()) * n_q_after, options),
-                    io_bytes(MAIN_SYSTEMS, n_rows, n_q, 5, real=8), F64_PEAK)
-        geo = k_rk45.rk45_geometry(MAIN_SYSTEMS, options, f64)
-        recs[f"{name}/f64"].update(ms=ms, bound_ms=bnd[0], bound_by=bnd[1], attempts=att,
-                                   worst_system_attempts=int(ker.stats.n_attempts.max()),
-                                   pool_bytes=geo["shared_bytes"], threads=geo["threads"])
+    b1_times(M204, f64, cfg_of, (model, y0, params, forc, tf, qt), recs, b1_names)
     rows = torch.nonzero(k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, base).stiff).squeeze(1)
     sy0, sp = y0[rows].contiguous(), {k: v[rows].contiguous() for k, v in params.items()}
     sf, sh0 = forc.take_systems(rows), h0[rows].contiguous()
-    for name in b2_names:
-        cfg = cfg_of(name)
-        ker, ms = timed(lambda: k_radau.radau(model, sy0, sh0, 0.0, tf, qt, sp, sf, cfg), reps=3)
-        att, swp = int(ker.stats.n_attempts.sum()), int(ker.stats.n_newton.sum())
-        bnd = bound(b2_ops(att, swp, rows.numel() * n_q_after, cfg),
-                    io_bytes(rows.numel(), n_rows, n_q, 6, real=8), F64_PEAK)
-        worst = int(ker.stats.n_attempts.max())
-        recs[f"{name}/f64"].update(ms=ms, bound_ms=bnd[0], bound_by=bnd[1], attempts=att,
-                                   worst_system_attempts=worst, us_per_attempt=1e3 * ms / worst,
-                                   failed=int(ker.failed.sum()), systems=rows.numel())
+    b2_times(M204, f64, cfg_of, (model, sy0, sp, sf, tf, qt, sh0), recs, b2_names)
     del y0, params, forc, qt, h0, sy0, sp, sf, sh0
 
     # Each against its float64 plain version at phase 9a's shapes.
     tf = OPTION_DAYS * 1440.0
     y0, params, forc = scenario(OPTION_SYSTEMS, OPTION_DAYS, OPTION_STIFF, device=dev, dtype=f64)
     qt = torch.arange(0.0, tf + 1e-9, 60.0, dtype=f64, device=dev)
-    h0 = initial_step(model, y0, 0.0, params, forc, base)
     hu_rows = params["Hu"] < STIFF_HU * 10
-    n_rows, n_q, n_q_after = forc.data.shape[0], qt.numel(), int((qt > 0.0).sum())
-    results = {"default": k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, base)}
-    for name in b1_names:
-        cfg = cfg_of(name)
-        ker, ms = timed(lambda: k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, cfg), reps=3)
-        ref, plain_ms = timed(lambda: k_rk45.rk45_plain(model, y0, h0, 0.0, tf, qt, params, forc, cfg))
-        err = check_rk45(f"phase 10f B1 {name}/f64 vs rk45_plain float64 ({OPTION_SYSTEMS} systems, "
-                         f"{OPTION_DAYS:g} day)", ker, ref, hu_rows)
-        att = int(ker.stats.n_attempts.sum())
-        bnd = bound(b1_ops(att, int((~ker.stiff).sum()) * n_q_after, k_rk45.rk45_options(cfg)),
-                    io_bytes(OPTION_SYSTEMS, n_rows, n_q, 5, real=8), F64_PEAK)
-        recs[f"{name}/f64"].update(check_ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                                   check_bound_ms=bnd[0])
-        results[name] = ker
-        if cfg.fsal:
-            twin = "pi" if cfg.controller == "pi" else "default"
-            if twin not in results:
-                results[twin] = k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, cfg_of(twin))
-            diff = k_rk45.rk45_mismatch(ker, results[twin])
-            check(not any(diff.values()), f"phase 10f: FSAL/f64 differs from the {twin}/f64 instance: {diff}")
+    results = b1_checks(M204, f64, cfg_of, (model, y0, params, forc, tf, qt, hu_rows), "10f",
+                        f" float64 ({OPTION_SYSTEMS} systems, {OPTION_DAYS:g} day)", recs,
+                        names=("default", *b1_names), skip=("default/f64",))
     rows = torch.nonzero(results["default"].stiff).squeeze(1)
     check(rows.numel() > 0, "phase 10f flagged no system")
     sy0, sp = y0[rows].contiguous(), {k: v[rows].contiguous() for k, v in params.items()}
     sf = forc.take_systems(rows)
     qt_r = torch.arange(0.0, RADAU_CHECK_SPAN + 1e-9, 5.0, dtype=f64, device=dev)
-    n_q_r = int((qt_r > 0.0).sum())
-    for name in b2_names:
-        cfg = cfg_of(name, **(REFERENCE_CHECK if name.startswith("reference") else {}))
-        sh0 = initial_step(model, sy0, 0.0, sp, sf, cfg)
-        ker, ms = timed(lambda: k_radau.radau(model, sy0, sh0, 0.0, RADAU_CHECK_SPAN, qt_r, sp, sf, cfg),
-                        reps=3)
-        ref, plain_ms = timed(lambda: k_radau.radau_plain(model, sy0, sh0, 0.0, RADAU_CHECK_SPAN, qt_r,
-                                                          sp, sf, cfg))
-        err = check_radau(f"phase 10f B2 {name}/f64 vs radau_plain float64 ({rows.numel()} systems, "
-                          f"first {RADAU_CHECK_SPAN:g} min)", ker, ref, may_fail=name in B2_MAY_FAIL)
-        att, swp = int(ker.stats.n_attempts.sum()), int(ker.stats.n_newton.sum())
-        bnd = bound(b2_ops(att, swp, rows.numel() * n_q_r, cfg),
-                    io_bytes(rows.numel(), n_rows, qt_r.numel(), 6, real=8), F64_PEAK)
-        recs[f"{name}/f64"].update(check_ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                                   check_bound_ms=bnd[0])
+    b2_checks(M204, f64, cfg_of, (model, sy0, sp, sf, RADAU_CHECK_SPAN, qt_r), "10f",
+              f" float64 ({rows.numel()} systems, first {RADAU_CHECK_SPAN:g} min)", recs, names=b2_names)
     phase(f"phase 10f the double instances (main path: {MAIN_SYSTEMS} systems for B1, the default "
           f"B1's stiff ones for B2, {DAYS:g} days, rtol 1e-5 / atol 1e-8: ms, bound_ms; against the "
           f"plain versions: B1 {OPTION_SYSTEMS} systems over {OPTION_DAYS:g} day, B2 {rows.numel()} "
@@ -1500,13 +1703,15 @@ def retry_span_check(name: str, model, cfg, lost, y0, h0, params, forc, qt64, re
     from tiger_tpu_torch.kernels import rk45 as k_rk45
     from tiger_tpu_torch.solver import api
 
-    def run(span, plain=False):
+    def run(span):
         sq = qt64[qt64 <= span + 1e-9]
-        if plain:
-            return timed(lambda: retry_chain(k_rk45.rk45_plain, k_radau.radau_plain, model, y0, h0,
-                                             params, forc, span, sq, cfg, lost))
         return timed(lambda: api.retry_failed_f64(model, y0, h0, 0.0, span, sq, params, forc, cfg,
                                                   0.0, lost))
+
+    def plain(span):
+        return ("chip_smoke:retry_chain", (k_rk45.rk45_plain, k_radau.radau_plain, model, y0, h0,
+                                           params, forc, span, qt64[qt64 <= span + 1e-9], cfg, lost),
+                None)
 
     def compare(span, ker, ref) -> float:
         label = f"phase 11 check 2: the retry of {name} vs the plain chain float64, first {span:g} min"
@@ -1528,7 +1733,8 @@ def retry_span_check(name: str, model, cfg, lost, y0, h0, params, forc, qt64, re
         out = run(span)[0]
         return 0 if out.radau_stats is None else int(out.radau_stats.n_attempts.max())
 
-    return SpanCheck(run=run, compare=compare, record=record, worst={x: worst(x) for x in F64_SPANS})
+    return SpanCheck(run=run, plain=plain, compare=compare, record=record,
+                     worst={x: worst(x) for x in F64_SPANS})
 
 
 # Phase 11's check 2 holds these B2 option sets' retries to the plain
@@ -1633,6 +1839,9 @@ def retry_phase(smi: str, failing: list) -> tuple:
     return records, checks_2
 
 
+# Phases 12 and 13: the models beyond Model 204 (model_phase).
+SHIFT = 1440.0  # the t_shift of phase b's shifted check and of phase e's (a day)
+B2_TOP, B2_OTHERS = 32, 96  # phase d: the systems its plain check runs
 # Phase 12: Model 200 (Hamon PET and the ET ramp) in both kernels.
 M200_DOY0 = 182.0  # early July: the ET term is active
 M200_LAT = (25.0, 50.0)  # degrees, one a system from a seeded rng
@@ -1640,12 +1849,11 @@ M200_LAT = (25.0, 50.0)  # degrees, one a system from a seeded rng
 # check's systems and minutes (rk45_plain pays its launches an iteration, so
 # the span sets its time); cut from 2 days, and 12e's from 3 hours and 20
 # minutes, to give phase 6's plain Radau its 2 days back (PERF.md §4).
-M200_SHIFT, M200_SHIFT_SYSTEMS, M200_SHIFT_SPAN = 1440.0, 4096, 720.0
-M200_F64_SYSTEMS, M200_F64_SPAN = 4096, 720.0
+M200_SHIFT_CHECK = (4096, 720.0)
+M200_F64_CHECK = (4096, 720.0)
 M200_B1_CHECK = (256, 60.0)  # 12e: B1's other instances, systems and minutes
 M200_B2_CHECK = (4, 5.0)  # 12e: B2's other instances
 M200_B2_H0 = 1e-3  # 12d: bench.py --solver radau's h0
-M200_B2_TOP, M200_B2_OTHERS = 32, 96  # 12d: the systems its plain check runs
 # Model200::rhs against Model204::rhs: its ET term (the day of year 2, Hamon
 # 44 with its six libm calls, the ramp 10) for the stub's 3.
 RHS_OPS_M200 = RHS_OPS - 3 + 2 + 44 + 10
@@ -1723,9 +1931,32 @@ def libm_phase(smi: str) -> dict:
     return out
 
 
-def model200_phase(smi: str) -> tuple:
-    """Phase 12: Model 200 in both kernels.  Returns each kernel's Model 200
-    instance records and 12d's plain Radau check (plain_span_checks)."""
+def model_phase(case: ModelCase, smi: str) -> tuple:
+    """Phases 12 and 13: a model beyond Model 204 in both kernels, every
+    instance, float and double.  Returns the kernels' instance records, the
+    solve() walls, and the plain Radau checks of (d) (plain_span_checks).
+
+    (c) the slice's path at full width: solve() in float32 at rtol 1e-5 /
+    atol 1e-8, then float64 at SolverConfig()'s defaults, each with the
+    counters set to 0 just before and read just after, one warm-up and 3
+    timed runs (stiff count as data, 0 failed), one solve() with each other
+    option set's B1 instance, and every B1 instance's own time.  (f) the
+    CLI at full width with the model's config, its files equal a direct
+    solve() bit for bit; then 2 one-day windows (t_shift 1440 in the
+    second) equal to the windows by hand.  (b) B1's default instance
+    against rk45_plain at full width, again with t_shift 1440 on the first
+    systems (a model that reads t must move, one that does not must not,
+    in the kernel and in rk45_plain), and the default float64 instance at
+    rtol 1e-6 / atol 1e-9.  (d) B2's default instance on every system, one
+    warm-up and 3 timed, 0 failed; its check against radau_plain on the 32
+    systems with the most attempts and 96 others joins plain_span_checks.
+    (e) every instance against its plain version at the model's check
+    shapes, each B2 instance once with the counters set to 0 just before;
+    FSAL against the default as data (a gate where the rhs does not read t),
+    a model that does not read t again with t_shift 1440 (unchanged), and
+    the golden final state where the model has one; where ``case.wide``,
+    every instance again at the main path's shapes (B2's in
+    plain_span_checks)."""
     import copy
     import os
     import tempfile
@@ -1739,35 +1970,32 @@ def model200_phase(smi: str) -> tuple:
     from tiger_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tiger_tpu_torch.kernels import radau as k_radau
     from tiger_tpu_torch.kernels import rk45 as k_rk45
-    from tiger_tpu_torch.models import Model200
+    from tiger_tpu_torch.models import get_model
     from tiger_tpu_torch.params import model_params
     from tiger_tpu_torch.profiling import Metrics
     from tiger_tpu_torch.run import COLD_STATE_DEFAULTS, run
     from tiger_tpu_torch.scenario import solve_written_basin, write_basin
     from tiger_tpu_torch.solver.controller import initial_step
 
+    T, P = case.tag, case.prefix
     phase_start = time.perf_counter()
     f64 = torch.float64
     base = SolverConfig(rtol=1e-5, atol=1e-8, max_steps=100_000)
-    b1 = {f"m200/{name}{sfx}": {} for sfx in ("", "/f64") for name in B1_OPTIONS}
-    b2 = {f"m200/{name}{sfx}": {} for sfx in ("", "/f64") for name in B2_OPTIONS}
-    libm_counts = libm_phase(smi)
-    tf = DAYS * 1440.0
-
-    def queries(span, dtype=torch.float32):
-        return torch.arange(0.0, span + 1e-9, 60.0, dtype=dtype, device="cuda")
+    b1, b2 = {}, {}
+    tf = case.tf
 
     def subset(rows, y0, params, forc):
-        return (y0[rows].contiguous(), {k: v[rows].contiguous() for k, v in params.items()},
-                forc.take_systems(rows))
+        return (y0[rows].contiguous(),
+                None if params is None else {k: v[rows].contiguous() for k, v in params.items()},
+                None if forc is None else forc.take_systems(rows))
 
     # (c) the slice's path at full width: solve() in float32, then in
     # float64 at SolverConfig()'s defaults, each with the counters set to 0
     # just before and read just after.
     walls = {}
     for label, dtype, cfg in (("f32", torch.float32, base), ("f64", f64, SolverConfig())):
-        model, y0, params, forc = m200_inputs(MAIN_SYSTEMS, dtype)
-        qt = queries(tf, dtype)
+        model, y0, params, forc = case.inputs(MAIN_SYSTEMS, dtype)
+        qt = case.queries(tf, dtype)
         torch.cuda.synchronize()
         reset_launch_counts()
         res = solve(model, y0, 0.0, tf, qt, params, forc, cfg)  # warm-up
@@ -1786,99 +2014,83 @@ def model200_phase(smi: str) -> tuple:
         walls[label] = dict(wall_s=wall, walls_s=times, system_steps_per_s=(rk_att + rd_att) / wall,
                             n_stiff=res.n_stiff, n_failed=n_failed, rk_attempts=rk_att,
                             radau_attempts=rd_att)
-        phase(f"phase 12c solve() Model 200 {label} ({MAIN_SYSTEMS} systems, {DAYS:g} days, "
-              f"{qt.numel()} queries, rtol {cfg.rtol:g} / atol {cfg.atol:g}, doy0 {M200_DOY0:g}): "
+        phase(f"phase {T}c solve() {case.label} {label} ({MAIN_SYSTEMS} systems, {case.span_text}, "
+              f"{qt.numel()} queries, rtol {cfg.rtol:g} / atol {cfg.atol:g}{case.note}): "
               f"{(rk_att + rd_att) / wall:.6e} system-steps/s, wall median {wall:.6f} s (min "
               f"{min(times):.6f}, max {max(times):.6f}), n_stiff {res.n_stiff}, rk attempts "
               f"{rk_att}, radau attempts {rd_att}, n_failed {n_failed}, launches "
               f"{ {k: {i: n for i, n in v.items() if n} for k, v in launches.items()} } | {smi}")
-        name = "m200/default" + ("/f64" if dtype == f64 else "")
-        check(launches["rk45"][name] > 0, f"phase 12c {label}: B1 {name} was not launched: {launches}")
+        name = case.name("default", dtype)
+        check(launches["rk45"][name] > 0, f"phase {T}c {label}: B1 {name} was not launched: {launches}")
         check(sum(launches["rk45"].values()) == launches["rk45"][name],
-              f"phase 12c {label}: an instance of another model or set ran: {launches}")
-        check(n_failed == 0, f"phase 12c {label}: {n_failed} systems failed")
-        check(bool(torch.isfinite(res.y_final).all()), f"phase 12c {label}: non-finite y_final")
+              f"phase {T}c {label}: an instance of another model or set ran: {launches}")
+        check(n_failed == 0, f"phase {T}c {label}: {n_failed} systems failed")
+        check(bool(torch.isfinite(res.y_final).all()), f"phase {T}c {label}: non-finite y_final")
         check(tuple(res.dense.shape) == (MAIN_SYSTEMS, qt.numel(), 5),
-              f"phase 12c {label}: dense shape {tuple(res.dense.shape)}")
-        b1[name]["launches"] = launches["rk45"][name]
+              f"phase {T}c {label}: dense shape {tuple(res.dense.shape)}")
+        b1.setdefault(name, {})["launches"] = launches["rk45"][name]
+        stiff_rows = torch.nonzero(res.stiff).squeeze(1)
         if dtype == f64:  # float32's flags no system, so its B2 runs in (d)
-            b2["m200/embedded3/f64"]["launches"] = launches["radau"]["m200/embedded3/f64"]
+            b2.setdefault(P + "embedded3/f64", {})["launches"] = launches["radau"][P + "embedded3/f64"]
         # Each other option set's B1 instance: one solve() at full width with
         # the counters set to 0 just before; and every instance's own time.
-        n_rows, n_q_after = forc.data.shape[0], int((qt > 0.0).sum())
-        real = 8 if dtype == f64 else 4
-        peak = F64_PEAK if dtype == f64 else F32_PEAK
         for opt, changes in B1_OPTIONS.items():
-            name = f"m200/{opt}" + ("/f64" if dtype == f64 else "")
-            o_cfg = dataclasses.replace(cfg, **changes)
-            if opt != "default":
-                reset_launch_counts()
-                o_res = solve(model, y0, 0.0, tf, qt, params, forc, o_cfg)
-                o_launches = launch_counts()["rk45"]
-                o_failed = int(o_res.failed.sum())
-                check(o_launches[name] > 0 and o_failed == 0,
-                      f"phase 12c {name}: launches {o_launches}, {o_failed} failed")
-                b1[name].update(launches=o_launches[name], n_stiff=o_res.n_stiff, n_failed=o_failed)
-            h0 = initial_step(model, y0, 0.0, params, forc, o_cfg)
-            ker, o_ms = timed(lambda: k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, o_cfg),
-                              reps=3)
-            att = int(ker.stats.n_attempts.sum())
-            bnd = bound(b1_ops(att, int((~ker.stiff).sum()) * n_q_after,
-                               k_rk45.rk45_options(o_cfg), rhs_ops=RHS_OPS_M200),
-                        io_bytes(MAIN_SYSTEMS, n_rows, qt.numel(), 5, real=real), peak)
-            b1[name].update(ms=o_ms, bound_ms=bnd[0], bound_by=bnd[1], attempts=att,
-                            worst_system_attempts=int(ker.stats.n_attempts.max()), library_ms=None,
-                            geometry=k_rk45.rk45_geometry(MAIN_SYSTEMS, k_rk45.rk45_options(o_cfg),
-                                                          dtype, model))
-        if dtype == f64 and res.n_stiff:
+            if opt == "default":
+                continue
+            name = case.name(opt, dtype)
+            reset_launch_counts()
+            o_res = solve(model, y0, 0.0, tf, qt, params, forc, dataclasses.replace(cfg, **changes))
+            o_launches = launch_counts()["rk45"]
+            o_failed = int(o_res.failed.sum())
+            check(o_launches[name] > 0 and o_failed == 0,
+                  f"phase {T}c {name}: launches {o_launches}, {o_failed} failed")
+            b1.setdefault(name, {}).update(launches=o_launches[name], n_stiff=o_res.n_stiff,
+                                           n_failed=o_failed)
+        del res, o_res
+        b1_times(case, dtype, lambda opt: dataclasses.replace(cfg, **B1_OPTIONS[opt]),
+                 (model, y0, params, forc, tf, qt), b1)
+        if dtype == f64 and stiff_rows.numel():
             # B2's double instance on the systems the solve flagged, its time.
-            rows = torch.nonzero(res.stiff).squeeze(1)
             h0 = initial_step(model, y0, 0.0, params, forc, cfg)
-            sy0, sp_, sf = subset(rows, y0, params, forc)
-            sh0 = h0[rows].contiguous()
-            rk, r_ms = timed(lambda: k_radau.radau(model, sy0, sh0, 0.0, tf, qt, sp_, sf, cfg), reps=3)
-            r_att, r_swp = int(rk.stats.n_attempts.sum()), int(rk.stats.n_newton.sum())
-            r_bnd = bound(b2_ops(r_att, r_swp, rows.numel() * n_q_after, rhs_ops=RHS_OPS_M200),
-                          io_bytes(rows.numel(), n_rows, qt.numel(), 6, real=8), F64_PEAK)
-            b2["m200/embedded3/f64"].update(
-                ms=r_ms, bound_ms=r_bnd[0], bound_by=r_bnd[1], systems=rows.numel(), attempts=r_att,
-                worst_system_attempts=int(rk.stats.n_attempts.max()), failed=int(rk.failed.sum()),
-                library_ms=None)
-        phase(f"phase 12c each B1 instance's time ({label}, {MAIN_SYSTEMS} systems), n_stiff and "
+            b2_times(case, dtype, lambda opt: cfg, (model, *subset(stiff_rows, y0, params, forc), tf,
+                                                   qt, h0[stiff_rows].contiguous()), b2,
+                     names=("embedded3",))
+        phase(f"phase {T}c each B1 instance's time ({label}, {MAIN_SYSTEMS} systems), n_stiff and "
               f"attempts of its solve(): { {k: (v.get('ms'), v.get('n_stiff'), v.get('attempts')) for k, v in b1.items() if 'ms' in v and k.endswith('/f64') == (dtype == f64)} }"
-              f"{'; B2 m200/embedded3/f64 on the stiff systems ' + str(b2['m200/embedded3/f64']) if dtype == f64 else ''} | {smi}")
+              f"{'; B2 ' + P + 'embedded3/f64 on the stiff systems ' + str(b2.get(P + 'embedded3/f64')) if dtype == f64 else ''} | {smi}")
+        del model, y0, params, forc, qt
 
     # (f) the CLI at full width, then 2 one-day windows: t_shift = 1440
     # reaches both kernels through run().  Their own launch counts.
     outputs = (("final", "outputs"), ("dense", "outputs"), ("discharge", "discharge"),
                ("state", "outputs"))
-    with tempfile.TemporaryDirectory(prefix="tiger_m200_") as tmp:
+    with tempfile.TemporaryDirectory(prefix=f"tiger_{T}_") as tmp:
         doc = write_basin(os.path.join(tmp, "basin"), MAIN_SYSTEMS, DAYS, STIFF_FRAC)
-        doc["model"] = {"uid": 200, "name": "Model200"}
-        doc["time"] = {"start": "2000-07-01T00:00:00", "end": "2000-07-03T00:00:00"}
+        doc.update(copy.deepcopy(case.cli))
         doc["output"]["path"] = os.path.join(tmp, "cli")
         cli_cfg = config_from_dict(doc)
+        uid = cli_cfg.model.uid
         reset_launch_counts()
         start = time.perf_counter()
         out = run(cli_cfg, metrics=Metrics())
         cli_wall = time.perf_counter() - start
         cli_launches = launch_counts()
         direct, cli_params, sp = solve_written_basin(cli_cfg, "cuda")
-        check(direct.y_final.dtype == torch.float32, "phase 12f: the config is not float32")
+        check(direct.y_final.dtype == torch.float32, f"phase {T}f: the config is not float32")
         topo = routing.build_topology(sp["stream"], sp["next_stream"])
         y_direct = direct.y_final.cpu().numpy()
         want = {"dense": direct.dense.cpu().numpy(), "final": y_direct, "state": y_direct,
                 "discharge": routing.routed_discharge(direct.dense, cli_params, topo).cpu().numpy()}
         got = _read_files(cli_cfg.output.path, outputs)
         same_f = {k: bool(np.array_equal(got[k], want[k])) for k in want}
-        phase(f"phase 12f CLI model.uid 200 ({MAIN_SYSTEMS} links, {DAYS:g} days from "
-              f"2000-07-01, doy0 183, f32): wall {cli_wall:.6f} s (no warm-up), n_stiff "
+        phase(f"phase {T}f CLI model.uid {uid} ({MAIN_SYSTEMS} links, {DAYS:g} days{case.cli_text}, "
+              f"f32): wall {cli_wall:.6f} s (no warm-up), n_stiff "
               f"{out['n_stiff']}, n_failed {out['n_failed']}, launches "
               f"{ {k: {i: n for i, n in v.items() if n} for k, v in cli_launches.items()} }; files "
               f"equal solve() and routed_discharge() bit for bit {same_f} | {smi}")
-        check(out["n_failed"] == 0, f"phase 12f: {out['n_failed']} links failed")
-        check(cli_launches["rk45"]["m200/default"] > 0, f"phase 12f: B1 m200 did not run: {cli_launches}")
-        check(all(same_f.values()), f"phase 12f: the run's files differ from the direct path: {same_f}")
+        check(out["n_failed"] == 0, f"phase {T}f: {out['n_failed']} links failed")
+        check(cli_launches["rk45"][P + "default"] > 0, f"phase {T}f: B1 {P}default did not run: {cli_launches}")
+        check(all(same_f.values()), f"phase {T}f: the run's files differ from the direct path: {same_f}")
 
         win = copy.deepcopy(doc)
         win["time"]["chunk_days"] = 1.0
@@ -1889,12 +2101,12 @@ def model200_phase(smi: str) -> tuple:
         win_out = run(win_cfg, metrics=Metrics())
         win_wall = time.perf_counter() - start
         win_launches = launch_counts()
-        model = Model200(doy0=183.0)  # 2000-07-01
+        model = get_model(uid, doy0=float(win_cfg.time.start.timetuple().tm_yday))
         p32 = {k: torch.as_tensor(v, device="cuda").to(torch.float32) for k, v in model_params(sp).items()}
         specs = [ForcingSpec(os.path.join(win_cfg.forcings.path, f["file"]), f["var"],
                              float(f["dt_hours"])) for f in win_cfg.forcings.files]
         loader = chunked.netcdf_window_loader(specs, sp["stream"], win_cfg.forcings.lookup, "cuda")
-        cold = COLD_STATE_DEFAULTS.get(200, (0.0,) * model.N_EQ)  # run()'s: all stores empty
+        cold = COLD_STATE_DEFAULTS.get(uid, (0.0,) * model.N_EQ)  # run()'s cold start
         y = torch.as_tensor(cold_state(cold, MAIN_SYSTEMS), device="cuda").to(torch.float32)
         dense, discharge, shifts = [], [], []
         for w in range(int(DAYS)):
@@ -1911,222 +2123,409 @@ def model200_phase(smi: str) -> tuple:
         got = _read_files(win_cfg.output.path, outputs)
         same_w = {k: bool(got[k].shape == want[k].shape and np.array_equal(got[k], want[k]))
                   for k in want}
-        phase(f"phase 12f windowed model.uid 200 ({MAIN_SYSTEMS} links, {int(DAYS)} one-day "
+        phase(f"phase {T}f windowed model.uid {uid} ({MAIN_SYSTEMS} links, {int(DAYS)} one-day "
               f"windows, t_shift {shifts}, a daily checkpoint): wall {win_wall:.6f} s, n_windows "
               f"{win_out['n_windows']}, n_failed {win_out['n_failed']}, launches "
               f"{ {k: {i: n for i, n in v.items() if n} for k, v in win_launches.items()} }; files "
               f"equal the windows by hand bit for bit {same_w} | {smi}")
         check(win_out["n_failed"] == 0 and win_out["n_windows"] == int(DAYS),
-              f"phase 12f: {win_out['n_failed']} failed, {win_out['n_windows']} windows")
-        check(all(same_w.values()), f"phase 12f: the windowed files differ from the windows by hand: {same_w}")
-    b1["m200/default"]["cli_launches"] = cli_launches["rk45"]["m200/default"]
-    b1["m200/default"]["windowed_launches"] = win_launches["rk45"]["m200/default"]
+              f"phase {T}f: {win_out['n_failed']} failed, {win_out['n_windows']} windows")
+        check(all(same_w.values()), f"phase {T}f: the windowed files differ from the windows by hand: {same_w}")
+        del direct, dense, discharge, want, got
+    b1[P + "default"]["cli_launches"] = cli_launches["rk45"][P + "default"]
+    b1[P + "default"]["windowed_launches"] = win_launches["rk45"][P + "default"]
 
-    # (b) B1 m200/default against rk45_plain at full width, then with
-    # t_shift = 1440 on the first systems, then m200/default/f64 at rtol
-    # 1e-6 / atol 1e-9 (launches made to check and to time).
-    model, y0, params, forc = m200_inputs(MAIN_SYSTEMS)
-    qt = queries(tf)
+    # (b) B1's default instance against rk45_plain at full width, then with
+    # t_shift = 1440 on the first systems, then the default float64 instance
+    # at rtol 1e-6 / atol 1e-9 (launches made to check and to time).
+    model, y0, params, forc = case.inputs(MAIN_SYSTEMS, torch.float32)
+    qt = case.queries(tf, torch.float32)
     h0 = initial_step(model, y0, 0.0, params, forc, base)
     none = torch.zeros(MAIN_SYSTEMS, dtype=torch.bool, device="cuda")
     ker, ms = timed(lambda: k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, base), reps=3)
     ref, plain_ms = timed(lambda: k_rk45.rk45_plain(model, y0, h0, 0.0, tf, qt, params, forc, base))
-    err = check_rk45(f"phase 12b B1 m200/default vs rk45_plain ({MAIN_SYSTEMS} systems, "
-                     f"{DAYS:g} days)", ker, ref, none)
-    n_rows, n_q, n_q_after = forc.data.shape[0], qt.numel(), int((qt > 0.0).sum())
+    err = check_rk45(f"phase {T}b B1 {P}default vs rk45_plain ({MAIN_SYSTEMS} systems, "
+                     f"{case.span_text})", ker, ref, none)
+    n_rows = 0 if forc is None else forc.data.shape[0]
+    n_q, n_q_after = qt.numel(), int((qt > 0.0).sum())
     att, worst = int(ker.stats.n_attempts.sum()), int(ker.stats.n_attempts.max())
-    bnd = bound(b1_ops(att, int((~ker.stiff).sum()) * n_q_after, rhs_ops=RHS_OPS_M200),
+    bnd = bound(b1_ops(att, int((~ker.stiff).sum()) * n_q_after, rhs_ops=case.rhs_ops),
                 io_bytes(MAIN_SYSTEMS, n_rows, n_q, 5))
     geo = k_rk45.rk45_geometry(MAIN_SYSTEMS, 0, torch.float32, model)
-    b1["m200/default"].update(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bnd[0],
-                              solve=walls["f32"],
-                              bound_by=bnd[1], attempts=att, worst_system_attempts=worst,
-                              geometry=geo, library_ms=None)
-    rows = torch.arange(M200_SHIFT_SYSTEMS, device="cuda")
+    b1[P + "default"].update(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bnd[0],
+                             solve=walls["f32"], bound_by=bnd[1], attempts=att,
+                             worst_system_attempts=worst, geometry=geo, library_ms=None)
+    del ker, ref
+    n_shift, span_shift = case.shift
+    rows = torch.arange(n_shift, device="cuda")
     sy0, sp_, sf = subset(rows, y0, params, forc)
-    sq = queries(M200_SHIFT_SPAN)
-    sh0 = initial_step(model, sy0, 0.0, sp_, sf, base, M200_SHIFT)
-    ker_s, ms_s = timed(lambda: k_rk45.rk45(model, sy0, sh0, 0.0, M200_SHIFT_SPAN, sq, sp_, sf, base,
-                                            M200_SHIFT))
-    ref_s, plain_s = timed(lambda: k_rk45.rk45_plain(model, sy0, sh0, 0.0, M200_SHIFT_SPAN, sq, sp_, sf,
-                                                     base, M200_SHIFT))
-    err_s = check_rk45(f"phase 12b B1 m200/default with t_shift {M200_SHIFT:g} vs rk45_plain "
-                       f"({M200_SHIFT_SYSTEMS} systems, first {M200_SHIFT_SPAN:g} min)", ker_s, ref_s,
-                       none[:M200_SHIFT_SYSTEMS])
-    unshifted = k_rk45.rk45(model, sy0, sh0, 0.0, M200_SHIFT_SPAN, sq, sp_, sf, base)
+    sq = case.queries(span_shift, torch.float32)
+    sh0 = initial_step(model, sy0, 0.0, sp_, sf, base, SHIFT)
+    ker_s, ms_s = timed(lambda: k_rk45.rk45(model, sy0, sh0, 0.0, span_shift, sq, sp_, sf, base, SHIFT))
+    ref_s, plain_s = timed(lambda: k_rk45.rk45_plain(model, sy0, sh0, 0.0, span_shift, sq, sp_, sf,
+                                                     base, SHIFT))
+    err_s = check_rk45(f"phase {T}b B1 {P}default with t_shift {SHIFT:g} vs rk45_plain "
+                       f"({n_shift} systems, first {span_shift:g} min)", ker_s, ref_s, none[:n_shift])
+    unshifted = k_rk45.rk45(model, sy0, sh0, 0.0, span_shift, sq, sp_, sf, base)
     moved = int((ker_s.y_final != unshifted.y_final).any(dim=1).sum())
-    check(moved > 0, "phase 12b: t_shift changed no system's result")
-    b1["m200/default"].update(shift_check=dict(systems=M200_SHIFT_SYSTEMS, t_shift=M200_SHIFT,
-                                               span_min=M200_SHIFT_SPAN, ms=ms_s, plain_ms=plain_s,
-                                               max_abs_err=err_s, systems_moved_by_the_shift=moved))
-    phase(f"phase 12b B1 m200/default: {ms:.3f} ms vs rk45_plain {plain_ms:.3f} ms, bound "
-          f"{bnd[0]:.4f} ms ({bnd[1]}, RHS_OPS_M200 {RHS_OPS_M200}), {att} attempts, worst "
-          f"system {worst}, geometry {geo}; with t_shift {M200_SHIFT:g} on {M200_SHIFT_SYSTEMS} "
-          f"systems over {M200_SHIFT_SPAN:g} min {ms_s:.3f} ms vs {plain_s:.3f} ms, {moved} systems "
+    if case.reads_t:
+        check(moved > 0, f"phase {T}b: t_shift changed no system's result")
+    else:
+        plain_unshifted = k_rk45.rk45_plain(model, sy0, sh0, 0.0, span_shift, sq, sp_, sf, base)
+        same = {"kernel": not any(k_rk45.rk45_mismatch(ker_s, unshifted).values()),
+                "plain": not any(k_rk45.rk45_mismatch(ref_s, plain_unshifted).values())}
+        check(all(same.values()), f"phase {T}b: t_shift {SHIFT:g} moved {case.label}'s results: {same}")
+    b1[P + "default"].update(shift_check=dict(systems=n_shift, t_shift=SHIFT, span_min=span_shift,
+                                              ms=ms_s, plain_ms=plain_s, max_abs_err=err_s,
+                                              systems_moved_by_the_shift=moved))
+    phase(f"phase {T}b B1 {P}default: {ms:.3f} ms vs rk45_plain {plain_ms:.3f} ms, bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}, {case.rhs_name} {case.rhs_ops}), {att} attempts, worst "
+          f"system {worst}, geometry {geo}; with t_shift {SHIFT:g} on {n_shift} "
+          f"systems over {span_shift:g} min {ms_s:.3f} ms vs {plain_s:.3f} ms, {moved} systems "
           f"moved by the shift | {smi}")
+    del ker_s, ref_s, unshifted, y0, params, forc
 
-    model64, y64, p64, forc64 = m200_inputs(M200_F64_SYSTEMS, f64)
+    n64, span64 = case.f64_check
+    model64, y64, p64, forc64 = case.inputs(n64, f64)
     cfg64 = SolverConfig()
-    qt64 = queries(M200_F64_SPAN, f64)
+    qt64 = case.queries(span64, f64)
     h64 = initial_step(model64, y64, 0.0, p64, forc64, cfg64)
-    ker, ms64 = timed(lambda: k_rk45.rk45(model64, y64, h64, 0.0, M200_F64_SPAN, qt64, p64, forc64, cfg64),
+    ker, ms64 = timed(lambda: k_rk45.rk45(model64, y64, h64, 0.0, span64, qt64, p64, forc64, cfg64),
                       reps=3)
-    ref, plain64 = timed(lambda: k_rk45.rk45_plain(model64, y64, h64, 0.0, M200_F64_SPAN, qt64, p64, forc64,
+    ref, plain64 = timed(lambda: k_rk45.rk45_plain(model64, y64, h64, 0.0, span64, qt64, p64, forc64,
                                                    cfg64))
-    err64 = check_rk45(f"phase 12b B1 m200/default/f64 vs rk45_plain float64 ({M200_F64_SYSTEMS} "
-                       f"systems, first {M200_F64_SPAN:g} min, rtol 1e-6 / atol 1e-9)", ker, ref,
-                       none[:M200_F64_SYSTEMS])
+    err64 = check_rk45(f"phase {T}b B1 {P}default/f64 vs rk45_plain float64 ({n64} "
+                       f"systems, first {span64:g} min, rtol 1e-6 / atol 1e-9)", ker, ref, none[:n64])
     att64 = int(ker.stats.n_attempts.sum())
-    bnd64 = bound(b1_ops(att64, int((~ker.stiff).sum()) * int((qt64 > 0.0).sum()), rhs_ops=RHS_OPS_M200),
-                  io_bytes(M200_F64_SYSTEMS, n_rows, qt64.numel(), 5, real=8), F64_PEAK)
-    b1["m200/default/f64"].update(check_ms=ms64, plain_ms=plain64, max_abs_err=err64,
-                                  check_bound_ms=bnd64[0], check_bound_by=bnd64[1],
-                                  check_attempts=att64, check_systems=M200_F64_SYSTEMS,
-                                  check_span_min=M200_F64_SPAN,
-                                  solve=walls["f64"],
-                                  check_worst_system_attempts=int(ker.stats.n_attempts.max()))
+    bnd64 = bound(b1_ops(att64, int((~ker.stiff).sum()) * int((qt64 > 0.0).sum()), rhs_ops=case.rhs_ops),
+                  io_bytes(n64, n_rows, qt64.numel(), 5, real=8), F64_PEAK)
+    b1[P + "default/f64"].update(check_ms=ms64, plain_ms=plain64, max_abs_err=err64,
+                                 check_bound_ms=bnd64[0], check_bound_by=bnd64[1],
+                                 check_attempts=att64, check_systems=n64, check_span_min=span64,
+                                 solve=walls["f64"],
+                                 check_worst_system_attempts=int(ker.stats.n_attempts.max()))
     del y64, p64, forc64, ker, ref
 
-    # (d) B2 on every system, from bench.py --solver radau's h0.
-    h0r = torch.full((MAIN_SYSTEMS,), M200_B2_H0, dtype=torch.float32, device="cuda")
-    reset_launch_counts()
-    k_radau.radau(model, y0, h0r, 0.0, tf, qt, params, forc, base)  # warm-up
-    rker, r_ms = timed(lambda: k_radau.radau(model, y0, h0r, 0.0, tf, qt, params, forc, base), reps=3)
-    b2["m200/embedded3"]["launches"] = launch_counts()["radau"]["m200/embedded3"]
-    r_att, r_swp = int(rker.stats.n_attempts.sum()), int(rker.stats.n_newton.sum())
-    r_worst, r_failed = int(rker.stats.n_attempts.max()), int(rker.failed.sum())
-    r_bnd = bound(b2_ops(r_att, r_swp, MAIN_SYSTEMS * n_q_after, rhs_ops=RHS_OPS_M200),
-                  io_bytes(MAIN_SYSTEMS, n_rows, n_q, 6))
-    phase(f"phase 12d B2 m200/embedded3 on every system ({MAIN_SYSTEMS}, {DAYS:g} days, h0 "
-          f"{M200_B2_H0:g}): {r_ms:.3f} ms (median of 3 after a warm-up), bound {r_bnd[0]:.4f} ms "
-          f"({r_bnd[1]}), {r_att} attempts, worst system {r_worst} ({1e3 * r_ms / r_worst:.3f} us "
-          f"an attempt), {r_swp / r_att:.4f} sweeps an attempt, failed {r_failed} | {smi}")
-    check(r_failed == 0, f"phase 12d: {r_failed} systems failed")
-    check(bool(torch.isfinite(rker.y_final).all()), "phase 12d: non-finite y_final")
-    top = torch.topk(rker.stats.n_attempts, M200_B2_TOP).indices
-    rest = torch.ones(MAIN_SYSTEMS, dtype=torch.bool, device="cuda")
-    rest[top] = False
-    others = torch.nonzero(rest).squeeze(1)
-    others = others[torch.linspace(0, others.numel() - 1, M200_B2_OTHERS, device="cuda").long()]
-    rows = torch.sort(torch.cat([top, others])).values
-    cy0, cp, cf = subset(rows, y0, params, forc)
-    ch0 = h0r[rows].contiguous()
+    # (d) B2 on every system, from the model's h0.
+    span_checks, attempts = {}, None
+    for dtype in case.b2_dtypes:
+        sfx = "/f64" if dtype == f64 else ""
+        inst, key = P + "embedded3" + sfx, T + (" f64" if sfx else "")
+        cfg = base if dtype == torch.float32 else SolverConfig()
+        model, y0, params, forc = case.inputs(MAIN_SYSTEMS, dtype)
+        qt = case.queries(tf, dtype)
+        h0r = (initial_step(model, y0, 0.0, params, forc, cfg) if case.b2_h0 is None
+               else torch.full((MAIN_SYSTEMS,), case.b2_h0, dtype=dtype, device="cuda"))
+        reset_launch_counts()
+        k_radau.radau(model, y0, h0r, 0.0, tf, qt, params, forc, cfg)  # warm-up
+        rker, r_ms = timed(lambda: k_radau.radau(model, y0, h0r, 0.0, tf, qt, params, forc, cfg), reps=3)
+        rec = b2.setdefault(inst, {})
+        rec["launches"] = launch_counts()["radau"][inst]
+        r_att, r_swp = int(rker.stats.n_attempts.sum()), int(rker.stats.n_newton.sum())
+        r_worst, r_failed = int(rker.stats.n_attempts.max()), int(rker.failed.sum())
+        real, peak = (8, F64_PEAK) if dtype == f64 else (4, F32_PEAK)
+        r_bnd = bound(b2_ops(r_att, r_swp, MAIN_SYSTEMS * int((qt > 0.0).sum()), rhs_ops=case.rhs_ops),
+                      io_bytes(MAIN_SYSTEMS, 0 if forc is None else forc.data.shape[0], qt.numel(), 6,
+                               real), peak)
+        h0_text = "initial_step's" if case.b2_h0 is None else f"{case.b2_h0:g}"
+        phase(f"phase {T}d B2 {inst} on every system ({MAIN_SYSTEMS}, {case.span_text}, h0 "
+              f"{h0_text}): {r_ms:.3f} ms (median of 3 after a warm-up), bound {r_bnd[0]:.4f} ms "
+              f"({r_bnd[1]}), {r_att} attempts, worst system {r_worst} ({1e3 * r_ms / r_worst:.3f} us "
+              f"an attempt), {r_swp / r_att:.4f} sweeps an attempt, failed {r_failed} | {smi}")
+        check(r_failed == 0, f"phase {T}d: {r_failed} systems failed")
+        check(bool(torch.isfinite(rker.y_final).all()), f"phase {T}d: non-finite y_final")
+        top_d = torch.topk(rker.stats.n_attempts, B2_TOP).indices
+        attempts = rker.stats.n_attempts if attempts is None else attempts
+        rest = torch.ones(MAIN_SYSTEMS, dtype=torch.bool, device="cuda")
+        rest[top_d] = False
+        others = torch.nonzero(rest).squeeze(1)
+        others = others[torch.linspace(0, others.numel() - 1, B2_OTHERS, device="cuda").long()]
+        rows = torch.sort(torch.cat([top_d, others])).values
+        cy0, cp, cf = subset(rows, y0, params, forc)
+        ch0 = h0r[rows].contiguous()
 
-    def span_run(span, plain=False):
-        sq = qt[qt <= span + 1e-9]
-        fn = k_radau.radau_plain if plain else k_radau.radau
-        return timed(lambda: fn(model, cy0, ch0, 0.0, span, sq, cp, cf, base))
+        span_checks[key] = radau_span_check(
+            f"phase {T}d B2 {inst} vs radau_plain ({rows.numel()} systems", r_worst, model, cy0, ch0,
+            cp, cf, qt, cfg, rec, spans=case.b2_spans)
+        worst_by_span = span_checks[key].worst
+        rec.update(ms=r_ms, bound_ms=r_bnd[0], bound_by=r_bnd[1], attempts=r_att,
+                   worst_system_attempts=r_worst, sweeps_per_attempt=r_swp / r_att,
+                   systems=MAIN_SYSTEMS, failed=r_failed, library_ms=None,
+                   us_per_attempt=1e3 * r_ms / r_worst, check_systems=rows.numel(),
+                   worst_by_span=worst_by_span)
+        del rker, y0, params, forc
 
-    worst_by_span = {span: int(span_run(span)[0].stats.n_attempts.max()) for span in F64_SPANS}
-    b2["m200/embedded3"].update(ms=r_ms, bound_ms=r_bnd[0], bound_by=r_bnd[1], attempts=r_att,
-                                worst_system_attempts=r_worst, sweeps_per_attempt=r_swp / r_att,
-                                systems=MAIN_SYSTEMS, failed=r_failed, library_ms=None,
-                                us_per_attempt=1e3 * r_ms / r_worst, check_systems=rows.numel(),
-                                worst_by_span=worst_by_span)
-    check_12 = SpanCheck(run=span_run, record=b2["m200/embedded3"], worst=worst_by_span,
-                         compare=radau_compare(f"phase 12d B2 m200/embedded3 vs radau_plain "
-                                               f"({rows.numel()} systems", r_worst))
-
-    # (e) every other Model 200 instance against its plain version.
-    n_b1, span_b1 = M200_B1_CHECK
-    qt_b1 = queries(span_b1)
+    # (e) every instance against its plain version at the model's check shapes.
     for dtype in (torch.float32, f64):
-        model, y0, params, forc = m200_inputs(n_b1, dtype)
-        qt_e = qt_b1.to(dtype)
-        h0 = initial_step(model, y0, 0.0, params, forc, base)
-        results = {}
-        for opt, changes in B1_OPTIONS.items():
-            name = f"m200/{opt}" + ("/f64" if dtype == f64 else "")
-            cfg = dataclasses.replace(base, **changes)
-            ker, c_ms = timed(lambda: k_rk45.rk45(model, y0, h0, 0.0, span_b1, qt_e, params, forc, cfg), reps=3)
-            results[opt] = ker
-            if opt == "default":
-                continue  # held in (b)
-            ref, p_ms = timed(lambda: k_rk45.rk45_plain(model, y0, h0, 0.0, span_b1, qt_e, params, forc, cfg))
-            e = check_rk45(f"phase 12e B1 {name} vs rk45_plain ({n_b1} systems, {span_b1:g} min)",
-                           ker, ref, none[:n_b1])
-            b1[name].update(max_abs_err=e, check_ms=c_ms, plain_ms=p_ms, check_systems=n_b1,
-                            check_span_min=span_b1)
-            if cfg.fsal:
-                # FSAL's k1 is k7, evaluated at t + h; the default's k1 at the
-                # Kahan-compensated t1 (rk45_pallas.py l.726-777 alike).  For
-                # Model 204, whose rhs does not read t, the two instances are
-                # equal; Model 200's reads t, so the two times may round
-                # apart: printed as data (equal in every run so far, PERF.md).
-                twin = "pi" if cfg.controller == "pi" else "default"
-                diff = k_rk45.rk45_mismatch(ker, results[twin])
-                b1[name]["differs_from_" + twin] = diff
-                phase(f"phase 12e B1 {name} vs the {twin} instance (for information): entries "
-                      f"that differ {diff}")
-    n_b2, span_b2 = M200_B2_CHECK
-    top4 = torch.topk(rker.stats.n_attempts, n_b2).indices
-    for dtype in (torch.float32, f64):
-        model, y0, params, forc = m200_inputs(MAIN_SYSTEMS, dtype)
-        sy0, sp_, sf = subset(top4, y0, params, forc)
-        qt_r = torch.arange(0.0, span_b2 + 1e-9, 5.0, dtype=dtype, device="cuda")
-        for opt, changes in B2_OPTIONS.items():
-            name = f"m200/{opt}" + ("/f64" if dtype == f64 else "")
-            if name == "m200/embedded3":
-                continue  # held over the shared span with (d)'s systems
-            cfg = dataclasses.replace(base, **changes,
+        model, y0, params, forc, span, qt_e, cfg_e, where = case.check(dtype, "rk45", attempts)
+        shift = 0.0 if case.reads_t else SHIFT
+        results = b1_checks(case, dtype, lambda opt: dataclasses.replace(cfg_e, **B1_OPTIONS[opt]),
+                            (model, y0, params, forc, span, qt_e, none[:y0.shape[0]]), f"{T}e", where,
+                            b1, skip=case.skip, shift=shift)
+        if case.golden is not None and dtype == f64:
+            y = results["default"].y_final
+            gold = torch.tensor(case.golden, dtype=f64, device="cuda").expand_as(y)
+            rel = float(((y - gold).abs() / gold.abs()).max())
+            b1[P + "default/f64"]["golden_max_rel_err"] = rel
+            phase(f"phase {T}e B1 {P}default/f64 against the golden final state {list(case.golden)}: "
+                  f"largest relative difference {rel:.3e} over {y.shape[0]} systems (bound 5e-6); its "
+                  f"{qt_e.numel()}-row dense grid equals rk45_plain's bit for bit (above)")
+            check(rel <= 5e-6, f"phase {T}e: B1 {P}default/f64 misses the golden final state by {rel:.3e}")
+        model, y0, params, forc, span, qt_e, cfg_e, where = case.check(dtype, "radau", attempts)
+        b2_checks(case, dtype, lambda opt, **kw: dataclasses.replace(cfg_e, **B2_OPTIONS[opt], **kw),
+                  (model, y0, params, forc, span, qt_e), f"{T}e", where, b2,
+                  skip=case.skip, counted=True, shift=shift, main=True)
+        if not case.wide:
+            continue
+        # At the main path's shapes too, from each instance's own initial
+        # steps: B1 here (but the default, held in (b)), B2 in
+        # plain_span_checks, where each process compares its own pair
+        # (a dense block is 2.6 GB in float32).  Recorded under
+        # "full_width_check" / "full_width_*".
+        cfg_w = base if dtype == torch.float32 else SolverConfig()
+        model, y0, params, forc = case.inputs(MAIN_SYSTEMS, dtype)
+        qt = case.queries(tf, dtype)
+        where = f" ({MAIN_SYSTEMS} systems, {case.span_text}, {qt.numel()} queries)"
+        wide = {}
+        b1_checks(case, dtype, lambda opt: dataclasses.replace(cfg_w, **B1_OPTIONS[opt]),
+                  (model, y0, params, forc, tf, qt, none), f"{T}e", where, wide,
+                  skip=(case.name("default", dtype),))
+        for inst, rec in wide.items():
+            b1[inst]["full_width_check"] = rec
+        for opt in B2_OPTIONS:
+            inst = case.name(opt, dtype)
+            cfg = dataclasses.replace(cfg_w, **B2_OPTIONS[opt],
                                       **(REFERENCE_CHECK if opt.startswith("reference") else {}))
-            sh0 = initial_step(model, sy0, 0.0, sp_, sf, cfg)
-            # The instance's run, with the counters set to 0 just before;
-            # then its time and its plain version.
-            reset_launch_counts()
-            k_radau.radau(model, sy0, sh0, 0.0, span_b2, qt_r, sp_, sf, cfg)
-            n_launch = launch_counts()["radau"][name]
-            check(n_launch == 1, f"phase 12e: B2 {name} was not launched")
-            ker, c_ms = timed(lambda: k_radau.radau(model, sy0, sh0, 0.0, span_b2, qt_r, sp_, sf, cfg), reps=3)
-            ref, p_ms = timed(lambda: k_radau.radau_plain(model, sy0, sh0, 0.0, span_b2, qt_r, sp_, sf, cfg))
-            e = check_radau(f"phase 12e B2 {name} vs radau_plain ({n_b2} systems, first "
-                            f"{span_b2:g} min)", ker, ref, may_fail=opt in B2_MAY_FAIL)
-            r_att, r_swp = int(ker.stats.n_attempts.sum()), int(ker.stats.n_newton.sum())
-            e_bnd = bound(b2_ops(r_att, r_swp, n_b2 * int((qt_r > 0).sum()), cfg, RHS_OPS_M200),
-                          io_bytes(n_b2, forc.data.shape[0], qt_r.numel(), 6,
-                                   real=8 if dtype == f64 else 4),
-                          F64_PEAK if dtype == f64 else F32_PEAK)
-            rec = b2[name]
-            rec.update(max_abs_err=e, plain_ms=p_ms, check_ms=c_ms, check_systems=n_b2,
-                       check_span_min=span_b2, check_attempts=r_att, library_ms=None)
-            # The time at the main path's shapes where (c) took one.
-            for key, value in dict(ms=c_ms, launches=n_launch, bound_ms=e_bnd[0], bound_by=e_bnd[1],
-                                   systems=n_b2, attempts=r_att, failed=int(ker.failed.sum()),
-                                   worst_system_attempts=int(ker.stats.n_attempts.max())).items():
-                rec.setdefault(key, value)
-    phase(f"phase 12 took {time.perf_counter() - phase_start:.1f} s (12d's plain Radau check at "
+            h0 = initial_step(model, y0, 0.0, params, forc, cfg)
+            span_checks[f"{T}e {inst}"] = radau_span_check(
+                f"phase {T}e B2 {inst} vs radau_plain{where[:-1]}", None, model, y0, h0, params, forc,
+                qt, cfg, b2.setdefault(inst, {}), spans=(tf,), prefix="full_width_",
+                may_fail=opt in B2_MAY_FAIL, diff_in_worker=True)
+        del model, y0, params, forc, qt
+    phase(f"phase {T} took {time.perf_counter() - phase_start:.1f} s ({T}d's plain Radau check at "
           f"the end)")
-    return {"rk45": b1, "radau": b2, "solve": walls, "libm": libm_counts}, check_12
+    return {"rk45": b1, "radau": b2, "solve": walls}, span_checks
+
+
+def hourly(span: float, dtype=torch.float32) -> torch.Tensor:
+    """Hourly queries over [0, span] minutes, on the card."""
+    return torch.arange(0.0, span + 1e-9, 60.0, dtype=dtype, device="cuda")
+
+
+def m200_check(dtype, kernel: str, attempts) -> tuple:
+    """Phase 12e's inputs (ModelCase.check): B1 on M200_B1_CHECK's first
+    systems over its first minutes, hourly queries; B2 on the
+    M200_B2_CHECK[0] systems 12d's B2 took the most ``attempts`` on, over
+    its first minutes, queries every 5; both at rtol 1e-5 / atol 1e-8."""
+    from tiger_tpu_torch import SolverConfig
+
+    base = SolverConfig(rtol=1e-5, atol=1e-8, max_steps=100_000)
+    if kernel == "rk45":
+        n, span = M200_B1_CHECK
+        return (*m200_inputs(n, dtype), span, hourly(span, dtype), base, f" ({n} systems, {span:g} min)")
+    n, span = M200_B2_CHECK
+    model, y0, params, forc = m200_inputs(MAIN_SYSTEMS, dtype)
+    rows = torch.topk(attempts, n).indices
+    return (model, y0[rows].contiguous(), {k: v[rows].contiguous() for k, v in params.items()},
+            forc.take_systems(rows), span,
+            torch.arange(0.0, span + 1e-9, 5.0, dtype=dtype, device="cuda"), base,
+            f" ({n} systems, first {span:g} min)")
+
+
+M200 = ModelCase(
+    tag="12", label="Model 200", prefix="m200/", rhs_ops=RHS_OPS_M200, rhs_name="RHS_OPS_M200",
+    reads_t=True, inputs=m200_inputs, queries=hourly, note=f", doy0 {M200_DOY0:g}",
+    cli={"model": {"uid": 200, "name": "Model200"},
+         "time": {"start": "2000-07-01T00:00:00", "end": "2000-07-03T00:00:00"}},
+    cli_text=" from 2000-07-01, doy0 183", shift=M200_SHIFT_CHECK, f64_check=M200_F64_CHECK,
+    b2_h0=M200_B2_H0, b2_spans=F64_SPANS, check=m200_check,
+    skip=("m200/default", "m200/default/f64", "m200/embedded3"))
+
+# Phase 13: DummyModel, the reference's 5-state linear test system, whose
+# final state at t = 5 and 10,000-query dense grid are the reference's only
+# published artifacts (BASELINE.md).  Full width: 131,072 systems from
+# seeded states over the same 5 minutes, DUMMY_QUERIES queries.
+RHS_OPS_DUMMY = 17  # common.cuh ModelDummy::rhs: 7 products, 10 sums
+DUMMY_SPAN, DUMMY_QUERIES = 5.0, 1000
+GOLDEN = (1.91791, 1.90017, 2.39397, 1.71872, 3.06922)  # the reference's final.csv
+GOLDEN_QUERIES = 10_000  # t_q = (q + 1) 5 / 10001, fill_t0_queries off
+
+
+def dummy_inputs(s_count: int, dtype=torch.float32) -> tuple:
+    """DummyModel's main-path systems: y0 uniform over 0.5-2.0 from a
+    seeded numpy generator; no parameters and no forcings."""
+    import numpy as np
+
+    from tiger_tpu_torch import DummyModel
+
+    y0 = np.random.default_rng(1).uniform(0.5, 2.0, (s_count, 5))
+    return DummyModel(), torch.as_tensor(y0, device="cuda").to(dtype), None, None
+
+
+def dummy_queries(span: float, dtype=torch.float32) -> torch.Tensor:
+    """The first ``span`` minutes of DUMMY_QUERIES queries (q + 1) 5 / 1000."""
+    qt = torch.arange(1, DUMMY_QUERIES + 1, dtype=torch.float64) * (DUMMY_SPAN / DUMMY_QUERIES)
+    return qt[qt <= span + 1e-9].to(device="cuda", dtype=dtype)
+
+
+def dummy_check(dtype, kernel: str, attempts) -> tuple:
+    """Phase 13e's inputs (ModelCase.check), the reference's golden shapes
+    for both kernels: 4 systems of ones over t in [0, 5], the
+    GOLDEN_QUERIES-query grid without the t0 fill; float32 at rtol 1e-5 /
+    atol 1e-8, float64 at SolverConfig()'s rtol 1e-6 / atol 1e-9 (the
+    reference's)."""
+    import numpy as np
+
+    from tiger_tpu_torch import DummyModel, SolverConfig
+
+    cfg = (SolverConfig(fill_t0_queries=False) if dtype == torch.float64 else
+           SolverConfig(rtol=1e-5, atol=1e-8, max_steps=100_000, fill_t0_queries=False))
+    qt = torch.as_tensor(np.arange(1, GOLDEN_QUERIES + 1) * DUMMY_SPAN / (GOLDEN_QUERIES + 1),
+                         device="cuda").to(dtype)
+    return (DummyModel(), torch.ones((4, 5), dtype=dtype, device="cuda"), None, None, DUMMY_SPAN, qt,
+            cfg, f" (4 systems of ones, {DUMMY_SPAN:g} min, the {GOLDEN_QUERIES}-query grid)")
+
+
+DUMMY = ModelCase(
+    tag="13", label="DummyModel", prefix="dummy/", rhs_ops=RHS_OPS_DUMMY, rhs_name="RHS_OPS_DUMMY",
+    reads_t=False, inputs=dummy_inputs, tf=DUMMY_SPAN, queries=dummy_queries,
+    span_text=f"{DUMMY_SPAN:g} min", note=", y0 uniform over 0.5-2.0",
+    cli={"model": {"uid": 1, "name": "DummyModel"}}, shift=(4096, DUMMY_SPAN),
+    f64_check=(MAIN_SYSTEMS, DUMMY_SPAN), b2_dtypes=(torch.float32, torch.float64),
+    b2_spans=(DUMMY_SPAN,), check=dummy_check, golden=GOLDEN, wide=True)
+
+
+def plain_worker(job_path: str, out_path: str) -> None:
+    """A process of side_by_side: runs the plain version that ``job_path``
+    names (torch.save of {"fn": "module:function", "args": (...), "against":
+    None or "module:function"}, its tensors on the card) and saves {"out":
+    its result, "ms": its time by CUDA events} to ``out_path``; with
+    ``against``, "out" is radau_diff of that kernel's result on the same
+    args against the plain version's."""
+    import importlib
+
+    def load(path):
+        module, name = path.split(":")
+        return getattr(importlib.import_module(module), name)
+
+    job = torch.load(job_path, weights_only=False)
+    out, ms = timed(lambda: load(job["fn"])(*job["args"]))
+    if job["against"]:
+        out = radau_diff(load(job["against"])(*job["args"]), out)
+    torch.save({"out": out, "ms": ms}, out_path)
+
+
+def side_by_side(jobs: dict, workers: int) -> dict:
+    """Runs each job of ``jobs`` (name: ("module:function", args, against),
+    the args' tensors on the card; plain_worker) in a Python process of its
+    own, ``workers`` at a time, in the order given (the next starts when
+    one ends); returns {name: (result, ms)}, the results on the card.  The
+    plain versions are host-bound (a few thousand small launches an
+    attempt, each paid in Python), so they run side by side only in
+    processes: worker threads of one process wait on each other for the
+    GIL (PERF.md §6).  Each process reaches the card in ~10 s; a process
+    that fails fails the run, with its output, and the others are ended."""
+    import os
+    import subprocess
+    import sys
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="tiger_plain_") as tmp:
+        pending, running, results = list(jobs.items()), {}, {}
+        try:
+            while pending or running:
+                while pending and len(running) < workers:
+                    name, (fn, args, against) = pending.pop(0)
+                    stem = os.path.join(tmp, str(len(results) + len(running)))
+                    torch.save({"fn": fn, "args": args, "against": against}, stem + ".job")
+                    with open(stem + ".log", "w") as log:
+                        proc = subprocess.Popen(
+                            [sys.executable, "-c",
+                             "import sys, chip_smoke; chip_smoke.plain_worker(*sys.argv[1:])",
+                             stem + ".job", stem + ".out"], cwd=here, stdout=log,
+                            stderr=subprocess.STDOUT)
+                    running[name] = (proc, stem)
+                time.sleep(0.05)
+                for name, (proc, stem) in list(running.items()):
+                    if proc.poll() is None:
+                        continue
+                    del running[name]
+                    with open(stem + ".log") as log:
+                        check(proc.returncode == 0,
+                              f"the plain check {name} failed in its process:\n{log.read()[-4000:]}")
+                    got = torch.load(stem + ".out", weights_only=False)
+                    results[name] = (got["out"], got["ms"])
+        finally:  # after a failure: end the others before their folder goes
+            for proc, _ in running.values():
+                proc.terminate()
+            for proc, _ in running.values():
+                proc.wait()
+    return results
 
 
 def plain_span_checks(smi: str, checks: dict) -> None:
-    """The plain Radau checks that would take minutes over the full 2 days,
-    all over one leading span: the longest of F64_SPANS whose predicted
-    time keeps the script inside F64_BUDGET_S.  ``checks`` holds SpanChecks
-    by name: phase 9b's (B2 embedded3 at rtol 1e-6 on the systems
-    compensated B1 flags), 10b's (B2
-    embedded3/f64 on the systems 10a flags), each kernel against
-    radau_plain, phase 11's check 2 for each option set of CHECK_2_SETS,
-    and 12d's (B2 m200/embedded3 on 128 of its systems).  The prediction
-    takes PLAIN_RADAU_MS an attempt of each check's worst system; each
-    check records the plain ms an attempt it measured over the span."""
+    """The plain Radau checks that would take minutes, side by side
+    (side_by_side: a process each, SIDE_BY_SIDE at a time): phase 6's over
+    its full 2 days, 13d's and 13e's over their whole 5 minutes, and the
+    others over one leading span, the longest of F64_SPANS whose predicted
+    time keeps the script inside F64_BUDGET_S (or, where none does, the
+    longest that adds nothing to the others).  ``checks`` holds SpanChecks
+    by name: phase 6's (B2 against radau_plain on the main path's stiff
+    systems), phase 9b's (B2 embedded3 at rtol 1e-6 on the systems
+    compensated B1 flags), 10b's (B2 embedded3/f64 on the systems 10a
+    flags), each kernel against radau_plain, phase 11's check 2 for each
+    option set of CHECK_2_SETS, 12d's (B2 m200/embedded3 on 128 of its
+    systems), 13d's (B2 dummy/embedded3 and dummy/embedded3/f64 on 128 of
+    theirs), and 13e's (every B2 Dummy instance on all 131,072 systems,
+    compared in its process).  The prediction takes PLAIN_RADAU_MS an attempt of
+    each check's worst system, SIDE_BY_SIDE_SLOWER times as long side by
+    side as alone, and PROCESS_START_S for the processes to reach the card:
+    the longest check or the sum over SIDE_BY_SIDE, whichever is longer.
+    Each check records the plain ms an attempt it measured, side by side."""
     left_s = F64_BUDGET_S - (time.perf_counter() - _T0)
-    predict = {span: sum(c.worst[span] for c in checks.values()) * PLAIN_RADAU_MS * 1e-3
-               for span in F64_SPANS}
-    span = next((x for x in F64_SPANS if x == F64_SPANS[-1] or predict[x] * F64_MARGIN <= left_s))
-    phase(f"phase 9b/10b/11/12 span: worst system's attempts by leading span (min) "
+
+    def at(c, span):  # the span a check takes when the shared span is ``span``
+        return span if c.spans == F64_SPANS else c.spans[0]
+
+    def alone(c, span):  # its predicted seconds alone
+        return c.worst[at(c, span)] * PLAIN_RADAU_MS * 1e-3
+
+    def predict(span):
+        each = [alone(c, span) for c in checks.values()]
+        return PROCESS_START_S + SIDE_BY_SIDE_SLOWER * max(max(each), sum(each) / SIDE_BY_SIDE)
+
+    # The longest span that fits; else the longest that costs nothing over
+    # the checks that do not take the shared span (phase 6's 2 days, 13d's).
+    fixed = predict(F64_SPANS[-1])
+    span = next((x for x in F64_SPANS if predict(x) * F64_MARGIN <= left_s), None)
+    span = span or next((x for x in F64_SPANS if predict(x) <= fixed))
+    phase(f"phase 6/9b/10b/11/12/13 span: worst system's attempts by leading span (min) "
           f"{ {k: c.worst for k, c in checks.items()} }, {left_s:.1f} s left of F64_BUDGET_S "
-          f"{F64_BUDGET_S:g}: the checks run the first {span:g} min (predicted {predict[span]:.1f} s "
-          f"at PLAIN_RADAU_MS {PLAIN_RADAU_MS:g})")
+          f"{F64_BUDGET_S:g}: the shared span is the first {span:g} min, {len(checks)} checks in "
+          f"processes, {SIDE_BY_SIDE} at a time (predicted {predict(span):.1f} s at PLAIN_RADAU_MS "
+          f"{PLAIN_RADAU_MS:g}, SIDE_BY_SIDE_SLOWER {SIDE_BY_SIDE_SLOWER:g}, PROCESS_START_S "
+          f"{PROCESS_START_S:g})")
+    start = time.perf_counter()
+    torch.cuda.empty_cache()  # the processes' room on the card
+    # Longest first, so that the last to start are the shortest.
+    order = sorted(checks, key=lambda k: -alone(checks[k], span))
+    plain = side_by_side({k: checks[k].plain(at(checks[k], span)) for k in order}, SIDE_BY_SIDE)
+    wall = time.perf_counter() - start
+    plain_s = 0.0
     for key, c in checks.items():
-        (ref, plain_ms), (ker, ms) = c.run(span, plain=True), c.run(span)
-        err = c.compare(span, ker, ref)
+        (ref, plain_ms), (ker, ms) = plain[key], c.run(at(c, span))
+        plain_s += plain_ms * 1e-3
+        err = c.compare(at(c, span), ker, ref)
+        worst = max(c.worst[at(c, span)], 1)
         c.record.update({c.prefix + k: v for k, v in dict(
-            check_span_min=span, check_span_ms=ms, plain_ms=plain_ms, max_abs_err=err,
-            plain_ms_per_attempt=plain_ms / max(c.worst[span], 1)).items()})
-        phase(f"phase {key} over the first {span:g} of {DAYS * 1440.0:g} min: kernels {ms:.3f} ms vs "
-              f"plain {plain_ms:.3f} ms ({plain_ms / max(c.worst[span], 1):.2f} ms an attempt of the "
-              f"worst system), max_abs_err {err:.3e} | {smi}")
+            check_span_min=at(c, span), check_span_ms=ms, plain_ms=plain_ms, max_abs_err=err,
+            plain_ms_per_attempt=plain_ms / worst, plain_side_by_side=SIDE_BY_SIDE).items()})
+        phase(f"phase {key} over the first {at(c, span):g} of {max(c.spans):g} min: kernels {ms:.3f} "
+              f"ms vs plain {plain_ms:.3f} ms ({plain_ms / worst:.2f} ms an attempt of the worst "
+              f"system, side by side), max_abs_err {err:.3e} | {smi}")
+    phase(f"phase 6/9b/10b/11/12/13 plain checks side by side: wall {wall:.1f} s (the processes' "
+          f"start included) for {plain_s:.1f} s of plain runs, shared span {span:g} min | {smi}")
 
 
 def main() -> None:
@@ -2249,9 +2648,12 @@ def main() -> None:
     rows = torch.nonzero(ker.stiff).squeeze(1)  # the warm-up solve's stiff subset
     sy0, sp, sf, sh0 = subset(rows, y0, params, forc, h0)
     rker, ms_b2 = timed(lambda: k_radau.radau(model, sy0, sh0, 0.0, tf, qt, sp, sf, cfg), reps=3)
-    rref, plain_b2 = timed(lambda: k_radau.radau_plain(model, sy0, sh0, 0.0, tf, qt, sp, sf, cfg))
-    err_b2 = check_radau(f"phase 6 B2 vs radau_plain ({rows.numel()} systems, {DAYS:g} days)",
-                         rker, rref)
+    # Its check against radau_plain over the full 2 days runs at the end,
+    # side by side with the shared span's (plain_span_checks).
+    b2_rec = {}
+    check_6 = radau_span_check(f"phase 6 B2 vs radau_plain ({rows.numel()} systems",
+                               int(rker.stats.n_attempts.max()), model, sy0, sh0, sp, sf, qt, cfg,
+                               b2_rec, spans=(tf,))
     # B1's tail: the systems that took it the most attempts, alone.
     top = torch.topk(ker.stats.n_attempts, TAIL_SYSTEMS).indices
     ty0, tp, tforc, th0 = subset(top, y0, params, forc, h0)
@@ -2277,7 +2679,7 @@ def main() -> None:
     phase(f"phase 6 times: B1 {ms_b1:.3f} ms vs rk45_plain {plain_b1:.3f} ms, bound "
           f"{bound_b1[0]:.4f} ms ({bound_b1[1]}), worst system {worst_b1} attempts "
           f"({MAIN_SYSTEMS} systems, {DAYS:g} days), lane efficiency {lane_eff:.4f}, geometry {geo}; "
-          f"B1 on its {TAIL_SYSTEMS} slowest systems {tail_b1:.3f} ms; B2 {ms_b2:.3f} ms vs radau_plain {plain_b2:.3f} ms, bound "
+          f"B1 on its {TAIL_SYSTEMS} slowest systems {tail_b1:.3f} ms; B2 {ms_b2:.3f} ms (radau_plain at the end), bound "
           f"{bound_b2[0]:.4f} ms ({bound_b2[1]}), worst system {worst_b2} attempts, "
           f"{1e3 * ms_b2 / worst_b2:.3f} us per attempt of the worst system, "
           f"{swp_b2 / att_b2:.4f} sweeps per attempt ({rows.numel()} systems, {DAYS:g} days) | {smi}")
@@ -2307,13 +2709,19 @@ def main() -> None:
     check(set(checks_2) == set(CHECK_2_SETS),
           f"phase 11: of {CHECK_2_SETS} only {sorted(checks_2)} failed systems in float32 ({failing})")
 
-    # 12. Model 200 in both kernels (its own launch counts), then the plain
-    # Radau checks of phases 9b, 10b, 11 and 12d over one leading span
-    m200, check_12 = model200_phase(smi)
+    # 12. Model 200 in both kernels (its own launch counts): 12a its libm
+    # calls, then the model phases; 13. DummyModel through the same model
+    # phases.  Then the plain Radau checks of phases 9b, 10b, 11, 12d and
+    # 13d, side by side over one leading span.
+    libm = libm_phase(smi)
+    m200, checks_12 = model_phase(M200, smi)
+    dummy, checks_13 = model_phase(DUMMY, smi)
     for kernel in ("rk45", "radau"):
         instances[kernel].update(m200[kernel])
-    plain_span_checks(smi, {"9b": check_c, "10b": check_b,
-                            **{f"11 {name}": c for name, c in checks_2.items()}, "12": check_12})
+        instances[kernel].update(dummy[kernel])
+    plain_span_checks(smi, {"6": check_6, "9b": check_c, "10b": check_b,
+                            **{f"11 {name}": c for name, c in checks_2.items()}, **checks_12,
+                            **checks_13})
 
     say(json.dumps({"kernels": [
         {"name": "rk45", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/rk45.cu",
@@ -2326,11 +2734,13 @@ def main() -> None:
          "instances": instances["rk45"]},
         {"name": "radau", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/radau.cu",
          "replaces": "tiger_tpu/kernels/radau_pallas.py:987", "launches": launches["radau"],
-         "max_abs_err": err_b2, "ms": ms_b2, "plain_ms": plain_b2, "bound_ms": bound_b2[0],
+         "max_abs_err": b2_rec["max_abs_err"], "ms": ms_b2, "plain_ms": b2_rec["plain_ms"],
+         "plain_measured_side_by_side": SIDE_BY_SIDE, "bound_ms": bound_b2[0],
          "bound_by": bound_b2[1], "library_ms": None, "worst_system_attempts": worst_b2,
          "sweeps_per_attempt": swp_b2 / att_b2, "cli_launches": cli_launches["radau"],
          "windowed_launches": windowed_launches["radau"], "instances": instances["radau"],
-         "retry": retry, "model200_solve": m200["solve"], "model200_libm": m200["libm"]},
+         "retry": retry, "model200_solve": m200["solve"], "model200_libm": libm,
+         "dummy_solve": dummy["solve"]},
     ]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -279,10 +279,11 @@ def test_solve_t_shift_equals_absolute_time():
 
 @pytest.mark.parametrize("model", ["Model204", "Model200", "TimeProbe", "DummyModel"])
 def test_kernel_inputs_take_a_shift_for_the_models_the_kernels_carry(model):
-    """The CUDA kernels carry Model 204 and Model 200 and pass t_shift to
-    either's rhs, so their input check takes a shift for both; a model
-    without a device twin (TimeProbe, DummyModel) is refused, with or
-    without a shift, naming the ROADMAP item."""
+    """The CUDA kernels carry Model 204, Model 200 and DummyModel and pass
+    t_shift to each one's rhs, so their input check takes a shift for all
+    three (DummyModel's instances read no parameter block); a model without
+    a device twin (TimeProbe) is refused, with or without a shift, naming
+    the models the kernels carry."""
     from tiger_tpu_torch.kernels._common import kernel_inputs, kernel_model
     from tiger_tpu_torch.models import Model200
     from tiger_tpu_torch.scenario import scenario
@@ -291,16 +292,20 @@ def test_kernel_inputs_take_a_shift_for_the_models_the_kernels_carry(model):
     h0 = torch.ones(8)
     m = {"Model204": Model204(), "Model200": Model200(doy0=183.0), "TimeProbe": TimeProbe(),
          "DummyModel": DummyModel()}[model]
-    if model in ("Model204", "Model200"):
+    if model != "TimeProbe":
         for shift in (0.0, 60.0, 1440.0):
             y_soa, p_block = kernel_inputs("rk45", m, y0, h0, params, forc, None, t_shift=shift)
-            assert y_soa.shape == (5, 8) and p_block.shape == (15, 8)
-        assert kernel_model("radau", m)[0] == (0 if model == "Model204" else 1)
+            assert y_soa.shape == (5, 8)
+            if model == "DummyModel":
+                assert p_block is None
+            else:
+                assert p_block.shape == (15, 8)
+        assert kernel_model("radau", m)[0] == {"Model204": 0, "Model200": 1, "DummyModel": 2}[model]
         with pytest.raises(ValueError, match="finite"):
             kernel_inputs("radau", m, y0, h0, params, forc, None, t_shift=float("nan"))
     else:
         for shift in (0.0, 60.0):
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #18"):
+            with pytest.raises(NotImplementedError, match="Model 204, Model 200 and DummyModel only"):
                 kernel_inputs("radau", m, y0, h0, params, forc, None, t_shift=shift)
 
 

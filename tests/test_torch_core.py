@@ -492,8 +492,9 @@ def test_model_registry_matches_jax():
 def test_every_legal_option_set_has_a_kernel_instance():
     """Every SolverConfig that validation accepts picks a float instance of
     B1 and of B2, and together they reach all twelve; the launch counters
-    hold those and their double twins, for Model 204 and (prefixed 'm200/')
-    for Model 200, and nothing else."""
+    hold those and their double twins, for Model 204, (prefixed 'm200/')
+    for Model 200 and (prefixed 'dummy/') for DummyModel, and nothing
+    else."""
     import itertools
 
     from tiger_tpu_torch.kernels import radau as k_radau
@@ -516,5 +517,6 @@ def test_every_legal_option_set_has_a_kernel_instance():
     assert len(b2) == 6
     for counts, names in ((k_rk45.rk45_launches, b1), (k_radau.radau_launches, b2)):
         per_model = names | {name + "/f64" for name in names}
-        assert set(counts) == per_model | {"m200/" + name for name in per_model}
-        assert len(counts) == 24
+        assert set(counts) == per_model | {prefix + name for prefix in ("m200/", "dummy/")
+                                           for name in per_model}
+        assert len(counts) == 36

@@ -930,3 +930,166 @@ def test_model200_run_and_windows_equal_a_direct_solve(tmp_path):
     got = files(wcfg)
     assert np.array_equal(got["dense"], np.concatenate(dense, axis=1))
     assert np.array_equal(got["final"], y.cpu().numpy())
+
+
+# --- DummyModel (the reference's 5-state linear test system): every
+# instance of both kernels, float and double, against its plain version, and
+# the reference's golden final state.
+
+DUMMY_GOLDEN = [1.91791, 1.90017, 2.39397, 1.71872, 3.06922]
+
+
+def _dummy_inputs(n_sys, dtype):
+    """n_sys systems from seeded states uniform over 0.5-2.0, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tiger_tpu_torch import DummyModel
+
+    y0 = np.random.default_rng(5).uniform(0.5, 2.0, (n_sys, 5))
+    return DummyModel(), torch.as_tensor(y0, device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize("dtype", M200_DTYPES)
+@pytest.mark.parametrize("name", sorted(M200_B1))
+def test_dummy_rk45_instance_equals_plain(name, dtype):
+    """Each B1 instance of DummyModel (no parameter block, a null params
+    pointer) equals rk45_plain bit for bit on 64 systems over 5 minutes,
+    and a one-day shift changes nothing (its rhs reads no time)."""
+    model, y0 = _dummy_inputs(64, dtype)
+    cfg = dataclasses.replace(CFG, **M200_B1[name])
+    qt = torch.linspace(0.0, 5.0, 11, dtype=dtype, device=y0.device)
+    h0 = initial_step(model, y0, 0.0, None, None, cfg)
+    instance = "dummy/" + name + ("/f64" if dtype == torch.float64 else "")
+    before = k_rk45.rk45_launches[instance]
+    ker = k_rk45.rk45(model, y0, h0, 0.0, 5.0, qt, None, None, cfg)
+    ref = k_rk45.rk45_plain(model, y0, h0, 0.0, 5.0, qt, None, None, cfg)
+    shifted = k_rk45.rk45(model, y0, h0, 0.0, 5.0, qt, None, None, cfg, 1440.0)
+    torch.cuda.synchronize()
+    assert k_rk45.rk45_launches[instance] == before + 2
+    _assert_rk45_equal(ker, ref)
+    _assert_rk45_equal(shifted, ker)
+    assert not bool(ker.stiff.any()) and int(ker.stats.n_attempts.min()) > 0
+
+
+@pytest.mark.parametrize("dtype", M200_DTYPES)
+@pytest.mark.parametrize("name", sorted(M200_B2))
+def test_dummy_radau_instance_equals_plain(name, dtype):
+    """Each B2 instance of DummyModel equals radau_plain bit for bit on 64
+    systems over 5 minutes (every flag and counter)."""
+    model, y0 = _dummy_inputs(64, dtype)
+    cfg = dataclasses.replace(CFG, **M200_B2[name])
+    qt = torch.linspace(0.0, 5.0, 11, dtype=dtype, device=y0.device)
+    h0 = initial_step(model, y0, 0.0, None, None, cfg)
+    instance = "dummy/" + name + ("/f64" if dtype == torch.float64 else "")
+    before = k_radau.radau_launches[instance]
+    ker = k_radau.radau(model, y0, h0, 0.0, 5.0, qt, None, None, cfg)
+    ref = k_radau.radau_plain(model, y0, h0, 0.0, 5.0, qt, None, None, cfg)
+    torch.cuda.synchronize()
+    assert k_radau.radau_launches[instance] == before + 1
+    assert torch.equal(ker.failed, ref.failed)
+    for a, b in zip(ker.stats, ref.stats):
+        assert torch.equal(a, b)
+    for a, b in ((ker.y_final, ref.y_final), (ker.dense, ref.dense)):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def test_dummy_golden_final_state_f64():
+    """solve() on the card, float64 at the reference's rtol 1e-6 / atol
+    1e-9: 4 systems of ones over t in [0, 5] reach the golden final state
+    within 5e-6 through B1's dummy/default/f64 (no system stiff, so B2 is
+    not launched), and the 10,000-query grid equals rk45_plain's bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tiger_tpu_torch import DummyModel
+
+    qt = torch.tensor((np.arange(1, 10001) * 5.0) / 10001.0, dtype=torch.float64, device="cuda")
+    y0 = torch.ones((4, 5), dtype=torch.float64, device="cuda")
+    cfg = SolverConfig(fill_t0_queries=False)
+    reset_launch_counts()
+    res = solve(DummyModel(), y0, 0.0, 5.0, qt, config=cfg)
+    torch.cuda.synchronize()
+    assert launch_totals() == {"rk45": 1, "radau": 0}
+    assert k_rk45.rk45_launches["dummy/default/f64"] == 1
+    assert res.n_stiff == 0 and not bool(res.failed.any())
+    golden = torch.tensor(DUMMY_GOLDEN, dtype=torch.float64, device="cuda").expand(4, 5)
+    assert float(((res.y_final - golden).abs() / golden).max()) <= 5e-6
+    h0 = initial_step(DummyModel(), y0, 0.0, None, None, cfg)
+    ref = k_rk45.rk45_plain(DummyModel(), y0, h0, 0.0, 5.0, qt, None, None, cfg)
+    assert torch.equal(res.dense, ref.dense) and torch.equal(res.y_final, ref.y_final)
+
+
+def test_dummy_run_and_windows_equal_a_direct_solve(tmp_path):
+    """model.uid 1 on the card, float32: the run's dense file equals a
+    direct solve() bit for bit, through run() and through
+    ``python -m tiger_tpu_torch.run``, whole and in 2 one-day windows,
+    through B1's dummy/default instance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import subprocess
+    import sys
+
+    import yaml
+
+    from tiger_tpu_torch.config import config_from_dict
+    from tiger_tpu_torch.io.netcdf import read_netcdf
+    from tiger_tpu_torch.run import run
+    from tiger_tpu_torch.scenario import solve_written_basin, write_basin
+
+    doc = write_basin(str(tmp_path / "basin"), 384, days=2.0)
+    doc["model"] = {"uid": 1, "name": "DummyModel"}
+    doc["output"]["path"] = str(tmp_path / "cli")
+    cfg = config_from_dict(doc)
+    reset_launch_counts()
+    out = run(cfg)
+    assert k_rk45.rk45_launches["dummy/default"] == 1 and out["n_failed"] == 0
+    res, _, _ = solve_written_basin(cfg, "cuda")
+
+    def dense(folder):
+        return read_netcdf(os.path.join(folder, "dense_basin_rank_0.nc"), ("outputs",))[0]["outputs"]
+
+    assert np.array_equal(dense(cfg.output.path), res.dense.cpu().numpy())
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))  # the repository's
+
+    def module_run(name):
+        doc["output"]["path"] = str(tmp_path / name)
+        (tmp_path / f"{name}.yaml").write_text(yaml.safe_dump(doc))
+        proc = subprocess.run([sys.executable, "-m", "tiger_tpu_torch.run", "--config",
+                               str(tmp_path / f"{name}.yaml")], capture_output=True, text=True,
+                              timeout=600, cwd=root)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        return dense(str(tmp_path / name))
+
+    assert np.array_equal(module_run("module"), res.dense.cpu().numpy())
+    doc["time"]["chunk_days"] = 1.0
+    doc["output"].update(path=str(tmp_path / "win"), checkpoint_interval="1d")
+    reset_launch_counts()
+    out = run(config_from_dict(doc))
+    assert k_rk45.rk45_launches["dummy/default"] == 2 and out["n_windows"] == 2
+    assert np.array_equal(module_run("module_win"), dense(str(tmp_path / "win")))
+
+
+def test_model200_radau_stays_within_the_2_day_budget():
+    """tests/test_radau_regression.py::test_model200_radau_attempts_budget
+    on the card, over its full 2 days: Model 200 (doy0 1, as there) on the
+    basin without stiff rows, 8 systems, float32 at rtol 1e-5 / atol 1e-8,
+    max_steps 100,000, through B2's m200/embedded3 from initial_step's h0:
+    no system fails, none takes more than 14,000 attempts, and the Newton
+    sweeps stay at or under 7 an attempt."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tiger_tpu_torch.models import Model200
+
+    y0, p, f = scenario(8, 2.0, device=torch.device("cuda", 0), dtype=torch.float32)
+    model = Model200()
+    h0 = initial_step(model, y0, 0.0, p, f, CFG)
+    before = k_radau.radau_launches["m200/embedded3"]
+    res = k_radau.radau(model, y0, h0, 0.0, 2880.0, None, p, f, CFG)
+    torch.cuda.synchronize()
+    assert k_radau.radau_launches["m200/embedded3"] == before + 1
+    assert not bool(res.failed.any())
+    att = res.stats.n_attempts
+    assert int(att.max()) <= 14_000
+    assert int(res.stats.n_newton.sum()) / max(int(att.sum()), 1) <= 7.0

@@ -32,7 +32,7 @@ import pytest
 import torch
 
 from tests.test_torch_cuda import OPTIONS, RK45_INSTANCES
-from tiger_tpu_torch import Model200, Model204, SolverConfig
+from tiger_tpu_torch import DummyModel, Model200, Model204, SolverConfig
 from tiger_tpu_torch.kernels import _build
 from tiger_tpu_torch.kernels import radau as k_radau
 from tiger_tpu_torch.kernels import rk45 as k_rk45
@@ -188,6 +188,34 @@ def test_model200_schedule_changes_no_result_with_a_shift(shim_lib, monkeypatch,
     ref = k_rk45.rk45_plain(model, y0, h0, 0.0, TF, qt, p, f, cfg, 1440.0)
     rtol = 1e-9 if dtype == torch.float64 else 5e-4
     torch.testing.assert_close(pooled.y_final, ref.y_final, rtol=rtol, atol=5e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("name", ["defaults", "fsal_pi", "compensated"])
+def test_dummy_schedule_changes_no_result_without_params(shim_lib, monkeypatch, name, dtype):
+    """DummyModel's instances, launched with a null parameter pointer (its
+    rhs reads no param, forcing or time), give every system the result it
+    gets alone, bit for bit, in float32 and float64: 100 systems from
+    seeded states over the golden span with hourly rain (the forcing step
+    cap is the solver's, so it applies to this model too).  Against the
+    plain version they agree to the solver's tolerance (glibc's libm in the
+    controller rounds otherwise than torch's CPU functions here and there;
+    on the card the two agree bit for bit, tests/test_torch_cuda.py)."""
+    cfg = dataclasses.replace(CFG, **RK45_INSTANCES.get(name, {}))
+    model = DummyModel()
+    _, _, f = scenario(100, TF / 1440.0, 0.0, device="cpu", dtype=dtype)
+    y0 = torch.as_tensor(np.random.default_rng(1).uniform(0.5, 2.0, (100, 5))).to(dtype)
+    qt = torch.arange(0.0, TF + 1e-9, 60.0, dtype=dtype)
+    h0 = initial_step(model, y0, 0.0, None, f, cfg)
+    pooled = _run(shim_lib, monkeypatch, "tt_rk45_launch", model, y0, h0, qt, None, f, cfg)
+    alone = _run(shim_lib, monkeypatch, "tt_rk45_serial", model, y0, h0, qt, None, f, cfg)
+    diff = k_rk45.rk45_mismatch(pooled, alone)
+    assert not any(diff.values()), diff
+    assert int(alone.stats.n_attempts.min()) > 0 and not alone.stiff.any()
+    ref = k_rk45.rk45_plain(model, y0, h0, 0.0, TF, qt, None, f, cfg)
+    rtol = 1e-9 if dtype == torch.float64 else 5e-4
+    torch.testing.assert_close(pooled.y_final, ref.y_final, rtol=rtol, atol=1e-6)
+    torch.testing.assert_close(pooled.dense, ref.dense, rtol=rtol, atol=1e-6)
 
 
 #: The argument-struct fields whose offsets the shims report, in order.

@@ -70,6 +70,7 @@ int launch_as(const Rk45Args<T>& a) {
   switch (a.model) {
     case kModel204: return launch_model<T, Model204<T>>(a);
     case kModel200: return launch_model<T, Model200<T>>(a);
+    case kModelDummy: return launch_model<T, ModelDummy<T>>(a);
     default: return kNoInstance;
   }
 }
@@ -79,6 +80,7 @@ int serial_as(const Rk45Args<T>& a) {
   switch (a.model) {
     case kModel204: return serial_model<T, Model204<T>>(a);
     case kModel200: return serial_model<T, Model200<T>>(a);
+    case kModelDummy: return serial_model<T, ModelDummy<T>>(a);
     default: return kNoInstance;
   }
 }

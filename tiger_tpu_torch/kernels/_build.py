@@ -3,11 +3,13 @@
 ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
 with a plain C interface, which is loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds).  The kernels are built without FMA
-contraction.  Each kernel source is compiled four times, all at once: as it
+contraction.  Each kernel source is compiled six times, all at once: as it
 stands, for Model 204's float instances and the C entry points; and as
 relocatable device code with ``-DTT_DOUBLE_INSTANCES`` (Model 204's double
-instances), ``-DTT_MODEL_200`` (Model 200's float instances) and both (its
-double ones).  The relocatable objects are device-linked with
+instances), ``-DTT_MODEL_200`` (Model 200's float instances), both (its
+double ones), ``-DTT_MODEL_DUMMY`` (DummyModel's float instances) and that
+with ``-DTT_DOUBLE_INSTANCES`` (its double ones).  The relocatable objects
+are device-linked with
 ``csrc/contracted.cu`` (the double pow, built with contraction so that it
 rounds as torch's CUDA pow does).  Model 204's float instances keep the
 build they always had.  ``csrc/libm_check.cu`` (Model 200's libm calls,
@@ -58,9 +60,12 @@ CONTRACTED = "contracted.cu"
 #: Built on request only, into its own library (``build_libm_check``).
 LIBM_CHECK = "libm_check.cu"
 #: The relocatable builds of each kernel source beside the one as it
-#: stands: Model 204 in double, Model 200 in float and in double.
+#: stands: Model 204 in double, Model 200 and DummyModel in float and in
+#: double.
 INSTANCE_DEFINES = {"f64": ("-DTT_DOUBLE_INSTANCES",), "m200": ("-DTT_MODEL_200",),
-                    "m200_f64": ("-DTT_MODEL_200", "-DTT_DOUBLE_INSTANCES")}
+                    "m200_f64": ("-DTT_MODEL_200", "-DTT_DOUBLE_INSTANCES"),
+                    "dummy": ("-DTT_MODEL_DUMMY",),
+                    "dummy_f64": ("-DTT_MODEL_DUMMY", "-DTT_DOUBLE_INSTANCES")}
 #: The same build with nvcc's default FMA contraction, to measure what
 #: ``-fmad=false`` costs (``python -m tiger_tpu_torch.profile_solve``).
 FMAD_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-fmad=false")

@@ -15,6 +15,7 @@ import torch
 
 from tiger_tpu_torch.forcing import ZOH_SNAP, ForcingSet
 from tiger_tpu_torch.kernels import _build
+from tiger_tpu_torch.models.dummy import DummyModel
 from tiger_tpu_torch.models.model200 import Model200
 from tiger_tpu_torch.models.model204 import PARAM_FIELDS, Model204
 from tiger_tpu_torch.solver.config import SolverConfig
@@ -93,34 +94,43 @@ def forcing_meta_c(forcings: ForcingSet | None, config: SolverConfig,
 
 
 #: The models the kernels carry, by class: each one's id in the argument
-#: structs (csrc/common.cuh KernelModel) and the prefix of its instances'
-#: names in the launch counters (none for Model 204's).
-KERNEL_MODELS = {Model204: (0, ""), Model200: (1, "m200/")}
+#: structs (csrc/common.cuh KernelModel), the prefix of its instances'
+#: names in the launch counters (none for Model 204's), and whether its
+#: instances read the [15, S] parameter block and ``safe_pow`` (Model 204's
+#: stores).  Looked up by exact type: a subclass may change the rhs, which
+#: the instances would not see.
+KERNEL_MODELS = {Model204: (0, "", True), Model200: (1, "m200/", True),
+                 DummyModel: (2, "dummy/", False)}
 
 
-def kernel_model(name: str, model) -> tuple[int, str]:
-    """(kernel model id, instance-name prefix) of ``model``; raises for a
-    model the kernels do not carry (no fallback for a CUDA tensor)."""
+def kernel_model(name: str, model) -> tuple[int, str, bool]:
+    """(kernel model id, instance-name prefix, reads params) of ``model``;
+    raises for a model the kernels do not carry (no fallback for a CUDA
+    tensor)."""
     try:
         return KERNEL_MODELS[type(model)]
     except KeyError:
         raise NotImplementedError(
-            f"{name}: the CUDA kernel carries Model 204 and Model 200 only, got "
-            f"{type(model).__name__} (further models wait for ROADMAP Queue 1 #18)"
+            f"{name}: the CUDA kernel carries Model 204, Model 200 and DummyModel only, got "
+            f"{type(model).__name__} (a model the kernels run is a template argument of "
+            f"csrc/common.cuh with an entry in KERNEL_MODELS)"
         ) from None
 
 
 def kernel_inputs(name, model, y0, h0, params, forcings, query_times, t_shift=0.0):
-    """Validate a CUDA launch's inputs; returns (y0 [5,S], params [15,S]).
+    """Validate a CUDA launch's inputs; returns (y0 [5,S], params [15,S]),
+    the params block None for a model whose instances read no parameter
+    (DummyModel: ``params`` may then be None or any dict, which is not
+    read, as ``run()`` passes the CSV's fields whatever the model).
 
     The kernels take the models of ``KERNEL_MODELS`` in float32 or float64
     (y0's dtype), with h0, every param and the query times in y0's dtype,
     the forcing data in float32, and every tensor on y0's device: anything
     else raises (there is no fallback for a CUDA tensor).  A finite time
-    shift reaches the rhs of either model (the argument structs'
+    shift reaches the rhs of every model (the argument structs'
     ``t_shift``).
     """
-    kernel_model(name, model)
+    reads = kernel_model(name, model)[2]
     if not math.isfinite(t_shift):
         raise ValueError(f"{name}: t_shift must be finite, got {t_shift}")
     dev, s_count = y0.device, y0.shape[0]
@@ -141,16 +151,20 @@ def kernel_inputs(name, model, y0, h0, params, forcings, query_times, t_shift=0.
 
     check("y0", y0, (s_count, N_EQ))
     check("h0", h0, (s_count,))
-    missing = [k for k in PARAM_FIELDS if params is None or k not in params]
-    if missing:
-        raise ValueError(f"{name}: params lack {missing}")
-    for k in PARAM_FIELDS:
-        check(f"params[{k!r}]", params[k], (s_count,))
+    if reads:
+        missing = [k for k in PARAM_FIELDS if params is None or k not in params]
+        if missing:
+            raise ValueError(f"{name}: params lack {missing}")
+        for k in PARAM_FIELDS:
+            check(f"params[{k!r}]", params[k], (s_count,))
+    elif params is not None and not isinstance(params, dict):
+        raise TypeError(f"{name}: params must be None or a dict, got {type(params).__name__}")
     if forcings is not None:
         check("forcings.data", forcings.data, (forcings.data.shape[0], s_count), torch.float32)
     if query_times is not None:
         check("query_times", query_times, (query_times.shape[0],))
-    return y0.t().contiguous(), torch.stack([params[k] for k in PARAM_FIELDS])
+    block = torch.stack([params[k] for k in PARAM_FIELDS]) if reads else None
+    return y0.t().contiguous(), block
 
 
 def data_ptr(x: torch.Tensor | None) -> int:

@@ -5,11 +5,12 @@
 // the next forcing-sample boundary (tiger_tpu/kernels/rk45_pallas.py,
 // _gather_forcings l.185-211 and _zoh_step_cap l.214-225), NaN-propagating
 // min/max with jnp.maximum/minimum semantics, and the right-hand sides of the
-// models the kernels carry: Model 204 (tiger_tpu/models/model204.py) and
+// models the kernels carry: Model 204 (tiger_tpu/models/model204.py),
 // Model 200 (model200.py, with Hamon PET and the ET ramp of et.py), each
-// rhs_tuple over derived_params.  A kernel is a template over its model, and
+// rhs_tuple over derived_params, and DummyModel (dummy.py, the reference's
+// 5-state linear test system).  A kernel is a template over its model, and
 // the model's rhs takes the time of the evaluation with the window's shift
-// already added (rk45_pallas.py:273-277); Model 204 ignores it.
+// already added (rk45_pallas.py:273-277); Model 204 and DummyModel ignore it.
 // Each is a template over the scalar T of the solve, float or double: the
 // double instances repeat the float ones' operations in double, as the plain
 // versions do for a float64 tensor (constants written T(x) are the plain
@@ -32,8 +33,13 @@ constexpr int kNoInstance = -1;  // a launcher's code for an option set without 
 
 // The models the kernels carry (Rk45Args/RadauArgs.model;
 // kernels._common.KERNEL_MODELS).  Each model's instances are built in
-// translation units of their own (_build.py).
-enum KernelModel : int32_t { kModel204 = 0, kModel200 = 1 };
+// translation units of their own (_build.py): TT_INSTANCE_TU marks every
+// build of a kernel source but the first, which holds Model 204's float
+// instances and the C entry points.
+enum KernelModel : int32_t { kModel204 = 0, kModel200 = 1, kModelDummy = 2 };
+#if defined(TT_DOUBLE_INSTANCES) || defined(TT_MODEL_200) || defined(TT_MODEL_DUMMY)
+#define TT_INSTANCE_TU 1
+#endif
 
 // Rows of the [15, S] parameter block, in tiger_tpu_torch.models.PARAM_FIELDS
 // order (the wrappers stack the params dict in that order).
@@ -309,6 +315,29 @@ struct Model200 : Stores<T> {
       const T ramp = e_max * (s - sw) / (ss - sw);
       return s > ss ? e_max : (s > sw ? ramp : T(0));
     });
+  }
+};
+
+// DummyModel (dummy.py): five linear equations with constant coefficients.
+// It reads no parameter row (the launch passes a null params pointer), no
+// forcing and no time.  Each line is the Python expression's left-to-right
+// order, every constant the Python number rounded to T, so the instances
+// round as the plain versions' torch ops do (17 operations a rhs).
+template <class T>
+struct ModelDummy {
+  static constexpr int32_t kId = kModelDummy;
+
+  __device__ __forceinline__ void load(const T* __restrict__ /*p*/, int64_t /*n_sys*/,
+                                       int64_t /*s*/, int32_t /*safe*/, T /*doy0*/) {}
+
+  __device__ __forceinline__ void rhs(T /*t*/, const T (&y)[kNEq],
+                                      const T (&/*f*/)[kMaxForcings], int32_t /*n_forc*/,
+                                      T (&dy)[kNEq]) const {
+    dy[0] = T(1.0) - T(0.5) * y[0];
+    dy[1] = (((T(1.2) + T(0.5) * y[0]) - T(0.3) * y[1]) - T(0.4)) - T(0.6) * y[1];
+    dy[2] = T(0.3) * y[1] - T(0.2);
+    dy[3] = (T(0.6) * y[1] - T(0.4) * y[3]) - T(0.3);
+    dy[4] = T(0.4) * y[3] - T(0.1);
   }
 };
 

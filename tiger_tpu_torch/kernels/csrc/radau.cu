@@ -72,18 +72,19 @@
 // as it stands for the float instances and the entry points, and with
 // -DTT_DOUBLE_INSTANCES, as relocatable device code, for the double ones.
 //
-// The model is a template parameter too (common.cuh Model204, Model200).
-// Each right-hand side sees its time with the window's shift added
-// (radau_pallas.py:194-195): the Jacobian's f and columns at t, the stage
-// residuals at t + c_s h, radau5's second estimate at t.  Model 200's
-// instances are built in translation units of their own: the file compiled
-// again with -DTT_MODEL_200, in float and in double, as relocatable code.
+// The model is a template parameter too (common.cuh Model204, Model200,
+// ModelDummy).  Each right-hand side sees its time with the window's shift
+// added (radau_pallas.py:194-195): the Jacobian's f and columns at t, the
+// stage residuals at t + c_s h, radau5's second estimate at t.  Model 200's
+// and DummyModel's instances are built in translation units of their own:
+// the file compiled again with -DTT_MODEL_200 or -DTT_MODEL_DUMMY, in float
+// and in double, as relocatable code.
 
 #include <type_traits>
 
 #include "common.cuh"
 
-#if defined(TT_DOUBLE_INSTANCES) || defined(TT_MODEL_200)
+#ifdef TT_INSTANCE_TU
 #undef TT_RADAU_PHASES  // the probes time Model 204's float instances
 #endif
 
@@ -630,20 +631,25 @@ int radau_launch(const RadauArgs<T>* args, void* stream) {
 }
 
 // The host side of the instances built in this file's other translation
-// units (-DTT_DOUBLE_INSTANCES, -DTT_MODEL_200, both), called by the entry
-// point of the first: Model 204 in double, Model 200 in float and double.
+// units (-DTT_DOUBLE_INSTANCES, -DTT_MODEL_200, -DTT_MODEL_DUMMY, and each
+// model with the first), called by the entry point of the first: Model 204
+// in double, Model 200 and DummyModel in float and double.
 int radau_launch_f64(const void* args, void* stream);
 int radau_launch_m200(const void* args, void* stream);
 int radau_launch_m200_f64(const void* args, void* stream);
+int radau_launch_dummy(const void* args, void* stream);
+int radau_launch_dummy_f64(const void* args, void* stream);
 
-#if defined(TT_DOUBLE_INSTANCES) || defined(TT_MODEL_200)
+#ifdef TT_INSTANCE_TU
 #ifdef TT_DOUBLE_INSTANCES
 using TuReal = double;
 #else
 using TuReal = float;
 #endif
-#ifdef TT_MODEL_200
+#if defined(TT_MODEL_200)
 using TuModel = Model200<TuReal>;
+#elif defined(TT_MODEL_DUMMY)
+using TuModel = ModelDummy<TuReal>;
 #else
 using TuModel = Model204<TuReal>;
 #endif
@@ -651,6 +657,10 @@ using TuModel = Model204<TuReal>;
 #define TT_TU(fn) fn##_m200_f64
 #elif defined(TT_MODEL_200)
 #define TT_TU(fn) fn##_m200
+#elif defined(TT_MODEL_DUMMY) && defined(TT_DOUBLE_INSTANCES)
+#define TT_TU(fn) fn##_dummy_f64
+#elif defined(TT_MODEL_DUMMY)
+#define TT_TU(fn) fn##_dummy
 #else
 #define TT_TU(fn) fn##_f64
 #endif
@@ -661,7 +671,7 @@ int TT_TU(radau_launch)(const void* args, void* stream) {
 
 }  // namespace tt
 
-#if !defined(TT_DOUBLE_INSTANCES) && !defined(TT_MODEL_200)
+#ifndef TT_INSTANCE_TU
 // In each entry point f64 picks the scalar: 0 float (RadauArgs<float>), 1
 // double (RadauArgs<double>); the model is RadauArgs.model.
 extern "C" int tt_radau_args_size(int32_t f64) {
@@ -680,6 +690,8 @@ extern "C" int tt_radau_launch(const void* args, int32_t f64, void* stream) {
                        static_cast<const tt::RadauArgs<float>*>(args), stream);
     case tt::kModel200:
       return f64 ? tt::radau_launch_m200_f64(args, stream) : tt::radau_launch_m200(args, stream);
+    case tt::kModelDummy:
+      return f64 ? tt::radau_launch_dummy_f64(args, stream) : tt::radau_launch_dummy(args, stream);
     default:
       return tt::kNoInstance;
   }

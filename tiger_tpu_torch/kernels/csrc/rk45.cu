@@ -35,17 +35,19 @@
 // instances, whose pow is contracted.cu's (common.cuh pow_t).  So the float
 // instances keep the code and the build they had.
 //
-// The model is a template parameter too (common.cuh Model204, Model200),
-// and every stage passes its time to the rhs with the window's shift added,
-// t + c_i h + t_shift (rk45_pallas.py:273-277): Model 200's Hamon PET reads
-// the day of year.  The forcing gather stays unshifted.  Each model's
-// instances are built in translation units of their own: the file is
-// compiled again with -DTT_MODEL_200, in float and with
-// -DTT_DOUBLE_INSTANCES in double, as relocatable code (_build.py), so
-// Model 204's build is the one it had.  Model 200's float system needs more
-// than the 128 registers a thread of a 512-lane block may have (its rhs
-// calls exp, tan, atan, cos, asin, acos and sin), so its block has
-// TT_RK45_THREADS_M200 lanes (256), as a double block has.
+// The model is a template parameter too (common.cuh Model204, Model200,
+// ModelDummy), and every stage passes its time to the rhs with the window's
+// shift added, t + c_i h + t_shift (rk45_pallas.py:273-277): Model 200's
+// Hamon PET reads the day of year.  The forcing gather stays unshifted.
+// Each model's instances are built in translation units of their own: the
+// file is compiled again with -DTT_MODEL_200 or -DTT_MODEL_DUMMY, in float
+// and with -DTT_DOUBLE_INSTANCES in double, as relocatable code
+// (_build.py), so Model 204's build is the one it had.  Model 200's float
+// system needs more than the 128 registers a thread of a 512-lane block may
+// have (its rhs calls exp, tan, atan, cos, asin, acos and sin), so its block
+// has TT_RK45_THREADS_M200 lanes (256), as a double block has.  DummyModel
+// holds no per-system field, and its float block keeps Model 204's
+// TT_RK45_THREADS lanes (512).
 //
 // What bounds it on the H100: neither rate of the card.  An attempt is a
 // dependent chain of seven right-hand sides, ~700 operations against ~20
@@ -101,7 +103,7 @@
 #include "common.cuh"
 #include "rk45_tableau.cuh"  // TT_DP_TABLEAU, written by _build.py
 
-#if defined(TT_DOUBLE_INSTANCES) || defined(TT_MODEL_200)
+#ifdef TT_INSTANCE_TU
 #undef TT_RK45_PHASES  // the probes count Model 204's float instances' warps
 #endif
 
@@ -810,23 +812,30 @@ int rk45_launch(const Rk45Args<T>* args, void* stream) {
 }
 
 // The host side of the instances built in this file's other translation
-// units (-DTT_DOUBLE_INSTANCES, -DTT_MODEL_200, both), called by the entry
-// points of the first: Model 204 in double, Model 200 in float and double.
+// units (-DTT_DOUBLE_INSTANCES, -DTT_MODEL_200, -DTT_MODEL_DUMMY, and each
+// model with the first), called by the entry points of the first: Model 204
+// in double, Model 200 and DummyModel in float and double.
 int rk45_geometry_f64(int64_t n_sys, int32_t options, int32_t* out);
 int rk45_launch_f64(const void* args, void* stream);
 int rk45_geometry_m200(int64_t n_sys, int32_t options, int32_t* out);
 int rk45_launch_m200(const void* args, void* stream);
 int rk45_geometry_m200_f64(int64_t n_sys, int32_t options, int32_t* out);
 int rk45_launch_m200_f64(const void* args, void* stream);
+int rk45_geometry_dummy(int64_t n_sys, int32_t options, int32_t* out);
+int rk45_launch_dummy(const void* args, void* stream);
+int rk45_geometry_dummy_f64(int64_t n_sys, int32_t options, int32_t* out);
+int rk45_launch_dummy_f64(const void* args, void* stream);
 
-#if defined(TT_DOUBLE_INSTANCES) || defined(TT_MODEL_200)
+#ifdef TT_INSTANCE_TU
 #ifdef TT_DOUBLE_INSTANCES
 using TuReal = double;
 #else
 using TuReal = float;
 #endif
-#ifdef TT_MODEL_200
+#if defined(TT_MODEL_200)
 using TuModel = Model200<TuReal>;
+#elif defined(TT_MODEL_DUMMY)
+using TuModel = ModelDummy<TuReal>;
 #else
 using TuModel = Model204<TuReal>;
 #endif
@@ -834,6 +843,10 @@ using TuModel = Model204<TuReal>;
 #define TT_TU(fn) fn##_m200_f64
 #elif defined(TT_MODEL_200)
 #define TT_TU(fn) fn##_m200
+#elif defined(TT_MODEL_DUMMY) && defined(TT_DOUBLE_INSTANCES)
+#define TT_TU(fn) fn##_dummy_f64
+#elif defined(TT_MODEL_DUMMY)
+#define TT_TU(fn) fn##_dummy
 #else
 #define TT_TU(fn) fn##_f64
 #endif
@@ -847,7 +860,7 @@ int TT_TU(rk45_launch)(const void* args, void* stream) {
 
 }  // namespace tt
 
-#if !defined(TT_DOUBLE_INSTANCES) && !defined(TT_MODEL_200)
+#ifndef TT_INSTANCE_TU
 // In each entry point f64 picks the scalar: 0 float (Rk45Args<float>), 1
 // double (Rk45Args<double>); the model is Rk45Args.model (or `model`).
 extern "C" int tt_rk45_args_size(int32_t f64) {
@@ -863,6 +876,9 @@ extern "C" int tt_rk45_geometry(int64_t n_sys, int32_t options, int32_t f64, int
     case tt::kModel200:
       return f64 ? tt::rk45_geometry_m200_f64(n_sys, options, out)
                  : tt::rk45_geometry_m200(n_sys, options, out);
+    case tt::kModelDummy:
+      return f64 ? tt::rk45_geometry_dummy_f64(n_sys, options, out)
+                 : tt::rk45_geometry_dummy(n_sys, options, out);
     default:
       return tt::kNoInstance;
   }
@@ -880,6 +896,8 @@ extern "C" int tt_rk45_launch(const void* args, int32_t f64, void* stream) {
                        static_cast<const tt::Rk45Args<float>*>(args), stream);
     case tt::kModel200:
       return f64 ? tt::rk45_launch_m200_f64(args, stream) : tt::rk45_launch_m200(args, stream);
+    case tt::kModelDummy:
+      return f64 ? tt::rk45_launch_dummy_f64(args, stream) : tt::rk45_launch_dummy(args, stream);
     default:
       return tt::kNoInstance;
   }

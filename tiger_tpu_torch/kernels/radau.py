@@ -110,7 +110,7 @@ def instance_name(config: SolverConfig, dtype: torch.dtype = torch.float32, pref
 #: caller set them to 0: ``kernels.reset_launch_counts``).
 radau_launches = {
     prefix + mode + ("+predictor" if pred else "") + suffix: 0
-    for _, prefix in KERNEL_MODELS.values() for suffix in ("", "/f64") for mode, pred in INSTANCES
+    for _, prefix, _ in KERNEL_MODELS.values() for suffix in ("", "/f64") for mode, pred in INSTANCES
 }
 
 
@@ -173,7 +173,7 @@ def _radau_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -
     if not (cfg.rtol >= 0.0 and cfg.atol >= 0.0):
         raise ValueError(f"radau: the CUDA kernel needs rtol, atol >= 0, got {cfg.rtol}, {cfg.atol}")
     y0_soa, p_block = kernel_inputs("radau", model, y0, h0, params, forcings, qt, t_shift)
-    model_id, prefix = kernel_model("radau", model)
+    model_id, prefix, reads_params = kernel_model("radau", model)
     s_count, dev, dtype = y0.shape[0], y0.device, y0.dtype
     f64, real = dtype == torch.float64, C_REAL[dtype]
     q_total = 0 if qt is None else qt.shape[0]
@@ -188,11 +188,11 @@ def _radau_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -
         return c_reals(x, real)
 
     a = ARGS[dtype](
-        y0=y0_soa.data_ptr(), h0=h0.data_ptr(), params=p_block.data_ptr(),
+        y0=y0_soa.data_ptr(), h0=h0.data_ptr(), params=data_ptr(p_block),
         forc=data_ptr(None if forcings is None else forcings.data), qt=data_ptr(qt),
         y_final=y_final.data_ptr(), dense=dense.data_ptr(), failed=failed.data_ptr(),
         stats=stats.data_ptr(),
-        n_sys=s_count, n_q=q_total, safe_pow=int(model.safe_pow),
+        n_sys=s_count, n_q=q_total, safe_pow=int(reads_params and model.safe_pow),
         t0=t0, tf=tf, rtol=cfg.rtol, atol=cfg.atol, safety=cfg.safety,
         min_scale=cfg.min_scale, max_scale=cfg.max_scale, expo=expo,
         nan_shrink=cfg.nan_shrink, h_freeze_hi=cfg.radau_h_freeze_hi,

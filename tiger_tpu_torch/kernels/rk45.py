@@ -102,7 +102,7 @@ def instance_name(options: int, dtype: torch.dtype = torch.float32, prefix: str 
 #: Kernel launches by instance (``instance_name``) since import (or since a
 #: caller set them to 0: ``kernels.reset_launch_counts``).
 rk45_launches = dict.fromkeys(
-    [instance_name(bits, dtype, prefix) for _, prefix in KERNEL_MODELS.values()
+    [instance_name(bits, dtype, prefix) for _, prefix, _ in KERNEL_MODELS.values()
      for dtype in C_REAL for bits in INSTANCES], 0)
 
 
@@ -162,7 +162,7 @@ def rk45(
 def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -> RK45Result:
     options = rk45_options(cfg)
     y0_soa, p_block = kernel_inputs("rk45", model, y0, h0, params, forcings, qt, t_shift)
-    model_id, prefix = kernel_model("rk45", model)
+    model_id, prefix, reads_params = kernel_model("rk45", model)
     s_count, dev, dtype = y0.shape[0], y0.device, y0.dtype
     f64 = dtype == torch.float64
     q_total = 0 if qt is None else qt.shape[0]
@@ -171,11 +171,11 @@ def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) ->
     flags = torch.empty((2, s_count), dtype=torch.int32, device=dev)  # stiff, failed
     stats = torch.empty((3, s_count), dtype=torch.int32, device=dev)
     a = ARGS[dtype](
-        y0=y0_soa.data_ptr(), h0=h0.data_ptr(), params=p_block.data_ptr(),
+        y0=y0_soa.data_ptr(), h0=h0.data_ptr(), params=data_ptr(p_block),
         forc=data_ptr(None if forcings is None else forcings.data), qt=data_ptr(qt),
         y_final=y_final.data_ptr(), dense=dense.data_ptr(),
         stiff=flags[0].data_ptr(), failed=flags[1].data_ptr(), stats=stats.data_ptr(),
-        n_sys=s_count, n_q=q_total, safe_pow=int(model.safe_pow),
+        n_sys=s_count, n_q=q_total, safe_pow=int(reads_params and model.safe_pow),
         t0=t0, tf=tf, h_floor=(tf - t0) * cfg.min_step_fraction,
         rtol=cfg.rtol, atol=cfg.atol, safety=cfg.safety,
         min_scale=cfg.min_scale, max_scale=cfg.max_scale, expo=controller_exponent(cfg),

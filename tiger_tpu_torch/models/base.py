@@ -13,7 +13,7 @@ A model is a frozen dataclass with
 
 The batched plain solvers call ``rhs_tuple`` with [S]-shaped tensors; the
 CUDA kernels carry their own device twin of each model they support
-(``kernels._common.KERNEL_MODELS``: Model 204 and Model 200).
+(``kernels._common.KERNEL_MODELS``: Model 204, Model 200 and DummyModel).
 """
 
 from __future__ import annotations

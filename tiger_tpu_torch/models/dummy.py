@@ -7,8 +7,10 @@
     dH4 = 0.4*H3 - 0.1
 
 With y0 = [1,1,1,1,1] over t in [0, 5] at rtol 1e-6 / atol 1e-9 it must
-reproduce the reference's golden final state.  The CUDA kernels do not carry
-this model: it runs on the plain (CPU) path only.
+reproduce the reference's golden final state.  Both CUDA kernels carry it
+(csrc/common.cuh ``ModelDummy``: these five lines in the same order, each
+constant rounded to the solve's scalar), so on the card it runs through B1
+and B2 as the other models do; it reads no params, forcings or time.
 """
 
 from __future__ import annotations
