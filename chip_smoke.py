@@ -157,8 +157,22 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
      t_shift 1440 (unchanged), FSAL equal to its twin, each B2 instance once
      with the counters set to 0 just before; and dummy/default/f64 at the
      golden final state within 5e-6.
-The plain Radau checks of 6 (the full 2 days), 9b, 10b, 11, 12d and 13d run
-last, side by side, each in a Python process of its own (side_by_side).
+ 14. several processes (dist_phase): (a) solve(..., devices=[cuda:0,
+     cuda:0]) on phase 5's inputs, its halves on two streams, equal to phase
+     5's one-device solve bit for bit; (b) two rank processes of the CLI on
+     the one card under gloo (routed_exchange ring, allgather, 1-day windows
+     with daily checkpoints, ring again): their files, concatenated, equal a
+     one-process run bit for bit, allgather's discharge too, ring's within
+     routing.ring_error_bound, the second ring run the first bit for bit;
+     (c) one nccl process at world size 1: its files equal the one-process
+     run's.  Launches counted over its runs ("dist_launches").
+The CLI phases (7, 9c, 10d, 10g, 12f, 13f, 14) read one written basin
+(basin_doc).  The plain versions of 9a, 10f, 12e and 13e (and 13e's B2 at
+131,072 systems), and the plain Radau checks of 6 (the full 2 days), 9b,
+10b, 11, 12d and 13d, which run last, go to SIDE_BY_SIDE processes started
+at the beginning (PlainPool), each after the kernels it is held to have
+run and been timed.  The line before the kernels' JSON record gives the
+script's fixed part: its seconds less those of the plain checks at the end.
 Each kernel must equal its plain version exactly: max_abs_err 0, NaN in the
 same places, every flag and every counter of every system equal.  The line
 before the last is the kernels' JSON record; the last line is
@@ -177,6 +191,7 @@ from collections.abc import Callable
 import torch
 
 MAIN_SYSTEMS = 131_072
+N_EQ_ALL = 5  # every model's states
 DAYS = 2.0
 STIFF_FRAC = 0.001
 CHECK_SYSTEMS = 4096
@@ -354,6 +369,33 @@ def check_radau(label, ker, ref, may_fail: bool = False, diff: dict | None = Non
     return err
 
 
+#: The 2-day, 131,072-link basin the CLI phases (7, 9c, 10d, 10g, 12f, 13f,
+#: 14) share: written once (basin_doc), removed at the end of main.
+_BASIN: dict = {}
+
+
+def basin_doc(out: str) -> dict:
+    """A copy of the config document of write_basin's basin at the main
+    path's shape (MAIN_SYSTEMS links, DAYS, STIFF_FRAC), written into a
+    folder of its own on first use, with its outputs in ``out``.  Every CLI
+    phase reads the same files; each writes into its own folder."""
+    import copy
+    import os
+    import tempfile
+
+    from tiger_tpu_torch.scenario import write_basin
+
+    if "doc" not in _BASIN:
+        folder = tempfile.mkdtemp(prefix="tiger_basin_")
+        start = time.perf_counter()
+        _BASIN.update(folder=folder, doc=write_basin(os.path.join(folder, "basin"), MAIN_SYSTEMS,
+                                                      DAYS, STIFF_FRAC),
+                      write_s=time.perf_counter() - start)
+    doc = copy.deepcopy(_BASIN["doc"])
+    doc["output"]["path"] = out
+    return doc
+
+
 def cli_phase(smi: str) -> dict:
     """Phase 7: the CLI run at full width; returns each kernel's launches."""
     import os
@@ -370,12 +412,11 @@ def cli_phase(smi: str) -> dict:
     from tiger_tpu_torch.kernels import launch_totals, reset_launch_counts
     from tiger_tpu_torch.profiling import Metrics
     from tiger_tpu_torch.run import run
-    from tiger_tpu_torch.scenario import STIFF_HU, solve_written_basin, write_basin
+    from tiger_tpu_torch.scenario import STIFF_HU, solve_written_basin
 
     with tempfile.TemporaryDirectory(prefix="tiger_cli_") as tmp:
-        start = time.perf_counter()
-        doc = write_basin(os.path.join(tmp, "basin"), MAIN_SYSTEMS, DAYS, STIFF_FRAC)
-        write_s = time.perf_counter() - start
+        doc = basin_doc(os.path.join(tmp, "out"))
+        write_s = _BASIN["write_s"]
         cfg = config_from_dict(doc)
         fmt = output_format()
         why = ("h5py is installed" if fmt == "NETCDF4"
@@ -810,7 +851,7 @@ class ModelCase:
 
 
 def b1_checks(case: ModelCase, dtype, cfg_of, inputs: tuple, tag: str, where: str, records: dict,
-              names=tuple(B1_OPTIONS), skip=(), shift: float = 0.0) -> dict:
+              names=tuple(B1_OPTIONS), skip=(), shift: float = 0.0, pooled: bool = True) -> dict:
     """Each B1 instance of the option sets ``names`` in ``dtype`` against
     rk45_plain bit for bit on ``inputs`` = (model, y0, params, forcings,
     span, queries, hu_rows), from the initial steps of ``cfg_of('default')``;
@@ -818,8 +859,11 @@ def b1_checks(case: ModelCase, dtype, cfg_of, inputs: tuple, tag: str, where: st
     but are held elsewhere.  FSAL's results against its twin's: a gate
     where the rhs does not read t, data where it does.  With ``shift``, each instance
     again with that t_shift: equal to the unshifted run (a model that does
-    not read t).  Fills ``records`` by instance name; returns the default
-    and pi instances' results by option set."""
+    not read t).  ``pooled``: every kernel runs first, then the plain
+    versions side by side on the pool (side_by_side); else each plain
+    version right after its kernel (dense blocks too large to hold them
+    all).  Fills ``records`` by instance name; returns the default and pi
+    instances' results by option set."""
     from tiger_tpu_torch.kernels import rk45 as k_rk45
     from tiger_tpu_torch.solver.controller import initial_step
 
@@ -827,15 +871,11 @@ def b1_checks(case: ModelCase, dtype, cfg_of, inputs: tuple, tag: str, where: st
     h0 = initial_step(model, y0, 0.0, params, forc, cfg_of("default"))
     real, peak = (8, F64_PEAK) if dtype == torch.float64 else (4, F32_PEAK)
     n_rows = 0 if forc is None else forc.data.shape[0]
-    results = {}
-    for opt in names:
+    def plain_args(opt):
+        return (model, y0, h0, 0.0, span, qt, params, forc, cfg_of(opt))
+
+    def held_to_plain(opt, ker, c_ms, ref, p_ms):
         inst, cfg = case.name(opt, dtype), cfg_of(opt)
-        ker, c_ms = timed(lambda: k_rk45.rk45(model, y0, h0, 0.0, span, qt, params, forc, cfg), reps=3)
-        if opt in ("default", "pi"):  # FSAL's twins; the others' dense blocks would only hold memory
-            results[opt] = ker
-        if inst in skip:
-            continue
-        ref, p_ms = timed(lambda: k_rk45.rk45_plain(model, y0, h0, 0.0, span, qt, params, forc, cfg))
         err = check_rk45(f"phase {tag} B1 {inst} vs rk45_plain{where}", ker, ref, hu_rows)
         att = int(ker.stats.n_attempts.sum())
         bnd = bound(b1_ops(att, int((~ker.stiff).sum()) * int((qt > 0.0).sum()),
@@ -844,8 +884,21 @@ def b1_checks(case: ModelCase, dtype, cfg_of, inputs: tuple, tag: str, where: st
         rec = records.setdefault(inst, {})
         rec.update(check_ms=c_ms, check_plain_ms=p_ms, max_abs_err=err, check_bound_ms=bnd[0],
                    check_systems=y0.shape[0], check_span_min=span, check_attempts=att,
-                   library_ms=None)
+                   library_ms=None, plain_side_by_side=SIDE_BY_SIDE if pooled else 1)
         rec.setdefault("plain_ms", p_ms)  # unless a check at the main path's shapes took it
+
+    results, held = {}, {}
+    for opt in names:
+        inst, cfg = case.name(opt, dtype), cfg_of(opt)
+        ker, c_ms = timed(lambda: k_rk45.rk45(model, y0, h0, 0.0, span, qt, params, forc, cfg), reps=3)
+        if opt in ("default", "pi"):  # FSAL's twins; the others' dense blocks would only hold memory
+            results[opt] = ker
+        if inst in skip:
+            continue
+        if pooled:
+            held[opt] = (ker, c_ms)
+        else:
+            held_to_plain(opt, ker, c_ms, *timed(lambda: k_rk45.rk45_plain(*plain_args(opt))))
         if shift:
             moved = k_rk45.rk45_mismatch(
                 k_rk45.rk45(model, y0, h0, 0.0, span, qt, params, forc, cfg, shift), ker)
@@ -866,6 +919,10 @@ def b1_checks(case: ModelCase, dtype, cfg_of, inputs: tuple, tag: str, where: st
                   f"{' (for information)' if case.reads_t else ''}: entries that differ {diff}")
             check(case.reads_t or not any(diff.values()),
                   f"phase {tag}: FSAL {inst} differs from the {twin} instance: {diff}")
+    plain = side_by_side({opt: ("tiger_tpu_torch.kernels.rk45:rk45_plain", plain_args(opt), None)
+                          for opt in held})
+    for opt, (ker, c_ms) in held.items():
+        held_to_plain(opt, ker, c_ms, *plain[opt])
     return results
 
 
@@ -880,7 +937,9 @@ def b2_checks(case: ModelCase, dtype, cfg_of, inputs: tuple, tag: str, where: st
     one launch with the counters set to 0 just before, which must count
     once.  ``shift``: again with that t_shift, equal to the unshifted run.
     ``main``: these are the instance's only times, so they also fill its
-    main-path keys where no other phase did.  Fills ``records``."""
+    main-path keys where no other phase did.  Every kernel runs first, then
+    the plain versions side by side on the pool (side_by_side).  Fills
+    ``records``."""
     from tiger_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tiger_tpu_torch.kernels import radau as k_radau
     from tiger_tpu_torch.solver.controller import initial_step
@@ -889,34 +948,42 @@ def b2_checks(case: ModelCase, dtype, cfg_of, inputs: tuple, tag: str, where: st
     real, peak = (8, F64_PEAK) if dtype == torch.float64 else (4, F32_PEAK)
     n_rows = 0 if forc is None else forc.data.shape[0]
     n_sys = y0.shape[0]
+    held = {}
     for opt in names:
         inst = case.name(opt, dtype)
         if inst in skip:
             continue
         cfg = cfg_of(opt, **(REFERENCE_CHECK if opt.startswith("reference") else {}))
         h0 = initial_step(model, y0, 0.0, params, forc, cfg)
-        rec, n_launch = records.setdefault(inst, {}), None
+        n_launch = None
         if counted:
             reset_launch_counts()
             k_radau.radau(model, y0, h0, 0.0, span, qt, params, forc, cfg)
             n_launch = launch_counts()["radau"][inst]
             check(n_launch == 1, f"phase {tag}: B2 {inst} was not launched")
         ker, c_ms = timed(lambda: k_radau.radau(model, y0, h0, 0.0, span, qt, params, forc, cfg), reps=3)
-        ref, p_ms = timed(lambda: k_radau.radau_plain(model, y0, h0, 0.0, span, qt, params, forc, cfg))
+        if shift:
+            moved = k_radau.radau(model, y0, h0, 0.0, span, qt, params, forc, cfg, shift)
+            same = (_bit_equal(moved.y_final, ker.y_final) and _bit_equal(moved.dense, ker.dense)
+                    and all(bool(torch.equal(a, b)) for a, b in zip(moved.stats, ker.stats)))
+            check(same, f"phase {tag}: t_shift {shift:g} moved B2 {inst}")
+            records.setdefault(inst, {})["shift_unchanged"] = shift
+        held[opt] = (cfg, h0, ker, c_ms, n_launch)
+    plain = side_by_side({opt: ("tiger_tpu_torch.kernels.radau:radau_plain",
+                                (model, y0, h0, 0.0, span, qt, params, forc, cfg), None)
+                          for opt, (cfg, h0, *_) in held.items()})
+    for opt, (cfg, h0, ker, c_ms, n_launch) in held.items():
+        inst, rec = case.name(opt, dtype), records.setdefault(case.name(opt, dtype), {})
+        ref, p_ms = plain[opt]
         err = check_radau(f"phase {tag} B2 {inst} vs radau_plain{where}", ker, ref,
                           may_fail=opt in B2_MAY_FAIL)
         att, swp = int(ker.stats.n_attempts.sum()), int(ker.stats.n_newton.sum())
         bnd = bound(b2_ops(att, swp, n_sys * int((qt > 0.0).sum()), cfg, case.rhs_ops),
                     io_bytes(n_sys, n_rows, qt.numel(), 6, real), peak)
         rec.update(max_abs_err=err, check_plain_ms=p_ms, check_ms=c_ms, check_systems=n_sys,
-                   check_span_min=span, check_attempts=att, check_bound_ms=bnd[0], library_ms=None)
+                   check_span_min=span, check_attempts=att, check_bound_ms=bnd[0], library_ms=None,
+                   plain_side_by_side=SIDE_BY_SIDE)
         rec.setdefault("plain_ms", p_ms)  # unless a check at the main path's shapes took it
-        if shift:
-            moved = k_radau.radau(model, y0, h0, 0.0, span, qt, params, forc, cfg, shift)
-            same = (_bit_equal(moved.y_final, ker.y_final) and _bit_equal(moved.dense, ker.dense)
-                    and all(bool(torch.equal(a, b)) for a, b in zip(moved.stats, ker.stats)))
-            check(same, f"phase {tag}: t_shift {shift:g} moved B2 {inst}")
-            rec["shift_unchanged"] = shift
         if main:
             for key, value in dict(ms=c_ms, launches=n_launch, bound_ms=bnd[0], bound_by=bnd[1],
                                    systems=n_sys,
@@ -1011,9 +1078,20 @@ def snapped_landings(steps: tuple, meta) -> dict:
     return {s: sorted(v, key=lambda e: e[0] * e[1]) for s, v in out.items()}
 
 
-def accuracy(model, y0, params, forc, tf, qt, h0, f32c, hu_rows) -> dict:
+def rk45_plain_steps(*args):
+    """rk45_plain with its steps recorded: (result, its steps stacked: t,
+    h, advance, t_new [iterations, S])."""
+    from tiger_tpu_torch.kernels.rk45 import rk45_plain
+
+    steps = []
+    res = rk45_plain(*args, steps=steps)
+    return res, tuple(torch.stack(x) for x in zip(*steps))
+
+
+def accuracy(model, y0, params, forc, tf, qt, h0, f32c, hu_rows, also: dict) -> tuple:
     """Phase 9b's accuracy check on y0's systems; returns each run's
-    error quantiles.
+    error quantiles, and the results of the pool's jobs ``also``, which
+    run side by side with its four plain runs.
 
     Compensated and plain float32 at the reference's tolerances against
     rk45_plain in float64 on the first systems: each system's largest
@@ -1032,22 +1110,24 @@ def accuracy(model, y0, params, forc, tf, qt, h0, f32c, hu_rows) -> dict:
     ay0, ap = y0.contiguous(), {k: v[sub].contiguous() for k, v in params.items()}
     af, ah0 = forc.take_systems(sub), h0[sub].contiguous()
     ap64, af64 = {k: v.double() for k, v in ap.items()}, ForcingSet(af.data.double(), af.meta)
-    start = time.perf_counter()
-    steps = []
-    r64 = k_rk45.rk45_plain(model, ay0.double(), ah0.double(), 0.0, tf, qt.double(), ap64, af64,
-                            f32c, steps=steps)
-    plain64_s = time.perf_counter() - start
-    stacked = {"float64": tuple(torch.stack(x) for x in zip(*steps))}
-    runs = {"float64 h0 x (1 + 2^-20)": k_rk45.rk45_plain(
-        model, ay0.double(), ah0.double() * (1.0 + 2.0 ** -20), 0.0, tf, qt.double(), ap64, af64, f32c)}
-    for label, cfg in (("compensated", f32c), ("plain", dataclasses.replace(f32c, compensated=False))):
-        steps = []
-        runs[label] = k_rk45.rk45(model, ay0, ah0, 0.0, tf, qt, ap, af, cfg)
-        ref = k_rk45.rk45_plain(model, ay0, ah0, 0.0, tf, qt, ap, af, cfg, steps=steps)
+    f32 = {"compensated": f32c, "plain": dataclasses.replace(f32c, compensated=False)}
+    runs = {label: k_rk45.rk45(model, ay0, ah0, 0.0, tf, qt, ap, af, cfg) for label, cfg in f32.items()}
+    jobs = {"float64": ("chip_smoke:rk45_plain_steps", (model, ay0.double(), ah0.double(), 0.0, tf,
+                                                       qt.double(), ap64, af64, f32c), None),
+            "float64 h0 x (1 + 2^-20)": ("tiger_tpu_torch.kernels.rk45:rk45_plain", (
+                model, ay0.double(), ah0.double() * (1.0 + 2.0 ** -20), 0.0, tf, qt.double(), ap64,
+                af64, f32c), None),
+            **{label: ("chip_smoke:rk45_plain_steps", (model, ay0, ah0, 0.0, tf, qt, ap, af, cfg), None)
+               for label, cfg in f32.items()}}
+    got = side_by_side({**also, **jobs})  # the longest first
+    (r64, steps64), plain64_ms = got["float64"]
+    plain64_s = plain64_ms * 1e-3
+    stacked = {"float64": steps64}
+    runs["float64 h0 x (1 + 2^-20)"] = got["float64 h0 x (1 + 2^-20)"][0]
+    for label in f32:
+        ref, stacked[label] = got[label][0]
         check_rk45(f"phase 9b accuracy, {label} f32: B1 vs rk45_plain ({ay0.shape[0]} systems)",
                    runs[label], ref, hu_rows[sub])
-        stacked[label] = tuple(torch.stack(x) for x in zip(*steps))
-    del steps
     landed = {k: snapped_landings(v, af.meta) for k, v in stacked.items()}
     per, rel = {}, {}
     for label, r in runs.items():
@@ -1081,7 +1161,7 @@ def accuracy(model, y0, params, forc, tf, qt, h0, f32c, hu_rows) -> dict:
                            plain=f"{float(hourly(runs['plain'], i)[w]):.3e}"),
             advances_before_it={k: advances(k, i, lo, hi) for k in stacked}))
     phase(f"phase 9b accuracy at rtol 1e-6 / atol 1e-9 ({ay0.shape[0]} systems, {tf / 1440.0:g} days; "
-          f"rk45_plain float64 on the card {plain64_s:.1f} s): each system's largest relative error "
+          f"rk45_plain float64 on the card {plain64_s:.1f} s, side by side): each system's largest relative error "
           f"of y_final (states above 1e-3) against float64: {rel}; systems with a snapped advance "
           f"(more than {SLIVER_MIN:g} min before the boundary) {({k: len(v) for k, v in landed.items()})}; "
           f"compensated's 5 largest (error, attempts, snapped advances as (dt, k, sliver min), the "
@@ -1089,7 +1169,7 @@ def accuracy(model, y0, params, forc, tf, qt, h0, f32c, hu_rows) -> dict:
           f"(t, h) in the hour before it): {tail}")
     check(rel["compensated"]["median"] < rel["plain"]["median"],
           f"phase 9b: compensated f32 is not closer to float64 in the median system: {rel}")
-    return rel
+    return rel, {k: got[k] for k in also}
 
 
 def options_phase(smi: str) -> dict:
@@ -1107,7 +1187,7 @@ def options_phase(smi: str) -> dict:
     from tiger_tpu_torch.kernels import rk45 as k_rk45
     from tiger_tpu_torch.profiling import Metrics
     from tiger_tpu_torch.run import run
-    from tiger_tpu_torch.scenario import STIFF_HU, scenario, solve_written_basin, write_basin
+    from tiger_tpu_torch.scenario import STIFF_HU, scenario, solve_written_basin
     from tiger_tpu_torch.solver.controller import initial_step
 
     phase_start = time.perf_counter()
@@ -1206,7 +1286,7 @@ def options_phase(smi: str) -> dict:
           f"phase 9b: a B1 instance failed systems: {others}")
 
     with tempfile.TemporaryDirectory(prefix="tiger_f32c_") as tmp:
-        doc = write_basin(os.path.join(tmp, "basin"), MAIN_SYSTEMS, DAYS, STIFF_FRAC)
+        doc = basin_doc(os.path.join(tmp, "out"))
         doc["solver"].update(precision="f32c", tolerances=dict(TIGHT))
         cfg = config_from_dict(doc)
         check(cfg.solver_config().compensated and cfg.solver_config().rtol == TIGHT["rtol"],
@@ -1252,10 +1332,7 @@ def options_phase(smi: str) -> dict:
     # each against its plain version with phases 3-4's exact check.
     h0_t = initial_step(model, y0, 0.0, params, forc, f32c)
     ker_c, ms_c = timed(lambda: k_rk45.rk45(model, y0, h0_t, 0.0, tf, qt, params, forc, f32c), reps=3)
-    ref_c, plain_c = timed(lambda: k_rk45.rk45_plain(model, y0, h0_t, 0.0, tf, qt, params, forc, f32c))
-    b1["compensated"].update(f32c_ms=ms_c, f32c_plain_ms=plain_c, f32c_max_abs_err=check_rk45(
-        f"phase 9b B1 compensated vs rk45_plain at rtol 1e-6 / atol 1e-9 ({MAIN_SYSTEMS} systems, "
-        f"{DAYS:g} days)", ker_c, ref_c, hu_rows))
+    # Its plain version runs with the accuracy check's, side by side.
     rows_c = torch.nonzero(ker_c.stiff).squeeze(1)
     cy0, cp = y0[rows_c].contiguous(), {k: v[rows_c].contiguous() for k, v in params.items()}
     cf, ch0 = forc.take_systems(rows_c), h0_t[rows_c].contiguous()
@@ -1273,8 +1350,16 @@ def options_phase(smi: str) -> dict:
           f"its {rows.numel()} stiff ones for B2, {DAYS:g} days, rtol 1e-5 / atol 1e-8; f32c_* at "
           f"rtol 1e-6 / atol 1e-9, B2 on its {rows_c.numel()} stiff systems): B1 {b1} | B2 {b2} | {smi}")
 
-    accuracy(model, y0[:ACCURACY_SYSTEMS], params, forc, ACCURACY_SPAN,
-             qt[qt <= ACCURACY_SPAN + 1e-9], h0_t, f32c, hu_rows)
+    _, also = accuracy(model, y0[:ACCURACY_SYSTEMS], params, forc, ACCURACY_SPAN,
+                       qt[qt <= ACCURACY_SPAN + 1e-9], h0_t, f32c, hu_rows,
+                       {"f32c": ("tiger_tpu_torch.kernels.rk45:rk45_plain",
+                                 (model, y0, h0_t, 0.0, tf, qt, params, forc, f32c), None)})
+    ref_c, plain_c = also["f32c"]
+    b1["compensated"].update(f32c_ms=ms_c, f32c_plain_ms=plain_c, f32c_plain_side_by_side=SIDE_BY_SIDE,
+                             f32c_max_abs_err=check_rk45(
+        f"phase 9b B1 compensated vs rk45_plain at rtol 1e-6 / atol 1e-9 ({MAIN_SYSTEMS} systems, "
+        f"{DAYS:g} days)", ker_c, ref_c, hu_rows))
+    del ker_c, ref_c
     phase(f"phase 9 took {time.perf_counter() - phase_start:.1f} s")
     return {"rk45": b1, "radau": b2, "walls": {"f32c": walls_c, "pi": walls_p}}, check_c
 
@@ -1289,10 +1374,11 @@ F64_MARGIN = 1.15  # on the predicted seconds of a plain Radau span
 # prediction: 31.5-37.5 ms measured over the 2 days, 17-44 ms over the first
 # 45 min to 6 hours (PERF.md §6).
 PLAIN_RADAU_MS = 40.0
-# plain_span_checks' processes: how many run at once, how much longer a
+# The pool's processes (PlainPool): how many run at once, how much longer a
 # plain Radau attempt takes there than alone (measured 1.15-1.23 with 4, 1.6-
-# 1.7 with 7), and the seconds a process takes to reach the card (PERF.md §6).
-SIDE_BY_SIDE, SIDE_BY_SIDE_SLOWER, PROCESS_START_S = 4, 1.25, 10.0
+# 1.7 with 7; PERF.md §6), and the seconds plain_span_checks allows for
+# handing its jobs over (the processes reached the card at the start).
+SIDE_BY_SIDE, SIDE_BY_SIDE_SLOWER, PROCESS_START_S = 4, 1.25, 3.0
 
 
 @dataclasses.dataclass
@@ -1349,12 +1435,17 @@ def radau_span_check(label: str, total: int, model, y0, h0, params, forc, qt, cf
                      worst=worst)
 
 
-def _read_files(folder: str, names) -> dict:
+def _read_files(folder: str, names, ranks: int = 1) -> dict:
+    """{name: values} of a run's files; with ``ranks``, each rank's files
+    concatenated in rank order."""
     import os
+
+    import numpy as np
 
     from tiger_tpu_torch.io.netcdf import read_netcdf
 
-    return {key: read_netcdf(os.path.join(folder, f"{key}_basin_rank_0.nc"), (var,))[0][var]
+    return {key: np.concatenate([read_netcdf(os.path.join(folder, f"{key}_basin_rank_{r}.nc"),
+                                             (var,))[0][var] for r in range(ranks)])
             for key, var in names}
 
 
@@ -1378,7 +1469,7 @@ def float64_phase(smi: str) -> tuple:
     from tiger_tpu_torch.params import load_spatial_params, model_params
     from tiger_tpu_torch.profiling import Metrics
     from tiger_tpu_torch.run import run
-    from tiger_tpu_torch.scenario import STIFF_HU, scenario, solve_written_basin, write_basin
+    from tiger_tpu_torch.scenario import STIFF_HU, scenario, solve_written_basin
     from tiger_tpu_torch.solver.controller import initial_step
 
     phase_start = time.perf_counter()
@@ -1423,9 +1514,8 @@ def float64_phase(smi: str) -> tuple:
     with tempfile.TemporaryDirectory(prefix="tiger_f64_") as tmp:
         # (d) the CLI: a config that sets neither solver.precision nor the
         # tolerances runs f64 at rtol 1e-6 / atol 1e-9.
-        doc = write_basin(os.path.join(tmp, "basin"), MAIN_SYSTEMS, DAYS, STIFF_FRAC)
+        doc = basin_doc(os.path.join(tmp, "cli"))
         doc["solver"] = {"method": "RK45"}
-        doc["output"]["path"] = os.path.join(tmp, "cli")
         cli_cfg = config_from_dict(doc)
         check(cli_cfg.solver.precision == "f64" and cli_cfg.solver_config() == cfg,
               "phase 10d: the config without solver.precision is not f64 at the defaults")
@@ -1633,12 +1723,12 @@ def cli_pi_phase(smi: str) -> dict:
     from tiger_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tiger_tpu_torch.profiling import Metrics
     from tiger_tpu_torch.run import run
-    from tiger_tpu_torch.scenario import solve_written_basin, write_basin
+    from tiger_tpu_torch.scenario import solve_written_basin
 
     outputs = (("final", "outputs"), ("dense", "outputs"), ("discharge", "discharge"),
                ("state", "outputs"))
     with tempfile.TemporaryDirectory(prefix="tiger_f64_pi_") as tmp:
-        doc = write_basin(os.path.join(tmp, "basin"), MAIN_SYSTEMS, DAYS, STIFF_FRAC)
+        doc = basin_doc(os.path.join(tmp, "out"))
         doc["solver"] = {"method": "RK45", "controller": "pi"}
         cfg = config_from_dict(doc)
         check(cfg.solver.precision == "f64" and cfg.solver_config().controller == "pi",
@@ -1974,7 +2064,7 @@ def model_phase(case: ModelCase, smi: str) -> tuple:
     from tiger_tpu_torch.params import model_params
     from tiger_tpu_torch.profiling import Metrics
     from tiger_tpu_torch.run import COLD_STATE_DEFAULTS, run
-    from tiger_tpu_torch.scenario import solve_written_basin, write_basin
+    from tiger_tpu_torch.scenario import solve_written_basin
     from tiger_tpu_torch.solver.controller import initial_step
 
     T, P = case.tag, case.prefix
@@ -2065,9 +2155,8 @@ def model_phase(case: ModelCase, smi: str) -> tuple:
     outputs = (("final", "outputs"), ("dense", "outputs"), ("discharge", "discharge"),
                ("state", "outputs"))
     with tempfile.TemporaryDirectory(prefix=f"tiger_{T}_") as tmp:
-        doc = write_basin(os.path.join(tmp, "basin"), MAIN_SYSTEMS, DAYS, STIFF_FRAC)
+        doc = basin_doc(os.path.join(tmp, "cli"))
         doc.update(copy.deepcopy(case.cli))
-        doc["output"]["path"] = os.path.join(tmp, "cli")
         cli_cfg = config_from_dict(doc)
         uid = cli_cfg.model.uid
         reset_launch_counts()
@@ -2137,13 +2226,38 @@ def model_phase(case: ModelCase, smi: str) -> tuple:
 
     # (b) B1's default instance against rk45_plain at full width, then with
     # t_shift = 1440 on the first systems, then the default float64 instance
-    # at rtol 1e-6 / atol 1e-9 (launches made to check and to time).
+    # at rtol 1e-6 / atol 1e-9 (launches made to check and to time): every
+    # kernel first, then the plain versions side by side on the pool.
     model, y0, params, forc = case.inputs(MAIN_SYSTEMS, torch.float32)
     qt = case.queries(tf, torch.float32)
     h0 = initial_step(model, y0, 0.0, params, forc, base)
     none = torch.zeros(MAIN_SYSTEMS, dtype=torch.bool, device="cuda")
     ker, ms = timed(lambda: k_rk45.rk45(model, y0, h0, 0.0, tf, qt, params, forc, base), reps=3)
-    ref, plain_ms = timed(lambda: k_rk45.rk45_plain(model, y0, h0, 0.0, tf, qt, params, forc, base))
+    n_shift, span_shift = case.shift
+    rows = torch.arange(n_shift, device="cuda")
+    sy0, sp_, sf = subset(rows, y0, params, forc)
+    sq = case.queries(span_shift, torch.float32)
+    sh0 = initial_step(model, sy0, 0.0, sp_, sf, base, SHIFT)
+    ker_s, ms_s = timed(lambda: k_rk45.rk45(model, sy0, sh0, 0.0, span_shift, sq, sp_, sf, base, SHIFT))
+    unshifted = k_rk45.rk45(model, sy0, sh0, 0.0, span_shift, sq, sp_, sf, base)
+    n64, span64 = case.f64_check
+    model64, y64, p64, forc64 = case.inputs(n64, f64)
+    cfg64 = SolverConfig()
+    qt64 = case.queries(span64, f64)
+    h64 = initial_step(model64, y64, 0.0, p64, forc64, cfg64)
+    ker64, ms64 = timed(lambda: k_rk45.rk45(model64, y64, h64, 0.0, span64, qt64, p64, forc64, cfg64),
+                        reps=3)
+    plain_fn = "tiger_tpu_torch.kernels.rk45:rk45_plain"
+    jobs = {"full": (plain_fn, (model, y0, h0, 0.0, tf, qt, params, forc, base), None),
+            "shift": (plain_fn, (model, sy0, sh0, 0.0, span_shift, sq, sp_, sf, base, SHIFT), None),
+            "f64": (plain_fn, (model64, y64, h64, 0.0, span64, qt64, p64, forc64, cfg64), None)}
+    if not case.reads_t:
+        jobs["unshifted"] = (plain_fn, (model, sy0, sh0, 0.0, span_shift, sq, sp_, sf, base), None)
+    # A full-width dense block of GBs (DummyModel's 1,000 queries) stays in
+    # this process.
+    inline = MAIN_SYSTEMS * qt.numel() * N_EQ_ALL * 4 > 512e6
+    plain = side_by_side(jobs, inline)
+    ref, plain_ms = plain.pop("full")
     err = check_rk45(f"phase {T}b B1 {P}default vs rk45_plain ({MAIN_SYSTEMS} systems, "
                      f"{case.span_text})", ker, ref, none)
     n_rows = 0 if forc is None else forc.data.shape[0]
@@ -2154,24 +2268,17 @@ def model_phase(case: ModelCase, smi: str) -> tuple:
     geo = k_rk45.rk45_geometry(MAIN_SYSTEMS, 0, torch.float32, model)
     b1[P + "default"].update(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bnd[0],
                              solve=walls["f32"], bound_by=bnd[1], attempts=att,
-                             worst_system_attempts=worst, geometry=geo, library_ms=None)
+                             worst_system_attempts=worst, geometry=geo, library_ms=None,
+                             plain_side_by_side=1 if inline else SIDE_BY_SIDE)
     del ker, ref
-    n_shift, span_shift = case.shift
-    rows = torch.arange(n_shift, device="cuda")
-    sy0, sp_, sf = subset(rows, y0, params, forc)
-    sq = case.queries(span_shift, torch.float32)
-    sh0 = initial_step(model, sy0, 0.0, sp_, sf, base, SHIFT)
-    ker_s, ms_s = timed(lambda: k_rk45.rk45(model, sy0, sh0, 0.0, span_shift, sq, sp_, sf, base, SHIFT))
-    ref_s, plain_s = timed(lambda: k_rk45.rk45_plain(model, sy0, sh0, 0.0, span_shift, sq, sp_, sf,
-                                                     base, SHIFT))
+    ref_s, plain_s = plain.pop("shift")
     err_s = check_rk45(f"phase {T}b B1 {P}default with t_shift {SHIFT:g} vs rk45_plain "
                        f"({n_shift} systems, first {span_shift:g} min)", ker_s, ref_s, none[:n_shift])
-    unshifted = k_rk45.rk45(model, sy0, sh0, 0.0, span_shift, sq, sp_, sf, base)
     moved = int((ker_s.y_final != unshifted.y_final).any(dim=1).sum())
     if case.reads_t:
         check(moved > 0, f"phase {T}b: t_shift changed no system's result")
     else:
-        plain_unshifted = k_rk45.rk45_plain(model, sy0, sh0, 0.0, span_shift, sq, sp_, sf, base)
+        plain_unshifted = plain.pop("unshifted")[0]
         same = {"kernel": not any(k_rk45.rk45_mismatch(ker_s, unshifted).values()),
                 "plain": not any(k_rk45.rk45_mismatch(ref_s, plain_unshifted).values())}
         check(all(same.values()), f"phase {T}b: t_shift {SHIFT:g} moved {case.label}'s results: {same}")
@@ -2185,15 +2292,7 @@ def model_phase(case: ModelCase, smi: str) -> tuple:
           f"moved by the shift | {smi}")
     del ker_s, ref_s, unshifted, y0, params, forc
 
-    n64, span64 = case.f64_check
-    model64, y64, p64, forc64 = case.inputs(n64, f64)
-    cfg64 = SolverConfig()
-    qt64 = case.queries(span64, f64)
-    h64 = initial_step(model64, y64, 0.0, p64, forc64, cfg64)
-    ker, ms64 = timed(lambda: k_rk45.rk45(model64, y64, h64, 0.0, span64, qt64, p64, forc64, cfg64),
-                      reps=3)
-    ref, plain64 = timed(lambda: k_rk45.rk45_plain(model64, y64, h64, 0.0, span64, qt64, p64, forc64,
-                                                   cfg64))
+    ker, (ref, plain64) = ker64, plain.pop("f64")
     err64 = check_rk45(f"phase {T}b B1 {P}default/f64 vs rk45_plain float64 ({n64} "
                        f"systems, first {span64:g} min, rtol 1e-6 / atol 1e-9)", ker, ref, none[:n64])
     att64 = int(ker.stats.n_attempts.sum())
@@ -2204,7 +2303,7 @@ def model_phase(case: ModelCase, smi: str) -> tuple:
                                  check_attempts=att64, check_systems=n64, check_span_min=span64,
                                  solve=walls["f64"],
                                  check_worst_system_attempts=int(ker.stats.n_attempts.max()))
-    del y64, p64, forc64, ker, ref
+    del y64, p64, forc64, ker, ker64, ref
 
     # (d) B2 on every system, from the model's h0.
     span_checks, attempts = {}, None
@@ -2289,7 +2388,7 @@ def model_phase(case: ModelCase, smi: str) -> tuple:
         wide = {}
         b1_checks(case, dtype, lambda opt: dataclasses.replace(cfg_w, **B1_OPTIONS[opt]),
                   (model, y0, params, forc, tf, qt, none), f"{T}e", where, wide,
-                  skip=(case.name("default", dtype),))
+                  skip=(case.name("default", dtype),), pooled=False)
         for inst, rec in wide.items():
             b1[inst]["full_width_check"] = rec
         for opt in B2_OPTIONS:
@@ -2395,8 +2494,221 @@ DUMMY = ModelCase(
     b2_spans=(DUMMY_SPAN,), check=dummy_check, golden=GOLDEN, wide=True)
 
 
+DIST_RANKS = 2  # phase 14b's processes, both on the one card (gloo)
+DIST_TIMEOUT_S = 300.0  # phase 14's processes together
+
+
+def dist_worker(coordinator: str, world: str, rank: str, backend: str, job_path: str,
+                out_path: str) -> None:
+    """A process of phase 14: joins the process group once
+    (dist.init_process), then runs run() on each config document of
+    ``job_path`` (JSON: [[name, document], ...]) in turn, the launch counters
+    set to 0 just before each, and saves each run's wall, routed exchange
+    seconds, stiff and failed counts and launches to ``out_path``."""
+    import torch.distributed as dist
+
+    from tiger_tpu_torch.config import config_from_dict
+    from tiger_tpu_torch.dist import init_process
+    from tiger_tpu_torch.kernels import launch_totals, reset_launch_counts
+    from tiger_tpu_torch.profiling import Metrics
+    from tiger_tpu_torch.run import run
+
+    with open(job_path) as f:
+        job = json.load(f)
+    init_process(coordinator, int(world), int(rank), backend)
+    out = []
+    try:
+        with torch.inference_mode():
+            for name, doc in job:
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                start = time.perf_counter()
+                summary = run(config_from_dict(doc), metrics=Metrics())
+                torch.cuda.synchronize()
+                out.append(dict(name=name, wall=time.perf_counter() - start,
+                                exchange_s=summary.get("routed_exchange_s"),
+                                n_stiff=summary["n_stiff"], n_failed=summary["n_failed"],
+                                launches=launch_totals()))
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def dist_phase(smi: str, model, cfg, inputs: tuple, res5) -> dict:
+    """Phase 14: several processes on the one card; returns each kernel's
+    launches over its runs.
+
+    (a) solve(..., devices=[cuda:0, cuda:0]) on phase 5's last timed inputs
+    (131,072 systems, 2 days): the two halves solve on two streams, in two
+    threads; the merge equals phase 5's one-device result bit for bit
+    (y_final, dense, stiff, failed and every counter).  (b) two rank
+    processes on the card under gloo, each joining its group once and
+    running the shared basin unchunked with routed_exchange ring, again with
+    allgather, in 1-day windows with daily checkpoints (ring), and the
+    unchunked ring once more: the rank files, concatenated, equal a
+    one-process run() of the same config bit for bit (final, dense, state);
+    allgather's discharge equals the one-process discharge bit for bit,
+    ring's lies within routing.ring_error_bound (the summation depths of
+    both orders times float32's 2^-24, at most 1e-5 relative); the second
+    ring run equals the first bit for bit.  (c) beside them, one process
+    with nccl at world size 1: its files equal the one-process run's bit for
+    bit.  Two CUDA contexts time-slice one card, so (b)'s walls are data,
+    not speed.  Any failure ends the other processes."""
+    import os
+    import socket
+    import sys
+    import tempfile
+
+    import numpy as np
+
+    from tiger_tpu_torch import routing, solve
+    from tiger_tpu_torch.config import config_from_dict
+    from tiger_tpu_torch.kernels import launch_totals, reset_launch_counts
+    from tiger_tpu_torch.params import load_spatial_params, split_even
+    from tiger_tpu_torch.profiling import Metrics
+    from tiger_tpu_torch.run import run
+
+    phase_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    y0, params, forc, qt = inputs
+    tf = DAYS * 1440.0
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    start = time.perf_counter()
+    two = solve(model, y0, 0.0, tf, qt, params, forc, cfg, devices=[dev, dev])
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - start
+    launches = launch_totals()
+    same_a = {"y_final": _bit_equal(two.y_final, res5.y_final),
+              "dense": _bit_equal(two.dense, res5.dense),
+              "stiff": bool(torch.equal(two.stiff, res5.stiff)),
+              "failed": bool(torch.equal(two.failed, res5.failed)),
+              "counters": all(bool(torch.equal(a, b)) for a, b in zip(
+                  (*two.rk_stats, *two.radau_stats), (*res5.rk_stats, *res5.radau_stats)))}
+    phase(f"phase 14a solve() over devices [cuda:0, cuda:0] ({MAIN_SYSTEMS} systems, {DAYS:g} "
+          f"days, halves {[sl.stop - sl.start for sl in split_even(MAIN_SYSTEMS, 2)]}): wall "
+          f"{wall_a:.6f} s, n_stiff {two.n_stiff}, launches {launches}; equal to phase 5's "
+          f"one-device solve bit for bit {same_a} | {smi}")
+    check(all(same_a.values()), f"phase 14a: the split solve differs from the one-device one: {same_a}")
+    check(launches["rk45"] == 2 and launches["radau"] == 2,
+          f"phase 14a: each half did not launch B1 and B2 once: {launches}")
+    del two
+
+    outputs = (("final", "outputs"), ("dense", "outputs"), ("state", "outputs"),
+               ("discharge", "discharge"))
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="tiger_dist_") as tmp:
+        def doc(name, **output):
+            d = basin_doc(os.path.join(tmp, name))
+            d["output"].update(output)
+            if name.endswith("windows"):
+                d["time"]["chunk_days"] = 1.0
+                d["output"]["checkpoint_interval"] = "1d"
+            return d
+
+        # The one-process runs, before the card is shared.
+        for name in ("one", "one_windows"):
+            run(config_from_dict(doc(name)), metrics=Metrics())
+        jobs = {"gloo": [("ring", doc("ring")), ("allgather", doc("allgather", routed_exchange="allgather")),
+                         ("windows", doc("windows")), ("ring again", doc("ring_again"))],
+                "nccl": [("nccl", doc("nccl"))]}
+        for backend, job in jobs.items():
+            with open(os.path.join(tmp, f"{backend}.json"), "w") as f:
+                json.dump(job, f)
+
+        def port():
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                return str(sock.getsockname()[1])
+
+        ranks = [("gloo", str(DIST_RANKS), str(r)) for r in range(DIST_RANKS)] + [("nccl", "1", "0")]
+        coord = {"gloo": f"127.0.0.1:{port()}", "nccl": f"127.0.0.1:{port()}"}
+        procs = []
+        start = time.perf_counter()
+        try:
+            for backend, world, rank in ranks:
+                stem = os.path.join(tmp, f"{backend}_{rank}")
+                with open(stem + ".log", "w") as log:
+                    procs.append((subprocess.Popen(
+                        [sys.executable, "-c",
+                         "import sys, chip_smoke; chip_smoke.dist_worker(*sys.argv[1:])",
+                         coord[backend], world, rank, backend, os.path.join(tmp, f"{backend}.json"),
+                         stem + ".out"], cwd=here, stdout=log, stderr=subprocess.STDOUT), stem))
+            for proc, stem in procs:
+                left = DIST_TIMEOUT_S - (time.perf_counter() - start)
+                try:
+                    rc = proc.wait(timeout=max(left, 1.0))
+                except subprocess.TimeoutExpired:
+                    rc = None
+                with open(stem + ".log") as log:
+                    check(rc == 0, f"phase 14: the process {os.path.basename(stem)} "
+                                   f"{'timed out' if rc is None else f'failed ({rc})'}:\n"
+                                   f"{log.read()[-4000:]}")
+        finally:
+            for proc, _ in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall_b = time.perf_counter() - start
+        runs = {}
+        for backend, world, rank in ranks:
+            with open(os.path.join(tmp, f"{backend}_{rank}.out")) as f:
+                for r in json.load(f):
+                    runs.setdefault(r["name"], []).append(r)
+        for rs in runs.values():
+            for r in rs:
+                check(r["n_failed"] == 0, f"phase 14: a run failed links: {r}")
+                for kernel, n in r["launches"].items():
+                    launches[kernel] += n
+
+        ref = {tag: _read_files(os.path.join(tmp, name), outputs)
+               for tag, name in (("whole", "one"), ("windows", "one_windows"))}
+        got = {name: _read_files(os.path.join(tmp, name.replace(" ", "_")), outputs,
+                                 ranks=DIST_RANKS) for name, _ in jobs["gloo"]}
+        got["nccl"] = _read_files(os.path.join(tmp, "nccl"), outputs)
+        sp = load_spatial_params(config_from_dict(doc("one")).params_file)
+        topo = routing.build_topology(sp["stream"], sp["next_stream"])
+        plan = routing.plan_sharded_topology(topo, DIST_RANKS, split_even(MAIN_SYSTEMS, DIST_RANKS))
+        rtol = routing.ring_error_bound(topo, plan, 2.0 ** -24)
+        check(rtol <= 1e-5, f"phase 14b: the ring's bound {rtol:.3e} is above 1e-5")
+        equal, ring_err = {}, {}
+        for name, files in got.items():
+            want = ref["windows" if name == "windows" else "whole"]
+            for key, _ in outputs:
+                if key == "discharge" and name in ("ring", "windows", "ring again"):
+                    a, b = files[key], want[key]
+                    ring_err[name] = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+                    equal[f"{name} {key} within bound"] = bool(
+                        a.shape == b.shape and (np.abs(a - b) <= rtol * np.abs(b)).all())
+                else:
+                    equal[f"{name} {key}"] = bool(files[key].shape == want[key].shape
+                                                  and np.array_equal(files[key], want[key]))
+        equal.update({f"ring again {key} equals ring": bool(np.array_equal(
+            got["ring again"][key], got["ring"][key])) for key, _ in outputs})
+        n_q = int(round(DAYS * 24)) + 1
+        bytes_ring = routing.ring_bytes_per_exchange(plan, n_q, 4)
+        bytes_gather = routing.allgather_bytes_per_exchange(MAIN_SYSTEMS, n_q, 1, DIST_RANKS, 4)
+        per_rank = {name: [dict(wall=round(r["wall"], 6), exchange_s=None if r["exchange_s"] is None
+                                else round(r["exchange_s"], 6), n_stiff=r["n_stiff"])
+                           for r in rs] for name, rs in runs.items()}
+        phase(f"phase 14b {DIST_RANKS} rank processes on one card (gloo) and 14c one nccl process "
+              f"at world size 1 ({MAIN_SYSTEMS} links, {DAYS:g} days; the processes' wall "
+              f"{wall_b:.1f} s, their start included): each rank's wall and routed exchange "
+              f"seconds by run {per_rank} (walls are data: two contexts time-slice the card); "
+              f"bytes an exchange at {n_q} queries: ring {bytes_ring} (rounds' outbox slots "
+              f"{plan.round_slots}), allgather of the runoff {bytes_gather} (of the dense block, "
+              f"as the JAX package gathers: {5 * bytes_gather}); ring discharge's largest "
+              f"relative difference from the one-process run's {ring_err} within the bound "
+              f"{rtol:.3e}; equal {equal} | {smi}")
+        check(all(equal.values()), f"phase 14b-c: files differ: {equal}")
+    check(launches["rk45"] > 0 and launches["radau"] > 0, f"phase 14: a kernel was not launched: {launches}")
+    phase(f"phase 14 took {time.perf_counter() - phase_start:.1f} s, launches {launches}")
+    return launches
+
+
 def plain_worker(job_path: str, out_path: str) -> None:
-    """A process of side_by_side: runs the plain version that ``job_path``
+    """A job of the pool (PlainPool): runs the plain version that ``job_path``
     names (torch.save of {"fn": "module:function", "args": (...), "against":
     None or "module:function"}, its tensors on the card) and saves {"out":
     its result, "ms": its time by CUDA events} to ``out_path``; with
@@ -2408,65 +2720,134 @@ def plain_worker(job_path: str, out_path: str) -> None:
         module, name = path.split(":")
         return getattr(importlib.import_module(module), name)
 
-    job = torch.load(job_path, weights_only=False)
-    out, ms = timed(lambda: load(job["fn"])(*job["args"]))
-    if job["against"]:
-        out = radau_diff(load(job["against"])(*job["args"]), out)
+    with torch.inference_mode():
+        job = torch.load(job_path, weights_only=False)
+        out, ms = timed(lambda: load(job["fn"])(*job["args"]))
+        if job["against"]:
+            out = radau_diff(load(job["against"])(*job["args"]), out)
     torch.save({"out": out, "ms": ms}, out_path)
+    del job, out
+    torch.cuda.empty_cache()  # a pool's process keeps no GBs of one job for the next
 
 
-def side_by_side(jobs: dict, workers: int) -> dict:
-    """Runs each job of ``jobs`` (name: ("module:function", args, against),
-    the args' tensors on the card; plain_worker) in a Python process of its
-    own, ``workers`` at a time, in the order given (the next starts when
-    one ends); returns {name: (result, ms)}, the results on the card.  The
-    plain versions are host-bound (a few thousand small launches an
-    attempt, each paid in Python), so they run side by side only in
-    processes: worker threads of one process wait on each other for the
-    GIL (PERF.md §6).  Each process reaches the card in ~10 s; a process
-    that fails fails the run, with its output, and the others are ended."""
-    import os
-    import subprocess
-    import sys
-    import tempfile
+class PlainPool:
+    """SIDE_BY_SIDE worker processes that run plain versions side by side
+    (plain_worker), started once, at the script's start, while the kernels
+    build, so that no check pays a process's ~10 s to reach the card.  The
+    plain versions are host-bound (thousands of small launches, each paid
+    in Python), so they run side by side only in processes: worker threads
+    of one process wait on each other for the GIL (PERF.md §6).  The main
+    process launches nothing while the pool runs (``run`` waits), so the
+    kernels' times are taken on an idle card."""
 
-    here = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory(prefix="tiger_plain_") as tmp:
+    def __init__(self, workers: int):
+        import os
+        import sys
+        import tempfile
+
+        self.tmp = tempfile.mkdtemp(prefix="tiger_plain_")
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.procs = []
+        for i in range(workers):
+            with open(os.path.join(self.tmp, f"worker{i}.log"), "w") as log:
+                self.procs.append((subprocess.Popen(
+                    [sys.executable, "-c", "import chip_smoke; chip_smoke.pool_worker()"], cwd=here,
+                    stdin=subprocess.PIPE, stdout=log, stderr=subprocess.STDOUT, text=True),
+                    log.name))
+        self.jobs = 0
+
+    def run(self, jobs: dict) -> dict:
+        """Runs each job of ``jobs`` (name: ("module:function", args,
+        against), the args' tensors on the card; plain_worker) in the
+        order given, the next on the first process free; returns {name:
+        (result, ms)}, the results on the card.  A job that fails fails the
+        run, with its traceback."""
+        import os
+
         pending, running, results = list(jobs.items()), {}, {}
-        try:
-            while pending or running:
-                while pending and len(running) < workers:
+        while pending or running:
+            for proc, _ in self.procs:
+                if pending and proc not in running:
                     name, (fn, args, against) = pending.pop(0)
-                    stem = os.path.join(tmp, str(len(results) + len(running)))
+                    stem = os.path.join(self.tmp, str(self.jobs))
+                    self.jobs += 1
                     torch.save({"fn": fn, "args": args, "against": against}, stem + ".job")
-                    with open(stem + ".log", "w") as log:
-                        proc = subprocess.Popen(
-                            [sys.executable, "-c",
-                             "import sys, chip_smoke; chip_smoke.plain_worker(*sys.argv[1:])",
-                             stem + ".job", stem + ".out"], cwd=here, stdout=log,
-                            stderr=subprocess.STDOUT)
-                    running[name] = (proc, stem)
-                time.sleep(0.05)
-                for name, (proc, stem) in list(running.items()):
-                    if proc.poll() is None:
-                        continue
-                    del running[name]
-                    with open(stem + ".log") as log:
-                        check(proc.returncode == 0,
-                              f"the plain check {name} failed in its process:\n{log.read()[-4000:]}")
+                    proc.stdin.write(stem + "\n")
+                    proc.stdin.flush()
+                    running[proc] = (name, stem)
+            time.sleep(0.02)
+            for proc, log in self.procs:
+                if proc not in running:
+                    continue
+                name, stem = running[proc]
+                if os.path.exists(stem + ".done"):
+                    with open(stem + ".done") as f:
+                        answer = f.read()
+                    check(answer == "ok", f"the plain check {name} failed in its process:\n{answer}")
                     got = torch.load(stem + ".out", weights_only=False)
+                    for ext in (".job", ".out", ".done"):
+                        os.remove(stem + ext)
                     results[name] = (got["out"], got["ms"])
-        finally:  # after a failure: end the others before their folder goes
-            for proc, _ in running.values():
-                proc.terminate()
-            for proc, _ in running.values():
+                    del running[proc]
+                elif proc.poll() is not None:
+                    with open(log) as f:
+                        check(False, f"the pool's process running {name} ended ({proc.returncode}):"
+                                     f"\n{f.read()[-4000:]}")
+        return results
+
+    def close(self) -> None:
+        import shutil
+
+        for proc, _ in self.procs:
+            if proc.poll() is None:
+                proc.kill()
                 proc.wait()
-    return results
+        shutil.rmtree(self.tmp, ignore_errors=True)
 
 
-def plain_span_checks(smi: str, checks: dict) -> None:
+def pool_worker() -> None:
+    """A PlainPool process: reaches the card, then runs plain_worker on each
+    stem read from stdin (its .job into its .out) and writes "ok", or the
+    error's traceback, into its .done."""
+    import os
+    import sys
+    import traceback
+
+    torch.ones(1, device="cuda")
+    for line in sys.stdin:
+        stem = line.strip()
+        try:
+            plain_worker(stem + ".job", stem + ".out")
+            answer = "ok"
+        except Exception:  # reported to the main process, which fails the run
+            answer = traceback.format_exc()
+        with open(stem + ".tmp", "w") as f:
+            f.write(answer)
+        os.replace(stem + ".tmp", stem + ".done")
+
+
+#: The pool of main's run (PlainPool); None outside it.
+POOL: PlainPool | None = None
+
+
+def side_by_side(jobs: dict, inline: bool = False) -> dict:
+    """Runs ``jobs`` on the pool: {name: (result, ms)} (PlainPool.run);
+    ``inline``: one after another in this process instead (results of GBs,
+    which would cross to the pool and back through files)."""
+    if not inline:
+        return POOL.run(jobs)
+    import importlib
+
+    def load(path):
+        module, name = path.split(":")
+        return getattr(importlib.import_module(module), name)
+
+    return {name: timed(lambda: load(fn)(*args)) for name, (fn, args, _) in jobs.items()}
+
+
+def plain_span_checks(smi: str, checks: dict) -> float:
     """The plain Radau checks that would take minutes, side by side
-    (side_by_side: a process each, SIDE_BY_SIDE at a time): phase 6's over
+    (side_by_side: the pool's SIDE_BY_SIDE processes): phase 6's over
     its full 2 days, 13d's and 13e's over their whole 5 minutes, and the
     others over one leading span, the longest of F64_SPANS whose predicted
     time keeps the script inside F64_BUDGET_S (or, where none does, the
@@ -2480,9 +2861,10 @@ def plain_span_checks(smi: str, checks: dict) -> None:
     theirs), and 13e's (every B2 Dummy instance on all 131,072 systems,
     compared in its process).  The prediction takes PLAIN_RADAU_MS an attempt of
     each check's worst system, SIDE_BY_SIDE_SLOWER times as long side by
-    side as alone, and PROCESS_START_S for the processes to reach the card:
-    the longest check or the sum over SIDE_BY_SIDE, whichever is longer.
-    Each check records the plain ms an attempt it measured, side by side."""
+    side as alone, and PROCESS_START_S to hand the jobs over: the longest
+    check or the sum over SIDE_BY_SIDE, whichever is longer.  Each check
+    records the plain ms an attempt it measured, side by side.  Returns the
+    wall of the checks."""
     left_s = F64_BUDGET_S - (time.perf_counter() - _T0)
 
     def at(c, span):  # the span a check takes when the shared span is ``span``
@@ -2510,7 +2892,7 @@ def plain_span_checks(smi: str, checks: dict) -> None:
     torch.cuda.empty_cache()  # the processes' room on the card
     # Longest first, so that the last to start are the shortest.
     order = sorted(checks, key=lambda k: -alone(checks[k], span))
-    plain = side_by_side({k: checks[k].plain(at(checks[k], span)) for k in order}, SIDE_BY_SIDE)
+    plain = side_by_side({k: checks[k].plain(at(checks[k], span)) for k in order})
     wall = time.perf_counter() - start
     plain_s = 0.0
     for key, c in checks.items():
@@ -2526,11 +2908,14 @@ def plain_span_checks(smi: str, checks: dict) -> None:
               f"system, side by side), max_abs_err {err:.3e} | {smi}")
     phase(f"phase 6/9b/10b/11/12/13 plain checks side by side: wall {wall:.1f} s (the processes' "
           f"start included) for {plain_s:.1f} s of plain runs, shared span {span:g} min | {smi}")
+    return wall
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
+    global POOL
+    POOL = PlainPool(SIDE_BY_SIDE)  # its processes reach the card while the kernels build
 
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2719,9 +3104,18 @@ def main() -> None:
     for kernel in ("rk45", "radau"):
         instances[kernel].update(m200[kernel])
         instances[kernel].update(dummy[kernel])
-    plain_span_checks(smi, {"6": check_6, "9b": check_c, "10b": check_b,
-                            **{f"11 {name}": c for name, c in checks_2.items()}, **checks_12,
-                            **checks_13})
+
+    # 14. several processes: solve() over two devices, two rank processes
+    # of the CLI on the card (gloo), one nccl process (its own launch counts)
+    dist_launches = dist_phase(smi, model, cfg, (y0 + 3 * 1e-7, params, forc, qt), res)
+
+    end_wall = plain_span_checks(smi, {"6": check_6, "9b": check_c, "10b": check_b,
+                                       **{f"11 {name}": c for name, c in checks_2.items()},
+                                       **checks_12, **checks_13})
+    total = time.perf_counter() - _T0
+    phase(f"fixed part {total - end_wall:.1f} s: the script's {total:.1f} s less the end's side-by-side "
+          f"wall {end_wall:.1f} s; phase 6's rk45_plain took {plain_b1 * 1e-3:.1f} s (how fast this host "
+          f"is) | {smi}")
 
     say(json.dumps({"kernels": [
         {"name": "rk45", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/rk45.cu",
@@ -2731,14 +3125,15 @@ def main() -> None:
          "tail_systems": TAIL_SYSTEMS, "tail_ms": tail_b1, "lane_efficiency": lane_eff,
          "geometry": geo, "cli_launches": cli_launches["rk45"],
          "windowed_launches": windowed_launches["rk45"], "cli_pi_launches": cli_pi_launches["rk45"],
-         "instances": instances["rk45"]},
+         "dist_launches": dist_launches["rk45"], "instances": instances["rk45"]},
         {"name": "radau", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/radau.cu",
          "replaces": "tiger_tpu/kernels/radau_pallas.py:987", "launches": launches["radau"],
          "max_abs_err": b2_rec["max_abs_err"], "ms": ms_b2, "plain_ms": b2_rec["plain_ms"],
          "plain_measured_side_by_side": SIDE_BY_SIDE, "bound_ms": bound_b2[0],
          "bound_by": bound_b2[1], "library_ms": None, "worst_system_attempts": worst_b2,
          "sweeps_per_attempt": swp_b2 / att_b2, "cli_launches": cli_launches["radau"],
-         "windowed_launches": windowed_launches["radau"], "instances": instances["radau"],
+         "windowed_launches": windowed_launches["radau"], "dist_launches": dist_launches["radau"],
+         "instances": instances["radau"],
          "retry": retry, "model200_solve": m200["solve"], "model200_libm": libm,
          "dummy_solve": dummy["solve"]},
     ]}))
@@ -2747,4 +3142,15 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        # No autograd anywhere: inference mode spares every op its
+        # bookkeeping (the plain versions are thousands of small ops).
+        with torch.inference_mode():
+            main()
+    finally:
+        if POOL is not None:
+            POOL.close()
+        if "folder" in _BASIN:
+            import shutil
+
+            shutil.rmtree(_BASIN["folder"], ignore_errors=True)

@@ -206,11 +206,6 @@ def test_states_subset_and_csv_format(scenario, tmp_path):
     assert a.shape == (49, 1 + 2 * scenario["n_sys"])
 
 
-def _refused(scenario, tmp_path, **changes):
-    _, cfg = _configs(scenario, tmp_path, **changes)
-    return lambda: run(cfg, device="cpu")
-
-
 # The solver options the port runs (they were refused before it had them):
 # compensated float32 at the reference's tolerances, and the PI controller.
 SOLVER_OPTIONS = {
@@ -259,23 +254,19 @@ F64_ON_THE_CARD = {
 @pytest.mark.parametrize("case", sorted(F64_ON_THE_CARD))
 def test_f64_on_the_card_is_not_refused(scenario, tmp_path, case):
     """solver.precision f64, the default, passes the port's refusals with
-    either controller, as float32 does (``_refuse_unported`` refuses
-    nothing by device: the card runs every option set in float64 as the CPU
-    does)."""
-    from tiger_tpu_torch.run import _refuse_unported
+    either controller, as float32 does (``solver.config.require_supported``
+    refuses nothing by device: the card runs every option set in float64 as
+    the CPU does)."""
+    from tiger_tpu_torch.solver.config import require_supported
 
     _, cfg = _configs(scenario, tmp_path, **F64_ON_THE_CARD[case])
     assert cfg.solver.precision == "f64"
     assert cfg.solver_config().controller == ("pi" if case == "f64_pi" else "i")
-    _refuse_unported(cfg)
+    for phase in ("rk45", "radau"):
+        require_supported(cfg.solver_config(), phase)
     cfg.solver.precision = "f32"
-    _refuse_unported(cfg)
-
-
-def test_several_processes_raise(scenario, tmp_path, monkeypatch):
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #16"):
-        _refused(scenario, tmp_path)()
+    for phase in ("rk45", "radau"):
+        require_supported(cfg.solver_config(), phase)
 
 
 def test_written_basin_runs_like_jax(tmp_path):

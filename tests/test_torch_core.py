@@ -113,7 +113,9 @@ def test_import_without_jax():
         import tiger_tpu_torch.run, tiger_tpu_torch.chunked, tiger_tpu_torch.streams
         import tiger_tpu_torch.diagnostics, tiger_tpu_torch.models.et
         import tiger_tpu_torch.models.soiltemp, tiger_tpu_torch.models.model200
-        import tiger_tpu_torch.kernels.libm
+        import tiger_tpu_torch.kernels.libm, tiger_tpu_torch.dist, tiger_tpu_torch.elementwise
+        from tiger_tpu_torch.routing import exchange_sharded, plan_sharded_topology
+        from tiger_tpu_torch.solver.api import solve_on_devices
         loaded = [m for m in sys.modules if sys.modules[m] is not None]
         assert not any(m == "jax" or m.startswith(("jax.", "tiger_tpu.")) for m in loaded)
         # Reading a config document and the files needs neither PyYAML nor h5py.

@@ -74,6 +74,7 @@ def solve_chunked(
     params: Optional[dict] = None,
     config: SolverConfig = SolverConfig(),
     topology=None,
+    routed_fn=None,
     dense_sink=None,
     state_sink=None,
     metrics=None,
@@ -87,7 +88,10 @@ def solve_chunked(
 
     With ``topology`` (a routing.Topology) each window's routed discharge is
     computed right after its solve; returns (SolveResult, routed [S, Q]),
-    else the SolveResult.
+    else the SolveResult.  ``routed_fn(dense_w) -> [S, Q_w]``, when given,
+    routes each window in place of the topology's routing (several
+    processes: ``run._make_cross_rank_routed``, whose collectives every rank
+    reaches once a window, in window order); the return is the same pair.
 
     ``dense_sink(q0, qt_abs, dense_w, routed_w)``, when given, receives each
     window's dense block (and routed block, or None) instead of keeping it
@@ -224,7 +228,9 @@ def solve_chunked(
                 rk_stats, res.rk_stats,
             )
             routed_w = None
-            if qt is not None and topology is not None:
+            if qt is not None and routed_fn is not None:
+                routed_w = routed_fn(res.dense)
+            elif qt is not None and topology is not None:
                 from tiger_tpu_torch.routing import routed_discharge
 
                 routed_w = routed_discharge(res.dense, params, topology)
@@ -281,7 +287,7 @@ def solve_chunked(
         radau_stats=None,
         n_stiff=n_stiff_total,
     )
-    if topology is not None:
+    if topology is not None or routed_fn is not None:
         routed = (
             torch.cat(all_routed, dim=1)
             if all_routed

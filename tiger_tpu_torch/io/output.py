@@ -494,7 +494,9 @@ def write_dense_csv(
     state, system-major."""
     dense = _to_host(dense)
     s_count, n_q, n_eq = dense.shape
-    fmt = "{:.9g}".format
+    # One %-format of a row's values: the text of "{:.9g}".format of each,
+    # in C rather than one Python call a value.
+    row_fmt = ",%.9g" * (s_count * n_eq) + "\n"
     with open(path, "w") as f:
         cols = ["time"] + [
             f"{var_prefix}{i}_sys{s}" for s in range(s_count) for i in range(n_eq)
@@ -503,6 +505,4 @@ def write_dense_csv(
         for q in range(n_q):
             # tolist() gives Python floats of the same values, formatted as
             # numpy's scalars format themselves.
-            parts = [f"{query_times[q]:.8f}"]
-            parts.extend(map(fmt, dense[:, q, :].ravel().tolist()))
-            f.write(",".join(parts) + "\n")
+            f.write(f"{query_times[q]:.8f}" + row_fmt % tuple(dense[:, q, :].ravel().tolist()))

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import numpy as np
 import torch
@@ -176,6 +177,11 @@ def data_ptr(x: torch.Tensor | None) -> int:
 _NO_INSTANCE = -1
 
 
+#: Held while a wrapper adds to its launch count: solve(devices=...) runs its
+#: parts in threads.
+COUNT_LOCK = threading.Lock()
+
+
 def launch(fn_name: str, size_name: str, args: ctypes.Structure, f64: bool, device,
            options: str) -> None:
     """Enqueue a kernel on the device's current stream; raise if refused.
@@ -221,27 +227,47 @@ def fill_dense(dense, qt, t, t1, mask, h_eff, y, coeffs) -> None:
     systems.  ``coeffs()`` gives the theta-monomial coefficients, 3 or 4
     tensors [N, S]; it is called only if some system has a query to fill.
     Each system writes its own queries, as the kernels' per-system cursor
-    does."""
+    does.  Each value is the same elementwise arithmetic whichever way it
+    is computed: query by query when a system fills at most
+    ``_FILL_LOOP_MAX`` queries, else every (query, system) pair at once."""
     if qt is None or qt.shape[0] == 0:
         return
     lo = torch.searchsorted(qt, t.contiguous(), right=True)
     hi = torch.searchsorted(qt, t1.contiguous(), right=True)
     count = torch.where(mask, hi - lo, torch.zeros_like(lo))
-    n_fill = int(count.max())
+    n_fill, total = torch.stack([count.max(), count.sum()]).tolist()  # the one host sync
     if n_fill == 0:
         return
     qm = coeffs()
+
+    def interpolate(theta, q_m, y_s, h_s):
+        th2 = theta * theta
+        poly = q_m[0] * theta + q_m[1] * th2 + q_m[2] * th2 * theta
+        if len(q_m) > 3:
+            poly = poly + q_m[3] * th2 * th2
+        return y_s + h_s * poly
+
+    if n_fill > _FILL_LOOP_MAX:
+        cols = torch.repeat_interleave(torch.arange(t.shape[0], device=t.device), count,
+                                       output_size=total)
+        first = torch.cumsum(count, 0) - count
+        qi = lo[cols] + (torch.arange(total, device=t.device) - first[cols])
+        h_s = h_eff[cols]
+        yd = interpolate((qt[qi] - t[cols]) / h_s, [m[:, cols] for m in qm], y[:, cols], h_s)
+        dense[qi, :, cols] = yd.t()
+        return
     cols = torch.arange(t.shape[0], device=t.device)
     for j in range(n_fill):
         pred = j < count
         qi = torch.clamp(lo + j, max=qt.shape[0] - 1)
         theta = torch.where(pred, (qt[qi] - t) / h_eff, torch.zeros_like(t))
-        th2 = theta * theta
-        poly = qm[0] * theta + qm[1] * th2 + qm[2] * th2 * theta
-        if len(qm) > 3:
-            poly = poly + qm[3] * th2 * th2
-        yd = y + h_eff * poly
+        yd = interpolate(theta, qm, y, h_eff)
         dense[qi, :, cols] = torch.where(pred[:, None], yd.t(), dense[qi, :, cols])
+
+
+#: fill_dense's loop bound: one query costs it ~15 tensor ops a pass, all
+#: pairs at once ~30.
+_FILL_LOOP_MAX = 2
 
 
 def finish(y, t, tf, dense):

@@ -17,9 +17,11 @@ import ctypes
 import numpy as np
 import torch
 
+from tiger_tpu_torch import elementwise
 from tiger_tpu_torch.forcing import ZOH_SNAP, ForcingSet, gather_forcings_column, zoh_step_cap
 from tiger_tpu_torch.kernels._common import (
     C_REAL,
+    COUNT_LOCK,
     FORCING_META,
     N_EQ,
     c_i32,
@@ -215,7 +217,8 @@ def _radau_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -
     launch("tt_radau_launch", "tt_radau_args_size", a, f64, dev,
            f"radau_error_mode={cfg.radau_error_mode!r}, radau_predictor={cfg.radau_predictor} "
            f"({type(model).__name__})")
-    radau_launches[instance_name(cfg, dtype, prefix)] += 1
+    with COUNT_LOCK:
+        radau_launches[instance_name(cfg, dtype, prefix)] += 1
     return RadauResult(
         y_final=y_final.t().contiguous(),
         dense=dense.permute(2, 0, 1).contiguous(),
@@ -462,7 +465,7 @@ def radau_plain(
                 2.0 * cfg.newton_max_iter + sweeps.to(dtype))
         else:
             safety = cfg.safety
-        raw_fac = safety * (1.0 / (err + 1e-16)) ** expo
+        raw_fac = safety * elementwise.pow(1.0 / (err + 1e-16), expo)
         fac_acc = torch.clamp(raw_fac, cfg.min_scale, cfg.max_scale)
         fac_rej = torch.where(
             torch.isnan(raw_fac), zero + cfg.nan_shrink, torch.clamp_max(raw_fac, 1.0)

@@ -21,6 +21,7 @@ import ctypes
 
 import torch
 
+from tiger_tpu_torch import elementwise
 from tiger_tpu_torch.forcing import (
     ZOH_SNAP,
     ForcingSet,
@@ -31,6 +32,7 @@ from tiger_tpu_torch.forcing import (
 from tiger_tpu_torch.kernels import _build
 from tiger_tpu_torch.kernels._common import (
     C_REAL,
+    COUNT_LOCK,
     FORCING_META,
     N_EQ,
     c_i32,
@@ -193,7 +195,8 @@ def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) ->
     launch("tt_rk45_launch", "tt_rk45_args_size", a, f64, dev,
            f"fsal={cfg.fsal}, compensated={cfg.compensated}, controller={cfg.controller!r} "
            f"({type(model).__name__})")
-    rk45_launches[instance_name(options, dtype, prefix)] += 1
+    with COUNT_LOCK:
+        rk45_launches[instance_name(options, dtype, prefix)] += 1
     return RK45Result(
         y_final=y_final.t().contiguous(),
         dense=dense.permute(2, 0, 1).contiguous(),
@@ -378,12 +381,12 @@ def rk45_plain(
 
         fill_dense(dense, qt, t, t1, advance, h_eff, y, qm_coeffs)
 
-        base_fac = cfg.safety * (1.0 / (err + 1e-16)) ** expo
+        base_fac = cfg.safety * elementwise.pow(1.0 / (err + 1e-16), expo)
         if pi:
             # Lund-stabilised PI (rk45_pallas.py l.623-640): an advance is
             # credited with the last committed error; a rejection uses the
             # plain factor; clamped landings leave facold alone.
-            raw_fac = base_fac * facold ** cfg.pi_beta
+            raw_fac = base_fac * elementwise.pow(facold, cfg.pi_beta)
             facold = torch.where(advance & ~clamp, torch.clamp_min(err, 1e-4), facold)
         else:
             raw_fac = base_fac

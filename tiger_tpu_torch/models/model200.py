@@ -18,6 +18,7 @@ import dataclasses
 
 import torch
 
+from tiger_tpu_torch import elementwise
 from tiger_tpu_torch.models.et import DAY_OF_MIN, RAD, et_actual, hamon_pet
 from tiger_tpu_torch.models.model204 import Model204, _pow23
 
@@ -74,7 +75,7 @@ class Model200:
         if self.safe_pow:
             pow23 = _pow23(torch.maximum(h_surf, zero))
         else:
-            pow23 = torch.pow(h_surf, 2.0 / 3.0)
+            pow23 = elementwise.pow(h_surf, 2.0 / 3.0)
         one = zero + 1.0
         if "_manning_c" in P:
             w = torch.minimum(one, pow23 * P["_manning_c"])

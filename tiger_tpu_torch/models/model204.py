@@ -13,6 +13,8 @@ import dataclasses
 
 import torch
 
+from tiger_tpu_torch import elementwise
+
 
 def _pow23(x: torch.Tensor) -> torch.Tensor:
     """x**(2/3) for clamped x >= 0 as exp2((2/3)*log2(max(x, 1e-30))).
@@ -21,7 +23,7 @@ def _pow23(x: torch.Tensor) -> torch.Tensor:
     not ``pow``: the two differ by ~1e-6 relative in float32.
     """
     xc = torch.clamp_min(x, 1e-30)
-    return torch.exp2((2.0 / 3.0) * torch.log2(xc))
+    return elementwise.exp2((2.0 / 3.0) * torch.log2(xc))
 
 
 #: Parameter keys of the per-system params dict, in the order the CUDA
@@ -98,7 +100,7 @@ class Model204:
         if self.safe_pow:
             pow23 = _pow23(torch.maximum(h_surf, zero))
         else:
-            pow23 = torch.pow(h_surf, 2.0 / 3.0)  # NaN for h < 0, like CUDA pow
+            pow23 = elementwise.pow(h_surf, 2.0 / 3.0)  # NaN for h < 0, like CUDA pow
         one = zero + 1.0
         if "_manning_c" in P:
             w = torch.minimum(one, pow23 * P["_manning_c"])

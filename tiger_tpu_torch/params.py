@@ -191,3 +191,20 @@ def slice_rows(params: SpatialParams, idx) -> SpatialParams:
 def model_params(params: SpatialParams) -> Dict[str, np.ndarray]:
     """The float fields the model RHS consumes (drops the id columns)."""
     return {k: params[k] for k in FLOAT_FIELDS}
+
+
+def split_even(n_rows: int, n_shards: int) -> list:
+    """Even row split with the remainder spread over the first shards.
+
+    Port of ``tiger_tpu/params.py::split_even``, the reference's MPI rank-0
+    scatter arithmetic (main.cpp:269-308): each process or device slices its
+    own rows.
+    """
+    base, rem = divmod(n_rows, n_shards)
+    out = []
+    start = 0
+    for r in range(n_shards):
+        size = base + (1 if r < rem else 0)
+        out.append(slice(start, start + size))
+        start += size
+    return out

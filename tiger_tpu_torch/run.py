@@ -1,9 +1,12 @@
-"""The CLI run: config -> load -> solve -> write, on one device.
+"""The CLI run: config -> load -> solve -> write, on one device a process.
 
-Port of the single-process run of ``tiger_tpu/run.py``:
+Port of ``tiger_tpu/run.py``:
 
     python -m tiger_tpu_torch.run --config sim.yaml          # on the card
     python -m tiger_tpu_torch.run --config sim.yaml --cpu    # plain versions
+    # rank k of N processes (one line each; torchrun's environment also works)
+    python -m tiger_tpu_torch.run --config sim.yaml --distributed \\
+        --coordinator host:port --num-processes N --process-id k --dist-backend gloo
 
 It reads the YAML config, the per-link parameter CSV, the lookup CSV and the
 gridded NetCDF forcings; runs the two-phase solve (kernels B1 and B2 on the
@@ -19,9 +22,15 @@ Every ``solver.precision`` runs on the card and on the CPU, with every
 solver option: ``f64``, the default, through the kernels' double
 instances, ``f32`` and ``f32c`` (compensated float32) through their float
 ones, and on the card a float32 run retries the systems its Radau phase
-fails in float64 (``solver.api.solve``).  What the port does not carry yet
-raises NotImplementedError naming its ROADMAP item (``_refuse_unported``),
-before any file is read: several processes.
+fails in float64 (``solver.api.solve``).
+
+With several processes (``dist.py``) each rank loads the whole parameter
+table, keeps its own rows (``dist.shard_rows_for_process``), reads and
+remaps only its own links' forcings, solves them on its device (stiff rows
+included), and writes ``final_/dense_/discharge_/state_{prefix}_rank_{k}``
+files: concatenated in rank order they are a one-process run's.  ``{rank}``
+in ``initial.file`` names each rank's own state file.  Routed discharge
+needs the links upstream on other ranks (``_make_cross_rank_routed``).
 """
 
 from __future__ import annotations
@@ -41,25 +50,6 @@ COLD_STATE_DEFAULTS = {
     204: (0.01, 3.0, 0.0, 5.0, 0.2),
     1: (1.0, 1.0, 1.0, 1.0, 1.0),
 }
-
-
-def _world_size() -> int:
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", "1"))
-
-
-def _refuse_unported(cfg) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for every part of
-    the JAX package's run that this port does not carry yet (none depends
-    on the device: every solver option runs on the card and on the CPU, in
-    every precision)."""
-    if _world_size() > 1:
-        raise NotImplementedError(
-            "more than one process, and routed_exchange across ranks, wait for dist.py, "
-            "ROADMAP Queue 1 #16")
 
 
 def _forcing_specs(cfg):
@@ -92,12 +82,15 @@ def run(cfg, device=None, metrics=None) -> dict:
     """Execute one simulation described by a SimulationConfig; returns the
     summary (the keys of the JAX package's ``run``).
 
-    ``device=None`` runs on the card ("cuda"); ``device="cpu"`` runs the
-    kernels' plain versions.
+    ``device=None`` runs on this process's card
+    (``dist.device_for_process``); ``device="cpu"`` runs the kernels' plain
+    versions.  In a process group, each rank runs its own rows.
     """
     from tiger_tpu_torch import checkpoint as ckpt
     from tiger_tpu_torch import params as params_mod
     from tiger_tpu_torch.config import parse_interval_minutes
+    from tiger_tpu_torch.dist import (device_for_process, process_count, process_index,
+                                      shard_rows_for_process)
     from tiger_tpu_torch.forcing import load_forcings
     from tiger_tpu_torch.io import (
         write_dense_csv,
@@ -110,8 +103,7 @@ def run(cfg, device=None, metrics=None) -> dict:
     from tiger_tpu_torch.profiling import Metrics
     from tiger_tpu_torch.solver import solve
 
-    device = torch.device("cuda" if device is None else device)
-    _refuse_unported(cfg)
+    device = device_for_process() if device is None else torch.device(device)
     dtype = torch.float64 if cfg.solver.precision == "f64" else torch.float32
 
     metrics = metrics or Metrics()
@@ -120,9 +112,11 @@ def run(cfg, device=None, metrics=None) -> dict:
     doy0 = float(cfg.time.start.timetuple().tm_yday)
     model = get_model(cfg.model.uid, doy0=doy0)
 
-    # ---- spatial parameters --------------------------------------------
+    # ---- spatial parameters: this process's rows -----------------------
     with metrics.phase("load_params"):
-        sp = params_mod.load_spatial_params(cfg.params_file, columns=cfg.params_columns)
+        sp_full = params_mod.load_spatial_params(cfg.params_file, columns=cfg.params_columns)
+        rows = shard_rows_for_process(params_mod.num_systems(sp_full))
+        sp = params_mod.slice_rows(sp_full, rows)
         n_sys = params_mod.num_systems(sp)
         link_ids = sp["stream"]
         model_params = {
@@ -156,8 +150,8 @@ def run(cfg, device=None, metrics=None) -> dict:
     resume_t = None
     with metrics.phase("init_state"):
         if cfg.initial.mode == "hot":
-            # {rank} templating of multi-process runs: one process is rank 0.
-            state_file = cfg.initial.file.replace("{rank}", "0")
+            # {rank} templating: each rank resumes from its own state file.
+            state_file = cfg.initial.file.replace("{rank}", str(process_index()))
             y0, _, t_ckpt = ckpt.load_state(
                 state_file, link_ids, require_time=cfg.initial.resume
             )
@@ -185,9 +179,12 @@ def run(cfg, device=None, metrics=None) -> dict:
             y0 = ckpt.cold_state(cold, n_sys)
         y0 = torch.as_tensor(y0, device=device).to(dtype)
 
+    routed_fn = None
+    if cfg.output.routed_discharge and process_count() > 1:
+        routed_fn = _make_cross_rank_routed(cfg, sp_full, model_params, device, metrics)
     if chunked:
         return _run_chunked(cfg, model, y0, t0, tf, query_times, model_params, specs,
-                            sp, metrics, dtype, device, resume_t)
+                            sp, metrics, dtype, device, resume_t, routed_fn)
 
     # ---- solve ----------------------------------------------------------
     t_solve = time.perf_counter()
@@ -217,19 +214,20 @@ def run(cfg, device=None, metrics=None) -> dict:
         y_final = y_final[:, state_ids]
         dense = dense[:, :, torch.as_tensor(state_ids, dtype=torch.int64, device=device)]
 
-    # ---- write outputs (the per-rank file names of one process) --------
+    # ---- write outputs (this rank's files) ------------------------------
+    rank = process_index()
     prefix = cfg.output.prefix
     outdir = cfg.output.path
     os.makedirs(outdir, exist_ok=True)
     with metrics.phase("write_output"):
         if cfg.output.format == "csv":
-            final_path = os.path.join(outdir, f"final_{prefix}_rank_0.csv")
-            dense_path = os.path.join(outdir, f"dense_{prefix}_rank_0.csv")
+            final_path = os.path.join(outdir, f"final_{prefix}_rank_{rank}.csv")
+            dense_path = os.path.join(outdir, f"dense_{prefix}_rank_{rank}.csv")
             write_final_csv(final_path, y_final)
             write_dense_csv(dense_path, dense, query_times)
         else:
-            final_path = os.path.join(outdir, f"final_{prefix}_rank_0.nc")
-            dense_path = os.path.join(outdir, f"dense_{prefix}_rank_0.nc")
+            final_path = os.path.join(outdir, f"final_{prefix}_rank_{rank}.nc")
+            dense_path = os.path.join(outdir, f"dense_{prefix}_rank_{rank}.nc")
             out_dtype = {None: None, "f32": np.float32, "f64": np.float64,
                          "i16": None}[cfg.output.precision]
             write_final_netcdf(
@@ -254,9 +252,12 @@ def run(cfg, device=None, metrics=None) -> dict:
             from tiger_tpu_torch.io.netcdf import open_writer
             from tiger_tpu_torch.io.output import _def_output_dims
 
-            topo = routing.build_topology(sp["stream"], sp["next_stream"])
-            q_routed = routing.routed_discharge(res.dense, model_params, topo)
-            discharge_path = os.path.join(outdir, f"discharge_{prefix}_rank_0.nc")
+            if routed_fn is not None:
+                q_routed = routed_fn(res.dense)
+            else:
+                topo = routing.build_topology(sp["stream"], sp["next_stream"])
+                q_routed = routing.routed_discharge(res.dense, model_params, topo)
+            discharge_path = os.path.join(outdir, f"discharge_{prefix}_rank_{rank}.nc")
             with open_writer(discharge_path) as w:
                 _def_output_dims(w, link_ids, query_times)
                 w.def_var(
@@ -267,7 +268,7 @@ def run(cfg, device=None, metrics=None) -> dict:
                 )
 
         # Checkpoint for hot restart of the next run.
-        state_path = os.path.join(outdir, f"state_{prefix}_rank_0.nc")
+        state_path = os.path.join(outdir, f"state_{prefix}_rank_{rank}.nc")
         ckpt.save_state(state_path, res.y_final, link_ids, tf)
 
     return {
@@ -281,8 +282,79 @@ def run(cfg, device=None, metrics=None) -> dict:
     }
 
 
+def _make_cross_rank_routed(cfg, sp_full, model_params, device, metrics):
+    """Dense -> routed discharge of this rank's links over the whole basin
+    (``model_params``: this rank's, as the solve takes them).
+
+    Downstream links cross rank boundaries, so a topology of the rank's own
+    rows would drop what flows in from the others.  Each rank computes its
+    own links' runoff [S_local, Q] (``routing.link_runoff_204``, row by
+    row); then, by ``output.routed_exchange``:
+
+    - ``ring``: ``routing.exchange_sharded`` over a plan of the whole
+      topology split as the ranks' rows are: only each round's outbox
+      travels, rank to rank.  Its sums run in another order than the
+      one-process routing's, so it agrees with it to rounding.
+    - ``allgather``, the oracle: every rank gathers every rank's runoff
+      (``all_gather``) and accumulates the whole basin as one process does
+      (``routing.accumulate_downstream_log``), keeping its own rows: its
+      discharge equals the one-process run's bit for bit.  The JAX package
+      gathers the dense block [S_local, Q, N]; the runoff is computed row
+      by row, so gathering it gives the same numbers from 5x fewer bytes.
+
+    Topology, plan and parameters are built once; each call moves one
+    block's (a window's) data, and adds its seconds to the run's
+    ``routed_exchange_s`` counter.  Under ``gloo`` a card's tensors cross
+    through host memory.
+    """
+    import torch.distributed as dist
+
+    from tiger_tpu_torch import params as params_mod
+    from tiger_tpu_torch import routing
+    from tiger_tpu_torch.dist import process_count, process_index
+    from tiger_tpu_torch.params import split_even
+
+    topo = routing.build_topology(sp_full["stream"], sp_full["next_stream"])
+    slices = split_even(params_mod.num_systems(sp_full), process_count())
+    rows = slices[process_index()]
+    n_local = rows.stop - rows.start
+    params = {k: v[:, None] for k, v in model_params.items()}
+    metrics.counters.setdefault("routed_exchange_s", 0.0)
+
+    def runoff(dense_local):
+        return routing.link_runoff_204(torch.nan_to_num(dense_local), params)
+
+    if cfg.output.routed_exchange == "ring":
+        plan = routing.plan_sharded_topology(topo, len(slices), bounds=slices)
+
+        def exchange(dense_local):
+            return routing.exchange_sharded(runoff(dense_local), plan)
+    else:
+        max_len = max(sl.stop - sl.start for sl in slices)
+        staged = device.type == "cuda" and dist.get_backend() == "gloo"
+
+        def exchange(dense_local):
+            q = runoff(dense_local)
+            pad = q.new_zeros((max_len,) + tuple(q.shape[1:]))
+            pad[:n_local] = q
+            if staged:
+                pad = pad.cpu()
+            parts = [torch.empty_like(pad) for _ in slices]
+            dist.all_gather(parts, pad)
+            q_full = torch.cat([p[: sl.stop - sl.start] for p, sl in zip(parts, slices)])
+            return routing.accumulate_downstream_log(q_full.to(device), topo)[rows]
+
+    def routed(dense_local):
+        start = time.perf_counter()
+        out = exchange(dense_local)
+        metrics.counters["routed_exchange_s"] += time.perf_counter() - start
+        return out
+
+    return routed
+
+
 def _run_chunked(cfg, model, y0, t0, tf, query_times, model_params, specs, sp, metrics,
-                 dtype, device, resume_t=None) -> dict:
+                 dtype, device, resume_t=None, routed_fn=None) -> dict:
     """Windowed (streaming) execution, ``time.chunk_days`` at a time.
 
     Forcing steps are read per window (``netcdf_window_loader``) and the
@@ -292,13 +364,15 @@ def _run_chunked(cfg, model, y0, t0, tf, query_times, model_params, specs, sp, m
     ``resume_t`` (``initial.resume``): continue the original run from this
     simulated minute into its own output files, re-opened and filled from
     that point; ``output.checkpoint_interval`` writes the state file along
-    the way so that such a point exists.
+    the way so that such a point exists.  ``routed_fn`` (several processes)
+    routes each window across the ranks in place of the local topology.
     """
     import contextlib
 
     from tiger_tpu_torch import checkpoint as ckpt
     from tiger_tpu_torch.chunked import netcdf_window_loader, solve_chunked
     from tiger_tpu_torch.config import parse_interval_minutes
+    from tiger_tpu_torch.dist import process_index
     from tiger_tpu_torch.io import write_final_netcdf
     from tiger_tpu_torch.io.output import WindowedPackedWriter, WindowedVarWriter
 
@@ -333,7 +407,7 @@ def _run_chunked(cfg, model, y0, t0, tf, query_times, model_params, specs, sp, m
     )
 
     topo = None
-    if cfg.output.routed_discharge:
+    if cfg.output.routed_discharge and routed_fn is None:
         from tiger_tpu_torch import routing
 
         topo = routing.build_topology(sp["stream"], sp["next_stream"])
@@ -347,9 +421,10 @@ def _run_chunked(cfg, model, y0, t0, tf, query_times, model_params, specs, sp, m
     prefix = cfg.output.prefix
     outdir = cfg.output.path
     os.makedirs(outdir, exist_ok=True)
-    final_path = os.path.join(outdir, f"final_{prefix}_rank_0.nc")
-    dense_path = os.path.join(outdir, f"dense_{prefix}_rank_0.nc")
-    state_path = os.path.join(outdir, f"state_{prefix}_rank_0.nc")
+    rank = process_index()
+    final_path = os.path.join(outdir, f"final_{prefix}_rank_{rank}.nc")
+    dense_path = os.path.join(outdir, f"dense_{prefix}_rank_{rank}.nc")
+    state_path = os.path.join(outdir, f"state_{prefix}_rank_{rank}.nc")
     out_dtype = {None: np.float64 if dtype == torch.float64 else np.float32,
                  "f32": np.float32, "f64": np.float64, "i16": np.int16}[cfg.output.precision]
     if cfg.output.precision == "i16":
@@ -377,8 +452,8 @@ def _run_chunked(cfg, model, y0, t0, tf, query_times, model_params, specs, sp, m
                 )
             )
         disc_w = None
-        if topo is not None:
-            discharge_path = os.path.join(outdir, f"discharge_{prefix}_rank_0.nc")
+        if topo is not None or routed_fn is not None:
+            discharge_path = os.path.join(outdir, f"discharge_{prefix}_rank_{rank}.nc")
             disc_w = stack.enter_context(
                 WindowedVarWriter(
                     discharge_path, "discharge", link_ids, query_times,
@@ -433,9 +508,10 @@ def _run_chunked(cfg, model, y0, t0, tf, query_times, model_params, specs, sp, m
         res = solve_chunked(
             model, y0, t_start, tf, chunk_minutes, loader,
             query_interval=interval, params=model_params, config=cfg.solver_config(),
-            topology=topo, dense_sink=sink, state_sink=state_cb, metrics=metrics,
+            topology=topo, routed_fn=routed_fn, dense_sink=sink, state_sink=state_cb,
+            metrics=metrics,
         )
-        if topo is not None:
+        if topo is not None or routed_fn is not None:
             res = res[0]
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -475,15 +551,37 @@ def main(argv: Optional[list] = None) -> int:
                    help="run on the CPU (the kernels' plain versions) instead of the card")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of the run into this directory")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a process group (dist.init_process): each rank runs its rows")
+    p.add_argument("--coordinator", default=None,
+                   help="the process group's host:port (else MASTER_ADDR:MASTER_PORT)")
+    p.add_argument("--num-processes", type=int, default=None, help="else WORLD_SIZE")
+    p.add_argument("--process-id", type=int, default=None, help="else RANK")
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="torch.distributed backend (needed with --distributed): nccl for a "
+                        "card a rank, gloo for the CPU or ranks that share a card")
     args = p.parse_args(argv)
+    if args.distributed and args.dist_backend is None:
+        p.error("--distributed needs --dist-backend nccl or gloo")
 
     from tiger_tpu_torch.config import load_config
+    from tiger_tpu_torch.dist import device_for_process, init_process
     from tiger_tpu_torch.profiling import Metrics, trace
 
     cfg = load_config(args.config)
-    metrics = Metrics()
-    with trace(args.profile_dir):
-        summary = run(cfg, device="cpu" if args.cpu else None, metrics=metrics)
+    if args.distributed:
+        if args.cpu and args.dist_backend == "nccl":
+            p.error("--cpu with --dist-backend nccl: nccl moves CUDA tensors only; use gloo")
+        init_process(args.coordinator, args.num_processes, args.process_id, args.dist_backend)
+    try:
+        metrics = Metrics()
+        with trace(args.profile_dir):
+            summary = run(cfg, device=device_for_process(cpu=args.cpu), metrics=metrics)
+    finally:
+        if args.distributed:
+            import torch.distributed
+
+            torch.distributed.destroy_process_group()
     print(json.dumps(summary, sort_keys=True, default=str))
     return 0
 

@@ -19,7 +19,8 @@ dense rows interpolate as every other path of the port does.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import threading
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -113,8 +114,13 @@ def solve(
     forcings: Optional[ForcingSet] = None,
     config: SolverConfig = SolverConfig(),
     t_shift: float = 0.0,
+    devices: Optional[Sequence] = None,
 ) -> SolveResult:
     """Integrate ``y0[S, N]`` from t0 to tf with dense output at query_times.
+
+    ``devices`` (a list of torch devices, for example ``["cuda:0",
+    "cuda:1"]``) splits the systems over them (``solve_on_devices``); None
+    solves on ``y0``'s device.
 
     ``t_shift`` [min] is added to the time the model's rhs sees: windowed
     runs integrate each window in window-relative time, and a model that
@@ -149,6 +155,9 @@ def solve(
     host sync (reading Radau's failed flags), and when no system failed,
     nothing more.
     """
+    if devices is not None:
+        return solve_on_devices(model, y0, t0, tf, query_times, params, forcings, config,
+                                t_shift, devices)
     from tiger_tpu_torch.kernels.radau import radau
     from tiger_tpu_torch.kernels.rk45 import rk45
 
@@ -208,4 +217,95 @@ def solve(
         rk_stats=rk.stats,
         radau_stats=radau_stats,
         n_stiff=n_stiff,
+    )
+
+
+def solve_on_devices(model, y0, t0, tf, query_times=None, params=None, forcings=None,
+                     config: SolverConfig = SolverConfig(), t_shift: float = 0.0,
+                     devices: Sequence = ()) -> SolveResult:
+    """``solve`` with the systems split over ``devices``: the counterpart of
+    ``tiger_tpu/dist.py::rk45_solve_sharded`` and of the JAX ``solve(mesh=)``.
+
+    The rows are split by ``params.split_even`` (the remainder on the first
+    devices).  Each part's whole two-phase solve, its stiff subset and its
+    retry included, runs on its device, on a stream of its own on a card, in
+    a thread of its own; on the CPU the parts run one after another.  The
+    parts are merged on the first device.  Systems are independent, so the
+    result equals the one-device solve bit for bit; ``n_stiff`` is the sum,
+    and ``radau_stats`` are zero for the rows of a part that flagged none.
+    """
+    from tiger_tpu_torch.params import split_even
+
+    devs = [torch.device(d) for d in devices]
+    if not devs:
+        raise ValueError("devices is empty")
+    if any(d.type == "cuda" for d in devs):
+        from tiger_tpu_torch.kernels import _build
+
+        _build.load()  # built once, before the threads
+    first = devs[0]
+    # A device left without rows (fewer systems than devices) takes no part.
+    parts, devs = zip(*((sl, d) for sl, d in zip(split_even(y0.shape[0], len(devs)), devs)
+                        if sl.stop > sl.start))
+    results: list = [None] * len(devs)
+    errors: list = []
+
+    def run_part(k: int) -> None:
+        sl, dev = parts[k], devs[k]
+
+        def take(v):
+            return None if v is None else v[sl].contiguous().to(dev)
+
+        def inputs():
+            return (take(y0), None if query_times is None else query_times.to(dev),
+                    None if params is None else {n: take(v) for n, v in params.items()},
+                    None if forcings is None else ForcingSet(
+                        data=forcings.data[:, sl].contiguous().to(dev), meta=forcings.meta))
+
+        if dev.type != "cuda":
+            y_k, q_k, p_k, f_k = inputs()
+            results[k] = solve(model, y_k, t0, tf, q_k, p_k, f_k, config, t_shift)
+            return
+        try:
+            with torch.cuda.device(dev):
+                stream = torch.cuda.Stream(dev)
+                # The inputs come from the caller's stream.
+                stream.wait_stream(torch.cuda.current_stream(y0.device if y0.is_cuda else dev))
+                with torch.cuda.stream(stream):
+                    y_k, q_k, p_k, f_k = inputs()
+                    results[k] = solve(model, y_k, t0, tf, q_k, p_k, f_k, config, t_shift)
+                stream.synchronize()
+        except Exception as exc:  # raised again in the calling thread
+            errors.append(exc)
+
+    if all(d.type != "cuda" for d in devs):
+        for k in range(len(devs)):
+            run_part(k)
+    else:
+        threads = [threading.Thread(target=run_part, args=(k,)) for k in range(len(devs))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errors:
+            raise errors[0]
+
+    def cat(tensors):
+        return torch.cat([t.to(first) for t in tensors])
+
+    rk_stats = RKStats(*(cat(f) for f in zip(*(r.rk_stats for r in results))))
+    radau_stats = None
+    if any(r.radau_stats is not None for r in results):
+        radau_stats = RadauStats(*(
+            cat([torch.zeros(sl.stop - sl.start, dtype=torch.int64, device=first)
+                 if r.radau_stats is None else r.radau_stats[i] for r, sl in zip(results, parts)])
+            for i in range(len(RadauStats._fields))))
+    return SolveResult(
+        y_final=cat([r.y_final for r in results]),
+        dense=cat([r.dense for r in results]),
+        stiff=cat([r.stiff for r in results]),
+        failed=cat([r.failed for r in results]),
+        rk_stats=rk_stats,
+        radau_stats=radau_stats,
+        n_stiff=sum(r.n_stiff for r in results),
     )
