@@ -166,10 +166,24 @@ Phases, one line each (any failed check raises, so the exit code is not 0):
      routing.ring_error_bound, the second ring run the first bit for bit;
      (c) one nccl process at world size 1: its files equal the one-process
      run's.  Launches counted over its runs ("dist_launches").
-The CLI phases (7, 9c, 10d, 10g, 12f, 13f, 14) read one written basin
-(basin_doc).  The plain versions of 9a, 10f, 12e and 13e (and 13e's B2 at
-131,072 systems), and the plain Radau checks of 6 (the full 2 days), 9b,
-10b, 11, 12d and 13d, which run last, go to SIDE_BY_SIDE processes started
+ 15. the TPU kernels' last options (last_options_phase), at the main path's
+     shapes: (a) solve() with dense_lockstep, forcing_dtype bf16 and
+     radau_factor_reuse, one warm-up and 3 timed, the counters set to 0
+     just before and read just after, each option launched ("option
+     launches"), 0 failed; (b) B1 with lockstep in float and double and (c)
+     with bf16 forcing for Model 204 and Model 200, each against rk45_plain
+     bit for bit, the forcing's bytes in float32 and bfloat16; (d) B2 with
+     factor reuse, embedded3 and radau5 in float and double, on phase 6's
+     stiff systems, timed beside the same call without reuse, n_fct/n_att,
+     each held to radau_plain at the end over the shared span ("15d ...");
+     (e) B2 m200/embedded3 with reuse on all 131,072 systems, timed once,
+     n_fct/n_att; (f) the CLI with solver.forcing_precision bf16: its dense
+     and final files equal a direct solve() bit for bit.  B1 default's and
+     B2 embedded3's times (phase 6) printed beside PR 12's.
+The CLI phases (7, 9c, 10d, 10g, 12f, 13f, 14, 15f) read one written basin
+(basin_doc).  The plain versions of 9a, 10f, 12e, 13e and 15b-c (and 13e's
+B2 at 131,072 systems), and the plain Radau checks of 6 (the full 2 days),
+9b, 10b, 11, 12d, 13d and 15d, which run last, go to SIDE_BY_SIDE processes started
 at the beginning (PlainPool), each after the kernels it is held to have
 run and been timed.  The line before the kernels' JSON record gives the
 script's fixed part: its seconds less those of the plain checks at the end.
@@ -903,7 +917,7 @@ def b1_checks(case: ModelCase, dtype, cfg_of, inputs: tuple, tag: str, where: st
             moved = k_rk45.rk45_mismatch(
                 k_rk45.rk45(model, y0, h0, 0.0, span, qt, params, forc, cfg, shift), ker)
             check(not any(moved.values()), f"phase {tag}: t_shift {shift:g} moved B1 {inst}: {moved}")
-            records[inst]["shift_unchanged"] = shift
+            records.setdefault(inst, {})["shift_unchanged"] = shift
         if cfg.fsal:
             # FSAL's k1 is k7, evaluated at t + h; the default's k1 at the
             # Kahan-compensated t1 (rk45_pallas.py l.726-777 alike).  Where
@@ -914,7 +928,7 @@ def b1_checks(case: ModelCase, dtype, cfg_of, inputs: tuple, tag: str, where: st
             if twin not in results:
                 results[twin] = k_rk45.rk45(model, y0, h0, 0.0, span, qt, params, forc, cfg_of(twin))
             diff = k_rk45.rk45_mismatch(ker, results[twin])
-            records[inst]["differs_from_" + twin] = diff
+            records.setdefault(inst, {})["differs_from_" + twin] = diff
             phase(f"phase {tag} B1 {inst} vs the {twin} instance"
                   f"{' (for information)' if case.reads_t else ''}: entries that differ {diff}")
             check(case.reads_t or not any(diff.values()),
@@ -928,12 +942,13 @@ def b1_checks(case: ModelCase, dtype, cfg_of, inputs: tuple, tag: str, where: st
 
 def b2_checks(case: ModelCase, dtype, cfg_of, inputs: tuple, tag: str, where: str, records: dict,
               names=tuple(B2_OPTIONS), skip=(), counted: bool = False, shift: float = 0.0,
-              main: bool = False) -> None:
+              main: bool = False, may_fail=B2_MAY_FAIL) -> None:
     """Each B2 instance of the option sets ``names`` (but the instances
     named in ``skip``) in ``dtype`` against radau_plain bit for bit on
     ``inputs`` = (model, y0, params, forcings, span, queries), each from its
     own initial steps;
-    'reference' at REFERENCE_CHECK, which may fail systems.  ``counted``:
+    'reference' at REFERENCE_CHECK, which may fail systems (the sets in
+    ``may_fail`` may).  ``counted``:
     one launch with the counters set to 0 just before, which must count
     once.  ``shift``: again with that t_shift, equal to the unshifted run.
     ``main``: these are the instance's only times, so they also fill its
@@ -976,7 +991,7 @@ def b2_checks(case: ModelCase, dtype, cfg_of, inputs: tuple, tag: str, where: st
         inst, rec = case.name(opt, dtype), records.setdefault(case.name(opt, dtype), {})
         ref, p_ms = plain[opt]
         err = check_radau(f"phase {tag} B2 {inst} vs radau_plain{where}", ker, ref,
-                          may_fail=opt in B2_MAY_FAIL)
+                          may_fail=opt in may_fail)
         att, swp = int(ker.stats.n_attempts.sum()), int(ker.stats.n_newton.sum())
         bnd = bound(b2_ops(att, swp, n_sys * int((qt > 0.0).sum()), cfg, case.rhs_ops),
                     io_bytes(n_sys, n_rows, qt.numel(), 6, real), peak)
@@ -1313,9 +1328,11 @@ def options_phase(smi: str) -> dict:
         check(out["n_failed"] == 0, f"phase 9c: {out['n_failed']} links failed")
         check(same_dense and same_q, "phase 9c: the f32c run's files differ from the direct path")
     phase(f"phase 9b-c launches by instance (the main path's): {launches}, in all {total}")
-    for kernel, counts in launches.items():  # Model 204's float instances (phases 10 and 12 the rest)
+    # Model 204's float instances (phases 10 and 12 the rest, phase 15 those
+    # with the TPU kernels' last options)
+    for kernel, counts in launches.items():
         check(all(n > 0 for name, n in counts.items()
-                  if not name.endswith("/f64") and "/" not in name),  # Model 204's float ones
+                  if "/" not in name and "+reuse" not in name and "+runtime" not in name),
               f"phase 9: a {kernel} instance was not launched: {counts}")
     for name in B1_OPTIONS:
         b1[name]["launches"] = launches["rk45"][name]
@@ -2707,6 +2724,299 @@ def dist_phase(smi: str, model, cfg, inputs: tuple, res5) -> dict:
     return launches
 
 
+# Phase 15: the TPU kernels' last options (B1's lockstep query crossing and
+# bf16 forcing, B2's per-system factor reuse).
+REUSE_MODES = ("embedded3", "radau5")  # 15d: B2's error modes held with reuse
+REUSE_CHECK = (4, 5.0)  # 15g: systems and minutes of every reuse instance's check
+RUNTIME_CHECK = (256, 60.0, 20.0)  # 15h: systems, minutes and query spacing (Model 204, 200)
+
+
+@dataclasses.dataclass(frozen=True)
+class OptionCase(ModelCase):
+    """A ModelCase whose instances are those of a PR 13 option bit, named
+    with ``suffix``: B2's '+reuse', B1's '+runtime' (lockstep, bf16)."""
+
+    suffix: str = ""
+
+    @classmethod
+    def of(cls, case: ModelCase, suffix: str) -> "OptionCase":
+        return cls(**{f.name: getattr(case, f.name) for f in dataclasses.fields(case)},
+                   suffix=suffix)
+
+    def name(self, opt: str, dtype) -> str:
+        return self.prefix + opt + self.suffix + ("/f64" if dtype == torch.float64 else "")
+PR12_MS = {"rk45": 9.310, "radau": 16.148}  # PERF.md §6: B1 default, B2 embedded3
+# What a reused attempt of B2 skips (radau.cu): the five perturbed
+# right-hand sides, their perturbations, the matrices' entries, both LUs.
+B2_REUSED_SKIPS = 20 + 110 + 75 + 330
+
+
+def b2_reuse_ops(ker, queries: int, cfg, rhs_ops: int = RHS_OPS) -> int:
+    """b2_ops of B2's result ``ker`` less what its reused attempts skipped
+    (attempts less factorizations)."""
+    att, swp, fct = (int(x.sum()) for x in (ker.stats.n_attempts, ker.stats.n_newton,
+                                               ker.stats.n_fact))
+    return b2_ops(att, swp, queries, cfg, rhs_ops) - (att - fct) * (5 * rhs_ops + B2_REUSED_SKIPS)
+
+
+def last_options_phase(smi: str, model, cfg, inputs: tuple, stiff: tuple, times: dict) -> tuple:
+    """Phase 15: the TPU kernels' last options at the main path's shapes.
+    (a) solve() with the lockstep query crossing, bf16 forcing and factor
+    reuse (the launch counters set to 0 just before, read just after; each
+    option must have been launched); (b) B1 with lockstep, float and
+    double, and (c) with bf16 forcing, Model 204 and Model 200, each bit
+    for bit against rk45_plain (on the pool); (d) B2 with factor reuse,
+    embedded3 and radau5, float and double, on the main path's stiff
+    systems, held to radau_plain at the end (plain_span_checks); (e) B2
+    m200/embedded3 with reuse on every system, timed once; (g) every B2
+    instance with reuse and (h) every B1 kRuntime instance against its
+    plain version at small shapes; (f) the CLI with
+    solver.forcing_precision bf16, its files equal to a direct solve().
+    ``inputs`` = (y0, params, forcings, queries, h0) of the main path,
+    ``stiff`` = (rows, y0, params, forcings, h0) of phase 6's stiff
+    systems, ``times`` phase 6's and 12d's kernel times.  Returns ({"rk45":
+    records, "radau": records, "solve": ..., "cli": ...}, the span checks
+    by name)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from tiger_tpu_torch import solve
+    from tiger_tpu_torch.config import config_from_dict
+    from tiger_tpu_torch.kernels import (launch_counts, launch_totals, option_launch_counts,
+                                         reset_launch_counts)
+    from tiger_tpu_torch.kernels import radau as k_radau
+    from tiger_tpu_torch.kernels import rk45 as k_rk45
+    from tiger_tpu_torch.profiling import Metrics
+    from tiger_tpu_torch.run import run
+    from tiger_tpu_torch.scenario import STIFF_HU, solve_written_basin
+    from tiger_tpu_torch.solver.controller import initial_step
+
+    phase_start = time.perf_counter()
+    y0, params, forc, qt, h0 = inputs
+    tf, f64 = DAYS * 1440.0, torch.float64
+    hu_rows = params["Hu"] < STIFF_HU * 10
+    n_rows, n_q, n_q_after = forc.data.shape[0], qt.numel(), int((qt > 0.0).sum())
+    lock = dataclasses.replace(cfg, dense_lockstep=True)
+    bf16 = dataclasses.replace(cfg, forcing_dtype="bf16")
+    every = dataclasses.replace(cfg, dense_lockstep=True, forcing_dtype="bf16",
+                                radau_factor_reuse=True)
+    b1, b2 = {}, {}
+
+    # (a) the main path with every option.
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    res = solve(model, y0, 0.0, tf, qt, params, forc, every)  # warm-up
+    torch.cuda.synchronize()
+    walls = []
+    for i in range(1, 4):
+        start = time.perf_counter()
+        res = solve(model, y0 + i * 1e-7, 0.0, tf, qt, params, forc, every)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - start)
+    launches, options = launch_totals(), option_launch_counts()
+    reuse_launches = launch_counts()["radau"]["embedded3+reuse"]
+    options["embedded3+reuse"] = reuse_launches
+    wall, n_failed = sorted(walls)[1], int(res.failed.sum())
+    rk_att = int(res.rk_stats.n_attempts.sum())
+    rd = res.radau_stats
+    rd_att, rd_fct = (0, 0) if rd is None else (int(rd.n_attempts.sum()), int(rd.n_fact.sum()))
+    solve_rec = dict(wall_s=wall, walls_s=walls, system_steps_per_s=(rk_att + rd_att) / wall,
+                     n_stiff=res.n_stiff, n_failed=n_failed, rk_attempts=rk_att,
+                     radau_attempts=rd_att, radau_factorizations=rd_fct, launches=launches,
+                     option_launches=options)
+    phase(f"phase 15a solve() with dense_lockstep, forcing_dtype bf16 and radau_factor_reuse "
+          f"({MAIN_SYSTEMS} systems, {DAYS:g} days, {n_q} queries): wall median {wall:.6f} s (min "
+          f"{min(walls):.6f}, max {max(walls):.6f}), {(rk_att + rd_att) / wall:.6e} system-steps/s, "
+          f"n_stiff {res.n_stiff}, n_failed {n_failed}, rk attempts {rk_att}, radau attempts "
+          f"{rd_att}, factorizations {rd_fct}, launches {launches}, by option {options} | {smi}")
+    check(options["lockstep"] > 0 and options["bf16"] > 0 and reuse_launches > 0,
+          f"phase 15a: an option was not launched: {options}")
+    check(n_failed == 0, f"phase 15a: {n_failed} systems failed")
+    check(bool(res.stiff[hu_rows].all()), "phase 15a: a Hu=1e-6 row was not flagged stiff")
+    check(bool(torch.isfinite(res.y_final).all()), "phase 15a: non-finite y_final")
+    check(tuple(res.dense.shape) == (MAIN_SYSTEMS, n_q, 5), f"phase 15a: dense {tuple(res.dense.shape)}")
+    del res
+
+    # (b) lockstep, float and double, and (c) bf16, Model 204 and Model 200:
+    # every kernel first, timed, then the plain versions side by side.
+    y64, p64, qt64 = y0.double(), {k: v.double() for k, v in params.items()}, qt.double()
+    h64 = initial_step(model, y64, 0.0, p64, forc, lock)
+    m200, my0, mp, mforc = m200_inputs(MAIN_SYSTEMS)
+    mh0 = initial_step(m200, my0, 0.0, mp, mforc, bf16)
+    runs = {"lockstep": (model, y0, h0, qt, params, forc, lock, RHS_OPS),
+            "lockstep/f64": (model, y64, h64, qt64, p64, forc, lock, RHS_OPS),
+            "bf16": (model, y0, h0, qt, params, forc, bf16, RHS_OPS),
+            "m200/bf16": (m200, my0, mh0, qt, mp, mforc, bf16, RHS_OPS_M200)}
+    kers = {}
+    for name, (mdl, a_y0, a_h0, a_qt, a_p, a_f, a_cfg, _) in runs.items():
+        kers[name] = timed(lambda: k_rk45.rk45(mdl, a_y0, a_h0, 0.0, tf, a_qt, a_p, a_f, a_cfg),
+                           reps=3)
+    copy_ms = timed(lambda: forc.data.to(torch.bfloat16), reps=3)[1]
+    plain = side_by_side({name: ("tiger_tpu_torch.kernels.rk45:rk45_plain",
+                                 (r[0], r[1], r[2], 0.0, tf, r[3], r[4], r[5], r[6]), None)
+                          for name, r in runs.items()})
+    for name, (mdl, a_y0, a_h0, a_qt, a_p, a_f, a_cfg, rhs_ops) in runs.items():
+        (ker, ms), (ref, p_ms) = kers.pop(name), plain.pop(name)
+        double = a_y0.dtype == f64
+        rows = hu_rows if mdl is model else torch.zeros_like(hu_rows)
+        err = check_rk45(f"phase 15{'c' if 'bf16' in name else 'b'} B1 {name} vs rk45_plain "
+                         f"({MAIN_SYSTEMS} systems, {DAYS:g} days)", ker, ref, rows)
+        att = int(ker.stats.n_attempts.sum())
+        nbytes = io_bytes(MAIN_SYSTEMS, n_rows, n_q, 5, 8 if double else 4)
+        if a_cfg.forcing_dtype == "bf16":
+            nbytes -= 2 * MAIN_SYSTEMS * n_rows  # the kernel reads 2 bytes a forcing value
+        bnd = bound(b1_ops(att, int((~ker.stiff).sum()) * n_q_after,
+                           k_rk45.rk45_options(a_cfg), rhs_ops), nbytes,
+                    F64_PEAK if double else F32_PEAK)
+        b1[name] = dict(ms=ms, plain_ms=p_ms, plain_side_by_side=SIDE_BY_SIDE, max_abs_err=err,
+                        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None, launches=3,
+                        attempts=att, worst_system_attempts=int(ker.stats.n_attempts.max()),
+                        systems=MAIN_SYSTEMS, span_min=tf)
+    del kers, plain
+    forcing_bytes = {"float32": forc.data.numel() * 4, "bfloat16": forc.data.numel() * 2,
+                     "m200_float32": mforc.data.numel() * 4, "m200_bfloat16": mforc.data.numel() * 2}
+    b1["bf16"].update(forcing_bytes=forcing_bytes, bf16_copy_ms=copy_ms)
+    phase(f"phase 15b-c B1 at the main path's shapes, each equal to rk45_plain bit for bit: "
+          f"lockstep {b1['lockstep']['ms']:.3f} ms ({b1['lockstep']['attempts']} attempts), "
+          f"lockstep/f64 {b1['lockstep/f64']['ms']:.3f} ms, bf16 {b1['bf16']['ms']:.3f} ms, "
+          f"m200/bf16 {b1['m200/bf16']['ms']:.3f} ms; B1 default {times['rk45']:.3f} ms (phase 6; "
+          f"PR 12: {PR12_MS['rk45']:.3f}); forcing bytes {forcing_bytes}, the bf16 copy "
+          f"{copy_ms:.3f} ms; records {b1} | {smi}")
+
+    # (d) B2 with reuse on the stiff systems, held at the end.
+    s_rows, sy0, sp, sf, sh0 = stiff
+    n_sys, checks = s_rows.numel(), {}
+    for dtype in (torch.float32, f64):
+        sfx = "/f64" if dtype == f64 else ""
+        ay0, ah0, aqt = sy0.to(dtype), sh0.to(dtype), qt.to(dtype)
+        ap = {k: v.to(dtype) for k, v in sp.items()}
+        for mode in REUSE_MODES:
+            name = mode + "+reuse" + sfx
+            rcfg = dataclasses.replace(cfg, radau_factor_reuse=True, radau_error_mode=mode)
+            ker, ms = timed(lambda: k_radau.radau(model, ay0, ah0, 0.0, tf, aqt, ap, sf, rcfg), reps=3)
+            fresh_ms = timed(lambda: k_radau.radau(model, ay0, ah0, 0.0, tf, aqt, ap, sf,
+                                                   dataclasses.replace(rcfg, radau_factor_reuse=False)),
+                             reps=3)[1]
+            att, fct = int(ker.stats.n_attempts.sum()), int(ker.stats.n_fact.sum())
+            bnd = bound(b2_reuse_ops(ker, n_sys * n_q_after, rcfg),
+                        io_bytes(n_sys, n_rows, n_q, 6, 8 if sfx else 4), F64_PEAK if sfx else F32_PEAK)
+            b2[name] = dict(ms=ms, without_reuse_ms=fresh_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                            library_ms=None, launches=3, systems=n_sys, attempts=att,
+                            factorizations=fct, factorizations_per_attempt=fct / max(att, 1),
+                            failed=int(ker.failed.sum()),
+                            worst_system_attempts=int(ker.stats.n_attempts.max()))
+            checks[f"15d {name}"] = radau_span_check(
+                f"phase 15d B2 {name} vs radau_plain ({n_sys} systems", b2[name]["worst_system_attempts"],
+                model, ay0, ah0, ap, sf, aqt, rcfg, b2[name], prefix="main_",
+                may_fail=mode == "radau5")
+    phase(f"phase 15d B2 with factor reuse on the main path's {n_sys} stiff systems ({DAYS:g} days; "
+          f"radau_plain at the end): "
+          + ", ".join(f"{k} {v['ms']:.3f} ms (without reuse {v['without_reuse_ms']:.3f} ms), "
+                      f"n_fct/n_att {v['factorizations']}/{v['attempts']} = "
+                      f"{v['factorizations_per_attempt']:.4f}, failed {v['failed']}"
+                      for k, v in b2.items())
+          + f"; B2 embedded3 {times['radau']:.3f} ms (phase 6; PR 12: {PR12_MS['radau']:.3f}) | {smi}")
+
+    # (e) Model 200's B2 with reuse on every system, from 12d's h0.
+    h0r = torch.full((MAIN_SYSTEMS,), M200_B2_H0, device=y0.device)
+    rcfg = dataclasses.replace(cfg, radau_factor_reuse=True)
+    ker, ms = timed(lambda: k_radau.radau(m200, my0, h0r, 0.0, tf, qt, mp, mforc, rcfg))
+    att, fct = int(ker.stats.n_attempts.sum()), int(ker.stats.n_fact.sum())
+    bnd = bound(b2_reuse_ops(ker, MAIN_SYSTEMS * n_q_after, rcfg, RHS_OPS_M200),
+                io_bytes(MAIN_SYSTEMS, mforc.data.shape[0], n_q, 6))
+    b2["m200/embedded3+reuse"] = dict(
+        ms=ms, without_reuse_ms=times.get("m200_radau"), bound_ms=bnd[0], bound_by=bnd[1],
+        library_ms=None, launches=1, systems=MAIN_SYSTEMS, attempts=att, factorizations=fct,
+        factorizations_per_attempt=fct / max(att, 1), failed=int(ker.failed.sum()),
+        worst_system_attempts=int(ker.stats.n_attempts.max()))
+    phase(f"phase 15e B2 m200/embedded3 with reuse on every system ({MAIN_SYSTEMS}, {DAYS:g} days, "
+          f"h0 {M200_B2_H0:g}): {ms:.3f} ms once (12d without reuse: {times.get('m200_radau')} ms), "
+          f"n_fct/n_att {fct}/{att} = {fct / max(att, 1):.4f}, failed {int(ker.failed.sum())}, worst "
+          f"system {int(ker.stats.n_attempts.max())} attempts, bound {bnd[0]:.4f} ms ({bnd[1]}) | {smi}")
+    top = torch.topk(ker.stats.n_attempts, REUSE_CHECK[0]).indices
+    del ker
+
+    # (g) every instance with reuse (each model, option set and scalar)
+    # against radau_plain at small shapes, each launch counted once.
+    def reuse_cfg(opt, **extra):
+        return dataclasses.replace(cfg, radau_factor_reuse=True, **B2_OPTIONS[opt], **extra)
+
+    qt_r = torch.arange(0.0, REUSE_CHECK[1] + 1e-9, 5.0, device=y0.device)
+    first = torch.arange(min(REUSE_CHECK[0], n_sys), device=y0.device)
+    cases = ((M204, (model, sy0[first], {k: v[first] for k, v in sp.items()},
+                     sf.take_systems(first), qt_r)),
+             (M200, (m200, my0[top], {k: v[top] for k, v in mp.items()}, mforc.take_systems(top),
+                     qt_r)),
+             (DUMMY, (*dummy_inputs(REUSE_CHECK[0])[:3], None, dummy_queries(REUSE_CHECK[1]))))
+    for case, (mdl, c_y0, c_p, c_f, c_qt) in cases:
+        reuse_case = OptionCase.of(case, "+reuse")
+        for dtype in (torch.float32, f64):
+            d_p = None if c_p is None else {k: v.to(dtype) for k, v in c_p.items()}
+            b2_checks(reuse_case, dtype, reuse_cfg,
+                      (mdl, c_y0.to(dtype), d_p, c_f, REUSE_CHECK[1], c_qt.to(dtype)), "15g",
+                      f" ({REUSE_CHECK[0]} systems, first {REUSE_CHECK[1]:g} min)", b2, counted=True,
+                      may_fail=B2_MAY_FAIL + ("radau5", "radau5+predictor"))
+    phase(f"phase 15g every B2 instance with factor reuse ({len(cases) * 2 * len(B2_OPTIONS)}) "
+          f"against radau_plain bit for bit | {smi}")
+
+    # (h) every kRuntime instance of B1 (each model, option set and scalar)
+    # with lockstep and bf16 forcing against rk45_plain at small shapes,
+    # queries between the steps; FSAL against its twin as in phase 9a.
+    def runtime_cfg(opt, **extra):
+        return dataclasses.replace(cfg, dense_lockstep=True, forcing_dtype="bf16",
+                                   **B1_OPTIONS[opt], **extra)
+
+    n_rt, span_rt, every_rt = RUNTIME_CHECK
+    qt_rt = torch.arange(0.0, span_rt + 1e-9, every_rt, device=y0.device)
+    head = torch.arange(n_rt, device=y0.device)
+    cases = ((M204, (model, y0[head], {k: v[head] for k, v in params.items()},
+                     forc.take_systems(head), span_rt, qt_rt)),
+             (M200, (m200, my0[head], {k: v[head] for k, v in mp.items()},
+                     mforc.take_systems(head), span_rt, qt_rt)),
+             (DUMMY, (*dummy_inputs(n_rt)[:3], None, REUSE_CHECK[1], dummy_queries(REUSE_CHECK[1]))))
+    for case, (mdl, c_y0, c_p, c_f, c_span, c_qt) in cases:
+        rt_case = OptionCase.of(case, "+runtime")
+        for dtype in (torch.float32, f64):
+            d_p = None if c_p is None else {k: v.to(dtype) for k, v in c_p.items()}
+            none = torch.zeros(n_rt, dtype=torch.bool, device=y0.device)
+            b1_checks(rt_case, dtype, runtime_cfg,
+                      (mdl, c_y0.to(dtype), d_p, c_f, c_span, c_qt.to(dtype), none), "15h",
+                      f" ({n_rt} systems, first {c_span:g} min)", b1)
+    del m200, my0, mp, mforc
+    phase(f"phase 15h every B1 instance with lockstep and bf16 ({len(cases) * 2 * len(B1_OPTIONS)}) "
+          f"against rk45_plain bit for bit | {smi}")
+
+    # (f) the CLI with solver.forcing_precision bf16.
+    with tempfile.TemporaryDirectory(prefix="tiger_bf16_") as tmp:
+        doc = basin_doc(os.path.join(tmp, "out"))
+        doc["solver"]["forcing_precision"] = "bf16"
+        cli_cfg = config_from_dict(doc)
+        check(cli_cfg.solver_config().forcing_dtype == "bf16", "phase 15f: the config is not bf16")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        start = time.perf_counter()
+        out = run(cli_cfg, metrics=Metrics())
+        cli_wall = time.perf_counter() - start
+        cli_launches, cli_options = launch_totals(), option_launch_counts()
+        direct = solve_written_basin(cli_cfg, y0.device)[0]
+        got = _read_files(cli_cfg.output.path, (("final", "outputs"), ("dense", "outputs")))
+        same = {"dense": bool(np.array_equal(got["dense"], direct.dense.cpu().numpy())),
+                "final": bool(np.array_equal(got["final"], direct.y_final.cpu().numpy()))}
+    cli_rec = dict(wall_s=cli_wall, n_stiff=out["n_stiff"], n_failed=out["n_failed"],
+                   launches=cli_launches, option_launches=cli_options, equal_to_solve=same)
+    phase(f"phase 15f CLI with solver.forcing_precision bf16 ({MAIN_SYSTEMS} links, {DAYS:g} days, "
+          f"f32): wall {cli_wall:.6f} s (first run), n_stiff {out['n_stiff']}, n_failed "
+          f"{out['n_failed']}, launches {cli_launches}, by option {cli_options}; dense and final "
+          f"files equal solve() bit for bit {same} | {smi}")
+    check(cli_options["bf16"] > 0, f"phase 15f: B1 read no bf16 forcing: {cli_options}")
+    check(out["n_failed"] == 0, f"phase 15f: {out['n_failed']} links failed")
+    check(all(same.values()), f"phase 15f: the run's files differ from solve(): {same}")
+    phase(f"phase 15 took {time.perf_counter() - phase_start:.1f} s")
+    return {"rk45": b1, "radau": b2, "solve": solve_rec, "cli": cli_rec}, checks
+
+
 def plain_worker(job_path: str, out_path: str) -> None:
     """A job of the pool (PlainPool): runs the plain version that ``job_path``
     names (torch.save of {"fn": "module:function", "args": (...), "against":
@@ -2882,7 +3192,7 @@ def plain_span_checks(smi: str, checks: dict) -> float:
     fixed = predict(F64_SPANS[-1])
     span = next((x for x in F64_SPANS if predict(x) * F64_MARGIN <= left_s), None)
     span = span or next((x for x in F64_SPANS if predict(x) <= fixed))
-    phase(f"phase 6/9b/10b/11/12/13 span: worst system's attempts by leading span (min) "
+    phase(f"phase 6/9b/10b/11/12/13/15 span: worst system's attempts by leading span (min) "
           f"{ {k: c.worst for k, c in checks.items()} }, {left_s:.1f} s left of F64_BUDGET_S "
           f"{F64_BUDGET_S:g}: the shared span is the first {span:g} min, {len(checks)} checks in "
           f"processes, {SIDE_BY_SIDE} at a time (predicted {predict(span):.1f} s at PLAIN_RADAU_MS "
@@ -2906,7 +3216,7 @@ def plain_span_checks(smi: str, checks: dict) -> float:
         phase(f"phase {key} over the first {at(c, span):g} of {max(c.spans):g} min: kernels {ms:.3f} "
               f"ms vs plain {plain_ms:.3f} ms ({plain_ms / worst:.2f} ms an attempt of the worst "
               f"system, side by side), max_abs_err {err:.3e} | {smi}")
-    phase(f"phase 6/9b/10b/11/12/13 plain checks side by side: wall {wall:.1f} s (the processes' "
+    phase(f"phase 6/9b/10b/11/12/13/15 plain checks side by side: wall {wall:.1f} s (the processes' "
           f"start included) for {plain_s:.1f} s of plain runs, shared span {span:g} min | {smi}")
     return wall
 
@@ -3109,9 +3419,17 @@ def main() -> None:
     # of the CLI on the card (gloo), one nccl process (its own launch counts)
     dist_launches = dist_phase(smi, model, cfg, (y0 + 3 * 1e-7, params, forc, qt), res)
 
+    # 15. the TPU kernels' last options: B1's lockstep query crossing and
+    # bf16 forcing, B2's factor reuse (their own launch counts)
+    last, checks_15 = last_options_phase(
+        smi, model, cfg, (y0, params, forc, qt, h0), (rows, sy0, sp, sf, sh0),
+        {"rk45": ms_b1, "radau": ms_b2, "m200_radau": instances["radau"]["m200/embedded3"].get("ms")})
+    for kernel in ("rk45", "radau"):
+        instances[kernel].update(last[kernel])
+
     end_wall = plain_span_checks(smi, {"6": check_6, "9b": check_c, "10b": check_b,
                                        **{f"11 {name}": c for name, c in checks_2.items()},
-                                       **checks_12, **checks_13})
+                                       **checks_12, **checks_13, **checks_15})
     total = time.perf_counter() - _T0
     phase(f"fixed part {total - end_wall:.1f} s: the script's {total:.1f} s less the end's side-by-side "
           f"wall {end_wall:.1f} s; phase 6's rk45_plain took {plain_b1 * 1e-3:.1f} s (how fast this host "
@@ -3125,7 +3443,8 @@ def main() -> None:
          "tail_systems": TAIL_SYSTEMS, "tail_ms": tail_b1, "lane_efficiency": lane_eff,
          "geometry": geo, "cli_launches": cli_launches["rk45"],
          "windowed_launches": windowed_launches["rk45"], "cli_pi_launches": cli_pi_launches["rk45"],
-         "dist_launches": dist_launches["rk45"], "instances": instances["rk45"]},
+         "dist_launches": dist_launches["rk45"], "instances": instances["rk45"],
+         "option_launches": last["solve"]["option_launches"]},
         {"name": "radau", "route": "cuda", "source": "tiger_tpu_torch/kernels/csrc/radau.cu",
          "replaces": "tiger_tpu/kernels/radau_pallas.py:987", "launches": launches["radau"],
          "max_abs_err": b2_rec["max_abs_err"], "ms": ms_b2, "plain_ms": b2_rec["plain_ms"],
@@ -3135,7 +3454,8 @@ def main() -> None:
          "windowed_launches": windowed_launches["radau"], "dist_launches": dist_launches["radau"],
          "instances": instances["radau"],
          "retry": retry, "model200_solve": m200["solve"], "model200_libm": libm,
-         "dummy_solve": dummy["solve"]},
+         "dummy_solve": dummy["solve"],
+         "every_option_solve": last["solve"], "bf16_cli": last["cli"]},
     ]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -253,20 +253,33 @@ F64_ON_THE_CARD = {
 
 @pytest.mark.parametrize("case", sorted(F64_ON_THE_CARD))
 def test_f64_on_the_card_is_not_refused(scenario, tmp_path, case):
-    """solver.precision f64, the default, passes the port's refusals with
-    either controller, as float32 does (``solver.config.require_supported``
-    refuses nothing by device: the card runs every option set in float64 as
-    the CPU does)."""
-    from tiger_tpu_torch.solver.config import require_supported
+    """solver.precision f64, the default, reaches the kernels' launches with
+    either controller, as float32 does: each wrapper builds its double
+    (float) instance's arguments from the run's solver config and launches
+    (the launch recorded, not made, on CPU tensors).  Nothing refuses an
+    option by device: the card runs every option set in float64 as the CPU
+    does."""
+    import torch
+
+    from tiger_tpu_torch import Model204
+    from tiger_tpu_torch.kernels import radau as k_radau
+    from tiger_tpu_torch.kernels import rk45 as k_rk45
+    from tiger_tpu_torch.scenario import scenario as basin
 
     _, cfg = _configs(scenario, tmp_path, **F64_ON_THE_CARD[case])
     assert cfg.solver.precision == "f64"
     assert cfg.solver_config().controller == ("pi" if case == "f64_pi" else "i")
-    for phase in ("rk45", "radau"):
-        require_supported(cfg.solver_config(), phase)
-    cfg.solver.precision = "f32"
-    for phase in ("rk45", "radau"):
-        require_supported(cfg.solver_config(), phase)
+    for precision, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        cfg.solver.precision = precision
+        for module, launch_fn in ((k_rk45, k_rk45._rk45_cuda), (k_radau, k_radau._radau_cuda)):
+            seen = []
+            with pytest.MonkeyPatch.context() as m:
+                m.setattr(module, "launch", lambda fn, size, args, f64, dev, o: seen.append(f64))
+                y0, p, f = basin(2, 0.1, 0.0, device="cpu", dtype=dtype)
+                qt = torch.arange(0.0, 60.0 + 1e-9, 30.0, dtype=dtype)
+                launch_fn(Model204(), y0, torch.ones(2, dtype=dtype), 0.0, 60.0, qt, p, f,
+                          cfg.solver_config())
+            assert seen == [dtype == torch.float64]
 
 
 def test_written_basin_runs_like_jax(tmp_path):

@@ -2,11 +2,11 @@
 with the port's plain versions (its CPU path, and the card kernels'
 bit-for-bit reference) in place of the JAX package's fused kernels.
 
-Each seeded sample draws a legal SolverConfig from the options the port
-runs (lockstep dense fill, bf16 forcing and Radau factor reuse are refused
-by it, so they are not drawn), integrates the same small batch, made in
-numpy, through the port and through the JAX package, and requires the same
-flags and tolerance-level agreement.
+Each seeded sample draws a legal SolverConfig as that file draws it (the
+lockstep query crossing and Radau factor reuse among the options),
+integrates the same small batch, made in numpy, through the port and
+through the JAX package, and requires the same flags and tolerance-level
+agreement.
 """
 
 import dataclasses
@@ -26,21 +26,18 @@ from tiger_tpu_torch.solver import radau_solve, rk45_solve
 
 
 def _draw_rk45(rng) -> dict:
-    """test_config_fuzz.py's draw, seed for seed, less dense_lockstep: its
-    value is drawn (so every later draw is that file's) and dropped."""
+    """test_config_fuzz.py's draw, seed for seed."""
     controller = str(rng.choice(["i", "pi"]))
     compensated = bool(rng.integers(0, 2))
     fsal = bool(rng.integers(0, 2)) and not compensated  # mutually exclusive
-    rtol = float(rng.choice([1e-4, 1e-5]))
-    atol = float(rng.choice([1e-7, 1e-8]))
-    rng.integers(0, 2)  # dense_lockstep: refused by the port
     return dict(
-        rtol=rtol,
-        atol=atol,
+        rtol=float(rng.choice([1e-4, 1e-5])),
+        atol=float(rng.choice([1e-7, 1e-8])),
         max_steps=50_000,
         controller=controller,
         compensated=compensated,
         fsal=fsal,
+        dense_lockstep=bool(rng.integers(0, 2)),
         forcing_step_align=bool(rng.integers(0, 2)),
         stiff_detect=bool(rng.integers(0, 2)),
         nan_shrink=float(rng.choice([0.2, 0.5])),
@@ -106,16 +103,19 @@ class Decay2:
 
 @pytest.mark.parametrize("seed", range(4))
 def test_radau_plain_matches_vmap_under_random_config(seed):
-    """Error mode x step freeze x predictor, float32, 8 systems over 5 time
-    units, against the JAX package's vmap Radau at test_config_fuzz.py's
-    tolerances (5e-3 / 1e-4 on y_final, 1e-2 / 1e-4 on dense): the vmap
-    path runs a full Newton with each stage's Jacobian, the port the
-    kernels' simplified one, so the two agree at the solver's tolerance."""
+    """Error mode x step freeze x factor reuse x predictor, float32, 8
+    systems over 5 time units, against the JAX package's vmap Radau (which
+    refactors every attempt, so it runs without reuse, as
+    test_config_fuzz.py runs it) at that file's tolerances (5e-3 / 1e-4 on
+    y_final, 1e-2 / 1e-4 on dense): the vmap path runs a full Newton with
+    each stage's Jacobian, the port the kernels' simplified one, so the two
+    agree at the solver's tolerance."""
     rng = np.random.default_rng(200 + seed)
     cfg = dict(
         rtol=1e-4, atol=1e-6, max_steps=20_000,
         radau_error_mode=str(rng.choice(["embedded3", "radau5"])),
         radau_h_freeze_hi=float(rng.choice([1.0, 1.2])),
+        radau_factor_reuse=bool(rng.integers(0, 2)),
         radau_predictor=bool(rng.integers(0, 2)),
     )
     s = 8
@@ -125,7 +125,7 @@ def test_radau_plain_matches_vmap_under_random_config(seed):
     qt = np.asarray([2.0, 5.0], np.float32)
     ref = j_radau_solve(JDecay2(), jnp.asarray(y0), 0.0, 5.0, jnp.asarray(qt),
                         {"lam": jnp.asarray(lam)}, h0=jnp.asarray(h0),
-                        config=JSolverConfig(**cfg))
+                        config=JSolverConfig(**{**cfg, "radau_factor_reuse": False}))
     ours = radau_solve(Decay2(), torch.from_numpy(y0), 0.0, 5.0, torch.from_numpy(qt),
                        {"lam": torch.from_numpy(lam)}, h0=torch.from_numpy(h0),
                        config=SolverConfig(**cfg))

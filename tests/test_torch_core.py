@@ -77,27 +77,6 @@ def test_solver_config_defaults_equal():
     )
 
 
-@pytest.mark.parametrize(
-    "solver, override",
-    [
-        ("rk45", {"dense_lockstep": True}),
-        ("rk45", {"forcing_dtype": "bf16"}),
-        ("radau", {"radau_factor_reuse": True}),
-        ("radau", {"forcing_dtype": "bf16"}),
-        # solve() refuses either solver's options before any work, so even
-        # a run with no stiff system cannot ignore a Radau option.
-        ("solve", {"radau_factor_reuse": True}),
-    ],
-)
-def test_unported_options_raise(solver, override):
-    from tiger_tpu_torch.solver import radau_solve, rk45_solve
-
-    fn = {"rk45": rk45_solve, "radau": radau_solve, "solve": tt.solve}[solver]
-    y0 = torch.ones((2, 5), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match=next(iter(override))):
-        fn(tt.DummyModel(), y0, 0.0, 1.0, config=SolverConfig(**override))
-
-
 def test_import_without_jax():
     code = textwrap.dedent(
         """
@@ -390,14 +369,19 @@ F64_OPTION_SETS = {
 @pytest.mark.parametrize("case", sorted(F64_OPTION_SETS))
 def test_float64_runs_every_option_set(case):
     """Each kernel has a double instance of every option set, so float64
-    takes each of them on the card as float32 does: the solvers accept it,
-    and each wrapper counts it under the float instance's name with
-    '/f64'."""
-    from tiger_tpu_torch.solver.config import require_supported
-
+    takes each of them on the card as float32 does: each wrapper builds the
+    double instance's arguments for it and launches (the launch recorded,
+    not made, on CPU tensors), and counts it under the float instance's
+    name with '/f64'."""
     cfg = SolverConfig(**F64_OPTION_SETS[case])
-    for solver in ("rk45", "radau"):
-        require_supported(cfg, solver)
+    for module, run in ((k_rk45, k_rk45._rk45_cuda), (k_radau, k_radau._radau_cuda)):
+        with pytest.MonkeyPatch.context() as m:
+            seen = []
+            m.setattr(module, "launch", lambda fn, size, args, f64, dev, opts: seen.append(f64))
+            y0, p, f = scenario(2, 0.1, 0.0, device="cpu", dtype=torch.float64)
+            qt = torch.arange(0.0, 60.0 + 1e-9, 30.0, dtype=torch.float64)
+            run(Model204(), y0, torch.ones(2, dtype=torch.float64), 0.0, 60.0, qt, p, f, cfg)
+            assert seen == [True]
     counts = launch_counts()
     b1 = k_rk45.INSTANCES[k_rk45.rk45_options(cfg)]
     assert k_rk45.F64_INSTANCES[k_rk45.rk45_options(cfg)] == b1 + "/f64"
@@ -493,32 +477,35 @@ def test_model_registry_matches_jax():
 
 def test_every_legal_option_set_has_a_kernel_instance():
     """Every SolverConfig that validation accepts picks a float instance of
-    B1 and of B2, and together they reach all twelve; the launch counters
-    hold those and their double twins, for Model 204, (prefixed 'm200/')
-    for Model 200 and (prefixed 'dummy/') for DummyModel, and nothing
-    else."""
+    B1 and of B2, and together they reach all twenty-four (twelve each:
+    B1's with lockstep or bf16 forcing are the '+runtime' instances, which
+    read both flags, B2's with factor reuse the '+reuse' ones); the launch
+    counters hold those and their double twins, for Model 204, (prefixed
+    'm200/') for Model 200 and (prefixed 'dummy/') for DummyModel, and
+    nothing else."""
     import itertools
 
     from tiger_tpu_torch.kernels import radau as k_radau
     from tiger_tpu_torch.kernels import rk45 as k_rk45
 
     b1, b2 = set(), set()
-    for fsal, comp, controller, mode, pred in itertools.product(
+    for fsal, comp, controller, mode, pred, reuse, lockstep, forcing in itertools.product(
             (False, True), (False, True), ("i", "pi"), ("embedded3", "reference", "radau5"),
-            (False, True)):
+            (False, True), (False, True), (False, True), ("f32", "bf16")):
         if fsal and comp:
             with pytest.raises(ValueError, match="mutually exclusive"):
                 SolverConfig(fsal=fsal, compensated=comp)
             continue
         cfg = SolverConfig(fsal=fsal, compensated=comp, controller=controller,
-                           radau_error_mode=mode, radau_predictor=pred)
+                           radau_error_mode=mode, radau_predictor=pred, radau_factor_reuse=reuse,
+                           dense_lockstep=lockstep, forcing_dtype=forcing)
         b1.add(k_rk45.INSTANCES[k_rk45.rk45_options(cfg)])
-        assert (mode, pred) in k_radau.INSTANCES
+        assert (mode, pred, reuse) in k_radau.INSTANCES
         b2.add(k_radau.instance_name(cfg))
-    assert b1 == set(k_rk45.INSTANCES.values()) and len(b1) == 6
-    assert len(b2) == 6
-    for counts, names in ((k_rk45.rk45_launches, b1), (k_radau.radau_launches, b2)):
+    assert b1 == set(k_rk45.INSTANCES.values()) and len(b1) == 12
+    assert len(b2) == 12 and len(k_radau.INSTANCES) == 12
+    for counts, names, n in ((k_rk45.rk45_launches, b1, 72), (k_radau.radau_launches, b2, 72)):
         per_model = names | {name + "/f64" for name in names}
         assert set(counts) == per_model | {prefix + name for prefix in ("m200/", "dummy/")
                                            for name in per_model}
-        assert len(counts) == 36
+        assert len(counts) == n

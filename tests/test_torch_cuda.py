@@ -1093,3 +1093,140 @@ def test_model200_radau_stays_within_the_2_day_budget():
     att = res.stats.n_attempts
     assert int(att.max()) <= 14_000
     assert int(res.stats.n_newton.sum()) / max(int(att.sum()), 1) <= 7.0
+
+
+# --- The TPU kernels' last options: lockstep and bf16 forcing in B1 (runtime
+# flags of every instance), factor reuse in B2 (each system its own vote).
+
+B1_RUNTIME = {
+    "lockstep": dict(dense_lockstep=True),
+    "bf16": dict(forcing_dtype="bf16"),
+    "lockstep_bf16": dict(dense_lockstep=True, forcing_dtype="bf16"),
+    "lockstep_fsal_pi": dict(dense_lockstep=True, fsal=True, controller="pi"),
+    "bf16_compensated": dict(forcing_dtype="bf16", compensated=True),
+}
+RUNTIME_MODELS = ["m204", "m200", "dummy"]
+
+
+def _runtime_inputs(model_name, dtype):
+    """(model, y0, params, forcings, span, queries) of a model on the card:
+    Model 204's and Model 200's basins over 6 hours with a query every 20
+    minutes (off the hourly forcing boundaries), DummyModel over 5 minutes
+    with 200 queries."""
+    if model_name == "m200":
+        model, y0, p, f = _m200_inputs(512, dtype)
+    elif model_name == "dummy":
+        model, y0 = _dummy_inputs(512, dtype)
+        qt = (torch.arange(1, 201, dtype=dtype, device=y0.device) * 5.0 / 201)
+        return model, y0, None, None, 5.0, qt
+    else:
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device")
+        model = Model204()
+        y0, p, f = scenario(512, TF / 1440.0, 0.01, device="cuda", dtype=dtype)
+    return model, y0, p, f, TF, torch.arange(0.0, TF + 1e-9, 20.0, dtype=dtype, device=y0.device)
+
+
+@pytest.mark.parametrize("dtype", M200_DTYPES)
+@pytest.mark.parametrize("model_name", RUNTIME_MODELS)
+@pytest.mark.parametrize("name", sorted(B1_RUNTIME))
+def test_rk45_runtime_option_equals_plain(name, model_name, dtype):
+    """B1 with lockstep and/or bf16 forcing equals rk45_plain bit for bit,
+    each model, float and double (bf16 reaches float32 only: a float64
+    launch reads the float32 data, as rk45_plain does), one launch counted
+    on the instance of the option set.  Each option acts: with the queries
+    between the steps the cap moves the attempts against the same run
+    without it, and bf16 moves a float32 run's states where there is
+    forcing to round."""
+    model, y0, p, f, span, qt = _runtime_inputs(model_name, dtype)
+    cfg = dataclasses.replace(CFG, **B1_RUNTIME[name])
+    h0 = initial_step(model, y0, 0.0, p, f, cfg)
+    before = launch_totals()["rk45"]
+    ker = k_rk45.rk45(model, y0, h0, 0.0, span, qt, p, f, cfg)
+    ref = k_rk45.rk45_plain(model, y0, h0, 0.0, span, qt, p, f, cfg)
+    torch.cuda.synchronize()
+    assert launch_totals()["rk45"] == before + 1
+    _assert_rk45_equal(ker, ref)
+    if cfg.dense_lockstep:
+        free = k_rk45.rk45(model, y0, h0, 0.0, span, qt, p, f,
+                           dataclasses.replace(cfg, dense_lockstep=False))
+        assert not torch.equal(ker.stats.n_attempts, free.stats.n_attempts)
+    if cfg.forcing_dtype == "bf16":
+        f32 = k_rk45.rk45(model, y0, h0, 0.0, span, qt, p, f,
+                          dataclasses.replace(cfg, forcing_dtype="f32"))
+        if f is not None and dtype == torch.float32:
+            assert not torch.equal(ker.y_final, f32.y_final)  # the rounding reached the rhs
+        else:
+            _assert_rk45_equal(ker, f32)
+
+
+def test_bf16_copy_rounds_on_the_card_as_on_the_cpu():
+    """The wrapper's bfloat16 copy of the forcing, made on the card, has the
+    CPU's bits (each rounded to nearest even): 2^20 seeded values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(1 << 20).astype(np.float32) * 1e3)
+    card = x.cuda().to(torch.bfloat16).view(torch.int16).cpu()
+    assert torch.equal(card, x.to(torch.bfloat16).view(torch.int16))
+
+
+REUSE_SETS = {"embedded3": {}, "radau5": dict(radau_error_mode="radau5"),
+              "embedded3+predictor": dict(radau_predictor=True),
+              "radau5_narrow_band": dict(radau_error_mode="radau5", radau_reuse_lo=0.8,
+                                         radau_reuse_hi=1.25, radau_refresh_sweeps=3)}
+
+
+@pytest.mark.parametrize("dtype", M200_DTYPES)
+@pytest.mark.parametrize("name", sorted(REUSE_SETS))
+def test_radau_factor_reuse_equals_plain(stiff_case, name, dtype):
+    """B2 with factor reuse equals radau_plain bit for bit on the stiff
+    systems over the first half hour, float and double, every counter
+    included: fewer factorizations than attempts, and each system's own."""
+    y0, p, f, qt = _first(stiff_case, 33)
+    if dtype == torch.float64:
+        y0, p, f, qt = _double(y0, p, f, qt)
+    cfg = dataclasses.replace(CFG, radau_factor_reuse=True, **REUSE_SETS[name])
+    h0 = initial_step(Model204(), y0, 0.0, p, f, cfg)
+    ker = _radau_pair(Model204(), y0, h0, qt, p, f, cfg)
+    assert 0 < int(ker.stats.n_fact.sum()) < int(ker.stats.n_attempts.sum())
+
+
+@pytest.mark.parametrize("model_name", ["m200", "dummy"])
+def test_radau_factor_reuse_other_models_equal_plain(model_name):
+    """B2 with factor reuse on Model 200 (64 systems over 30 minutes) and
+    DummyModel (64 over 5 minutes) equals radau_plain bit for bit."""
+    if model_name == "m200":
+        model, y0, p, f = _m200_inputs(64, torch.float32, SPAN)
+        span, qt = SPAN, torch.arange(0.0, SPAN + 1e-9, 5.0, device=y0.device)
+    else:
+        (model, y0), p, f = _dummy_inputs(64, torch.float32), None, None
+        span, qt = 5.0, torch.linspace(0.0, 5.0, 11, device=y0.device)
+    cfg = dataclasses.replace(CFG, radau_factor_reuse=True)
+    h0 = initial_step(model, y0, 0.0, p, f, cfg)
+    ker = k_radau.radau(model, y0, h0, 0.0, span, qt, p, f, cfg)
+    ref = k_radau.radau_plain(model, y0, h0, 0.0, span, qt, p, f, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(ker.failed, ref.failed)
+    for a, b in zip(ker.stats, ref.stats):
+        assert torch.equal(a, b)
+    for a, b in ((ker.y_final, ref.y_final), (ker.dense, ref.dense)):
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def test_solve_with_every_option_on_card(case):
+    """solve() on the card with lockstep, bf16 forcing and factor reuse
+    equals its chain through the plain versions bit for bit."""
+    y0, _, _, p, f = case
+    qt = torch.arange(0.0, TF + 1e-9, 20.0, device=y0.device)
+    cfg = dataclasses.replace(CFG, dense_lockstep=True, forcing_dtype="bf16",
+                              radau_factor_reuse=True)
+    res = solve(Model204(), y0, 0.0, TF, qt, p, f, cfg)
+    h0 = initial_step(Model204(), y0, 0.0, p, f, cfg)
+    rk = k_rk45.rk45_plain(Model204(), y0, h0, 0.0, TF, qt, p, f, cfg)
+    rows = torch.nonzero(rk.stiff).squeeze(1)
+    rd = k_radau.radau_plain(Model204(), y0[rows], h0[rows], 0.0, TF, qt,
+                             {k: v[rows] for k, v in p.items()}, f.take_systems(rows), cfg)
+    assert res.n_stiff == rows.numel() > 0 and not rd.failed.any() and not res.failed.any()
+    want_y, want_d = rk.y_final.clone(), rk.dense.clone()
+    want_y[rows], want_d[rows] = rd.y_final, rd.dense
+    assert torch.equal(res.y_final, want_y) and torch.equal(res.dense, want_d)

@@ -17,7 +17,10 @@ exp2f/log2f/powf round otherwise than torch's; on the card the two agree
 bit for bit, which tests/test_torch_cuda.py checks.)  The same g++ builds
 check that the ctypes mirrors of the kernels' argument structs have the
 C++ structs' sizes, and the double tableau's constants are checked against
-``solver/tableau.py`` here too.
+``solver/tableau.py`` here too.  B1's runtime options (the lockstep cap and
+the bf16 gather, ``tests/torch_shim/cuda_bf16.h`` standing in for the
+bfloat16 header) are rehearsed the same way, and B2's warp body with factor
+reuse on 32 threads a system (``radau_shim.cpp``).
 """
 
 import ctypes
@@ -91,6 +94,17 @@ def radau_sizes_lib(tmp_path_factory):
         pytest.skip("needs g++")
     return _gxx(tmp_path_factory.mktemp("radau_sizes"), "radau", "radau_sizes.cpp",
                 "libradau_sizes.so")
+
+
+@pytest.fixture(scope="module")
+def radau_shim_lib(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    lib = _gxx(tmp_path_factory.mktemp("radau_shim"), "radau", "radau_shim.cpp",
+               "libradau_shim.so")
+    lib.tt_radau_launch.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p]
+    lib.tt_radau_launch.restype = ctypes.c_int
+    return lib
 
 
 def _run(lib, monkeypatch, entry, model, y0, h0, qt, p, f, cfg, t_shift=0.0):
@@ -218,8 +232,127 @@ def test_dummy_schedule_changes_no_result_without_params(shim_lib, monkeypatch, 
     torch.testing.assert_close(pooled.dense, ref.dense, rtol=rtol, atol=1e-6)
 
 
-#: The argument-struct fields whose offsets the shims report, in order.
-OFFSET_FIELDS = ("options", "model", "t_shift", "doy0", "forcing")
+#: B1's runtime options (Rk45Args.lockstep, .forc_bf16), alone and with
+#: option instances.
+RUNTIME = {"lockstep": dict(dense_lockstep=True), "bf16": dict(forcing_dtype="bf16"),
+           "lockstep_bf16": dict(dense_lockstep=True, forcing_dtype="bf16"),
+           "lockstep_fsal_pi": dict(dense_lockstep=True, fsal=True, controller="pi"),
+           "lockstep_compensated": dict(dense_lockstep=True, compensated=True)}
+
+
+@pytest.mark.parametrize("name,dtype", [
+    pytest.param("lockstep", torch.float32, id="lockstep-f32"),
+    pytest.param("lockstep", torch.float64, id="lockstep-f64"),
+    pytest.param("bf16", torch.float32, id="bf16-f32"),
+    pytest.param("lockstep_bf16", torch.float32, id="lockstep_bf16-f32"),
+    pytest.param("lockstep_fsal_pi", torch.float32, id="lockstep_fsal_pi-f32"),
+    pytest.param("lockstep_compensated", torch.float64, id="lockstep_compensated-f64")])
+def test_runtime_options_schedule_changes_no_result(shim_lib, monkeypatch, name, dtype):
+    """B1's lockstep cap and bf16 gather, in the pooled schedule, give every
+    system the result it gets alone, bit for bit: 100 systems over 6 hours
+    with stiff rows, a query every 20 minutes (between the forcing's hourly
+    boundaries, so the cap bites: more attempts than without it).  The
+    kernel finds each system's lockstep barrier from its dense cursor;
+    rk45_plain carries the TPU kernel's cursor: the two agree to the g++
+    build's libm (on the card bit for bit, tests/test_torch_cuda.py)."""
+    cfg = dataclasses.replace(CFG, **RUNTIME[name])
+    model = Model204()
+    y0, p, f = scenario(100, TF / 1440.0, 0.05, device="cpu", dtype=dtype)
+    qt = torch.arange(0.0, TF + 1e-9, 20.0, dtype=dtype)
+    h0 = initial_step(model, y0, 0.0, p, f, cfg)
+    pooled = _run(shim_lib, monkeypatch, "tt_rk45_launch", model, y0, h0, qt, p, f, cfg)
+    alone = _run(shim_lib, monkeypatch, "tt_rk45_serial", model, y0, h0, qt, p, f, cfg)
+    diff = k_rk45.rk45_mismatch(pooled, alone)
+    assert not any(diff.values()), diff
+    assert bool(alone.stiff[p["Hu"] < 1e-5].all())
+    if cfg.dense_lockstep:
+        free = _run(shim_lib, monkeypatch, "tt_rk45_launch", model, y0, h0, qt, p, f,
+                    dataclasses.replace(cfg, dense_lockstep=False))
+        calm = ~pooled.stiff
+        assert int(pooled.stats.n_attempts[calm].sum()) > int(free.stats.n_attempts[calm].sum())
+    ref = k_rk45.rk45_plain(model, y0, h0, 0.0, TF, qt, p, f, cfg)
+    assert torch.equal(pooled.stiff, ref.stiff)
+    calm = ~ref.stiff
+    rtol = 1e-9 if dtype == torch.float64 else 5e-4
+    torch.testing.assert_close(pooled.y_final[calm], ref.y_final[calm], rtol=rtol, atol=5e-5)
+    torch.testing.assert_close(pooled.dense[calm], ref.dense[calm], rtol=10 * rtol, atol=5e-5)
+
+
+@pytest.mark.parametrize("name", ["defaults", "fsal_pi"])
+def test_bf16_gather_reads_the_rounded_forcing(shim_lib, monkeypatch, name):
+    """The float instance with a bfloat16 copy of the forcing (its samples
+    widened at each gather, FSAL's refresh too) equals the same instance on
+    float32 forcing rounded to bfloat16 beforehand, bit for bit, and
+    differs from the float32 run."""
+    from tiger_tpu_torch.forcing import ForcingSet
+
+    cfg = dataclasses.replace(CFG, **RK45_INSTANCES.get(name, {}))
+    model = Model204()
+    y0, p, f = scenario(100, TF / 1440.0, 0.05, device="cpu")
+    qt = torch.arange(0.0, TF + 1e-9, 60.0)
+    h0 = initial_step(model, y0, 0.0, p, f, cfg)
+    bf16 = _run(shim_lib, monkeypatch, "tt_rk45_launch", model, y0, h0, qt, p, f,
+                dataclasses.replace(cfg, forcing_dtype="bf16"))
+    pre = ForcingSet(f.data.to(torch.bfloat16).float(), f.meta)
+    rounded = _run(shim_lib, monkeypatch, "tt_rk45_launch", model, y0, h0, qt, p, pre, cfg)
+    diff = k_rk45.rk45_mismatch(bf16, rounded)
+    assert not any(diff.values()), diff
+    f32 = _run(shim_lib, monkeypatch, "tt_rk45_launch", model, y0, h0, qt, p, f, cfg)
+    assert k_rk45.rk45_mismatch(bf16, f32)["y_final"] > 0
+
+
+def _run_radau(lib, monkeypatch, model, y0, h0, qt, p, f, cfg, span):
+    """The B2 wrapper's CUDA path on CPU tensors, its launch sent to the
+    warp rehearsal (radau_shim.cpp)."""
+
+    def launch(fn_name, size_name, args, f64, device, options):
+        assert fn_name == "tt_radau_launch"
+        assert getattr(lib, size_name)(int(f64)) == ctypes.sizeof(args)
+        assert lib.tt_radau_launch(ctypes.addressof(args), int(f64), None) == 0
+
+    monkeypatch.setattr(k_radau, "launch", launch)
+    return k_radau._radau_cuda(model, y0, h0, 0.0, span, qt, p, f, cfg)
+
+
+@pytest.mark.parametrize("name,dtype", [
+    pytest.param("embedded3", torch.float32, id="embedded3-f32"),
+    pytest.param("radau5", torch.float32, id="radau5-f32"),
+    pytest.param("embedded3", torch.float64, id="embedded3-f64"),
+    pytest.param("radau5_predictor", torch.float64, id="radau5_predictor-f64")])
+def test_radau_warp_factor_reuse_matches_plain(radau_shim_lib, monkeypatch, name, dtype):
+    """B2's warp body with factor reuse (the kept factors in shared memory,
+    each system's own vote), rehearsed on 32 threads a system: 3 stiff
+    systems over 10 minutes against radau_plain with reuse.  Fewer
+    factorizations than attempts, the same failures, and in float64 the
+    same counters (glibc's double libm rounded as torch's here); in float32
+    glibc's powf moves a sweep here and there (without reuse too), so the
+    counters agree to 1% and the states to the g++ build's libm (on the
+    card bit for bit, tests/test_torch_cuda.py)."""
+    opts = {"embedded3": {}, "radau5": dict(radau_error_mode="radau5"),
+            "radau5_predictor": dict(radau_error_mode="radau5", radau_predictor=True)}[name]
+    cfg = dataclasses.replace(CFG, radau_factor_reuse=True, **opts)
+    model, span = Model204(), 10.0
+    y0, p, f = scenario(3, span / 1440.0, 1.0, device="cpu", dtype=dtype)
+    qt = torch.arange(0.0, span + 1e-9, 2.5, dtype=dtype)
+    h0 = initial_step(model, y0, 0.0, p, f, cfg)
+    ker = _run_radau(radau_shim_lib, monkeypatch, model, y0, h0, qt, p, f, cfg, span)
+    ref = k_radau.radau_plain(model, y0, h0, 0.0, span, qt, p, f, cfg)
+    assert torch.equal(ker.failed, ref.failed) and not ref.failed.any()
+    for field, a, b in zip(ref.stats._fields, ker.stats, ref.stats):
+        if dtype == torch.float64:
+            assert torch.equal(a, b), (field, a, b)
+        else:
+            assert bool(((a - b).abs() <= 0.01 * b + 2).all()), (field, a, b)
+    assert 0 < int(ker.stats.n_fact.sum()) < int(ker.stats.n_attempts.sum())
+    rtol = 1e-9 if dtype == torch.float64 else 5e-4
+    torch.testing.assert_close(ker.y_final, ref.y_final, rtol=rtol, atol=1e-7)
+    torch.testing.assert_close(ker.dense, ref.dense, rtol=rtol, atol=1e-7)
+
+
+#: The argument-struct fields whose offsets the shims report, in order (B2's
+#: own in place of B1's first and last two).
+OFFSET_FIELDS = ("options", "model", "t_shift", "doy0", "forcing", "lockstep", "forc_bf16")
+RADAU_OFFSET_FIELDS = ("err_mode",) + OFFSET_FIELDS[1:5] + ("factor_reuse", "reuse_hi")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
@@ -228,8 +361,8 @@ def test_args_mirrors_match_the_kernel_structs(shim_lib, radau_sizes_lib, kernel
     """Each ctypes mirror (kernels.rk45.ARGS, kernels.radau.ARGS) has the
     size of the C++ struct it mirrors, as g++ lays it out: the float
     struct and the double one (whose scalars and ForcingMeta are double);
-    and the model, the shift, doy0 and what surrounds them lie at the C++
-    struct's offsets."""
+    and the model, the shift, doy0, the runtime options at the end and
+    what surrounds them lie at the C++ struct's offsets."""
     lib, args = ((shim_lib, k_rk45.ARGS) if kernel == "rk45" else (radau_sizes_lib, k_radau.ARGS))
     size = getattr(lib, f"tt_{kernel}_args_size")(F64[dtype])
     assert size == ctypes.sizeof(args[dtype])
@@ -237,7 +370,7 @@ def test_args_mirrors_match_the_kernel_structs(shim_lib, radau_sizes_lib, kernel
         assert size > ctypes.sizeof(args[torch.float32])
     out = (ctypes.c_int64 * len(OFFSET_FIELDS))()
     getattr(lib, f"tt_{kernel}_args_offsets")(F64[dtype], out)
-    fields = OFFSET_FIELDS if kernel == "rk45" else ("err_mode",) + OFFSET_FIELDS[1:]
+    fields = OFFSET_FIELDS if kernel == "rk45" else RADAU_OFFSET_FIELDS
     assert list(out) == [getattr(args[dtype], f).offset for f in fields]
 
 

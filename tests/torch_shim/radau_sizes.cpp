@@ -20,8 +20,8 @@ extern "C" int tt_radau_args_size(int32_t f64) {
   return f64 ? (int)sizeof(tt::RadauArgs<double>) : (int)sizeof(tt::RadauArgs<float>);
 }
 
-// The offsets of the fields err_mode, model, t_shift, doy0 and forcing, in
-// that order, for the mirror test.
+// The offsets of the fields err_mode, model, t_shift, doy0, forcing,
+// factor_reuse and reuse_hi, in that order, for the mirror test.
 template <class A>
 static void offsets_of(int64_t* out) {
   out[0] = offsetof(A, err_mode);
@@ -29,6 +29,8 @@ static void offsets_of(int64_t* out) {
   out[2] = offsetof(A, t_shift);
   out[3] = offsetof(A, doy0);
   out[4] = offsetof(A, forcing);
+  out[5] = offsetof(A, factor_reuse);
+  out[6] = offsetof(A, reuse_hi);
 }
 
 extern "C" void tt_radau_args_offsets(int32_t f64, int64_t* out) {

@@ -101,8 +101,8 @@ extern "C" int tt_rk45_serial(const void* args, int32_t f64, void*) {
              : tt::serial_as(*static_cast<const tt::Rk45Args<float>*>(args));
 }
 
-// The offsets of the fields options, model, t_shift, doy0 and forcing, in
-// that order, for the mirror test.
+// The offsets of the fields options, model, t_shift, doy0, forcing,
+// lockstep and forc_bf16, in that order, for the mirror test.
 template <class A>
 static void offsets_of(int64_t* out) {
   out[0] = offsetof(A, options);
@@ -110,6 +110,8 @@ static void offsets_of(int64_t* out) {
   out[2] = offsetof(A, t_shift);
   out[3] = offsetof(A, doy0);
   out[4] = offsetof(A, forcing);
+  out[5] = offsetof(A, lockstep);
+  out[6] = offsetof(A, forc_bf16);
 }
 
 extern "C" void tt_rk45_args_offsets(int32_t f64, int64_t* out) {

@@ -137,8 +137,9 @@ class SolverInfo:
     # not the differences that float32's and float64's own step choices
     # make (PERF.md).
     precision: str = "f64"
-    # Forcing precision (SolverConfig.forcing_dtype); 'bf16' answered a
-    # TPU memory limit and the port's solver refuses it.
+    # Forcing precision (SolverConfig.forcing_dtype): 'bf16' rounds the
+    # forcing RK45 reads in a float32 solve to bfloat16 (~3 significant
+    # digits of the forcing values; the states and steps stay float32).
     forcing_precision: str = "f32"
     # Step-size controller: 'i' (reference parity) or 'pi' (Lund-stabilized;
     # fewer rejected attempts on forcing-kink-heavy runs).

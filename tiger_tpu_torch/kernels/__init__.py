@@ -15,14 +15,24 @@ def launch_counts() -> dict:
     return {"rk45": dict(rk45.rk45_launches), "radau": dict(radau.radau_launches)}
 
 
+def option_launch_counts() -> dict:
+    """{option: launches}: B1's launches with each of its runtime options
+    (the lockstep query crossing, bf16 forcing), by model and scalar; each
+    also counts in ``launch_counts`` under its instance.  (B2's factor
+    reuse is an instance of its own.)"""
+    from tiger_tpu_torch.kernels import rk45
+
+    return dict(rk45.rk45_option_launches)
+
+
 def launch_totals() -> dict:
     """{"rk45": launches, "radau": launches} over all instances."""
     return {kernel: sum(counts.values()) for kernel, counts in launch_counts().items()}
 
 
 def reset_launch_counts() -> None:
-    """Set every instance's launch count to 0."""
+    """Set every instance's and every runtime option's launch count to 0."""
     from tiger_tpu_torch.kernels import radau, rk45
 
-    for counts in (rk45.rk45_launches, radau.radau_launches):
+    for counts in (rk45.rk45_launches, radau.radau_launches, rk45.rk45_option_launches):
         counts.update(dict.fromkeys(counts, 0))

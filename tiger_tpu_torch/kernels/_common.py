@@ -168,6 +168,18 @@ def kernel_inputs(name, model, y0, h0, params, forcings, query_times, t_shift=0.
     return y0.t().contiguous(), block
 
 
+def b1_forcing_data(forcings: ForcingSet, config: SolverConfig,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """The forcing data B1 reads in a ``dtype`` solve: with
+    ``forcing_dtype='bf16'`` and float32, the float32 data rounded to
+    bfloat16 (to nearest even, as the TPU kernel's ``astype``), made on the
+    data's device; else the float32 data itself.  B2, float64 solves and
+    the initial step read the float32 data."""
+    if config.forcing_dtype == "bf16" and dtype == torch.float32:
+        return forcings.data.to(torch.bfloat16)
+    return forcings.data
+
+
 def data_ptr(x: torch.Tensor | None) -> int:
     return 0 if x is None else x.data_ptr()
 

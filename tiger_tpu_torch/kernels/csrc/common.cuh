@@ -21,6 +21,7 @@
 // loader can refuse a mismatched build.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -155,13 +156,20 @@ __device__ __forceinline__ T jclip(T x, T lo, T hi) {
   return jmin(jmax(x, lo), hi);
 }
 
+// A forcing sample as float: float32 data as it is, bfloat16 data widened
+// (exactly: a bfloat16 is a float32's upper half).
+__device__ __forceinline__ float forcing_value(float x) { return x; }
+__device__ __forceinline__ float forcing_value(__nv_bfloat16 x) { return __bfloat162float(x); }
+
 // ZOH gather at the step-start time t: index = trunc(t/dt + snap) clamped
 // to the record (rk45_pallas.py:202 truncates with astype(int32)).  The
-// forcing data is float32 in every instance; a double instance widens the
-// sample it reads, as the plain version's .to(float64) does.
-template <class T>
+// forcing data is float32 in every instance, or in B1's float instances
+// its bfloat16 copy (SolverConfig.forcing_dtype='bf16', rk45_pallas.py
+// l.207 widens at the gather); a double instance widens the float32 sample
+// it reads, as the plain version's .to(float64) does.
+template <class T, class D>
 __device__ __forceinline__ void gather_forcings(
-    const float* __restrict__ forc, int64_t n_sys, int64_t s,
+    const D* __restrict__ forc, int64_t n_sys, int64_t s,
     const ForcingMeta<T>& m, T t, T (&f)[kMaxForcings]) {
 #pragma unroll
   for (int j = 0; j < kMaxForcings; ++j) {
@@ -169,7 +177,7 @@ __device__ __forceinline__ void gather_forcings(
     if (j < m.n_forc) {
       int idx = (int)(t / m.dt[j] + m.snap);
       idx = min(max(idx, 0), m.n_steps[j] - 1);
-      f[j] = (T)__ldg(forc + (int64_t)(m.offset[j] + idx) * n_sys + s);
+      f[j] = (T)forcing_value(__ldg(forc + (int64_t)(m.offset[j] + idx) * n_sys + s));
     }
   }
 }

@@ -3,8 +3,7 @@
 //
 // Replaces the TPU kernel tiger_tpu/kernels/radau_pallas.py: _make_kernel's
 // inner `kernel` (l.169-852), launched by pl.pallas_call in _pipeline
-// (l.987).  Same per-system semantics (no factor reuse): per attempt one
-// forward-difference
+// (l.987).  Same per-system semantics: per attempt one forward-difference
 // Jacobian at (t, y) with eps = sqrt(float32 eps); the simplified-Newton
 // matrix solved in the eigenbasis of A^-1 (tableau._radau_eig) as one real
 // and one complex 5x5 unpivoted Doolittle LU; masked Newton sweeps, at most
@@ -13,8 +12,8 @@
 // radau_error_mode; unconverged steps rejected with h/2; collocation dense
 // output; and radau_max_rejects consecutive rejections -> failed.  The TPU
 // kernel's options are compile-time here, one instance per error mode with
-// and without the predictor (radau_dispatch), so the default instance keeps
-// its instructions:
+// and without the predictor, each with and without factor reuse
+// (radau_dispatch), so the default instance keeps its instructions:
 //   - error modes (l.157-162, 439-490): 'embedded3' (E3, exponent 1/3) and
 //     'reference' (the reference's E, 1/5) are the embedded difference;
 //     'radau5' (1/4) is RADAU5's smoothed h M_r^-1 (f0 + sum_s EA_s z_s),
@@ -25,7 +24,21 @@
 //     values the last attempt's collocation polynomial extrapolates.  The
 //     last attempt's slopes are the warp's shared z, read before the new
 //     start overwrites them; h_prev, the theta offset and whether the last
-//     Newton converged to finite slopes are scalars alike on every lane.
+//     Newton converged to finite slopes are scalars alike on every lane;
+//   - factor reuse (SolverConfig.radau_factor_reuse, l.359-392, 653-674,
+//     771-786): the Jacobian and both LUs are kept (a copy in shared memory,
+//     SharedReuse) and refreshed only when the system voted after its last
+//     attempt (radau_refresh_sweeps sweeps or more, or Newton failed) or this
+//     attempt's h_eff left [reuse_lo, reuse_hi] x the factored h.  The TPU
+//     kernel's vote is its tile's: one lane's vote refactors 2,048; a warp
+//     holds one system, so here each system votes for itself.  A reused
+//     attempt skips lanes 1-5's perturbed right-hand sides and both LUs;
+//     lane 0 still evaluates f(t, y), and radau5's error takes the factored
+//     h (h M_r^-1 = (mu/h I - J)^-1 for the h the factor was built with).
+//     A template bit, not a runtime flag: as a flag it cost the instances
+//     without reuse 9-23 registers (float) and ~360 bytes of spill stores
+//     (double) under ptxas, so each option set has an instance with reuse
+//     and one without, and the latter keeps its code.
 //
 // What bounds it on the H100: latency.  The main path hands B2 ~131 stiff
 // systems, and each needs ~3,100 attempts that depend on one another, so
@@ -61,12 +74,12 @@
 // radau_plain bit for bit.  The tableau and eigen-constants come from the
 // kernel's parameter space (passed from tableau.py, never retyped here).
 //
-// The scalar is a template parameter as well: six float instances and the
-// same six in double, which repeat the float code in double (the TPU
+// The scalar is a template parameter as well: twelve float instances and
+// the same twelve in double, which repeat the float code in double (the TPU
 // kernel is float32 only and runs float64 through the vmap path,
 // tiger_tpu/solver/radau.py radau_step; radau_dispatch).  The option sets
 // call no libm function the default set does not, and double pow is
-// contracted.cu's in all six.  A double warp maximum reduces the high
+// contracted.cu's in all twelve.  A double warp maximum reduces the high
 // words of the bit patterns, then the low words of the lanes that hold the
 // highest high word (warp_jmax).  The file is compiled twice, as rk45.cu is:
 // as it stands for the float instances and the entry points, and with
@@ -114,8 +127,8 @@ struct RadauArgs {
   T newton_tol, kappa, tol_eps, fd_eps;
   int32_t max_steps, max_rejects, newton_max_iter, reject_unconverged;
   int32_t fill_t0_queries;
-  int32_t err_mode;     // RadauErrMode: which instance the launcher starts
-  int32_t predictor;    // with the Newton predictor
+  int32_t err_mode;     // RadauErrMode: which instance the launcher starts,
+  int32_t predictor;    // with the Newton predictor or not (and factor_reuse)
   T safety_newton;      // radau5: safety * (2 newton_max_iter + 1)
   ForcingMeta<T> forcing;
   T ra[3][3], rc[3], rb[3], re[3], rw[3][3];  // tableau.RADAU_*; re: E3 or E
@@ -128,6 +141,10 @@ struct RadauArgs {
   int32_t model;  // KernelModel
   T t_shift;      // added to the time the rhs sees (not the forcing gather's)
   T doy0;         // Model 200: the day of year at t = 0
+  // SolverConfig.radau_factor_reuse (which instance: with reuse or not) and
+  // its knobs.
+  int32_t factor_reuse, refresh_sweeps;
+  T reuse_lo, reuse_hi;
 };
 
 // The two factors of (I - h A (x) J) in the eigenbasis of A^-1, in each
@@ -182,6 +199,11 @@ struct Shared {
   T mr[kNEq][kNEq], cre[kNEq][kNEq];  // gamma I - h J and Re((alpha + beta i) I - h J)
   T z[3][kNEq];                       // stage slopes
   T b[3][kNEq];                       // stage residuals f(stage) - z
+};
+// The instances with factor reuse also keep the system's last factors.
+template <class T>
+struct SharedReuse : Shared<T> {
+  Factors<T> kept;
 };
 
 // x[i] for a lane-dependent i, by selects (an indexed register array would
@@ -247,9 +269,10 @@ __device__ __forceinline__ double warp_jmax(double v) {
 // SolverConfig.radau_error_mode (kernels/radau.py ERR_MODES).
 enum RadauErrMode : int32_t { kEmbedded3 = 0, kReference = 1, kRadau5 = 2 };
 
-// One system on the block's 32 lanes; every lane runs every loop trip.
-template <class T, class M, int ERR, bool PRED>
-__device__ __forceinline__ void radau_system(const RadauArgs<T>& a, int64_t s, Shared<T>& sh) {
+// One system on the block's 32 lanes; every lane runs every loop trip.  SH:
+// Shared<T>, or SharedReuse<T> with REUSE.
+template <class T, class M, int ERR, bool PRED, bool REUSE, class SH>
+__device__ __forceinline__ void radau_system(const RadauArgs<T>& a, int64_t s, SH& sh) {
   const int lane = threadIdx.x;
   const int64_t S = a.n_sys;
   M model;
@@ -297,6 +320,11 @@ __device__ __forceinline__ void radau_system(const RadauArgs<T>& a, int64_t s, S
   // and whether its slopes (in sh.z) may seed.
   T h_prev = T(1), z_base = T(0);
   bool have = false;
+  // Factor reuse (radau_pallas.py l.359-392, 771-786), per system: the step
+  // the factors in sh.kept were built with, and the refresh vote, cast
+  // before the first attempt.  Without reuse every attempt factors afresh.
+  T h_fact = T(0);
+  bool refresh = true;
 
   TT_PHASE_START
   while (t < tf && !failed && n_att < a.max_steps) {
@@ -304,17 +332,24 @@ __device__ __forceinline__ void radau_system(const RadauArgs<T>& a, int64_t s, S
     if (a.forcing.align) h_eff = zoh_step_cap(a.forcing, t, h_eff);
     T f[kMaxForcings];
     gather_forcings(a.forc, S, s, a.forcing, t, f);
+    // Refactor on the vote, or when this step left [lo, hi] x h_fact.
+    bool fresh = true;
+    if constexpr (REUSE) {
+      const T ratio = h_eff / h_fact;
+      fresh = refresh || ratio < a.reuse_lo || ratio > a.reuse_hi || is_nan(ratio);
+    }
     TT_PHASE(0)  // step start: h_eff, step cap, forcing gather
 
-    // f(t, y) and the five forward-difference columns in one pass.
+    // f(t, y) and, for fresh factors, the five forward-difference columns
+    // in one pass.
     {
       const int j = jc - 1;  // the perturbed component; -1 on lane 0
       const T h_eps = a.fd_eps * jmax(T(1), fabs_t(pick(y, j)));
       T yp[kNEq], fp[kNEq];
 #pragma unroll
       for (int i = 0; i < kNEq; ++i) yp[i] = i == j ? y[i] + h_eps : y[i];
-      model.rhs(t + a.t_shift, yp, f, n_forc, fp);
-      if (lane <= kNEq) {
+      if (fresh || j < 0) model.rhs(t + a.t_shift, yp, f, n_forc, fp);
+      if (lane == 0 || (fresh && lane <= kNEq)) {
 #pragma unroll
         for (int i = 0; i < kNEq; ++i) sh.jf[jc][i] = fp[i];
         if (j >= 0) sh.h_eps[j] = h_eps;
@@ -324,9 +359,12 @@ __device__ __forceinline__ void radau_system(const RadauArgs<T>& a, int64_t s, S
     TT_PHASE(1)  // the six right-hand sides of f and the Jacobian
 
     // One Jacobian entry per lane, into both matrices' entry (ei, ej).
-    const T jac = (sh.jf[ej + 1][ei] - sh.jf[0][ei]) / sh.h_eps[ej];
-    const T m_ent = ei == ej ? a.gam - h_eff * jac : (-h_eff) * jac;
-    const T c_ent = ei == ej ? a.alp - h_eff * jac : (-h_eff) * jac;
+    T m_ent = T(0), c_ent = T(0);
+    if (fresh) {
+      const T jac = (sh.jf[ej + 1][ei] - sh.jf[0][ei]) / sh.h_eps[ej];
+      m_ent = ei == ej ? a.gam - h_eff * jac : (-h_eff) * jac;
+      c_ent = ei == ej ? a.alp - h_eff * jac : (-h_eff) * jac;
+    }
 
     // Simplified Newton on the stage slopes Z, started at f(t, y): this
     // lane's slope z[us][ui] stays in a register, the shared copy feeds
@@ -363,50 +401,61 @@ __device__ __forceinline__ void radau_system(const RadauArgs<T>& a, int64_t s, S
     if (upd_lane) sh.z[us][ui] = z_own;
     const T tol_own = a.atol + a.rtol * fabs_t(pick(y, ui));
 
-    if (lane < kNEq * kNEq) {
+    if (fresh && lane < kNEq * kNEq) {
       sh.mr[ei][ej] = m_ent;
       sh.cre[ei][ej] = c_ent;
     }
     __syncwarp();
 
-    // Both unpivoted Doolittle LUs, on every lane (see the note at the top).
+    // Both unpivoted Doolittle LUs, on every lane (see the note at the top),
+    // or the kept ones.
     Factors<T> fa;
-#pragma unroll
-    for (int i = 0; i < kNEq; ++i)
-#pragma unroll
-      for (int j = 0; j < kNEq; ++j) {
-        fa.mr[i][j] = sh.mr[i][j];
-        fa.cre[i][j] = sh.cre[i][j];
-        fa.cim[i][j] = i == j ? a.bet : T(0);
-      }
-#pragma unroll
-    for (int k = 0; k < kNEq; ++k) {
-      fa.mr_inv[k] = T(1) / fa.mr[k][k];
-#pragma unroll
-      for (int i = k + 1; i < kNEq; ++i) {
-        const T m = fa.mr[i][k] * fa.mr_inv[k];
-        fa.mr[i][k] = m;
-#pragma unroll
-        for (int j = k + 1; j < kNEq; ++j) fa.mr[i][j] = fa.mr[i][j] - m * fa.mr[k][j];
-      }
+    if constexpr (REUSE) {
+      if (!fresh) fa = sh.kept;
     }
+    if (fresh) {
 #pragma unroll
-    for (int k = 0; k < kNEq; ++k) {
-      const T inv_den =
-          T(1) / (fa.cre[k][k] * fa.cre[k][k] + fa.cim[k][k] * fa.cim[k][k]);
-      fa.ci_re[k] = fa.cre[k][k] * inv_den;
-      fa.ci_im[k] = -fa.cim[k][k] * inv_den;
+      for (int i = 0; i < kNEq; ++i)
 #pragma unroll
-      for (int i = k + 1; i < kNEq; ++i) {
-        const T m_re = fa.cre[i][k] * fa.ci_re[k] - fa.cim[i][k] * fa.ci_im[k];
-        const T m_im = fa.cre[i][k] * fa.ci_im[k] + fa.cim[i][k] * fa.ci_re[k];
-        fa.cre[i][k] = m_re;
-        fa.cim[i][k] = m_im;
-#pragma unroll
-        for (int j = k + 1; j < kNEq; ++j) {
-          fa.cre[i][j] = fa.cre[i][j] - (m_re * fa.cre[k][j] - m_im * fa.cim[k][j]);
-          fa.cim[i][j] = fa.cim[i][j] - (m_re * fa.cim[k][j] + m_im * fa.cre[k][j]);
+        for (int j = 0; j < kNEq; ++j) {
+          fa.mr[i][j] = sh.mr[i][j];
+          fa.cre[i][j] = sh.cre[i][j];
+          fa.cim[i][j] = i == j ? a.bet : T(0);
         }
+#pragma unroll
+      for (int k = 0; k < kNEq; ++k) {
+        fa.mr_inv[k] = T(1) / fa.mr[k][k];
+#pragma unroll
+        for (int i = k + 1; i < kNEq; ++i) {
+          const T m = fa.mr[i][k] * fa.mr_inv[k];
+          fa.mr[i][k] = m;
+#pragma unroll
+          for (int j = k + 1; j < kNEq; ++j) fa.mr[i][j] = fa.mr[i][j] - m * fa.mr[k][j];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kNEq; ++k) {
+        const T inv_den =
+            T(1) / (fa.cre[k][k] * fa.cre[k][k] + fa.cim[k][k] * fa.cim[k][k]);
+        fa.ci_re[k] = fa.cre[k][k] * inv_den;
+        fa.ci_im[k] = -fa.cim[k][k] * inv_den;
+#pragma unroll
+        for (int i = k + 1; i < kNEq; ++i) {
+          const T m_re = fa.cre[i][k] * fa.ci_re[k] - fa.cim[i][k] * fa.ci_im[k];
+          const T m_im = fa.cre[i][k] * fa.ci_im[k] + fa.cim[i][k] * fa.ci_re[k];
+          fa.cre[i][k] = m_re;
+          fa.cim[i][k] = m_im;
+#pragma unroll
+          for (int j = k + 1; j < kNEq; ++j) {
+            fa.cre[i][j] = fa.cre[i][j] - (m_re * fa.cre[k][j] - m_im * fa.cim[k][j]);
+            fa.cim[i][j] = fa.cim[i][j] - (m_re * fa.cim[k][j] + m_im * fa.cre[k][j]);
+          }
+        }
+      }
+      if constexpr (REUSE) {
+        h_fact = h_eff;
+        // Kept for the attempts that reuse them; read after a later __syncwarp.
+        if (lane == 0) sh.kept = fa;
       }
     }
     TT_PHASE(2)  // Jacobian entries and both LUs
@@ -486,8 +535,11 @@ __device__ __forceinline__ void radau_system(const RadauArgs<T>& a, int64_t s, S
         e[i] = defect[i];
       }
       fa.real_solve(e);
+      // (mu/h I - J)^-1 = h M_r^-1 for the h the factor was built with:
+      // h_eff, or with reuse the factors' h_fact.
+      const T h_m = REUSE ? h_fact : h_eff;
 #pragma unroll
-      for (int i = 0; i < kNEq; ++i) e[i] = h_eff * e[i];
+      for (int i = 0; i < kNEq; ++i) e[i] = h_m * e[i];
       err = warp_jmax(lane < kNEq ? fabs_t(pick(e, comp) / tol) : T(0));
       if (err > T(1) && reject > 0) {
         // After a rejection: the defect's f again at y + e.
@@ -499,7 +551,7 @@ __device__ __forceinline__ void radau_system(const RadauArgs<T>& a, int64_t s, S
         for (int i = 0; i < kNEq; ++i) e[i] = fp[i] + defect[i] - sh.jf[0][i];
         fa.real_solve(e);
 #pragma unroll
-        for (int i = 0; i < kNEq; ++i) e[i] = h_eff * e[i];
+        for (int i = 0; i < kNEq; ++i) e[i] = h_m * e[i];
         err = warp_jmax(lane < kNEq ? fabs_t(pick(e, comp) / tol) : T(0));
       }
     } else {
@@ -567,8 +619,11 @@ __device__ __forceinline__ void radau_system(const RadauArgs<T>& a, int64_t s, S
     n_acc += accept ? 1 : 0;
     n_rej += accept ? 0 : 1;
     n_swp += sweeps;
-    ++n_fct;
+    n_fct += fresh ? 1 : 0;
     ++n_att;
+    // The next attempt's vote: this one took radau_refresh_sweeps sweeps or
+    // more, or its Newton failed.
+    if constexpr (REUSE) refresh = sweeps >= a.refresh_sweeps || newt_fail;
     TT_PHASE(6)  // step update, error, dense output, controller
   }
   TT_PHASE_END
@@ -586,23 +641,32 @@ __device__ __forceinline__ void radau_system(const RadauArgs<T>& a, int64_t s, S
 }
 
 // One block, one warp, per system.
-template <class T, class M, int ERR, bool PRED>
+template <class T, class M, int ERR, bool PRED, bool REUSE>
 __global__ void __launch_bounds__(kWarp) radau_kernel(const RadauArgs<T> a) {
-  __shared__ Shared<T> sh;
-  radau_system<T, M, ERR, PRED>(a, blockIdx.x, sh);
+  __shared__ std::conditional_t<REUSE, SharedReuse<T>, Shared<T>> sh;
+  radau_system<T, M, ERR, PRED, REUSE>(a, blockIdx.x, sh);
 }
 
-// Calls f(std::integral_constant<int, ERR>{}, std::bool_constant<PRED>{})
-// for the instance of (err_mode, predictor) in scalar T; false if it has
-// none.  Both scalars and both models have the same six sets.
+// Calls f(std::integral_constant<int, ERR>{}, std::bool_constant<PRED>{},
+// std::bool_constant<REUSE>{}) for the instance of (err_mode, predictor,
+// factor_reuse) in scalar T; false if it has none.  Both scalars and every
+// model have the same twelve sets.
 template <class T, class F>
-inline bool radau_dispatch(int32_t err_mode, int32_t predictor, F&& f) {
+inline bool radau_dispatch(int32_t err_mode, int32_t predictor, int32_t reuse, F&& f) {
   if (predictor != 0 && predictor != 1) return false;
+  if (reuse != 0 && reuse != 1) return false;
+  const auto with_reuse = [&](auto err, auto pred) {
+    if (reuse) {
+      f(err, pred, std::true_type{});
+    } else {
+      f(err, pred, std::false_type{});
+    }
+  };
   const auto with_pred = [&](auto err) {
     if (predictor) {
-      f(err, std::true_type{});
+      with_reuse(err, std::true_type{});
     } else {
-      f(err, std::false_type{});
+      with_reuse(err, std::false_type{});
     }
   };
   switch (err_mode) {
@@ -622,8 +686,9 @@ namespace tt {
 template <class T, class M>
 int radau_launch(const RadauArgs<T>* args, void* stream) {
   if (args->n_sys <= 0) return 0;
-  const bool known = radau_dispatch<T>(args->err_mode, args->predictor, [&](auto err, auto pred) {
-    radau_kernel<T, M, decltype(err)::value, decltype(pred)::value>
+  const bool known = radau_dispatch<T>(args->err_mode, args->predictor, args->factor_reuse,
+                                       [&](auto err, auto pred, auto reuse) {
+    radau_kernel<T, M, decltype(err)::value, decltype(pred)::value, decltype(reuse)::value>
         <<<(unsigned)args->n_sys, kWarp, 0, (cudaStream_t)stream>>>(*args);
   });
   if (!known) return kNoInstance;
@@ -678,7 +743,8 @@ extern "C" int tt_radau_args_size(int32_t f64) {
   return f64 ? (int)sizeof(tt::RadauArgs<double>) : (int)sizeof(tt::RadauArgs<float>);
 }
 
-// Enqueues the instance of (model, f64, err_mode, predictor) on `stream`;
+// Enqueues the instance of (model, f64, err_mode, predictor, factor_reuse)
+// on `stream`;
 // returns cudaGetLastError() (0 on success; kNoInstance for a set without one).
 extern "C" int tt_radau_launch(const void* args, int32_t f64, void* stream) {
   const int32_t model = f64 ? static_cast<const tt::RadauArgs<double>*>(args)->model

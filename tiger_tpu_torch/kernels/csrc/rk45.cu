@@ -23,7 +23,17 @@
 //   - PI (l.623-640): the Lund-stabilised factor base * facold^beta on an
 //     advance, the plain factor on a rejection, facold carried.
 // Each option state is one more row of the pool in the instances that use
-// it (k0[5], y_c[5], facold).  The scalar is a template parameter too: six
+// it (k0[5], y_c[5], facold).  Two more options are runtime flags of
+// Rk45Args, uniform across a launch: lockstep (SolverConfig.dense_lockstep,
+// l.345-351, 392-421), which caps each step at the next query the system
+// has not reached (lockstep_barrier), and bf16 forcing
+// (forcing_dtype='bf16', l.982, 1011-1015; float only), which reads the
+// bfloat16 copy of the forcing the wrapper makes and widens each sample
+// (rk45_gather).  Only the instances with the option bit kRuntime read
+// them: read in every instance, they cost the default instance registers
+// under ptxas and 2.5% of its time on the main path (profile_solve, parent
+// against change on one H100), so each option set has an instance with the
+// bit and one without, and the latter keeps its code.  The scalar is a template parameter too: six
 // float instances and the same six in double (the TPU kernel is float32
 // only and runs float64 through the vmap path, tiger_tpu/solver/rk45.py
 // _rk45_system; rk45_dispatch).  A double system
@@ -184,16 +194,21 @@ struct Rk45Args {
   int32_t model;  // KernelModel
   T t_shift;      // added to the time the rhs sees (not the forcing gather's)
   T doy0;         // Model 200: the day of year at t = 0
+  // Runtime options, uniform across a launch, read by the kRuntime instances:
+  int32_t lockstep;                // SolverConfig.dense_lockstep: cap at the next unreached query
+  const __nv_bfloat16* forc_bf16;  // forcing_dtype='bf16' (float instances): forc rounded to
+                                   // bfloat16, read in its place; null: read forc
 };
 
-// The TPU kernel's options (SolverConfig.fsal, .compensated, .controller).
-// fsal and compensated exclude each other (SolverConfig.__post_init__), so
-// six sets have an instance: {I, PI} x {plain, FSAL, compensated}.
-enum Rk45Option : int32_t { kFsal = 1, kComp = 2, kPi = 4 };
+// The TPU kernel's options (SolverConfig.fsal, .compensated, .controller;
+// kRuntime: .dense_lockstep or .forcing_dtype, read from Rk45Args).  fsal
+// and compensated exclude each other (SolverConfig.__post_init__), so twelve
+// sets have an instance: {I, PI} x {plain, FSAL, compensated} x kRuntime.
+enum Rk45Option : int32_t { kFsal = 1, kComp = 2, kPi = 4, kRuntime = 8 };
 template <int OPT>
 struct Rk45Opt {
   static constexpr bool fsal = (OPT & kFsal) != 0, comp = (OPT & kComp) != 0,
-                        pi = (OPT & kPi) != 0;
+                        pi = (OPT & kPi) != 0, runtime = (OPT & kRuntime) != 0;
   static_assert(!(fsal && comp), "fsal and compensated exclude each other");
 };
 
@@ -232,6 +247,39 @@ __device__ __forceinline__ bool forcing_sample_changed(const ForcingMeta<T>& m, 
   return changed;
 }
 
+// ZOH gather of system s at t from the data the launch reads: the bfloat16
+// copy where a float kRuntime launch has one, else the float32 data.
+template <class T, int OPT>
+__device__ __forceinline__ void rk45_gather(const Rk45Args<T>& a, int64_t s, T t,
+                                            T (&f)[kMaxForcings]) {
+  if constexpr (std::is_same<T, float>::value && Rk45Opt<OPT>::runtime) {
+    if (a.forc_bf16 != nullptr) {
+      gather_forcings(a.forc_bf16, a.n_sys, s, a.forcing, t, f);
+      return;
+    }
+  }
+  gather_forcings(a.forc, a.n_sys, s, a.forcing, t, f);
+}
+
+// Lockstep query crossing (rk45_pallas.py l.345-351, 392-421): the first
+// query a system at t has not reached, within the TPU kernel's landing
+// tolerance 4.8e-7 |tq| + 1e-6 (a Kahan commit may stop an ulp short of a
+// query); tf + 1 once it has passed them all.  The TPU kernel carries this
+// cursor from the first query past t0 and advances it as the system's t
+// passes each query.  Here it is found from the dense cursor q, the first
+// query past t: every query before q lies at or below t, so it was reached,
+// and a cursor walked from q stops where the carried one does.  (The TPU
+// kernel also idles a lane that arrived until its tile's others have; that
+// changes no lane's steps.)
+template <class T>
+__device__ __forceinline__ T lockstep_barrier(const Rk45Args<T>& a, int q, T t) {
+  for (; q < a.n_q; ++q) {
+    const T tq = __ldg(a.qt + q);
+    if (!(t >= tq - (T(4.8e-7) * fabs_t(tq) + T(1e-6)))) return tq;
+  }
+  return a.tf + T(1);
+}
+
 // Start of system s: state from y0 and h0, and the dense rows with
 // qt <= t0 as y0 (fill_t0_queries), the rest as 0.  FSAL's first k1 is
 // f(t0, y0) on the forcing at t0.
@@ -261,7 +309,7 @@ __device__ __forceinline__ void rk45_admit(const Rk45Args<T>& a, int64_t s, Rk45
     M model;
     model.load(a.params, S, s, a.safe_pow, a.doy0);
     T f[kMaxForcings];
-    gather_forcings(a.forc, S, s, a.forcing, st.t, f);
+    rk45_gather<T, OPT>(a, s, st.t, f);
     model.rhs(st.t + a.t_shift, st.y, f, a.forcing.n_forc, st.k0);
   }
   if constexpr (O::comp) {
@@ -283,9 +331,14 @@ __device__ __forceinline__ bool rk45_attempt(const Rk45Args<T>& a, const M& mode
 
   const bool clamp = t + h > tf;
   T h_eff = clamp ? tf - t : h;
+  // Lockstep caps the step like the ZOH cap: the controller grows the next
+  // h from the capped one, and a clamped landing stays clamped.
+  if constexpr (O::runtime) {
+    if (a.lockstep) h_eff = jmin(h_eff, jmax(lockstep_barrier(a, st.q, t) - t, T(0)));
+  }
   if (a.forcing.align) h_eff = zoh_step_cap(a.forcing, t, h_eff);
   T f[kMaxForcings];
-  gather_forcings(a.forc, S, s, a.forcing, t, f);
+  rk45_gather<T, OPT>(a, s, t, f);
 
   // Seven stages at t + c_i h (plus the shift); forcing frozen at step
   // start for all of them.  FSAL takes k1 from the carry: the last
@@ -467,7 +520,7 @@ __device__ __forceinline__ bool rk45_attempt(const Rk45Args<T>& a, const M& mode
       // evaluated on the new sample.
       if (forcing_sample_changed(a.forcing, t, t1)) {
         T f1[kMaxForcings];
-        gather_forcings(a.forc, S, s, a.forcing, t1, f1);
+        rk45_gather<T, OPT>(a, s, t1, f1);
         model.rhs(t1 + a.t_shift, y, f1, a.forcing.n_forc, st.k0);
       } else {
 #pragma unroll
@@ -752,16 +805,24 @@ __global__ void __launch_bounds__(kThreads<T, M>, 1) rk45_kernel(const Rk45Args<
 
 // Calls f(std::integral_constant<int, OPT>{}) for the instance of the
 // option set `options` in scalar T; false if it has none.  Both scalars
-// and both models have the same six sets.
+// and every model have the same twelve sets.
 template <class T, class F>
 inline bool rk45_dispatch(int32_t options, F&& f) {
-  switch (options) {
-    case 0: f(std::integral_constant<int, 0>{}); return true;
-    case kFsal: f(std::integral_constant<int, kFsal>{}); return true;
-    case kComp: f(std::integral_constant<int, kComp>{}); return true;
-    case kPi: f(std::integral_constant<int, kPi>{}); return true;
-    case kFsal | kPi: f(std::integral_constant<int, kFsal | kPi>{}); return true;
-    case kComp | kPi: f(std::integral_constant<int, kComp | kPi>{}); return true;
+  const auto with_runtime = [&](auto base) {
+    constexpr int OPT = decltype(base)::value;
+    if (options & kRuntime) {
+      f(std::integral_constant<int, OPT | kRuntime>{});
+    } else {
+      f(base);
+    }
+  };
+  switch (options & ~kRuntime) {
+    case 0: with_runtime(std::integral_constant<int, 0>{}); return true;
+    case kFsal: with_runtime(std::integral_constant<int, kFsal>{}); return true;
+    case kComp: with_runtime(std::integral_constant<int, kComp>{}); return true;
+    case kPi: with_runtime(std::integral_constant<int, kPi>{}); return true;
+    case kFsal | kPi: with_runtime(std::integral_constant<int, kFsal | kPi>{}); return true;
+    case kComp | kPi: with_runtime(std::integral_constant<int, kComp | kPi>{}); return true;
     default: return false;
   }
 }

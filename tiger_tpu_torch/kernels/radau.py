@@ -76,6 +76,8 @@ def _args_type(dtype):
             ("v1", real * 3), ("v2r", real * 3), ("v2i", real * 3),
             ("p1", real * 3), ("p2r", real * 3), ("p2i", real * 3),
             ("model", c_i32), ("t_shift", real), ("doy0", real),
+            ("factor_reuse", c_i32), ("refresh_sweeps", c_i32),
+            ("reuse_lo", real), ("reuse_hi", real),
         ]
 
     return RadauArgsC
@@ -95,24 +97,30 @@ def _kappa(cfg: SolverConfig) -> float:
 #: controller's exponent.
 ERR_MODES = {"embedded3": (0, 1.0 / 3.0), "reference": (1, 0.2), "radau5": (2, 0.25)}
 #: The option sets B2 has an instance for, float and double: each error
-#: mode, with and without the predictor.
-INSTANCES = tuple((mode, pred) for mode in ERR_MODES for pred in (False, True))
+#: mode, with and without the predictor, each with and without factor reuse.
+INSTANCES = tuple((mode, pred, reuse) for mode in ERR_MODES for pred in (False, True)
+                  for reuse in (False, True))
+
+
+def _name(mode: str, pred: bool, reuse: bool) -> str:
+    return mode + ("+predictor" if pred else "") + ("+reuse" if reuse else "")
 
 
 def instance_name(config: SolverConfig, dtype: torch.dtype = torch.float32, prefix: str = "") -> str:
     """B2's instance for ``config`` in ``dtype`` for the model whose
     ``_common.KERNEL_MODELS`` prefix is ``prefix``: the error mode,
-    '+predictor' with it, '/f64' for the double instance (e.g.
-    'radau5+predictor/f64', 'm200/embedded3')."""
-    return (prefix + config.radau_error_mode + ("+predictor" if config.radau_predictor else "")
+    '+predictor' with it, '+reuse' with factor reuse, '/f64' for the double
+    instance (e.g. 'radau5+predictor/f64', 'm200/embedded3+reuse')."""
+    return (prefix + _name(config.radau_error_mode, config.radau_predictor,
+                           config.radau_factor_reuse)
             + ("/f64" if dtype == torch.float64 else ""))
 
 
 #: Kernel launches by instance (``instance_name``) since import (or since a
 #: caller set them to 0: ``kernels.reset_launch_counts``).
 radau_launches = {
-    prefix + mode + ("+predictor" if pred else "") + suffix: 0
-    for _, prefix, _ in KERNEL_MODELS.values() for suffix in ("", "/f64") for mode, pred in INSTANCES
+    prefix + _name(*inst) + suffix: 0
+    for _, prefix, _ in KERNEL_MODELS.values() for suffix in ("", "/f64") for inst in INSTANCES
 }
 
 
@@ -213,10 +221,12 @@ def _radau_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -
         inv_a=reals(tableau.RADAU_A_INV),
         gam=gam, alp=alp, bet=bet, v1=reals(v1), v2r=reals(v2r),
         v2i=reals(v2i), p1=reals(p1), p2r=reals(p2r), p2i=reals(p2i),
+        factor_reuse=int(cfg.radau_factor_reuse), refresh_sweeps=cfg.radau_refresh_sweeps,
+        reuse_lo=cfg.radau_reuse_lo, reuse_hi=cfg.radau_reuse_hi,
     )
     launch("tt_radau_launch", "tt_radau_args_size", a, f64, dev,
-           f"radau_error_mode={cfg.radau_error_mode!r}, radau_predictor={cfg.radau_predictor} "
-           f"({type(model).__name__})")
+           f"radau_error_mode={cfg.radau_error_mode!r}, radau_predictor={cfg.radau_predictor}, "
+           f"radau_factor_reuse={cfg.radau_factor_reuse} ({type(model).__name__})")
     with COUNT_LOCK:
         radau_launches[instance_name(cfg, dtype, prefix)] += 1
     return RadauResult(
@@ -289,6 +299,16 @@ def radau_plain(
     reject, n_acc, n_rej, n_att, n_swp, n_fct = zi, zi, zi, zi, zi, zi
     failed = torch.zeros(s_count, dtype=torch.bool, device=dev)
     dense = dense_init(qt, y, t0, cfg)
+    reuse = cfg.radau_factor_reuse
+    if reuse:
+        # Each system's factors, the step they were built with, and its
+        # refresh vote: every system votes before its first attempt.
+        fact = (torch.zeros((n, n, s_count), dtype=dtype, device=dev), torch.zeros_like(y),
+                torch.zeros((n, n, s_count), dtype=dtype, device=dev),
+                torch.zeros((n, n, s_count), dtype=dtype, device=dev),
+                torch.zeros_like(y), torch.zeros_like(y))
+        h_fact = torch.zeros_like(t)
+        refresh = torch.ones(s_count, dtype=torch.bool, device=dev)
     if pred:
         # The predictor's state (radau_pallas.py _Carry.pred): the last
         # attempt's stage slopes, its step, the theta offset of the next
@@ -310,34 +330,52 @@ def radau_plain(
             f_vals = gather_forcings_column(forcings.data, forcings.meta, t, snap)
         f0 = rhs(t, y, f_vals)
 
-        # Forward-difference Jacobian at (t, y): column j perturbs y[j].
-        h_eps = fd_eps * torch.clamp_min(torch.abs(y), 1.0)  # [N, S]
-        y_pert = torch.where(eye, (y + h_eps)[:, None], y[:, None])  # [i, j, S]
-        jac = (rhs(t, y_pert, f_vals) - f0[:, None]) / h_eps[None]
+        def factors():
+            """The forward-difference Jacobian at (t, y), column j
+            perturbing y[j]; then the real factor gamma I - h J and the
+            complex factor (alpha + beta i) I - h J, each an unpivoted
+            Doolittle LU in place: (mr, mr_inv, cre, cim, ci_re, ci_im)."""
+            h_eps = fd_eps * torch.clamp_min(torch.abs(y), 1.0)  # [N, S]
+            y_pert = torch.where(eye, (y + h_eps)[:, None], y[:, None])  # [i, j, S]
+            jac = (rhs(t, y_pert, f_vals) - f0[:, None]) / h_eps[None]
+            off = (-h_eff) * jac
+            mr = torch.where(eye, gam - h_eff * jac, off)
+            cre = torch.where(eye, alp - h_eff * jac, off)
+            cim = torch.where(eye, zero + bet, zero)
+            mr_inv = torch.empty_like(y)
+            ci_re, ci_im = torch.empty_like(y), torch.empty_like(y)
+            for k in range(n):
+                mr_inv[k] = 1.0 / mr[k, k]
+                m = mr[k + 1:, k] * mr_inv[k]
+                mr[k + 1:, k] = m
+                mr[k + 1:, k + 1:] = mr[k + 1:, k + 1:] - m[:, None] * mr[k, k + 1:]
+            for k in range(n):
+                inv_den = 1.0 / (cre[k, k] * cre[k, k] + cim[k, k] * cim[k, k])
+                ci_re[k] = cre[k, k] * inv_den
+                ci_im[k] = -cim[k, k] * inv_den
+                m_re = cre[k + 1:, k] * ci_re[k] - cim[k + 1:, k] * ci_im[k]
+                m_im = cre[k + 1:, k] * ci_im[k] + cim[k + 1:, k] * ci_re[k]
+                cre[k + 1:, k], cim[k + 1:, k] = m_re, m_im
+                re_k, im_k = cre[k, k + 1:], cim[k, k + 1:]
+                cre[k + 1:, k + 1:] = cre[k + 1:, k + 1:] - (m_re[:, None] * re_k - m_im[:, None] * im_k)
+                cim[k + 1:, k + 1:] = cim[k + 1:, k + 1:] - (m_re[:, None] * im_k + m_im[:, None] * re_k)
+            return mr, mr_inv, cre, cim, ci_re, ci_im
 
-        # Real factor gamma I - h J, complex factor (alpha + beta i) I - h J,
-        # each an unpivoted Doolittle LU in place.
-        off = (-h_eff) * jac
-        mr = torch.where(eye, gam - h_eff * jac, off)
-        cre = torch.where(eye, alp - h_eff * jac, off)
-        cim = torch.where(eye, zero + bet, zero)
-        mr_inv = torch.empty_like(y)
-        ci_re, ci_im = torch.empty_like(y), torch.empty_like(y)
-        for k in range(n):
-            mr_inv[k] = 1.0 / mr[k, k]
-            m = mr[k + 1:, k] * mr_inv[k]
-            mr[k + 1:, k] = m
-            mr[k + 1:, k + 1:] = mr[k + 1:, k + 1:] - m[:, None] * mr[k, k + 1:]
-        for k in range(n):
-            inv_den = 1.0 / (cre[k, k] * cre[k, k] + cim[k, k] * cim[k, k])
-            ci_re[k] = cre[k, k] * inv_den
-            ci_im[k] = -cim[k, k] * inv_den
-            m_re = cre[k + 1:, k] * ci_re[k] - cim[k + 1:, k] * ci_im[k]
-            m_im = cre[k + 1:, k] * ci_im[k] + cim[k + 1:, k] * ci_re[k]
-            cre[k + 1:, k], cim[k + 1:, k] = m_re, m_im
-            re_k, im_k = cre[k, k + 1:], cim[k, k + 1:]
-            cre[k + 1:, k + 1:] = cre[k + 1:, k + 1:] - (m_re[:, None] * re_k - m_im[:, None] * im_k)
-            cim[k + 1:, k + 1:] = cim[k + 1:, k + 1:] - (m_re[:, None] * im_k + m_im[:, None] * re_k)
+        if reuse:
+            # Factor reuse (radau_pallas.py l.359-392), per system: a system
+            # refactors when it voted after its last attempt, or when this
+            # attempt's step (after the tf clamp and the ZOH cap) left the
+            # band [lo, hi] x the step its factors were built with.
+            ratio = h_eff / h_fact
+            fresh = act & (refresh | (ratio < cfg.radau_reuse_lo)
+                           | (ratio > cfg.radau_reuse_hi) | torch.isnan(ratio))
+            if bool(fresh.any()):
+                new = factors()
+                fact = tuple(torch.where(fresh, a, b) for a, b in zip(new, fact))
+                h_fact = torch.where(fresh, h_eff, h_fact)
+        else:
+            fresh, fact, h_fact = act, factors(), h_eff
+        mr, mr_inv, cre, cim, ci_re, ci_im = fact
 
         def real_solve(x):
             x = x.clone()
@@ -427,13 +465,15 @@ def radau_plain(
             y_out = y_out + (h_eff * rb[s]) * z[s]
         tol = cfg.atol + cfg.rtol * torch.maximum(torch.abs(y), torch.abs(y_out))
         if radau5:
+            # h_fact: (mu/h I - J)^-1 = h M_r^-1 for the h the factor was
+            # built with (h_eff unless reused factors are older).
             defect = f0 + ea[0] * z[0] + ea[1] * z[1] + ea[2] * z[2]
-            e_vec = h_eff * real_solve(defect)
+            e_vec = h_fact * real_solve(defect)
             err = torch.amax(torch.abs(e_vec / tol), dim=0)
             retry = act & (err > 1.0) & (reject > 0)
             if bool(retry.any()):
                 f_p = rhs(t, y + e_vec, f_vals)
-                e2 = h_eff * real_solve(f_p + defect - f0)
+                e2 = h_fact * real_solve(f_p + defect - f0)
                 err = torch.where(retry, torch.amax(torch.abs(e2 / tol), dim=0), err)
         else:
             err_c = torch.zeros_like(y)
@@ -499,7 +539,11 @@ def radau_plain(
         n_rej = n_rej + rejected.to(torch.int32)
         n_att = n_att + act_i
         n_swp = n_swp + sweeps
-        n_fct = n_fct + act_i
+        n_fct = n_fct + fresh.to(torch.int32)
+        if reuse:
+            # The next attempt's vote (l.771-786): this one needed
+            # radau_refresh_sweeps sweeps or more, or its Newton failed.
+            refresh = torch.where(act, (sweeps >= cfg.radau_refresh_sweeps) | newt_fail, refresh)
 
     y_final, completed, dense = finish(y, t, tf, dense)
     return RadauResult(

@@ -8,7 +8,9 @@ hand-written kernel ``csrc/rk45.cu`` (or the call raises): its float
 instances for float32, its double instances for float64, one of each for
 every option set.  A CPU tensor goes to ``rk45_plain``, the same
 per-system semantics as a batched, masked while-loop in torch.  ``rk45_launches`` counts the
-kernel's launches by instance; ``rk45_options`` picks the kernel's instance
+kernel's launches by instance, ``rk45_option_launches`` those with the
+runtime options (the lockstep query crossing, bf16 forcing);
+``rk45_options`` picks the kernel's instance
 for a ``SolverConfig``,
 ``rk45_geometry`` says how a launch is laid out on the card,
 ``rk45_mismatch`` counts where two results differ bit for bit, and
@@ -32,6 +34,7 @@ from tiger_tpu_torch.forcing import (
 from tiger_tpu_torch.kernels import _build
 from tiger_tpu_torch.kernels._common import (
     C_REAL,
+    b1_forcing_data,
     COUNT_LOCK,
     FORCING_META,
     N_EQ,
@@ -76,6 +79,7 @@ def _args_type(dtype):
             ("fill_t0_queries", c_i32), ("options", c_i32),
             ("forcing", FORCING_META[dtype]),
             ("model", c_i32), ("t_shift", real), ("doy0", real),
+            ("lockstep", c_i32), ("forc_bf16", c_ptr),
         ]
 
     return Rk45ArgsC
@@ -84,12 +88,14 @@ def _args_type(dtype):
 #: ``tt::Rk45Args<T>`` by solve dtype.
 ARGS = {dtype: _args_type(dtype) for dtype in C_REAL}
 
-#: Option bits of ``Rk45Args.options`` (csrc/rk45.cu ``Rk45Option``).
-FSAL, COMPENSATED, PI = 1, 2, 4
+#: Option bits of ``Rk45Args.options`` (csrc/rk45.cu ``Rk45Option``);
+#: RUNTIME: the instance reads ``Rk45Args.lockstep`` and ``.forc_bf16``.
+FSAL, COMPENSATED, PI, RUNTIME = 1, 2, 4, 8
+_SETS = {0: "default", FSAL: "fsal", COMPENSATED: "compensated", PI: "pi",
+         FSAL | PI: "fsal+pi", COMPENSATED | PI: "compensated+pi"}
 #: The option sets B1 has a float instance for: {I, PI} x {plain, FSAL,
-#: compensated}.
-INSTANCES = {0: "default", FSAL: "fsal", COMPENSATED: "compensated", PI: "pi",
-             FSAL | PI: "fsal+pi", COMPENSATED | PI: "compensated+pi"}
+#: compensated}, each without and with RUNTIME ('+runtime').
+INSTANCES = {**_SETS, **{bits | RUNTIME: name + "+runtime" for bits, name in _SETS.items()}}
 #: The same option sets' double instances.
 F64_INSTANCES = {bits: name + "/f64" for bits, name in INSTANCES.items()}
 
@@ -108,10 +114,21 @@ rk45_launches = dict.fromkeys(
      for dtype in C_REAL for bits in INSTANCES], 0)
 
 
+#: Launches with each runtime option of the RUNTIME instances
+#: (Rk45Args.lockstep, .forc_bf16), named as the instances are ('lockstep',
+#: 'm200/lockstep/f64', 'bf16', 'dummy/bf16'; bf16 reaches float32 only);
+#: counted beside ``rk45_launches``.
+rk45_option_launches = dict.fromkeys(
+    [prefix + "lockstep" + suffix for _, prefix, _ in KERNEL_MODELS.values()
+     for suffix in ("", "/f64")] + [prefix + "bf16" for _, prefix, _ in KERNEL_MODELS.values()], 0)
+
+
 def rk45_options(config: SolverConfig) -> int:
-    """The option bits of ``config``: which instance of B1 runs it."""
+    """The option bits of ``config``: which instance of B1 runs it (RUNTIME
+    with lockstep or bf16 forcing)."""
     return ((FSAL if config.fsal else 0) | (COMPENSATED if config.compensated else 0)
-            | (PI if config.controller == "pi" else 0))
+            | (PI if config.controller == "pi" else 0)
+            | (RUNTIME if config.dense_lockstep or config.forcing_dtype == "bf16" else 0))
 
 
 def controller_exponent(config: SolverConfig) -> float:
@@ -164,6 +181,9 @@ def rk45(
 def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -> RK45Result:
     options = rk45_options(cfg)
     y0_soa, p_block = kernel_inputs("rk45", model, y0, h0, params, forcings, qt, t_shift)
+    # The bf16 copy, made on the device for this launch (float32 only).
+    f_data = None if forcings is None else b1_forcing_data(forcings, cfg, y0.dtype)
+    forc_bf16 = f_data if f_data is not None and f_data.dtype == torch.bfloat16 else None
     model_id, prefix, reads_params = kernel_model("rk45", model)
     s_count, dev, dtype = y0.shape[0], y0.device, y0.dtype
     f64 = dtype == torch.float64
@@ -191,12 +211,18 @@ def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) ->
         fill_t0_queries=int(cfg.fill_t0_queries), options=options,
         model=model_id, t_shift=t_shift, doy0=getattr(model, "doy0", 1.0),
         forcing=forcing_meta_c(forcings, cfg, dtype),
+        lockstep=int(cfg.dense_lockstep), forc_bf16=data_ptr(forc_bf16),
     )
     launch("tt_rk45_launch", "tt_rk45_args_size", a, f64, dev,
-           f"fsal={cfg.fsal}, compensated={cfg.compensated}, controller={cfg.controller!r} "
+           f"fsal={cfg.fsal}, compensated={cfg.compensated}, controller={cfg.controller!r}, "
+           f"dense_lockstep={cfg.dense_lockstep}, forcing_dtype={cfg.forcing_dtype!r} "
            f"({type(model).__name__})")
     with COUNT_LOCK:
         rk45_launches[instance_name(options, dtype, prefix)] += 1
+        if cfg.dense_lockstep:
+            rk45_option_launches[prefix + "lockstep" + ("/f64" if f64 else "")] += 1
+        if forc_bf16 is not None:
+            rk45_option_launches[prefix + "bf16"] += 1
     return RK45Result(
         y_final=y_final.t().contiguous(),
         dense=dense.permute(2, 0, 1).contiguous(),
@@ -232,6 +258,20 @@ def read_probes(n_warps: int) -> list:
 def lane_efficiency(records) -> float:
     """Attempts over 32 x warp trips: the share of the lanes a warp ran that worked."""
     return sum(w[5] for w in records) / (32 * sum(w[3] for w in records))
+
+
+def lockstep_cursor(qt: torch.Tensor, cursor: torch.Tensor, t: torch.Tensor,
+                    act: torch.Tensor) -> torch.Tensor:
+    """Advance each active system's lockstep cursor past every query it has
+    reached: t >= tq - (4.8e-7 |tq| + 1e-6), the TPU kernel's landing
+    tolerance (a Kahan commit may stop an ulp short of a query)."""
+    n_q = qt.shape[0]
+    while True:
+        tq = qt[torch.clamp(cursor, max=n_q - 1)]
+        reached = act & (cursor < n_q) & (t >= tq - (4.8e-7 * torch.abs(tq) + 1e-6))
+        if not bool(reached.any()):
+            return cursor
+        cursor = cursor + reached.to(cursor.dtype)
 
 
 def rk45_mismatch(a: RK45Result, b: RK45Result) -> dict:
@@ -292,10 +332,16 @@ def rk45_plain(
             t = t + shift
         return torch.stack(model.rhs_tuple(t, y, p, f_vals))
 
+    # bf16 forcing (float32 solves): the data rounded to bfloat16 once,
+    # each gathered sample widened back to float32 (rk45_pallas.py
+    # l.1011-1015 and l.207).
+    f_data = None if forcings is None else b1_forcing_data(forcings, cfg, dtype)
+
     def gather(t):
         if forcings is None:
             return None
-        return gather_forcings_column(forcings.data, forcings.meta, t, snap)
+        vals = gather_forcings_column(f_data, forcings.meta, t, snap)
+        return tuple(v.float() for v in vals) if f_data.dtype == torch.bfloat16 else vals
 
     # State and stage slopes as [N, S] tensors: every update below is
     # elementwise, in the TPU kernel's order, so it rounds as per-system
@@ -318,6 +364,14 @@ def rk45_plain(
     k0 = rhs(t, y, gather(t)) if fsal else None
     y_c = torch.zeros_like(y) if comp else None
     facold = torch.full_like(t, 1e-4) if pi else None
+    # Lockstep (rk45_pallas.py l.345-351, 392-421): each system's cursor
+    # starts at the first query past t0; the steps of a system are capped
+    # at the first query it has not reached, tf + 1 once it passed them all.
+    lockstep = cfg.dense_lockstep and qt is not None and qt.shape[0] > 0
+    if lockstep:
+        n_q = qt.shape[0]
+        cursor = torch.full((s_count,), int((qt <= t0).sum()), dtype=torch.int64, device=dev)
+        past_all = torch.tensor(tf, dtype=dtype, device=dev) + 1.0
 
     while True:
         act = (t < tf) & ~stiff & (n_att < cfg.max_steps)
@@ -325,6 +379,10 @@ def rk45_plain(
             break
         clamp = t + h > tf
         h_eff = torch.where(clamp, tf - t, h)
+        if lockstep:
+            cursor = lockstep_cursor(qt, cursor, t, act)
+            barrier = torch.where(cursor < n_q, qt[torch.clamp(cursor, max=n_q - 1)], past_all)
+            h_eff = torch.minimum(h_eff, torch.maximum(barrier - t, zero))
         if snap:
             h_eff = zoh_step_cap(forcings.meta, t, h_eff)
         f_vals = gather(t)

@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from tiger_tpu_torch.forcing import ForcingSet
-from tiger_tpu_torch.solver.config import SolverConfig, require_supported
+from tiger_tpu_torch.solver.config import SolverConfig
 from tiger_tpu_torch.solver.controller import initial_step
 from tiger_tpu_torch.solver.radau import RadauStats
 from tiger_tpu_torch.solver.rk45 import RKStats, check_inputs, dedup_queries
@@ -161,8 +161,6 @@ def solve(
     from tiger_tpu_torch.kernels.radau import radau
     from tiger_tpu_torch.kernels.rk45 import rk45
 
-    require_supported(config, "rk45")
-    require_supported(config, "radau")
     check_inputs(model, y0, t0, tf, query_times, params, forcings)
     # As tiger_tpu's solve (api.py:248-251); the single-phase solvers
     # accept such queries and leave their rows unfilled.

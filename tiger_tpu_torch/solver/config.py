@@ -2,9 +2,12 @@
 
 The same frozen dataclass as ``tiger_tpu/solver/config.py`` (same fields,
 defaults and validation), copied so the port imports no jax; the JAX
-module's comments explain each field.  ``require_supported`` lists the
-non-default options this package does not implement: every solver entry
-point calls it, so such a value raises instead of being ignored.
+module's comments explain each field.  Every field acts as in the JAX
+package's fused kernels, in float32 and float64 alike, through both the
+plain versions and the CUDA kernels.  One is accepted with no effect:
+``dense_chunk``, the JAX vmap path's dense-fill width, which changes no
+result there either (each system here fills its own queries through a
+per-system cursor).
 """
 
 from __future__ import annotations
@@ -51,6 +54,9 @@ class SolverConfig:
     newton_reject_unconverged: bool = True
     radau_predictor: bool = False
     radau_h_freeze_hi: float = 1.0
+    # Per-system Jacobian/LU reuse across attempts: refreshed when the last
+    # attempt took >= radau_refresh_sweeps sweeps or Newton failed, or the
+    # step left [radau_reuse_lo, radau_reuse_hi] x the factored step.
     radau_factor_reuse: bool = False
     radau_reuse_lo: float = 0.25
     radau_reuse_hi: float = 4.0
@@ -64,8 +70,12 @@ class SolverConfig:
     # system fills its own queries through a per-system cursor).
     dense_chunk: int = 8
 
-    # TPU-kernel options (Mosaic/VMEM answers; see require_supported).
+    # Lockstep query crossing (RK45): each step is also capped at the next
+    # query time the system has not reached (within 4.8e-7 |tq| + 1e-6).
     dense_lockstep: bool = False
+    # RK45's forcing in bfloat16 ('bf16': rounded to nearest even from
+    # float32, widened at each gather) in float32 solves; the initial step,
+    # float64 solves and Radau read float32.
     forcing_dtype: str = "f32"
 
     # Step-size controller: 'i' (integral) or 'pi' (Lund-stabilized).
@@ -132,41 +142,3 @@ class SolverConfig:
         e = self.stiff_test_every
         if e < 1 or (e & (e - 1)) != 0:
             raise ValueError(f"stiff_test_every must be a power of two, got {e}")
-
-
-#: Non-default values the port does not implement, per solver: lockstep
-#: dense fill, bf16 forcing and Radau factor reuse answer Mosaic/VMEM limits
-#: of the TPU kernels and are not to be ported.
-_UNSUPPORTED = {
-    "rk45": (
-        ("dense_lockstep", True),
-        ("forcing_dtype", "bf16"),
-    ),
-    "radau": (
-        ("radau_factor_reuse", True),
-        ("forcing_dtype", "bf16"),
-    ),
-}
-
-
-def require_supported(config: SolverConfig, solver: str) -> None:
-    """Raise NotImplementedError for an option ``solver`` does not implement
-    (``solver`` is 'rk45' or 'radau').
-
-    Every other field acts as in the JAX package, in float32 and float64
-    alike (each kernel has a float and a double instance of every option
-    set): ``fsal``, ``compensated``, ``controller='pi'`` with its
-    ``pi_beta`` (RK45), and ``radau_predictor`` and every
-    ``radau_error_mode`` (Radau).  Some fields
-    are accepted and have no effect here, because nothing they steer exists
-    in this package: ``dense_chunk`` (the JAX vmap path's dense-fill width;
-    it changes no result there either), and ``radau_reuse_lo``/
-    ``radau_reuse_hi`` and ``radau_refresh_sweeps``, which act only with
-    ``radau_factor_reuse``, refused here.
-    """
-    for name, value in _UNSUPPORTED[solver]:
-        if getattr(config, name) == value:
-            raise NotImplementedError(
-                f"SolverConfig.{name}={value!r} is not implemented by the "
-                f"tiger_tpu_torch {solver} solver"
-            )

@@ -14,7 +14,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from tiger_tpu_torch.forcing import ForcingSet
-from tiger_tpu_torch.solver.config import SolverConfig, require_supported
+from tiger_tpu_torch.solver.config import SolverConfig
 from tiger_tpu_torch.solver.rk45 import check_inputs, dedup_queries, start_steps
 
 
@@ -23,7 +23,7 @@ class RadauStats(NamedTuple):
     n_rejected: torch.Tensor
     n_attempts: torch.Tensor
     n_newton: torch.Tensor  # Newton sweeps each system ran
-    n_fact: torch.Tensor  # Jacobian + LU factorizations (one per attempt)
+    n_fact: torch.Tensor  # Jacobian + LU factorizations (one per attempt unless reused)
 
 
 class RadauResult(NamedTuple):
@@ -48,7 +48,6 @@ def radau_solve(
     ``y0``'s device (arguments as ``rk45_solve``)."""
     from tiger_tpu_torch.kernels.radau import radau
 
-    require_supported(config, "radau")
     check_inputs(model, y0, t0, tf, query_times, params, forcings)
     qt, inverse = dedup_queries(query_times, y0.dtype)
     h0 = start_steps(model, y0, t0, params, forcings, h0, config)

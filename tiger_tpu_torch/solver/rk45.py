@@ -14,7 +14,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from tiger_tpu_torch.forcing import ForcingSet
-from tiger_tpu_torch.solver.config import SolverConfig, require_supported
+from tiger_tpu_torch.solver.config import SolverConfig
 from tiger_tpu_torch.solver.controller import initial_step
 
 
@@ -123,7 +123,6 @@ def rk45_solve(
     """
     from tiger_tpu_torch.kernels.rk45 import rk45
 
-    require_supported(config, "rk45")
     check_inputs(model, y0, t0, tf, query_times, params, forcings)
     qt, inverse = dedup_queries(query_times, y0.dtype)
     h0 = start_steps(model, y0, t0, params, forcings, h0, config)
