@@ -447,8 +447,7 @@ def cli_phase(smi: str) -> dict:
         phase(f"phase 7 CLI ({MAIN_SYSTEMS} links, {DAYS:g} days, {fmt} outputs: {why}): "
               f"wall {wall:.6f} s, phases_s {phases}, solve share of the wall "
               f"{metrics.phases['solve'] / wall:.4f}, n_stiff {out['n_stiff']}, n_failed "
-              f"{out['n_failed']}, launches {launches}, system-steps/s "
-              f"{out['system_steps_per_s']:.6e}; basin written in {write_s:.3f} s | {smi}")
+              f"{out['n_failed']}, launches {launches}; basin written in {write_s:.3f} s | {smi}")
         check(launches["rk45"] > 0 and launches["radau"] > 0, f"phase 7: a kernel was not launched: {launches}")
         check(out["n_failed"] == 0, f"phase 7: {out['n_failed']} links failed")
 

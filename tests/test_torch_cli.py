@@ -33,6 +33,9 @@ from tiger_tpu_torch.config import config_from_dict, load_config
 from tiger_tpu_torch.run import run
 
 TOL = {"f64": (1e-9, 1e-12), "f32": (5e-4, 5e-4)}
+# The JAX summary's keys the port's leaves out: its attempted steps a second
+# read faster the more steps were rejected.
+NOT_PORTED = {"system_steps_per_s"}
 OUTPUTS = (("final", "outputs"), ("dense", "outputs"), ("discharge", "discharge"),
            ("state", "outputs"))
 
@@ -83,7 +86,7 @@ def test_run_matches_jax(scenario, tmp_path, precision):
         assert jcfg.solver.precision == cfg.solver.precision == "f64"
         precision = "f64"
     ref, ours = j_run(jcfg, use_mesh=False), run(cfg, device="cpu")
-    assert set(ours) == set(ref)
+    assert set(ours) == set(ref) - NOT_PORTED
     for key in ("num_systems", "n_stiff", "n_failed"):
         assert ours[key] == ref[key], key
     assert set(ours["phases_s"]) == set(ref["phases_s"])
@@ -106,7 +109,7 @@ def test_cli_module_prints_the_jax_summary_keys(scenario, tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     summary = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert set(summary) == set(ref)
+    assert set(summary) == set(ref) - NOT_PORTED
     assert summary["n_failed"] == 0 and summary["num_systems"] == scenario["n_sys"]
     out = scenario["tmp_path"] / "out"
     for name in ("final", "dense", "discharge", "state"):

@@ -6,8 +6,11 @@ skips.  The kernels are built with nvcc from ``tiger_tpu_torch/kernels/csrc``
 at first use.
 """
 
+import contextlib
 import dataclasses
+import json
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -1230,3 +1233,71 @@ def test_solve_with_every_option_on_card(case):
     want_y, want_d = rk.y_final.clone(), rk.dense.clone()
     want_y[rows], want_d[rows] = rd.y_final, rd.dense
     assert torch.equal(res.y_final, want_y) and torch.equal(res.dense, want_d)
+
+
+def _sync_case(request, name):
+    """(initial state, [each window's solve() of a state]) of a case."""
+    if name == "cell_f64_1h":
+        # The benchmark's cell at its shape: 1,048,576 links of Model 204 in
+        # float64 at the reference's settings, 0.1% stiff, in hot 1-hour
+        # windows with one query each (two in window 0).
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device")
+        dev = torch.device("cuda", 0)
+        y0, p, f = scenario(1 << 20, 1.0, 0.001, device=dev, dtype=torch.float64)
+        cfg = SolverConfig(rtol=1e-6, atol=1e-9, safety=0.9, min_scale=0.2, max_scale=10.0)
+        grid = torch.tensor([0.0, 60.0], dtype=torch.float64, device=dev)
+        return y0, [lambda y, k=k: solve(Model204(), y, 0.0, 60.0, grid if k == 0 else grid[1:],
+                                         p, f, cfg, t_shift=60.0 * k) for k in range(4)]
+    # A float32 solve whose B2 fails systems, so that the retry in float64 runs
+    # (as test_solve_f32_retries_radau_failures_in_f64).
+    y0, p, f, qt = _first(request.getfixturevalue("stiff_case"), 33)
+    cfg = dataclasses.replace(CFG, radau_error_mode="radau5", radau_predictor=True,
+                              radau_max_rejects=2)
+    return y0, [lambda y: solve(Model204(), y, 0.0, SPAN, qt, p, f, cfg)]
+
+
+def _run_windows(y0, windows, around=contextlib.nullcontext):
+    """Run the windows in turn, each from the last one's state, with
+    ``around()`` entered around each solve(); the last state."""
+    y = y0
+    for solve_window in windows:
+        with around():
+            res = solve_window(y)
+        y = torch.where(torch.isnan(res.y_final), y, res.y_final)
+    return y
+
+
+@pytest.mark.parametrize("name", ["cell_f64_1h", "retry_f32"])
+def test_every_host_sync_in_solve_is_marked(request, tmp_path, name):
+    """Over the same solve() calls, the trace's ``tiger.sync.*`` marks
+    number the synchronizing calls that torch's sync debug mode reports:
+    every host sync on the card's path is marked, and no mark is left
+    where the sync has gone."""
+    y0, windows = _sync_case(request, name)
+    _run_windows(y0, windows)  # builds the kernels
+    found = []
+
+    @contextlib.contextmanager
+    def sync_debug():
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                yield
+                found.extend(w for w in seen if "synchronizing" in str(w.message))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    y_debug = _run_windows(y0, windows, sync_debug)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        y_traced = _run_windows(y0, windows)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    with open(tmp_path / "trace.json") as fh:
+        marks = [e["name"] for e in json.load(fh)["traceEvents"]
+                 if e.get("cat") == "user_annotation" and e["name"].startswith("tiger.sync.")]
+    assert torch.equal(y_debug, y_traced)
+    assert "tiger.sync.handoff" in marks
+    if name == "retry_f32":
+        assert "tiger.sync.retry_failed" in marks
+    assert len(found) == len(marks), sorted(marks)

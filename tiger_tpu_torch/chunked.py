@@ -31,7 +31,6 @@ with it.  None of this adds a host sync: each window syncs once, at
 
 from __future__ import annotations
 
-import contextlib
 import math
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -41,6 +40,7 @@ import numpy as np
 import torch
 
 from tiger_tpu_torch.forcing import ForcingSet
+from tiger_tpu_torch.profiling import metrics_span
 from tiger_tpu_torch.solver.api import SolveResult, solve
 from tiger_tpu_torch.solver.config import SolverConfig
 from tiger_tpu_torch.solver.rk45 import RKStats
@@ -57,10 +57,6 @@ def _carry_update(y_prev, y_final, stiff_any, stiff, failed_any, failed, rk_stat
     y = torch.where(torch.isnan(y_final), y_prev, y_final)
     stats = RKStats(*(a + b for a, b in zip(rk_stats, new_stats)))
     return y, stiff_any | stiff, failed_any | failed, stats
-
-
-def _span(metrics, kind: str, index: int):
-    return metrics.span(kind, index) if metrics is not None else contextlib.nullcontext()
 
 
 def solve_chunked(
@@ -134,7 +130,7 @@ def solve_chunked(
         return w_start, min(tf, w_start + chunk_minutes)
 
     def _load(w):
-        with _span(metrics, "load", w):
+        with metrics_span(metrics, "load", w):
             if load_stream is None:
                 return load_window(*_bounds(w)), None
             with torch.cuda.stream(load_stream):
@@ -144,7 +140,7 @@ def solve_chunked(
             return forcings, loaded
 
     def _sink_call(w, fn, ready, args):
-        with _span(metrics, "sink", w):
+        with metrics_span(metrics, "sink", w):
             if ready is None:
                 return fn(*args)
             with torch.cuda.stream(copy_stream):
@@ -170,98 +166,94 @@ def solve_chunked(
     try:
         fut = executor.submit(_load, 0)
         for w in range(n_windows):
-            w_start, w_end = _bounds(w)
-            t_window = time.perf_counter()
-            forcings, loaded = fut.result()
-            if w + 1 < n_windows:
-                fut = executor.submit(_load, w + 1)
-            if loaded is not None:
-                main = torch.cuda.current_stream(dev)
-                main.wait_event(loaded)
-                if forcings is not None:
-                    forcings.data.record_stream(main)
+            with metrics_span(metrics, "window", w):
+                w_start, w_end = _bounds(w)
+                forcings, loaded = fut.result()
+                if w + 1 < n_windows:
+                    fut = executor.submit(_load, w + 1)
+                if loaded is not None:
+                    main = torch.cuda.current_stream(dev)
+                    main.wait_event(loaded)
+                    if forcings is not None:
+                        forcings.data.record_stream(main)
 
-            if w == 0 and forcings is not None:
-                # The window-relative gather equals the absolute ZOH series
-                # only when window boundaries land on forcing-sample
-                # boundaries; t0 must itself be dt-aligned (a custom
-                # load_window is not checked per window).
-                for dt_min in forcings.meta.dt_min:
-                    for what, val in (("chunk_minutes", chunk_minutes), ("t0", t0)):
-                        if abs(val / dt_min - round(val / dt_min)) > 1e-9:
-                            raise ValueError(
-                                f"{what}={val} is not a multiple of forcing "
-                                f"dt={dt_min} min; window-relative forcing "
-                                "gathers would diverge from the unchunked series"
-                            )
+                if w == 0 and forcings is not None:
+                    # The window-relative gather equals the absolute ZOH series
+                    # only when window boundaries land on forcing-sample
+                    # boundaries; t0 must itself be dt-aligned (a custom
+                    # load_window is not checked per window).
+                    for dt_min in forcings.meta.dt_min:
+                        for what, val in (("chunk_minutes", chunk_minutes), ("t0", t0)):
+                            if abs(val / dt_min - round(val / dt_min)) > 1e-9:
+                                raise ValueError(
+                                    f"{what}={val} is not a multiple of forcing "
+                                    f"dt={dt_min} min; window-relative forcing "
+                                    "gathers would diverge from the unchunked series"
+                                )
 
-            qt = None
-            if query_interval is not None:
-                # Queries in (w_start, w_end], window-relative; window 0 also
-                # carries the t0 query.  The first index is the first
-                # multiple of query_interval strictly after w_start, computed
-                # in float64 on the host before the cast to the solve dtype.
-                lo_idx = (
-                    0 if w == 0
-                    else math.floor((w_start - t0) / query_interval + 1e-9) + 1
-                )
-                hi_idx = math.floor((w_end - t0) / query_interval + 1e-9)
-                qt_abs = np.arange(lo_idx, hi_idx + 1) * query_interval + t0
-                qt = torch.from_numpy(qt_abs - w_start).to(y.dtype)
-                qt = qt.pin_memory().to(dev, non_blocking=True) if cuda else qt
+                qt = None
+                if query_interval is not None:
+                    # Queries in (w_start, w_end], window-relative; window 0 also
+                    # carries the t0 query.  The first index is the first
+                    # multiple of query_interval strictly after w_start, computed
+                    # in float64 on the host before the cast to the solve dtype.
+                    lo_idx = (
+                        0 if w == 0
+                        else math.floor((w_start - t0) / query_interval + 1e-9) + 1
+                    )
+                    hi_idx = math.floor((w_end - t0) / query_interval + 1e-9)
+                    qt_abs = np.arange(lo_idx, hi_idx + 1) * query_interval + t0
+                    qt = torch.from_numpy(qt_abs - w_start).to(y.dtype)
+                    qt = qt.pin_memory().to(dev, non_blocking=True) if cuda else qt
 
-            if anchor is not None:
-                started = torch.cuda.Event(enable_timing=True)
-                started.record()
-            t_solve = time.perf_counter()
-            res = solve(
-                model, y, 0.0, w_end - w_start, qt, params=params, forcings=forcings,
-                config=config,
-                # Window time is relative; a model that reads t sees the
-                # absolute simulation time.
-                t_shift=w_start,
-            )
-            if rk_stats is None:
-                rk_stats = RKStats(*(torch.zeros_like(v) for v in res.rk_stats))
-            y, stiff_any, failed_any, rk_stats = _carry_update(
-                y, res.y_final, stiff_any, res.stiff, failed_any, res.failed,
-                rk_stats, res.rk_stats,
-            )
-            routed_w = None
-            if qt is not None and routed_fn is not None:
-                routed_w = routed_fn(res.dense)
-            elif qt is not None and topology is not None:
-                from tiger_tpu_torch.routing import routed_discharge
+                if anchor is not None:
+                    started = torch.cuda.Event(enable_timing=True)
+                    started.record()
+                with metrics_span(metrics, "solve", w):
+                    res = solve(
+                        model, y, 0.0, w_end - w_start, qt, params=params, forcings=forcings,
+                        config=config,
+                        # Window time is relative; a model that reads t sees the
+                        # absolute simulation time.
+                        t_shift=w_start,
+                    )
+                    if rk_stats is None:
+                        rk_stats = RKStats(*(torch.zeros_like(v) for v in res.rk_stats))
+                    y, stiff_any, failed_any, rk_stats = _carry_update(
+                        y, res.y_final, stiff_any, res.stiff, failed_any, res.failed,
+                        rk_stats, res.rk_stats,
+                    )
+                    routed_w = None
+                    if qt is not None and routed_fn is not None:
+                        routed_w = routed_fn(res.dense)
+                    elif qt is not None and topology is not None:
+                        from tiger_tpu_torch.routing import routed_discharge
 
-                routed_w = routed_discharge(res.dense, params, topology)
-            if anchor is not None:
-                finished = torch.cuda.Event(enable_timing=True)
-                finished.record()
-                marks.append((w, started, finished))
-            if metrics is not None:
-                metrics.spans.append(("solve", w, t_solve, time.perf_counter()))
+                        routed_w = routed_discharge(res.dense, params, topology)
+                    if anchor is not None:
+                        finished = torch.cuda.Event(enable_timing=True)
+                        finished.record()
+                        marks.append((w, started, finished))
 
-            # Window k's outputs are final here: the sink thread's copy
-            # stream waits for this event, and nothing else.
-            ready = None
-            if cuda and (dense_sink is not None or state_sink is not None):
-                ready = torch.cuda.Event()
-                ready.record(torch.cuda.current_stream(dev))
-                for t in (res.dense, routed_w, y):
-                    if t is not None:
-                        t.record_stream(copy_stream)
-            if qt is not None:
-                if dense_sink is not None:
-                    _submit_sink(w, ready, dense_sink, lo_idx, qt_abs, res.dense, routed_w)
-                else:
-                    all_dense.append(res.dense)
-                    if routed_w is not None:
-                        all_routed.append(routed_w)
-            if state_sink is not None:
-                _submit_sink(w, ready, state_sink, w_end, y)
-            n_stiff_total += res.n_stiff
-            if metrics is not None:
-                metrics.spans.append(("window", w, t_window, time.perf_counter()))
+                # Window k's outputs are final here: the sink thread's copy
+                # stream waits for this event, and nothing else.
+                ready = None
+                if cuda and (dense_sink is not None or state_sink is not None):
+                    ready = torch.cuda.Event()
+                    ready.record(torch.cuda.current_stream(dev))
+                    for t in (res.dense, routed_w, y):
+                        if t is not None:
+                            t.record_stream(copy_stream)
+                if qt is not None:
+                    if dense_sink is not None:
+                        _submit_sink(w, ready, dense_sink, lo_idx, qt_abs, res.dense, routed_w)
+                    else:
+                        all_dense.append(res.dense)
+                        if routed_w is not None:
+                            all_routed.append(routed_w)
+                if state_sink is not None:
+                    _submit_sink(w, ready, state_sink, w_end, y)
+                n_stiff_total += res.n_stiff
         for f in sink_futs:
             f.result()
     finally:

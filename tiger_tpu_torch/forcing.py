@@ -19,6 +19,8 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from tiger_tpu_torch.profiling import span
+
 
 class ForcingMeta(NamedTuple):
     """Description of the packed forcing blocks."""
@@ -182,7 +184,8 @@ def gather_forcings_column(
     for off, n_t, dt in zip(meta.offsets, meta.n_steps, meta.dt_min):
         idx = _sample_index(t, n_t, dt, snap)
         if idx.ndim == 0:
-            vals.append(data[off + idx])
+            with span("tiger.sync.forcing_row"):  # the row index is read on the host
+                vals.append(data[off + idx])
         else:
             vals.append(torch.gather(data, 0, (off + idx)[None, :])[0])
     return tuple(vals)

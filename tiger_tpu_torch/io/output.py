@@ -24,13 +24,13 @@ decimals and values at 9 significant digits.
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from tiger_tpu_torch.io.netcdf import _to_host, open_writer
+from tiger_tpu_torch.profiling import metrics_span
 
 
 def _def_output_dims(w, link_ids, query_times=None, state_ids=None):
@@ -217,12 +217,10 @@ class _OneInFlight:
         host, done = _start_pull(block)
 
         def pull_write():
-            t0 = time.perf_counter()
-            if done is not None:
-                done.synchronize()
-            store(_to_host(host))
-            if self._metrics is not None:
-                self._metrics.spans.append(("write", q0, t0, time.perf_counter()))
+            with metrics_span(self._metrics, "write", q0):
+                if done is not None:
+                    done.synchronize()
+                store(_to_host(host))
 
         self._pending = self._ex.submit(pull_write)
 
@@ -233,11 +231,9 @@ class _OneInFlight:
 
     def flush(self, f) -> None:
         """Wait for the window in flight, then make the file durable."""
-        t0 = time.perf_counter()
-        self.wait()
-        f.flush()
-        if self._metrics is not None:
-            self._metrics.spans.append(("flush", -1, t0, time.perf_counter()))
+        with metrics_span(self._metrics, "flush", -1):
+            self.wait()
+            f.flush()
 
     def close(self) -> None:
         try:

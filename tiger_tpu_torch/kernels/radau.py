@@ -39,6 +39,7 @@ from tiger_tpu_torch.kernels._common import (
     launch,
     plain_params,
 )
+from tiger_tpu_torch.profiling import span
 from tiger_tpu_torch.solver import tableau
 from tiger_tpu_torch.solver.config import SolverConfig
 from tiger_tpu_torch.solver.radau import RadauResult, RadauStats
@@ -182,7 +183,8 @@ def _radau_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -
     # The kernel's warp maxima read non-negative floats as unsigned integers.
     if not (cfg.rtol >= 0.0 and cfg.atol >= 0.0):
         raise ValueError(f"radau: the CUDA kernel needs rtol, atol >= 0, got {cfg.rtol}, {cfg.atol}")
-    y0_soa, p_block = kernel_inputs("radau", model, y0, h0, params, forcings, qt, t_shift)
+    with span("tiger.b2.inputs"):
+        y0_soa, p_block = kernel_inputs("radau", model, y0, h0, params, forcings, qt, t_shift)
     model_id, prefix, reads_params = kernel_model("radau", model)
     s_count, dev, dtype = y0.shape[0], y0.device, y0.dtype
     f64, real = dtype == torch.float64, C_REAL[dtype]
@@ -229,9 +231,11 @@ def _radau_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -
            f"radau_factor_reuse={cfg.radau_factor_reuse} ({type(model).__name__})")
     with COUNT_LOCK:
         radau_launches[instance_name(cfg, dtype, prefix)] += 1
+    with span("tiger.b2.outputs"):
+        y_final, dense = y_final.t().contiguous(), dense.permute(2, 0, 1).contiguous()
     return RadauResult(
-        y_final=y_final.t().contiguous(),
-        dense=dense.permute(2, 0, 1).contiguous(),
+        y_final=y_final,
+        dense=dense,
         failed=failed != 0,
         stats=RadauStats(*stats),
     )

@@ -52,6 +52,7 @@ from tiger_tpu_torch.kernels._common import (
     launch,
     plain_params,
 )
+from tiger_tpu_torch.profiling import span
 from tiger_tpu_torch.solver import tableau
 from tiger_tpu_torch.solver.config import SolverConfig
 from tiger_tpu_torch.solver.rk45 import RK45Result, RKStats
@@ -180,9 +181,10 @@ def rk45(
 
 def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) -> RK45Result:
     options = rk45_options(cfg)
-    y0_soa, p_block = kernel_inputs("rk45", model, y0, h0, params, forcings, qt, t_shift)
-    # The bf16 copy, made on the device for this launch (float32 only).
-    f_data = None if forcings is None else b1_forcing_data(forcings, cfg, y0.dtype)
+    with span("tiger.b1.inputs"):
+        y0_soa, p_block = kernel_inputs("rk45", model, y0, h0, params, forcings, qt, t_shift)
+        # The bf16 copy, made on the device for this launch (float32 only).
+        f_data = None if forcings is None else b1_forcing_data(forcings, cfg, y0.dtype)
     forc_bf16 = f_data if f_data is not None and f_data.dtype == torch.bfloat16 else None
     model_id, prefix, reads_params = kernel_model("rk45", model)
     s_count, dev, dtype = y0.shape[0], y0.device, y0.dtype
@@ -223,9 +225,11 @@ def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) ->
             rk45_option_launches[prefix + "lockstep" + ("/f64" if f64 else "")] += 1
         if forc_bf16 is not None:
             rk45_option_launches[prefix + "bf16"] += 1
+    with span("tiger.b1.outputs"):
+        y_final, dense = y_final.t().contiguous(), dense.permute(2, 0, 1).contiguous()
     return RK45Result(
-        y_final=y_final.t().contiguous(),
-        dense=dense.permute(2, 0, 1).contiguous(),
+        y_final=y_final,
+        dense=dense,
         stiff=flags[0] != 0,
         failed=flags[1] != 0,
         h0=h0,

@@ -46,6 +46,7 @@ from tiger_tpu_torch import Model204, SolverConfig, solve
 from tiger_tpu_torch.kernels import _build
 from tiger_tpu_torch.kernels import radau as k_radau
 from tiger_tpu_torch.kernels import rk45 as k_rk45
+from tiger_tpu_torch.profiling import union_length
 from tiger_tpu_torch.scenario import scenario
 from tiger_tpu_torch.solver.controller import initial_step
 
@@ -71,16 +72,6 @@ def n_outside(a, b) -> int:
     return int(((a - b).abs() > ATOL + RTOL * b.abs()).sum())
 
 
-def busy_us(intervals) -> float:
-    """Length of the union of (start, end) intervals."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total
-
-
 def profile(run) -> dict:
     """Device time per kernel over one run() under torch.profiler."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -102,7 +93,7 @@ def profile(run) -> dict:
                else "radau_kernel (B2)" if "radau_kernel" in ev.name else "other device work")
         groups[key] += span[1] - span[0]
     return {"prof": prof, "wall_us": wall_us, "device_us": groups,
-            "busy_us": busy_us(spans), "peak_bytes": torch.cuda.max_memory_allocated()}
+            "busy_us": union_length(spans), "peak_bytes": torch.cuda.max_memory_allocated()}
 
 
 def pow_call_cost(args, smi: str) -> None:

@@ -1,9 +1,20 @@
-"""Metrics: phase timers, the system-steps/s counters, and a profiler trace.
+"""Metrics: phase timers, the solve's counters, spans, and a profiler trace.
 
 Port of ``Metrics`` and ``trace`` in ``tiger_tpu/profiling.py``.  The solve
 counters are reduced on the solve's device and read with one copy to the
 host; ``trace`` records ``torch.profiler`` (CPU, and CUDA where there is a
 card) into a Chrome trace.
+
+``span(name)`` marks a block of the program in that trace: while a
+``torch.profiler`` records, it enters ``record_function(name)``, so the
+block lands on the profiler's clock beside the device's kernels, copies and
+sets; otherwise it costs one flag check.  The program's spans are named
+``tiger.*``: the phases of ``solver.api.solve`` (``tiger.solve.<phase>``),
+the kernel wrappers' layout copies (``tiger.b1.*``, ``tiger.b2.*``), each
+host sync on the card's path (``tiger.sync.<site>``) and the windowed
+run's ``Metrics.span`` kinds (``tiger.run.<kind>``, so that the run's
+``solve`` block, which also holds the carry and the routing, is not read
+as ``solve()``'s own ``tiger.solve``).
 """
 
 from __future__ import annotations
@@ -15,6 +26,18 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks the block as ``name`` in a profiler
+    trace: ``record_function(name)`` while a ``torch.profiler`` records
+    (in any thread: the flag is the process's), else nothing."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _autograd_profiler.record_function(name)
+    return _NO_SPAN
 
 
 @dataclass
@@ -38,19 +61,20 @@ class Metrics:
     @contextlib.contextmanager
     def span(self, kind: str, index: int):
         """Record the block's host interval as a span (thread-safe: one
-        list append)."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.spans.append((kind, index, t0, time.perf_counter()))
+        list append), and mark it ``tiger.run.<kind>`` in a profiler trace."""
+        with span(f"tiger.run.{kind}"):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.spans.append((kind, index, t0, time.perf_counter()))
 
     def span_list(self, *kinds: str) -> list:
         """(start, end) of the spans of these kinds."""
         return [(a, b) for k, _, a, b in self.spans if k in kinds]
 
     def record_solve(self, result, wall_s: float) -> None:
-        """Derive the throughput counters from a SolveResult."""
+        """Derive the step counters from a SolveResult."""
         stats = result.rk_stats
         sums = [stats.n_attempts.sum(), stats.n_accepted.sum()]
         rd = result.radau_stats
@@ -64,8 +88,6 @@ class Metrics:
                 "rk_attempted_steps": n_att,
                 "rk_accepted_steps": n_acc,
                 "solve_wall_s": wall_s,
-                # Attempted system-steps per second of the solve's wall.
-                "system_steps_per_s": (n_att / wall_s) if wall_s > 0 else 0.0,
             }
         )
         if rd is not None:
@@ -76,19 +98,27 @@ class Metrics:
         return {"phases_s": dict(self.phases), **self.counters}
 
 
+def metrics_span(metrics: Optional[Metrics], kind: str, index: int):
+    """``metrics.span(kind, index)``, or nothing without ``metrics``."""
+    return _NO_SPAN if metrics is None else metrics.span(kind, index)
+
+
 @contextlib.contextmanager
 def trace(log_dir: Optional[str]):
     """``torch.profiler`` over the block, written to ``log_dir/trace.json``
-    (a no-op when ``log_dir`` is falsy)."""
+    (a no-op when ``log_dir`` is falsy).  It records every thread, so the
+    windowed run's loader and writer threads bring their spans too."""
     if not log_dir:
         yield
         return
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    every_thread = _ExperimentalConfig(profile_all_threads=True)
+    with profile(activities=activities, experimental_config=every_thread) as prof:
         yield
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from tiger_tpu_torch.forcing import ForcingSet
+from tiger_tpu_torch.profiling import span
 from tiger_tpu_torch.solver.config import SolverConfig
 from tiger_tpu_torch.solver.controller import initial_step
 from tiger_tpu_torch.solver.radau import RadauStats
@@ -80,8 +81,10 @@ def retry_failed_f64(model, y0, h0, t0, tf, qt64, params, forcings, config, t_sh
 
     sub = _take(rows, y0, h0, params, forcings, torch.float64)
     rk = rk45(model, *sub[:2], t0, tf, qt64, *sub[2:], config, t_shift)
-    stiff = rk.stiff.cpu()  # the retry's own host sync
-    still, done = (torch.nonzero(m).squeeze(1).to(rows.device) for m in (stiff, ~stiff))
+    with span("tiger.sync.retry_stiff"):
+        stiff = rk.stiff.cpu()  # the retry's own host sync
+    with span("tiger.sync.retry_rows"):  # blocking copies of the host's rows to the device
+        still, done = (torch.nonzero(m).squeeze(1).to(rows.device) for m in (stiff, ~stiff))
     parts = [(rows[done], rk.y_final[done], rk.dense[done], rk.failed[done])]
     radau_rows = radau_stats = None
     if still.numel():
@@ -158,55 +161,75 @@ def solve(
     if devices is not None:
         return solve_on_devices(model, y0, t0, tf, query_times, params, forcings, config,
                                 t_shift, devices)
+    with span("tiger.solve"):
+        return _solve(model, y0, t0, tf, query_times, params, forcings, config, t_shift)
+
+
+def _solve(model, y0, t0, tf, query_times, params, forcings, config, t_shift) -> SolveResult:
+    """``solve`` on one device, its phases marked ``tiger.solve.<phase>``
+    and its host syncs on the card ``tiger.sync.<site>`` (``profiling.span``)."""
     from tiger_tpu_torch.kernels.radau import radau
     from tiger_tpu_torch.kernels.rk45 import rk45
 
-    check_inputs(model, y0, t0, tf, query_times, params, forcings)
-    # As tiger_tpu's solve (api.py:248-251); the single-phase solvers
-    # accept such queries and leave their rows unfilled.
-    if query_times is not None and query_times.numel():
-        if float(query_times[-1]) > float(tf) + 1e-9:
-            raise ValueError(f"query_times extend past tf ({float(query_times[-1])} > {tf})")
-    t0, tf = float(t0), float(tf)
-    qt, inverse = dedup_queries(query_times, y0.dtype)
-    h0 = initial_step(model, y0, t0, params, forcings, config, t_shift)
-    rk = rk45(model, y0, h0, t0, tf, qt, params, forcings, config, t_shift)
+    with span("tiger.solve.check"):
+        check_inputs(model, y0, t0, tf, query_times, params, forcings)
+        # As tiger_tpu's solve (api.py:248-251); the single-phase solvers
+        # accept such queries and leave their rows unfilled.
+        if query_times is not None and query_times.numel():
+            with span("tiger.sync.query_end"):
+                q_end = float(query_times[-1])
+            if q_end > float(tf) + 1e-9:
+                raise ValueError(f"query_times extend past tf ({q_end} > {tf})")
+        t0, tf = float(t0), float(tf)
+        qt, inverse = dedup_queries(query_times, y0.dtype)
+    with span("tiger.solve.initial_step"):
+        h0 = initial_step(model, y0, t0, params, forcings, config, t_shift)
+    with span("tiger.solve.b1"):
+        rk = rk45(model, y0, h0, t0, tf, qt, params, forcings, config, t_shift)
     y_final, dense, failed = rk.y_final, rk.dense, rk.failed
 
-    rows = torch.nonzero(rk.stiff).squeeze(1)  # the one host sync
-    n_stiff = int(rows.shape[0])
+    with span("tiger.solve.handoff"):
+        with span("tiger.sync.handoff"):
+            rows = torch.nonzero(rk.stiff).squeeze(1)  # the one host sync
+        n_stiff = int(rows.shape[0])
+        if n_stiff:
+            stiff_in = _take(rows, y0, rk.h0, params, forcings)
     radau_stats = None
     if n_stiff:
-        s_y0, s_h0, s_params, s_forc = _take(rows, y0, rk.h0, params, forcings)
-        rd = radau(model, s_y0, s_h0, t0, tf, qt, s_params, s_forc, config, t_shift)
-        # In-place merge into the RK45 phase's own output tensors.
-        ok = ~rd.failed
-        y_final[rows] = torch.where(ok[:, None], rd.y_final.to(y_final.dtype), y_final[rows])
-        dense[rows] = torch.where(ok[:, None, None], rd.dense.to(dense.dtype), dense[rows])
-        failed[rows] = rd.failed
-        radau_stats = RadauStats(
-            *(
-                torch.zeros(y0.shape[0], dtype=torch.int64, device=y0.device).index_copy_(
-                    0, rows, field.to(torch.int64)
+        with span("tiger.solve.b2"):
+            rd = radau(model, *stiff_in[:2], t0, tf, qt, *stiff_in[2:], config, t_shift)
+        with span("tiger.solve.merge"):
+            # In-place merge into the RK45 phase's own output tensors.
+            ok = ~rd.failed
+            y_final[rows] = torch.where(ok[:, None], rd.y_final.to(y_final.dtype), y_final[rows])
+            dense[rows] = torch.where(ok[:, None, None], rd.dense.to(dense.dtype), dense[rows])
+            failed[rows] = rd.failed
+            radau_stats = RadauStats(
+                *(
+                    torch.zeros(y0.shape[0], dtype=torch.int64, device=y0.device).index_copy_(
+                        0, rows, field.to(torch.int64)
+                    )
+                    for field in rd.stats
                 )
-                for field in rd.stats
             )
-        )
         if retries_in_f64(y0):
-            lost = rows[torch.nonzero(rd.failed).squeeze(1)]  # the one host sync it adds
-            if lost.numel():
-                qt64 = dedup_queries(query_times, torch.float64)[0]
-                retry = retry_failed_f64(model, y0, rk.h0, t0, tf, qt64, params, forcings,
-                                         config, t_shift, lost)
-                y_final[retry.rows] = retry.y_final.to(y_final.dtype)
-                dense[retry.rows] = retry.dense.to(dense.dtype)
-                failed[retry.rows] = retry.failed
-                if query_times is None and retry.radau_stats is not None:
-                    radau_stats = RadauStats(*(
-                        field.index_copy_(0, retry.radau_rows, new.to(torch.int64))
-                        for field, new in zip(radau_stats, retry.radau_stats)))
+            with span("tiger.solve.retry"):
+                with span("tiger.sync.retry_failed"):
+                    lost = rows[torch.nonzero(rd.failed).squeeze(1)]  # the one host sync it adds
+                if lost.numel():
+                    qt64 = dedup_queries(query_times, torch.float64)[0]
+                    retry = retry_failed_f64(model, y0, rk.h0, t0, tf, qt64, params, forcings,
+                                             config, t_shift, lost)
+                    y_final[retry.rows] = retry.y_final.to(y_final.dtype)
+                    dense[retry.rows] = retry.dense.to(dense.dtype)
+                    failed[retry.rows] = retry.failed
+                    if query_times is None and retry.radau_stats is not None:
+                        radau_stats = RadauStats(*(
+                            field.index_copy_(0, retry.radau_rows, new.to(torch.int64))
+                            for field, new in zip(radau_stats, retry.radau_stats)))
     if inverse is not None:
-        dense = dense[:, inverse.to(dense.device), :]
+        with span("tiger.solve.reorder"):
+            dense = dense[:, inverse.to(dense.device), :]
     return SolveResult(
         y_final=y_final,
         dense=dense,
@@ -231,7 +254,16 @@ def solve_on_devices(model, y0, t0, tf, query_times=None, params=None, forcings=
     parts are merged on the first device.  Systems are independent, so the
     result equals the one-device solve bit for bit; ``n_stiff`` is the sum,
     and ``radau_stats`` are zero for the rows of a part that flagged none.
+    The call is marked ``tiger.solve_on_devices`` and each part's
+    ``solve`` ``tiger.solve``, in its own thread (``profiling.span``).
     """
+    with span("tiger.solve_on_devices"):
+        return _solve_on_devices(model, y0, t0, tf, query_times, params, forcings, config,
+                                 t_shift, devices)
+
+
+def _solve_on_devices(model, y0, t0, tf, query_times, params, forcings, config, t_shift,
+                      devices) -> SolveResult:
     from tiger_tpu_torch.params import split_even
 
     devs = [torch.device(d) for d in devices]
@@ -272,7 +304,8 @@ def solve_on_devices(model, y0, t0, tf, query_times=None, params=None, forcings=
                 with torch.cuda.stream(stream):
                     y_k, q_k, p_k, f_k = inputs()
                     results[k] = solve(model, y_k, t0, tf, q_k, p_k, f_k, config, t_shift)
-                stream.synchronize()
+                with span("tiger.sync.devices"):
+                    stream.synchronize()
         except Exception as exc:  # raised again in the calling thread
             errors.append(exc)
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from tiger_tpu_torch.forcing import ForcingSet, gather_forcings_column
+from tiger_tpu_torch.profiling import span
 from tiger_tpu_torch.solver.config import SolverConfig
 
 _H_FLOOR = 1e-6
@@ -57,7 +58,10 @@ def initial_step(
     if config.initial_step is not None:
         return torch.full((s_count,), config.initial_step, dtype=dtype, device=device)
     t0_t = torch.full((), float(t0), dtype=dtype, device=device)
-    t_rhs = t0_t + torch.tensor(float(t_shift), dtype=dtype, device=device) if t_shift else t0_t
+    t_rhs = t0_t
+    if t_shift:
+        with span("tiger.sync.t_shift"):  # a blocking copy of a host number to the device
+            t_rhs = t0_t + torch.tensor(float(t_shift), dtype=dtype, device=device)
     if config.h0_mode == "global-zero-y0":
         cols = [torch.zeros((1,), dtype=dtype, device=device) for _ in range(n_eq)]
         p_row = None if params is None else {k: v[:1] for k, v in params.items()}

@@ -14,6 +14,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from tiger_tpu_torch.forcing import ForcingSet
+from tiger_tpu_torch.profiling import span
 from tiger_tpu_torch.solver.config import SolverConfig
 from tiger_tpu_torch.solver.controller import initial_step
 
@@ -67,8 +68,8 @@ def check_inputs(model, y0, t0, tf, query_times, params, forcings) -> None:
             raise TypeError(f"query_times must be a tensor, got {type(qt).__name__}")
         if (
             qt.ndim != 1
-            or bool(torch.isnan(qt).any())
-            or (qt.numel() > 1 and bool((qt[1:] < qt[:-1]).any()))
+            or _synced_any(torch.isnan(qt), "tiger.sync.check_nan")
+            or (qt.numel() > 1 and _synced_any(qt[1:] < qt[:-1], "tiger.sync.check_order"))
         ):
             raise ValueError("query_times must be a 1-D NaN-free tensor sorted ascending")
         tensors["query_times"] = qt
@@ -77,6 +78,12 @@ def check_inputs(model, y0, t0, tf, query_times, params, forcings) -> None:
             raise ValueError(f"{name} is on {v.device}, y0 on {y0.device}")
     if not float(tf) > float(t0):
         raise ValueError(f"tf ({tf}) must be greater than t0 ({t0})")
+
+
+def _synced_any(mask: torch.Tensor, mark: str) -> bool:
+    """``mask.any()`` read on the host (a sync on the card), marked ``mark``."""
+    with span(mark):
+        return bool(mask.any())
 
 
 def dedup_queries(query_times: torch.Tensor | None, dtype):
@@ -88,7 +95,8 @@ def dedup_queries(query_times: torch.Tensor | None, dtype):
     """
     if query_times is None:
         return None, None
-    uniq, inverse = torch.unique_consecutive(query_times, return_inverse=True)
+    with span("tiger.sync.dedup"):  # the output's size is read on the host
+        uniq, inverse = torch.unique_consecutive(query_times, return_inverse=True)
     uniq = uniq.to(dtype).contiguous()
     if uniq.shape[0] == query_times.shape[0]:
         return uniq, None
