@@ -152,8 +152,9 @@ def test_rk45_pooled_schedule_equals_plain(case, n_sys, build, name):
 
 
 def test_rk45_two_launches_give_the_same_bytes(case):
-    """No atomics and no traffic between blocks: the schedule, and so every
-    byte of the result, repeats from launch to launch."""
+    """No atomics and no traffic between blocks, and no system's result
+    depends on the lane that runs it: every byte of the result repeats from
+    launch to launch."""
     model, y0, h0, qt, p, f, cfg = _b1_inputs(4097, "defaults")
     one = k_rk45.rk45(model, y0, h0, 0.0, TF, qt, p, f, cfg)
     two = k_rk45.rk45(model, y0, h0, 0.0, TF, qt, p, f, cfg)
@@ -561,6 +562,67 @@ def test_rk45_f64_nan_state_ends_as_in_plain(case):
     _assert_rk45_equal(ker, ref)
     assert bool(ker.stiff[3]) and int(ker.stats.n_accepted[3]) == 0
     assert bool(torch.isnan(ker.y_final[3]).all())
+
+
+# A real-time hourly update: the second hour of a 2-hour scenario, from the
+# state B1 carried out of the first (a NaN row keeps its start), one query
+# at the window's end, at the solver's defaults in float64 (rtol 1e-6) and
+# CFG's tolerances in float32.  The systems live some tens of attempts,
+# under a slice, so nearly every lane takes its next system mid-slice: from
+# the slice's order, then from the block's share.
+HOT_SYSTEMS = 65_536
+HOT_CFG = {torch.float32: CFG, torch.float64: SolverConfig()}
+_hot_cases = {}
+
+
+def _hot_window(dtype):
+    """(model, y0, h0, qt, params, forcing, cfg, rk45_plain's result)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if dtype not in _hot_cases:
+        dev, model, cfg = torch.device("cuda", 0), Model204(), HOT_CFG[dtype]
+        y_cold, p, f = scenario(HOT_SYSTEMS, 2.0 / 24.0, 0.001, device=dev, dtype=dtype)
+        qt0 = torch.tensor([0.0, 60.0], dtype=dtype, device=dev)
+        warm = k_rk45.rk45(model, y_cold, initial_step(model, y_cold, 0.0, p, f, cfg), 0.0, 60.0,
+                           qt0, p, f, cfg)
+        y0 = torch.where(torch.isnan(warm.y_final), y_cold, warm.y_final)
+        h0 = initial_step(model, y0, 60.0, p, f, cfg)
+        qt = torch.tensor([120.0], dtype=dtype, device=dev)
+        ref = k_rk45.rk45_plain(model, y0, h0, 60.0, 120.0, qt, p, f, cfg)
+        _hot_cases[dtype] = (model, y0, h0, qt, p, f, cfg, ref)
+    return _hot_cases[dtype]
+
+
+@pytest.mark.parametrize("build", sorted(POOL_BUILDS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rk45_hot_window_equals_plain(dtype, build):
+    """B1's float and double default instances on a hot-started 1-hour
+    window of 65,536 systems equal rk45_plain bit for bit, under the
+    package's pool and under 64 slots (a share of ~496 systems through
+    them)."""
+    model, y0, h0, qt, p, f, cfg, ref = _hot_window(dtype)
+    with _build.flags_in_use(_build.NVCC_FLAGS + POOL_BUILDS[build]):
+        ker = k_rk45.rk45(model, y0, h0, 60.0, 120.0, qt, p, f, cfg)
+        torch.cuda.synchronize()
+        slice_attempts = k_rk45.rk45_geometry(HOT_SYSTEMS, 0, dtype)["slice_attempts"]
+    _assert_rk45_equal(ker, ref)
+    assert ker.y_final.dtype == dtype
+    # Most systems end inside their first slice.
+    assert int(ref.stats.n_attempts.median()) < slice_attempts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rk45_hot_window_two_launches_give_the_same_bytes(dtype):
+    """Lanes claim the next system from a counter in shared memory, so which
+    lane runs which system may differ from launch to launch; no byte of the
+    result does."""
+    model, y0, h0, qt, p, f, cfg, _ = _hot_window(dtype)
+    one = k_rk45.rk45(model, y0, h0, 60.0, 120.0, qt, p, f, cfg)
+    two = k_rk45.rk45(model, y0, h0, 60.0, 120.0, qt, p, f, cfg)
+    torch.cuda.synchronize()
+    for a, b in zip((one.y_final, one.dense, one.stiff, one.failed, *one.stats),
+                    (two.y_final, two.dense, two.stiff, two.failed, *two.stats)):
+        assert torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
 
 @pytest.mark.parametrize("name", sorted(OPTIONS))

@@ -46,9 +46,10 @@ from tiger_tpu_torch.solver.controller import initial_step
 SHIM = Path(__file__).resolve().with_name("torch_shim")
 CFG = SolverConfig(rtol=1e-5, atol=1e-8, max_steps=100_000)
 TF = 360.0
-SHAPE = ("-DTT_RK45_THREADS=8", "-DTT_RK45_THREADS_F64=8", "-DTT_RK45_THREADS_M200=8",
-         "-DTT_RK45_POOL=16",
-         "-DTT_RK45_SLICE=4", "-DTT_SHIM_BLOCKS=2")
+LANES, POOL, SLICE = 8, 16, 4
+SHAPE = (f"-DTT_RK45_THREADS={LANES}", f"-DTT_RK45_THREADS_F64={LANES}",
+         f"-DTT_RK45_THREADS_M200={LANES}", f"-DTT_RK45_POOL={POOL}",
+         f"-DTT_RK45_SLICE={SLICE}", "-DTT_SHIM_BLOCKS=2")
 F64 = {torch.float32: 0, torch.float64: 1}
 
 
@@ -107,7 +108,7 @@ def radau_shim_lib(tmp_path_factory):
     return lib
 
 
-def _run(lib, monkeypatch, entry, model, y0, h0, qt, p, f, cfg, t_shift=0.0):
+def _run(lib, monkeypatch, entry, model, y0, h0, qt, p, f, cfg, t_shift=0.0, tf=TF):
     """The wrapper's CUDA path on CPU tensors, its launch sent to ``entry``
     of the shim library."""
 
@@ -117,7 +118,7 @@ def _run(lib, monkeypatch, entry, model, y0, h0, qt, p, f, cfg, t_shift=0.0):
         assert getattr(lib, entry)(ctypes.addressof(args), int(f64), None) == 0
 
     monkeypatch.setattr(k_rk45, "launch", launch)
-    return k_rk45._rk45_cuda(model, y0, h0, 0.0, TF, qt, p, f, cfg, t_shift)
+    return k_rk45._rk45_cuda(model, y0, h0, 0.0, tf, qt, p, f, cfg, t_shift)
 
 
 # Every option case in float32, and again in float64 (the double instance:
@@ -126,17 +127,51 @@ SCALAR_CASES = [pytest.param(name, torch.float32, id=name) for name in sorted(OP
     pytest.param(name, torch.float64, id=f"{name}_f64") for name in sorted(OPTIONS)]
 
 
+#: 6-hour runs from the cold state at three batch sizes; and hot-started
+#: windows (the state carried out of a 1-hour warm-up, one query at the
+#: end), each h0 scaled by 10^u with u uniform in [u_low, 2], so that the
+#: systems' lifetimes lie wide apart and most systems end inside a slice:
+#: their lanes take the next system there and then (300 systems: a share
+#: of 150 through 16 slots).  In 1-hour windows ("wide": 3 to ~50
+#: attempts, u_low -2) they take it from the slice's order; in half-minute
+#: windows ("short": most systems 1 or 2 attempts, the planted stiff ones
+#: ~20, u_low -1) a slice's lanes use up its order and admit systems of
+#: the share into the slots they free.
+HOT = {"wide": (60.0, -2.0), "short": (0.5, -1.0)}
+SCHEDULE_CASES = [pytest.param(n, None, id=str(n)) for n in (1, 31, 100)] + [
+    pytest.param(n, "wide", id=f"hot_wide_{n}") for n in (100, 300)] + [
+    pytest.param(300, "short", id="hot_short_300")]
+
+
+def _hot_window(model, n_sys, dtype, hot):
+    """(y0, h0, qt, params, forcing, tf) of a hot-started window whose
+    systems' lifetimes lie wide apart (the warm-up and the initial steps
+    under the default options)."""
+    tf, u_low = HOT[hot]
+    y_cold, p, f = scenario(n_sys, 60.0 / 1440.0, 0.05, device="cpu", dtype=dtype)
+    warm = k_rk45.rk45_plain(model, y_cold, initial_step(model, y_cold, 0.0, p, f, CFG), 0.0,
+                             60.0, torch.tensor([60.0], dtype=dtype), p, f, CFG)
+    y0 = torch.where(torch.isnan(warm.y_final), y_cold, warm.y_final)
+    scale = 10.0 ** np.random.default_rng(3).uniform(u_low, 2.0, n_sys)
+    h0 = initial_step(model, y0, 0.0, p, f, CFG) * torch.as_tensor(scale).to(dtype)
+    return y0, h0, torch.tensor([tf], dtype=dtype), p, f, tf
+
+
 @pytest.mark.parametrize("name,dtype", SCALAR_CASES)
-@pytest.mark.parametrize("n_sys", [1, 31, 100])
-def test_schedule_changes_no_result(shim_lib, monkeypatch, n_sys, name, dtype):
+@pytest.mark.parametrize("n_sys,hot", SCHEDULE_CASES)
+def test_schedule_changes_no_result(shim_lib, monkeypatch, n_sys, hot, name, dtype):
     options, safe_pow = OPTIONS[name]
     cfg = dataclasses.replace(CFG, **options)
     model = Model204(safe_pow=safe_pow)
-    y0, p, f = scenario(n_sys, TF / 1440.0, 0.05, device="cpu", dtype=dtype)
-    qt = torch.arange(0.0, TF + 1e-9, 60.0, dtype=dtype)
-    h0 = initial_step(model, y0, 0.0, p, f, cfg)
-    pooled = _run(shim_lib, monkeypatch, "tt_rk45_launch", model, y0, h0, qt, p, f, cfg)
-    alone = _run(shim_lib, monkeypatch, "tt_rk45_serial", model, y0, h0, qt, p, f, cfg)
+    if hot:
+        y0, h0, qt, p, f, tf = _hot_window(model, n_sys, dtype, hot)
+    else:
+        tf = TF
+        y0, p, f = scenario(n_sys, TF / 1440.0, 0.05, device="cpu", dtype=dtype)
+        qt = torch.arange(0.0, TF + 1e-9, 60.0, dtype=dtype)
+        h0 = initial_step(model, y0, 0.0, p, f, cfg)
+    pooled = _run(shim_lib, monkeypatch, "tt_rk45_launch", model, y0, h0, qt, p, f, cfg, tf=tf)
+    alone = _run(shim_lib, monkeypatch, "tt_rk45_serial", model, y0, h0, qt, p, f, cfg, tf=tf)
     assert pooled.y_final.dtype == pooled.dense.dtype == dtype
     diff = k_rk45.rk45_mismatch(pooled, alone)
     assert not any(diff.values()), diff
@@ -145,6 +180,20 @@ def test_schedule_changes_no_result(shim_lib, monkeypatch, n_sys, name, dtype):
     assert int(alone.stats.n_attempts.min()) > 0
     if n_sys >= 31 and cfg.stiff_detect and cfg.max_steps > 40:
         assert bool(alone.stiff[p["Hu"] < 1e-5].all())
+    if hot:
+        # Lifetimes from a slice or less to more than a slice, most of them
+        # ending inside a slice.
+        att = alone.stats.n_attempts
+        assert int(att.min()) <= SLICE and int(att.max()) > SLICE, att
+        assert int((att % SLICE != 0).sum()) > n_sys // 2, att
+    if hot == "wide":
+        assert int(att.max()) >= 3 * SLICE, att
+    if hot == "short":
+        # A slice's lanes, LANES * SLICE attempts, outrun the POOL systems
+        # of its order: the plain rows' mean lifetime is under
+        # LANES * SLICE / POOL attempts.
+        plain = att[p["Hu"] >= 1e-5].double()
+        assert float(plain.mean()) * POOL < LANES * SLICE, plain.mean()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])

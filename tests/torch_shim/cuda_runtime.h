@@ -62,3 +62,5 @@ inline int __syncthreads_count(int pred) {
   return n;
 }
 inline int __syncthreads_or(int pred) { return __syncthreads_count(pred) != 0; }
+// On the block's counter in shared memory.
+inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }

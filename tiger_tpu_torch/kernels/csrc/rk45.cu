@@ -73,8 +73,8 @@
 // What the design does about it: who runs which system is decided anew
 // every time slice.
 //   - One persistent block per SM, one wave.  Each block owns a contiguous
-//     share of the systems and never talks to another block: no atomics, so
-//     the schedule and the time repeat from launch to launch.
+//     share of the systems and never talks to another block: no atomics
+//     across blocks, so each block's work repeats from launch to launch.
 //   - A system's state between attempts (Rk45State, h0 and its index) lives
 //     in a pool of slots in shared memory, SoA over the slots; its Model204
 //     fields are derived again from the parameter block at every slice
@@ -84,13 +84,23 @@
 //   - A slice: the block sorts its slots by t (a bitonic network over
 //     64-bit keys: ordered t above, slot below; free slots last), the
 //     kThreads live systems furthest behind in t are loaded into registers,
-//     one a lane, packed into the fewest warps, and each runs up to kSlice
-//     attempts.  It is then stored back, or, if it ended, written out as its
-//     result and its slot freed.  Warps past the live count skip the slice,
-//     so the drain of the longest chains costs scheduler slots only for what is
-//     alive, and while every live system runs and none ends the order is
-//     kept and the sort skipped.  "Furthest behind first" needs no knowledge
-//     of the future: the longest chain runs in every slice from the first.
+//     one a lane, packed into the fewest warps, and each lane spends up to
+//     kSlice attempts.  It then stores its system back, or writes it out as
+//     its result and frees its slot.  Warps past the live count skip the
+//     slice, so the drain of the longest chains costs scheduler slots only
+//     for what is alive, and while every live system runs and none ends the
+//     order is kept and the sort skipped.  "Furthest behind first" needs no
+//     knowledge of the future: the longest chain runs in every slice from
+//     the first.
+//   - Refills, where systems live less than a slice (short hot-started
+//     windows): a lane whose system ends writes it out and at once takes
+//     the next system no lane runs (the next of the slice's order, then the
+//     next of the share, admitted into the slot it freed), claimed from a
+//     counter in shared memory, so the slice costs its lanes' attempts and
+//     not its slowest system's lifetime.  A slice refills where systems
+//     ended in the slice before and work waits; elsewhere it runs the
+//     plain loop, which long-lived systems run fastest.  Which lane runs
+//     which system may vary from launch to launch; no result does.
 //   - Fewer instructions a trip: the Butcher tableau is the constexpr
 //     header that _build.py writes from solver/tableau.py (never retyped
 //     here), so its zero tests fold at compile time, and jmax/jmin are one
@@ -112,10 +122,6 @@
 
 #include "common.cuh"
 #include "rk45_tableau.cuh"  // TT_DP_TABLEAU, written by _build.py
-
-#ifdef TT_INSTANCE_TU
-#undef TT_RK45_PHASES  // the probes count Model 204's float instances' warps
-#endif
 
 #ifndef TT_RK45_THREADS
 #define TT_RK45_THREADS 512
@@ -567,11 +573,13 @@ struct Pool {
   static constexpr int pYc = pK0 + (O::fsal ? kNEq : 0);      // compensated: y_c[5]
   static constexpr int pFacold = pYc + (O::comp ? kNEq : 0);  // PI: facold
   static constexpr int kFloats = pFacold + (O::pi ? 1 : 0);
-  static constexpr size_t kBytes = (size_t)kPool * (8 + sizeof(T) * kFloats + 4 * kPoolInts);
+  // The rows, then one counter (8 bytes, so the size stays a whole number of keys).
+  static constexpr size_t kBytes = (size_t)kPool * (8 + sizeof(T) * kFloats + 4 * kPoolInts) + 8;
 
   unsigned long long* key;  // [kPool] sort keys; after the sort, the slots in run order
   T* f;                     // [kFloats, kPool]
   int32_t* i;               // [kPoolInts, kPool]; row pSys: the system's offset in the share, -1 free
+  int32_t* taken;           // the systems lanes took in this slice after their first
 
   __device__ __forceinline__ void store(int slot, const Rk45State<T>& st) const {
 #pragma unroll
@@ -668,11 +676,16 @@ __device__ __forceinline__ void sort_keys(unsigned long long* key, int tid) {
 // -DTT_RK45_PHASES: every warp records its %globaltimer at start and end,
 // its SM, its trips through the attempt loop (a trip costs the warp one
 // attempt's instructions however few lanes are in it), the trips in which a
-// lane filled dense rows, its lanes' attempts in sum and at most, and its
-// cycles inside the run section and in all.
+// lane filled dense rows, its lanes' attempts in sum and at most, its
+// cycles inside the run section and in all, the systems its lanes took in
+// a slice after their first (refills), the trips through the refill path
+// (lanes that refill at once share one), and the cycles of its trips
+// through the attempt and through the refill path.  Each translation unit
+// keeps its own records (static: the relocatable units are linked
+// together), read by the entry point through the unit of the last launch.
 #ifdef TT_RK45_PHASES
-constexpr int kProbeWarps = 8192, kProbeWords = 9;
-__device__ unsigned long long rk45_probe[kProbeWarps * kProbeWords];
+constexpr int kProbeWarps = 8192, kProbeWords = 13;
+static __device__ unsigned long long rk45_probe[kProbeWarps * kProbeWords];
 __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long v;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(v));
@@ -684,33 +697,50 @@ __device__ __forceinline__ unsigned sm_id() {
   return v;
 }
 struct WarpProbe {
-  unsigned long long ns0 = 0, run_cycles = 0;
+  unsigned long long ns0 = 0, run_cycles = 0, attempt_cycles = 0, refill_cycles = 0;
   long long clk0 = 0;
-  unsigned trips = 0, fill_trips = 0, attempts = 0;
+  unsigned trips = 0, fill_trips = 0, attempts = 0, refills = 0, refill_trips = 0;
   __device__ __forceinline__ void start() {
     ns0 = global_ns();
     clk0 = clock64();
   }
-  // After an attempt, by every lane that made it.
-  __device__ __forceinline__ void count(bool filled) {
+  // After an attempt of `cycles`, by every lane that made it.
+  __device__ __forceinline__ void count(bool filled, long long cycles) {
     const unsigned m = __activemask();
     const unsigned any_fill = __ballot_sync(m, filled);
     if ((threadIdx.x & 31) == __ffs(m) - 1) {
       ++trips;
       fill_trips += any_fill != 0;
+      attempt_cycles += (unsigned long long)cycles;
     }
     ++attempts;
+  }
+  // After a refill of `cycles`, by every lane that took a system.
+  __device__ __forceinline__ void refill(long long cycles) {
+    const unsigned m = __activemask();
+    if ((threadIdx.x & 31) == __ffs(m) - 1) {
+      ++refill_trips;
+      refill_cycles += (unsigned long long)cycles;
+    }
+    ++refills;
   }
   // By all 32 lanes, once the warp's work is done.
   __device__ __forceinline__ void write() const {
     const unsigned full = 0xFFFFFFFFu;
     const unsigned tr = __reduce_add_sync(full, trips), ft = __reduce_add_sync(full, fill_trips);
     const unsigned at = __reduce_add_sync(full, attempts), mx = __reduce_max_sync(full, attempts);
+    const unsigned rf = __reduce_add_sync(full, refills), rt = __reduce_add_sync(full, refill_trips);
+    unsigned long long ac = attempt_cycles, rc = refill_cycles;
+    for (int d = 16; d > 0; d >>= 1) {
+      ac += __shfl_down_sync(full, ac, d);
+      rc += __shfl_down_sync(full, rc, d);
+    }
     const unsigned long long w = ((unsigned long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
     if ((threadIdx.x & 31) == 0 && w < kProbeWarps) {
       unsigned long long* r = rk45_probe + w * kProbeWords;
       r[0] = ns0, r[1] = global_ns(), r[2] = sm_id(), r[3] = tr, r[4] = ft, r[5] = at, r[6] = mx;
-      r[7] = run_cycles, r[8] = (unsigned long long)(clock64() - clk0);
+      r[7] = run_cycles, r[8] = (unsigned long long)(clock64() - clk0), r[9] = rf, r[10] = rt;
+      r[11] = ac, r[12] = rc;
     }
   }
 };
@@ -727,6 +757,7 @@ __global__ void __launch_bounds__(kThreads<T, M>, 1) rk45_kernel(const Rk45Args<
   pool.key = smem;
   pool.f = reinterpret_cast<T*>(smem + kPool);
   pool.i = reinterpret_cast<int32_t*>(pool.f + (size_t)Pool<T, OPT>::kFloats * kPool);
+  pool.taken = pool.i + (size_t)kPoolInts * kPool;
   const int tid = threadIdx.x;
   TT_PROBE(WarpProbe probe; probe.start();)
 
@@ -735,9 +766,10 @@ __global__ void __launch_bounds__(kThreads<T, M>, 1) rk45_kernel(const Rk45Args<
   const int64_t hi = a.n_sys * (blockIdx.x + 1) / gridDim.x;
   int64_t next = lo;
   for (int i = tid; i < kPool; i += kLanes) pool.i[pSys * kPool + i] = -1;
+  if (tid == 0) *pool.taken = 0;
   __syncthreads();
 
-  int n_live = 0;
+  int n_live = 0, n_ended = kLanes;  // lanes that saw a system end in the slice before
   bool reorder = true;
   for (;;) {
     // Order the slots: live ones by t, free ones last.  The order of the
@@ -751,6 +783,9 @@ __global__ void __launch_bounds__(kThreads<T, M>, 1) rk45_kernel(const Rk45Args<
           pool.key[i] = live ? slot_key(pool.f[pT * kPool + i], i) : (kFreeKey << 32) | (unsigned)i;
         n_live += __syncthreads_count(live);
       }
+      // Every lane has read the last slice's count; the sort ends on the
+      // block's barrier, so no lane takes a system before this lands.
+      if (tid == 0) *pool.taken = 0;
       sort_keys<kLanes>(pool.key, tid);
     }
 
@@ -770,12 +805,33 @@ __global__ void __launch_bounds__(kThreads<T, M>, 1) rk45_kernel(const Rk45Args<
     next += n_admit;
     if (n_admit > 0) __syncthreads();
 
-    // Run: lane p takes the p-th system of the order, the new ones first.
-    const int n_run = min(n_live + n_admit, kLanes);
+    // Run: the run order is the new systems, then the live ones by t, and
+    // lane p takes its p-th system.  Two loops run it:
+    //   - alone: each lane runs its system up to kSlice attempts, and a lane
+    //     whose system ends waits for the slice's end;
+    //   - refilled: a lane whose system ends with attempts left writes it
+    //     out, frees its slot and takes at once the next system no lane
+    //     runs (the next of the order, then, past its end, the next of the
+    //     share, admitted into the slot it just freed), claimed from a
+    //     counter in shared memory, until it has spent kSlice attempts in
+    //     all.
+    // A slice refills where lanes would otherwise idle while work waits:
+    // systems wait beyond the lanes or in the share, and systems end inside
+    // slices (a quarter of the lanes saw one end in the slice before; every
+    // lane is taken to have before the first).  Elsewhere it runs them
+    // alone: systems that outlive many slices, as in 2-day windows, run
+    // that loop fastest (the refilled loop alone, no refill taken, costs
+    // them 3-5% on the H100).
+    const int n_order = n_live + n_admit;
+    const int n_run = min(n_order, kLanes);
+    const bool refill = (n_order > kLanes || next < hi) && 4 * n_ended >= kLanes;
+    const auto order_slot = [&](int r) {
+      return (int)(unsigned)(r < n_admit ? pool.key[n_live + r] : pool.key[r - n_admit]);
+    };
     bool ended = false;
-    if (tid < n_run) {
+    if (tid < n_run && !refill) {
       TT_PROBE(const long long run0 = clock64();)
-      const int slot = (int)(unsigned)(tid < n_admit ? pool.key[n_live + tid] : pool.key[tid - n_admit]);
+      const int slot = order_slot(tid);
       const int64_t s = lo + pool.i[pSys * kPool + slot];
       const T h0 = pool.f[pH0 * kPool + slot];
       Rk45State<T> st;
@@ -784,9 +840,10 @@ __global__ void __launch_bounds__(kThreads<T, M>, 1) rk45_kernel(const Rk45Args<
       model.load(a.params, a.n_sys, s, a.safe_pow, a.doy0);
       bool live = rk45_live(a, st);
       for (int k = 0; k < kSlice && live; ++k) {
+        TT_PROBE(const long long at0 = clock64();)
         const bool filled = rk45_attempt<T, M, OPT>(a, model, h0, s, st);
         (void)filled;
-        TT_PROBE(probe.count(filled);)
+        TT_PROBE(probe.count(filled, clock64() - at0);)
         live = rk45_live(a, st);
       }
       if (live) {
@@ -798,7 +855,68 @@ __global__ void __launch_bounds__(kThreads<T, M>, 1) rk45_kernel(const Rk45Args<
       }
       TT_PROBE(probe.run_cycles += (unsigned long long)(clock64() - run0);)
     }
-    reorder = __syncthreads_or(ended) || n_admit > 0 || n_live > kLanes;
+    if (tid < n_run && refill) {
+      TT_PROBE(const long long run0 = clock64();)
+      int slot = order_slot(tid);
+      int64_t s = lo + pool.i[pSys * kPool + slot];
+      T h0 = pool.f[pH0 * kPool + slot];
+      Rk45State<T> st;
+      M model;
+      pool.load(slot, st);
+      model.load(a.params, a.n_sys, s, a.safe_pow, a.doy0);
+      bool live = rk45_live(a, st);
+      for (int k = 0; k < kSlice;) {
+        // The refill, between attempts: the lanes that skip it meet the
+        // others at the attempt.
+        if (!live) {
+          TT_PROBE(const long long rf0 = clock64();)
+          rk45_finish(a, s, st);
+          pool.i[pSys * kPool + slot] = -1;
+          ended = true;
+          const int r = n_run + atomicAdd(pool.taken, 1);
+          if (r < n_order) {
+            slot = order_slot(r);
+            s = lo + pool.i[pSys * kPool + slot];
+            h0 = pool.f[pH0 * kPool + slot];
+            pool.load(slot, st);
+          } else if (r - n_order < hi - next) {
+            s = next + (r - n_order);
+            rk45_admit<T, M, OPT>(a, s, st, h0);
+            pool.f[pH0 * kPool + slot] = h0;
+            pool.i[pSys * kPool + slot] = (int32_t)(s - lo);
+          } else {
+            slot = -1;  // the block's work is all taken
+            break;
+          }
+          model.load(a.params, a.n_sys, s, a.safe_pow, a.doy0);
+          live = rk45_live(a, st);
+          TT_PROBE(probe.refill(clock64() - rf0);)
+        }
+        if (live) {
+          TT_PROBE(const long long at0 = clock64();)
+          const bool filled = rk45_attempt<T, M, OPT>(a, model, h0, s, st);
+          (void)filled;
+          TT_PROBE(probe.count(filled, clock64() - at0);)
+          live = rk45_live(a, st);
+          ++k;
+        }
+      }
+      if (slot >= 0) {
+        if (live) {
+          pool.store(slot, st);
+        } else {
+          rk45_finish(a, s, st);
+          pool.i[pSys * kPool + slot] = -1;
+          ended = true;
+        }
+      }
+      TT_PROBE(probe.run_cycles += (unsigned long long)(clock64() - run0);)
+    }
+    // Only a lane whose system ended takes another, so without an end the
+    // count is 0 and the next slice may skip the reorder.
+    n_ended = __syncthreads_count(ended);
+    if (n_ended > 0) next += min((int64_t)max(n_run + *pool.taken - n_order, 0), hi - next);
+    reorder = n_ended > 0 || n_admit > 0 || n_live > kLanes;
   }
   TT_PROBE(probe.write();)
 }
@@ -887,6 +1005,22 @@ int rk45_launch_dummy(const void* args, void* stream);
 int rk45_geometry_dummy_f64(int64_t n_sys, int32_t options, int32_t* out);
 int rk45_launch_dummy_f64(const void* args, void* stream);
 
+#ifdef TT_RK45_PHASES
+// Copies the first n_warps warps' probe records of this translation unit's
+// instances into `out` (each launch overwrites the records of the warps it
+// has).  Static, so each unit's copy reads its own records.
+static int rk45_probe_copy(unsigned long long* out, int n_warps) {
+  if (n_warps > kProbeWarps) n_warps = kProbeWarps;
+  const size_t bytes = (size_t)n_warps * kProbeWords * sizeof(unsigned long long);
+  return (int)cudaMemcpyFromSymbol(out, rk45_probe, bytes);
+}
+int rk45_probe_read_f64(unsigned long long* out, int n_warps);
+int rk45_probe_read_m200(unsigned long long* out, int n_warps);
+int rk45_probe_read_m200_f64(unsigned long long* out, int n_warps);
+int rk45_probe_read_dummy(unsigned long long* out, int n_warps);
+int rk45_probe_read_dummy_f64(unsigned long long* out, int n_warps);
+#endif
+
 #ifdef TT_INSTANCE_TU
 #ifdef TT_DOUBLE_INSTANCES
 using TuReal = double;
@@ -917,6 +1051,11 @@ int TT_TU(rk45_geometry)(int64_t n_sys, int32_t options, int32_t* out) {
 int TT_TU(rk45_launch)(const void* args, void* stream) {
   return rk45_launch<TuReal, TuModel>(static_cast<const Rk45Args<TuReal>*>(args), stream);
 }
+#ifdef TT_RK45_PHASES
+int TT_TU(rk45_probe_read)(unsigned long long* out, int n_warps) {
+  return rk45_probe_copy(out, n_warps);
+}
+#endif
 #endif
 
 }  // namespace tt
@@ -945,11 +1084,17 @@ extern "C" int tt_rk45_geometry(int64_t n_sys, int32_t options, int32_t f64, int
   }
 }
 
+#ifdef TT_RK45_PHASES
+// The model and scalar of the last launch: whose probe records to read.
+static int32_t probe_model = tt::kModel204, probe_f64 = 0;
+#endif
+
 // Enqueues the instance of (model, f64, options) on `stream`; returns the
 // CUDA error code (0 on success; kNoInstance for a set without one).
 extern "C" int tt_rk45_launch(const void* args, int32_t f64, void* stream) {
   const int32_t model = f64 ? static_cast<const tt::Rk45Args<double>*>(args)->model
                             : static_cast<const tt::Rk45Args<float>*>(args)->model;
+  TT_PROBE(probe_model = model; probe_f64 = f64;)
   switch (model) {
     case tt::kModel204:
       return f64 ? tt::rk45_launch_f64(args, stream)
@@ -963,14 +1108,21 @@ extern "C" int tt_rk45_launch(const void* args, int32_t f64, void* stream) {
       return tt::kNoInstance;
   }
 }
-#endif
 
 #ifdef TT_RK45_PHASES
-// Copies the first n_warps warps' probe records into `out` (each launch
-// overwrites the records of the warps it has).
+// Copies the first n_warps warps' probe records of the last launch into
+// `out`.
 extern "C" int tt_rk45_probe_read(unsigned long long* out, int n_warps) {
-  if (n_warps > tt::kProbeWarps) n_warps = tt::kProbeWarps;
-  const size_t bytes = (size_t)n_warps * tt::kProbeWords * sizeof(unsigned long long);
-  return (int)cudaMemcpyFromSymbol(out, tt::rk45_probe, bytes);
+  switch (probe_model) {
+    case tt::kModel204:
+      return probe_f64 ? tt::rk45_probe_read_f64(out, n_warps) : tt::rk45_probe_copy(out, n_warps);
+    case tt::kModel200:
+      return probe_f64 ? tt::rk45_probe_read_m200_f64(out, n_warps)
+                       : tt::rk45_probe_read_m200(out, n_warps);
+    default:
+      return probe_f64 ? tt::rk45_probe_read_dummy_f64(out, n_warps)
+                       : tt::rk45_probe_read_dummy(out, n_warps);
+  }
 }
+#endif
 #endif

@@ -239,13 +239,16 @@ def _rk45_cuda(model, y0, h0, t0, tf, qt, params, forcings, cfg, t_shift=0.0) ->
 
 #: The package's build with per-warp probes in B1 (csrc/rk45.cu).
 PROBE_FLAGS = _build.NVCC_FLAGS + ("-DTT_RK45_PHASES",)
-PROBE_WORDS = 9  # csrc/rk45.cu kProbeWords
+PROBE_WORDS = 13  # csrc/rk45.cu kProbeWords
 
 
 def read_probes(n_warps: int) -> list:
-    """[n_warps][PROBE_WORDS] probe records of the last B1 launch (start ns,
-    end ns, SM, trips, trips with a dense fill, attempts, most attempts of a
-    lane, cycles in the run section, cycles in all).  Call it inside
+    """[n_warps][PROBE_WORDS] probe records of the last B1 launch, of any
+    instance (start ns, end ns, SM, trips, trips with a dense fill,
+    attempts, most attempts of a lane, cycles in the run section, cycles in
+    all, systems its lanes took after their first in a slice, trips
+    through the refill path, cycles of the trips through the attempt and
+    through the refill path).  Call it inside
     ``_build.flags_in_use(PROBE_FLAGS)``; it waits for the device."""
     lib = _build.load()
     lib.tt_rk45_probe_read.argtypes = [ctypes.c_void_p, ctypes.c_int]

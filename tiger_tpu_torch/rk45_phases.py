@@ -1,26 +1,36 @@
 """Where B1's time goes on the card: who waits for whom.
 
     python -m tiger_tpu_torch.rk45_phases [--systems 131072] [--days 2] [--reps 3]
-        [--skip-plain] [--variants]
+        [--skip-plain] [--variants] [--hot]
 
 Builds the kernels a second time with ``-DTT_RK45_PHASES``, which adds
 per-warp probes to ``csrc/rk45.cu`` (``%globaltimer`` at start and end,
 ``%smid``, trips through the attempt loop, trips in which a lane filled dense
-rows, attempts, cycles in the run section and in all).  At the main path's
-shapes (Model 204, 0.1% stiff, hourly queries, rtol 1e-5 / atol 1e-8) it
-prints
+rows, attempts, cycles in the run section and in all, systems a lane took
+after its first in a slice).  At the main path's shapes (Model 204, 0.1%
+stiff, hourly queries, float32 at rtol 1e-5 / atol 1e-8) it prints
 
 - B1's time in the package build, and its results against ``rk45_plain``
   bit for bit (``--skip-plain`` leaves that out);
 - B1 on the 32 systems with the most attempts, alone: the lone warp's
   microseconds a trip;
 - B1 under the probes: time, lane efficiency (attempts over 32 x trips), the
-  share of trips that pay for a dense fill, the share of a block's cycles its
-  warps spend inside the run section, and how evenly the blocks end;
+  refills, each block's critical path (its busiest warp's trips) against its
+  lanes' even share of the attempts, the share of trips that pay for a dense
+  fill, the share of a block's cycles its warps spend inside the run
+  section, and how evenly the blocks end;
 - the SASS instructions of the kernel and of its largest loops
   (``cuobjdump -sass``, where the toolkit has it);
 - with ``--variants``, B1's time and ptxas line under other block sizes,
   slice lengths and pool sizes.
+
+``--hot`` takes the shape of a real-time hourly update instead: 1,048,576
+systems (``--systems`` unless given) in float64 at the solver's defaults
+(rtol 1e-6 / atol 1e-9), one 1-hour window with one query at its end, from
+the state ``solve()`` carried out of a 1-hour warm-up window (a NaN row
+keeps its start, as a windowed run carries it); it also prints the
+systems' attempts (mean, median, p99, most).  Both shapes print the ptxas
+lines of the float and double default instances.
 
 Every result of a probed or variant build is held against the package
 build's bit for bit.  The last line is a JSON summary.
@@ -38,7 +48,7 @@ import subprocess
 
 import torch
 
-from tiger_tpu_torch import Model204, SolverConfig
+from tiger_tpu_torch import Model204, SolverConfig, solve
 from tiger_tpu_torch.kernels import _build
 from tiger_tpu_torch.kernels import rk45 as k_rk45
 from tiger_tpu_torch.kernels.rk45 import PROBE_FLAGS, lane_efficiency, read_probes
@@ -62,8 +72,14 @@ def variants() -> dict:
     }
 
 
+#: The mangled names of B1's default instances of Model 204, by scalar.
+DEFAULT_INSTANCES = {"default": "rk45_kernelIfNS_8Model204IfEELi0EE",
+                     "default/f64": "rk45_kernelIdNS_8Model204IdEELi0EE"}
+
+
 def ptxas_line(log: str, kernel: str) -> str:
-    """ptxas's resource line of ``kernel`` from a build log."""
+    """ptxas's resource line of ``kernel`` (the first entry whose mangled
+    name holds it) from a build log."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry" in line and kernel in line:
@@ -110,12 +126,17 @@ def quantiles(xs) -> str:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--systems", type=int, default=131_072)
+    ap.add_argument("--systems", type=int, default=None,
+                    help="131,072 (1,048,576 with --hot)")
     ap.add_argument("--days", type=float, default=2.0)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--skip-plain", action="store_true", help="do not run rk45_plain")
     ap.add_argument("--variants", action="store_true", help="time the other builds of B1 too")
+    ap.add_argument("--hot", action="store_true",
+                    help="a hot-started 1-hour float64 window in place of the main path's")
     args = ap.parse_args(argv)
+    if args.systems is None:
+        args.systems = 1_048_576 if args.hot else 131_072
     if not torch.cuda.is_available():
         raise SystemExit("rk45_phases: needs a CUDA card")
     smi = subprocess.run(
@@ -130,22 +151,37 @@ def main(argv=None) -> None:
         flag_sets.update(variants())
     with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
         built = dict(zip(flag_sets, pool.map(_build.build, flag_sets.values())))
+    ptxas = {}
     for name, (path, seconds, log) in built.items():
-        print(f"build {name}: {seconds:.1f} s; rk45_kernel: {ptxas_line(log, 'rk45_kernel')}",
-              flush=True)
+        print(f"build {name}: {seconds:.1f} s", flush=True)
+        for inst, mangled in DEFAULT_INSTANCES.items():
+            ptxas[f"{name} {inst}"] = ptxas_line(log, mangled)
+            print(f"  rk45_kernel {inst}: {ptxas[f'{name} {inst}']}", flush=True)
 
     dev = torch.device("cuda", 0)
     model = Model204()
-    cfg = SolverConfig(rtol=1e-5, atol=1e-8, max_steps=100_000)
-    tf = args.days * 1440.0
-    y0, params, forc = scenario(args.systems, args.days, 0.001, device=dev)
-    qt = torch.arange(0.0, tf + 1e-9, 60.0, dtype=torch.float32, device=dev)
-    h0 = initial_step(model, y0, 0.0, params, forc, cfg)
+    if args.hot:
+        # A real-time hourly update: the second hour, from the first's carry.
+        cfg = SolverConfig()
+        t0, tf = 60.0, 120.0
+        y_cold, params, forc = scenario(args.systems, 2.0 / 24.0, 0.001, device=dev,
+                                        dtype=torch.float64)
+        warm = solve(model, y_cold, 0.0, t0, torch.tensor([0.0, t0], dtype=torch.float64,
+                                                          device=dev), params, forc, cfg)
+        y0 = torch.where(torch.isnan(warm.y_final), y_cold, warm.y_final)
+        qt = torch.tensor([tf], dtype=torch.float64, device=dev)
+        print(f"warm-up window: {int(warm.stiff.sum())} systems to B2", flush=True)
+    else:
+        cfg = SolverConfig(rtol=1e-5, atol=1e-8, max_steps=100_000)
+        t0, tf = 0.0, args.days * 1440.0
+        y0, params, forc = scenario(args.systems, args.days, 0.001, device=dev)
+        qt = torch.arange(0.0, tf + 1e-9, 60.0, dtype=torch.float32, device=dev)
+    h0 = initial_step(model, y0, t0, params, forc, cfg)
     full = (y0, h0, params, forc)
 
     def b1(inputs):
         sy0, sh0, sp, sf = inputs
-        return k_rk45.rk45(model, sy0, sh0, 0.0, tf, qt, sp, sf, cfg)
+        return k_rk45.rk45(model, sy0, sh0, t0, tf, qt, sp, sf, cfg)
 
     def held(label, res, ref):
         diff = k_rk45.rk45_mismatch(res, ref)
@@ -153,19 +189,26 @@ def main(argv=None) -> None:
         if any(diff.values()):
             raise RuntimeError(f"rk45_phases: {label} differs: {diff}")
 
-    summary = {"card": smi, "systems": args.systems, "days": args.days}
+    summary = {"card": smi, "systems": args.systems, "hot": args.hot,
+               "days": (tf - t0) / 1440.0, "ptxas": ptxas}
 
     # The package build, and rk45_plain.
     b1(full)
     ref, pkg_ms = timed(lambda: b1(full), args.reps)
-    geo = k_rk45.rk45_geometry(args.systems)
+    geo = k_rk45.rk45_geometry(args.systems, 0, y0.dtype)
     attempts = int(ref.stats.n_attempts.sum())
     worst = int(ref.stats.n_attempts.max())
     print(f"B1 package build: {pkg_ms:.3f} ms, {attempts} attempts, worst system {worst}, "
           f"{int(ref.stiff.sum())} stiff, geometry {geo} | {smi}", flush=True)
     summary.update(b1_ms=pkg_ms, attempts=attempts, worst_attempts=worst, geometry=geo)
+    if args.hot:
+        att = ref.stats.n_attempts.double()
+        spread = {"mean": float(att.mean()), "median": float(att.median()),
+                  "p99": float(torch.quantile(att, 0.99)), "max": worst}
+        print(f"attempts a system: {spread}", flush=True)
+        summary["attempts_a_system"] = spread
     if not args.skip_plain:
-        plain, plain_ms = timed(lambda: k_rk45.rk45_plain(model, y0, h0, 0.0, tf, qt, params, forc, cfg), 1)
+        plain, plain_ms = timed(lambda: k_rk45.rk45_plain(model, y0, h0, t0, tf, qt, params, forc, cfg), 1)
         held(f"B1 against rk45_plain ({plain_ms:.0f} ms)", ref, plain)
 
     top = torch.topk(ref.stats.n_attempts, min(TAIL_SYSTEMS, args.systems)).indices
@@ -188,7 +231,13 @@ def main(argv=None) -> None:
         t_zero = min(w[0] for w in rec)
         ends = [max(w[1] for w in b) - t_zero for b in blocks]
         trips, fills = sum(w[3] for w in rec), sum(w[4] for w in rec)
-        att = sum(w[5] for w in rec)
+        att, refills = sum(w[5] for w in rec), sum(w[9] for w in rec)
+        if att != attempts:
+            raise RuntimeError(f"rk45_phases: the probes count {att} attempts, the systems {attempts}")
+        # A block's critical path: its busiest warp's trips; the least it
+        # could be: its attempts spread evenly over its lanes.
+        critical = [max(w[3] for w in b) for b in blocks]
+        even = [sum(w[5] for w in b) / geo["threads"] for b in blocks]
         busy = sum(w[7] for w in rec) / sum(w[8] for w in rec)
         first_warps = sum(b[0][7] for b in blocks) / sum(b[0][8] for b in blocks)
         sms = {w[2] for w in rec}
@@ -200,9 +249,23 @@ def main(argv=None) -> None:
               f"{100 * first_warps:.1f}%), the rest in the sort, admission and barriers; "
               f"{pkg_ms * 1e3 * len(sms) * per_block / trips:.3f} us of a resident warp's time "
               f"a trip | {smi}", flush=True)
+        refill_trips = sum(w[10] for w in rec)
+        attempt_cycles, refill_cycles = sum(w[11] for w in rec), sum(w[12] for w in rec)
+        print(f"B1 (probed): {refills} refills (systems a lane took after its first in a slice) "
+              f"in {refill_trips} trips through the refill path ({100 * refill_trips / trips:.2f}% "
+              f"of the attempt's trips), {refill_cycles / max(refill_trips, 1):.0f} cycles each; "
+              f"{attempt_cycles / trips:.0f} cycles a trip through the attempt; a block's "
+              f"critical path {quantiles(critical)} trips, its lanes' even share "
+              f"{quantiles(even)} attempts | {smi}", flush=True)
         summary["probed"] = {"probed_ms": probed_ms, "trips": trips, "fill_trips": fills,
                              "lane_efficiency": lane_efficiency(rec), "run_share": busy,
-                             "run_share_warp0": first_warps,
+                             "run_share_warp0": first_warps, "refills": refills,
+                             "refill_trips": refill_trips,
+                             "attempt_cycles_a_trip": attempt_cycles / trips,
+                             "refill_cycles_a_trip": refill_cycles / max(refill_trips, 1),
+                             "critical_trips": [min(critical), statistics.median(critical),
+                                                max(critical)],
+                             "even_trips": statistics.median(even),
                              "block_end_ms": [min(ends) / 1e6, max(ends) / 1e6]}
 
     # ---- SASS ----
@@ -222,7 +285,7 @@ def main(argv=None) -> None:
                 b1(full)
                 res, ms = timed(lambda: b1(full), args.reps)
                 _, t_ms = timed(lambda: b1(tail), args.reps)
-                v_geo = k_rk45.rk45_geometry(args.systems)
+                v_geo = k_rk45.rk45_geometry(args.systems, 0, y0.dtype)
             held(f"variant {name}", res, ref)
             print(f"variant {name}: B1 {ms:.3f} ms, slowest {top.numel()} systems {t_ms:.3f} ms, "
                   f"{v_geo['threads']} threads, {v_geo['shared_bytes']} bytes shared; "
