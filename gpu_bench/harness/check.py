@@ -9,7 +9,10 @@ on its own -- and, in every checked window, rows that B2 served in that
 window.  In the first windows the fixed sample runs in sequence from the
 cold state, so that the cold start and the carry from window to window are
 held too; every other row starts from the state the program carried into
-the window (the reference cannot afford the windows before).
+the window (the reference cannot afford the windows before).  The reference
+reads the time the program's right-hand side reads: window k starts at
+``Inputs.window_start(k)``, the program's ``t_shift``, and the configuration's
+``doy0`` reaches both sides.
 
 Each entry of the program's dense rows and carried state is judged by its
 gap to the reference in units of the configuration's tolerance,
@@ -82,9 +85,11 @@ def compare(stream, rtol: float, atol: float, control: bool = False) -> dict:
             ref_start[:cap.fixed] = carried["ref"]
             out_start[:cap.fixed] = carried["out"]
         args = (params, forcing, stream.inputs.dt, length, queries)
-        dense, final, _ = reference.integrate(model, ref_start, *args)
+        when = {"t0": stream.inputs.window_start(k), "doy0": stream.cell.doy0}
+        dense, final, _ = reference.integrate(model, ref_start, *args, **when)
         if control:
-            out_dense, out_final, _ = reference.integrate(model, reference.bf16(out_start), *args)
+            out_dense, out_final, _ = reference.integrate(model, reference.bf16(out_start),
+                                                          *args, **when)
             out_dense, out_final = reference.bf16(out_dense), reference.bf16(out_final)
         else:
             out_dense, out_final = cap.dense.cpu().numpy(), cap.carry.cpu().numpy()

@@ -92,9 +92,14 @@ class Inputs:
             block[list(param_fields).index(key), self.stiff] = value
         self.params = {k: block[i] for i, k in enumerate(param_fields)}
 
+    def window_start(self, k: int) -> float:
+        """The start of window k in minutes from the stream's start: the
+        program's ``t_shift`` and the reference's ``t0``."""
+        return k * float(self.traffic["window_minutes"])
+
     def first_sample(self, k: int, j: int) -> int:
         """The index, from the stream's start, of forcing j's first sample in window k."""
-        return int(math.floor(k * float(self.traffic["window_minutes"]) / self.dt[j] + 1e-9))
+        return int(math.floor(self.window_start(k) / self.dt[j] + 1e-9))
 
     def forcing(self, k: int) -> torch.Tensor:
         """Window k's packed forcing block [T, S] (float32) on the device."""

@@ -71,29 +71,32 @@ def _norm(err, y, y_new, rtol, atol):
     return np.sqrt(np.mean((err / scale) ** 2, axis=0))
 
 
-def _segment(rhs, y, q, forcing, t_end, h, rtol, atol, max_iter=200_000):
-    """Integrate ``y`` [N, R] over [0, t_end] of constant ``forcing``; each
-    system starts with its step ``h`` [R].  Returns (y, h for the next
-    segment, iterations)."""
+def _segment(rhs, start, y, q, forcing, t_end, h, rtol, atol, max_iter=200_000):
+    """Integrate ``y`` [N, R] over [start, start + t_end] of constant
+    ``forcing``, ``start`` in minutes from the run's start; each system
+    starts with its step ``h`` [R].  Stage s sees the time t + c_s step, and
+    the seventh stage, which is the next step's first, t + step.  Returns
+    (y, h for the next segment, iterations)."""
     n_rows = y.shape[1]
     t = np.zeros(n_rows)
     done = np.zeros(n_rows, dtype=bool)
-    k1 = rhs(y, q, *forcing)
+    k1 = rhs(np.full(n_rows, float(start)), y, q, *forcing)
     for it in range(1, max_iter + 1):
         remaining = t_end - t
         step = np.where(done, 0.0, np.minimum(h, remaining))
+        now = start + t
         ks = [k1]
         for s in range(1, 6):
             acc = _A[s][0] * ks[0]
             for j in range(1, s):
                 if _A[s][j]:
                     acc = acc + _A[s][j] * ks[j]
-            ks.append(rhs(y + step * acc, q, *forcing))
+            ks.append(rhs(now + _C[s] * step, y + step * acc, q, *forcing))
         acc = _B[0] * ks[0]
         for j in range(2, 6):
             acc = acc + _B[j] * ks[j]
         y_new = y + step * acc
-        k7 = rhs(y_new, q, *forcing)
+        k7 = rhs(now + step, y_new, q, *forcing)
         err = _E[0] * ks[0]
         for j in range(2, 6):
             err = err + _E[j] * ks[j]
@@ -118,16 +121,19 @@ def _segment(rhs, y, q, forcing, t_end, h, rtol, atol, max_iter=200_000):
 
 
 def integrate(model, y0, params, forcing, forcing_dt, length, queries,
-              rtol=REF_RTOL, atol=REF_ATOL):
+              rtol=REF_RTOL, atol=REF_ATOL, t0=0.0, doy0=None):
     """Integrate systems from ``y0`` [R, N] over a window of ``length`` minutes.
 
     ``params``: {name: [R]}; ``forcing``: one [T_j, R] array a forcing, in
     the model's order, with samples every ``forcing_dt[j]`` minutes from the
-    window start; ``queries``: window-relative query times, ascending.
+    window start; ``queries``: window-relative query times, ascending.  The
+    window starts ``t0`` minutes after the run's start, the time the model's
+    right-hand side reads; ``doy0``, the day of year at the run's start, goes
+    to the model's ``derived`` (a model blind to time reads neither).
     Returns (dense [R, Q, N], final [R, N], iterations).
     """
     seg = Segments(length, forcing_dt, queries)
-    q = model.derived({k: np.asarray(v, np.float64) for k, v in params.items()})
+    q = model.derived({k: np.asarray(v, np.float64) for k, v in params.items()}, doy0=doy0)
     y0 = np.asarray(y0, np.float64)
     y = y0.T.copy()
     h = np.full(y.shape[1], 1e-3)
@@ -136,7 +142,7 @@ def integrate(model, y0, params, forcing, forcing_dt, length, queries,
     for s, t_end in enumerate(seg.bounds):
         t_start = seg.bounds[s - 1] if s else 0.0
         f = [np.asarray(f_j[idx[s]], np.float64) for f_j, idx in zip(forcing, seg.index)]
-        y, h, n = _segment(model.rhs, y, q, f, t_end - t_start, h, rtol, atol)
+        y, h, n = _segment(model.rhs, t0 + t_start, y, q, f, t_end - t_start, h, rtol, atol)
         ends.append(y)
         iters += n
     dense = np.stack([y0.T if slot < 0 else ends[slot] for slot in seg.query_slots])

@@ -3,7 +3,8 @@
 A cell (an entry of ``workloads``) names a configuration and a traffic mix.
 The configuration's file is the one ``configs`` gives; the traffic mix is
 ``gpu_bench/traffic/<traffic>.json``; the plain model the reference
-integrates is ``gpu_bench/models/<config["model"]>.py``; the cell's frozen
+integrates is ``gpu_bench/models/<config["model"]>.py`` (where it reads
+time, ``READS_TIME``, the configuration states ``doy0``); the cell's frozen
 work counts and check limits are ``gpu_bench/cells/<cell>.json``; a
 per-layer metric is read by ``gpu_bench/metrics/<metric>.py``.  A later cell,
 configuration, traffic mix or metric is added as such files and entries.
@@ -53,6 +54,11 @@ class Cell:
         return load_module(BENCH_DIR / "models" / f"{self.config['model']}.py",
                            f"gpu_bench_model_{self.config['model']}")
 
+    @property
+    def doy0(self):
+        """The day of year at t = 0 where the configuration states it, else None."""
+        return float(self.config["doy0"]) if "doy0" in self.config else None
+
 
 def _reports(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
@@ -69,13 +75,17 @@ def resolve(name: str, benchmark: dict | None = None) -> Cell:
     config = load_json(ROOT / configs[work["config"]]["file"])
     traffic = load_json(BENCH_DIR / "traffic" / f"{work['traffic']}.json")
     data_path = BENCH_DIR / "cells" / f"{name}.json"
-    return Cell(
+    cell = Cell(
         name=name, chips=int(work["chips"]), config_name=work["config"], config=config,
         traffic_name=work["traffic"], traffic=traffic,
         data=load_json(data_path) if data_path.exists() else {},
         end_to_end=[m for m in bench["end_to_end"] if _reports(m, name)],
         per_layer=[m for m in bench["per_layer"] if _reports(m, name)],
     )
+    if cell.model.READS_TIME and cell.doy0 is None:
+        raise ValueError(f"configuration {work['config']!r}: model {config['model']!r} reads "
+                         "time, so the file must state 'doy0', the day of year at t = 0")
+    return cell
 
 
 def metric_reader(name: str):

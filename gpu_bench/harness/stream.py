@@ -3,9 +3,11 @@
 Each window makes one call of the program's entry ``tiger_tpu_torch.solve``
 with the window's forcing block, its hourly query grid placed as
 ``tiger_tpu_torch.chunked.solve_chunked`` places it (window 0 also carries
-the t0 query), ``t_shift`` = the window's start, and the state carried out
-of the previous window (window 0: the cold state).  The carry keeps a
-system's previous state where the new one is NaN, as
+the t0 query), ``t_shift`` = the window's start (``Inputs.window_start``,
+which the check gives the reference too), and the state carried out of the
+previous window (window 0: the cold state).  The model is the
+configuration's, with its ``doy0`` where the configuration states one.  The
+carry keeps a system's previous state where the new one is NaN, as
 ``chunked._carry_update`` does.  The window ends in a synchronize.
 
 Beside the program's work, a window draws its forcing and adds its failed
@@ -95,7 +97,8 @@ class Stream:
         self.cuda = self.device.type == "cuda"
         self.dtype, settings = solver_settings(cell.config, control)
         self.config = program.SolverConfig(**settings)
-        self.model = program.get_model(int(cell.config["program_model"]))
+        date = {} if cell.doy0 is None else {"doy0": cell.doy0}
+        self.model = program.get_model(int(cell.config["program_model"]), **date)
         self.solve = solve or program.solve
         self.forcing_set = program.ForcingSet
         tr = cell.traffic
@@ -134,7 +137,7 @@ class Stream:
             qt = self.qt_next if k else self.qt_first
         with span("bench.solve"):
             res = self.solve(self.model, y_in, 0.0, self.length, qt, self.params, forcing,
-                             self.config, t_shift=k * self.length)
+                             self.config, t_shift=self.inputs.window_start(k))
         with span("bench.carry"):
             self.y = torch.where(torch.isnan(res.y_final), y_in, res.y_final)
             kept = torch.where(res.stiff, 0, res.rk_stats.n_accepted)

@@ -5,7 +5,8 @@ h_grav, h_aquifer].  Forcings: rain [m/min] and air temperature [degC], each
 held constant over its sample (zero-order hold).  The equations are those of
 Tiger-HLM's ``model_204.hpp`` as the program states them; written here again
 from the equations, in NumPy, so that the check shares no code with the
-program.  The Manning base is clamped at zero (the program's default).
+program.  The Manning base is clamped at zero (the program's default).  The
+right-hand side does not read time.
 """
 
 from __future__ import annotations
@@ -22,10 +23,18 @@ PARAM_FIELDS = ("c1", "infil", "perco", "Hu", "lat", "sw", "ss", "n_mann", "slop
 FORCINGS = ("rain", "temperature")
 #: Cold-start state of the reference's main program.
 Y_COLD = (0.01, 3.0, 0.0, 5.0, 0.2)
+#: The right-hand side is blind to time: a configuration states no start date.
+READS_TIME = False
+#: Operations of one right-hand side (``harness/work.py`` counts them), 32:
+#: snowmelt (compare, product, min, select) 4; x1, dy0 2; x2 (add, subtract,
+#: max) 3; d1 1; e_max (product, min) 2; s 1; dy1 (product, subtract) 2;
+#: x3, d2 2; the Manning base (max, floor at 1e-30, log2, product, exp2) 5;
+#: w (product, min) 2; dy2 2; x4, d3 2; dy3 2; dy4 2.
+RHS_OPS = 32
 
 
-def derived(p: dict) -> dict:
-    """The loop-invariant parameter terms of ``rhs``."""
+def derived(p: dict, doy0=None) -> dict:
+    """The loop-invariant parameter terms of ``rhs``; ``doy0`` is not read."""
     q = dict(p)
     q["manning_c"] = np.sqrt(p["slope"]) / p["n_mann"] * (p["L"] / p["A_h"] * 60.0)
     q["inv_hu"] = 1.0 / p["Hu"]
@@ -34,8 +43,10 @@ def derived(p: dict) -> dict:
     return q
 
 
-def rhs(y: np.ndarray, q: dict, rain: np.ndarray, temp: np.ndarray) -> np.ndarray:
-    """dy/dt [N_EQ, R] of states ``y`` [N_EQ, R] (``q`` from ``derived``)."""
+def rhs(t: np.ndarray, y: np.ndarray, q: dict, rain: np.ndarray,
+        temp: np.ndarray) -> np.ndarray:
+    """dy/dt [N_EQ, R] of states ``y`` [N_EQ, R] at times ``t`` [R] (not
+    read; ``q`` from ``derived``)."""
     snow, stat, surf, grav, aq = y
     melt = np.where(temp >= q["temp_thr"], np.minimum(snow, temp * q["melt_f"]), 0.0)
     x1 = rain + melt

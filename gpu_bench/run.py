@@ -91,7 +91,7 @@ def trace_record(prof, cell) -> dict:
         "precision": precision,
         "peaks": spec.load_json(BENCH_DIR / "peaks.json"),
         "work": None if cell_work is None else work.window_work(
-            cell_work, int(tr["links"]), queries,
+            cell_work, cell.model.RHS_OPS, int(tr["links"]), queries,
             sum(inputs.forcing_layout(tr)[1]),
             8 if precision == "f64" else 4),
     }

@@ -104,10 +104,10 @@ def test_breakdown(record):
 
 
 def test_frozen_work_counts():
-    assert work.B1_STEP == 578 and work.B2_ATTEMPT == 837
+    assert work.b1_step(32) == 578 and work.b2_attempt(32) == 837
     w = work.window_work({"b1_steps": 100.0, "b2_steps": 2.0, "b2_sweeps_per_step": 3.0,
-                          "stiff_rows": 10.0}, links=1000, queries=48, forcing_rows=50,
-                         elem_bytes=4)
+                          "stiff_rows": 10.0}, rhs_ops=32, links=1000, queries=48,
+                         forcing_rows=50, elem_bytes=4)
     assert w["b1_ops"] == 1000 * 100 * 578 + 990 * 48 * 141
     assert w["b2_ops"] == 1000 * 2 * (837 + 3 * 550) + 10 * 48 * 58
     assert w["b1_bytes"] == 1000 * (21 * 4 + 50 * 4) + 1000 * (5 + 48 * 5) * 4 + 1000 * 14
