@@ -18,6 +18,7 @@ from tiger_tpu_torch import (DummyModel, ForcingMeta, ForcingSet, SolverConfig, 
                              profiling, solve)
 from tiger_tpu_torch.io.output import _OneInFlight
 from tiger_tpu_torch.profiling import Metrics
+from tiger_tpu_torch.solver.controller import initial_step
 
 PHASES = ["check", "initial_step", "b1", "handoff", "b2", "merge"]
 SYNCS = ["check_nan", "query_end", "dedup", "handoff"]
@@ -104,6 +105,23 @@ def test_solve_phases_and_sync_marks_in_the_trace(tmp_path, queries, forced, syn
     for s, e, name in marks:
         ps, pe, _ = next(p for p in phases if p[2] == "tiger.solve." + phase_of[name[11:]])
         assert ps <= s and e <= pe
+
+
+@pytest.mark.parametrize("h0_mode", ["per-system", "global-zero-y0"])
+def test_initial_step_marks_the_models_rhs_once(tmp_path, h0_mode):
+    """``initial_step`` evaluates the model's right-hand side in eager torch
+    once a call, inside one ``tiger.model.rhs`` span; in ``solve()`` the
+    span lies inside ``tiger.solve.initial_step``."""
+    cfg = dataclasses.replace(CFG, h0_mode=h0_mode)
+    y0 = torch.ones((4, 5), dtype=torch.float64)
+    lam = {"lam": torch.full((4,), -0.1, dtype=torch.float64)}
+    _, spans = traced(tmp_path, lambda: [initial_step(StiffMix(), y0, 0.0, lam, config=cfg)
+                                         for _ in range(3)])
+    assert [name for _, _, name in spans] == ["tiger.model.rhs"] * 3
+    _, spans = traced(tmp_path, lambda: run_solve([TF]))
+    rhs = [(s, e) for s, e, name in spans if name == "tiger.model.rhs"]
+    (lo, hi), = [(s, e) for s, e, name in spans if name == "tiger.solve.initial_step"]
+    assert len(rhs) == 1 and lo <= rhs[0][0] and rhs[0][1] <= hi
 
 
 def test_no_record_function_without_a_profiler(monkeypatch):

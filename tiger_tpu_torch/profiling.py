@@ -10,11 +10,13 @@ card) into a Chrome trace.
 block lands on the profiler's clock beside the device's kernels, copies and
 sets; otherwise it costs one flag check.  The program's spans are named
 ``tiger.*``: the phases of ``solver.api.solve`` (``tiger.solve.<phase>``),
-the kernel wrappers' layout copies (``tiger.b1.*``, ``tiger.b2.*``), each
-host sync on the card's path (``tiger.sync.<site>``) and the windowed
-run's ``Metrics.span`` kinds (``tiger.run.<kind>``, so that the run's
-``solve`` block, which also holds the carry and the routing, is not read
-as ``solve()``'s own ``tiger.solve``).
+the model's right-hand side in eager torch inside the initial step
+(``tiger.model.rhs``, ``solver.controller._estimate``: once a call of
+``initial_step``), the kernel wrappers' layout copies (``tiger.b1.*``,
+``tiger.b2.*``), each host sync on the card's path (``tiger.sync.<site>``)
+and the windowed run's ``Metrics.span`` kinds (``tiger.run.<kind>``, so
+that the run's ``solve`` block, which also holds the carry and the routing,
+is not read as ``solve()``'s own ``tiger.solve``).
 """
 
 from __future__ import annotations

@@ -31,7 +31,8 @@ def _norm(terms) -> torch.Tensor:
 
 
 def _estimate(model, t0, y0_cols, params, f_vals, rtol, atol) -> torch.Tensor:
-    f0 = model.rhs_tuple(t0, y0_cols, params, f_vals)
+    with span("tiger.model.rhs"):
+        f0 = model.rhs_tuple(t0, y0_cols, params, f_vals)
     scale = [atol + rtol * torch.abs(y) for y in y0_cols]
     d0 = _norm([y / s for y, s in zip(y0_cols, scale)])
     d1 = _norm([f / s for f, s in zip(f0, scale)])
